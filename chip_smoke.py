@@ -6,18 +6,28 @@ Phases (any failure propagates; the script then exits non-zero and prints
 no result line):
 
 1. card     — ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
-2. build    — compile every kernel from ``parsec_tpu_torch/csrc`` with nvcc;
+2. build    — compile every kernel from ``parsec_tpu_torch/csrc`` with nvcc
+              (one process per source, all started together);
 3. kernels  — hold each kernel against its plain PyTorch version on the
-              card, and time kernel, plain version and one library call at
-              the main path's shape;
-4. main path — the tiled GEMM at the repo's bench geometry (mb=12288,
+              card at every shape, C and alpha the paths give it, and
+              time kernel, plain version and one library call at the
+              shape its main path gives it;
+4. GEMM path — the tiled GEMM at the repo's bench geometry (mb=12288,
               mt=nt=3, kt=4; A and B bf16, C f32), tiles born on the card:
               one warm pass, three timed passes, C checked against a
               tile-by-tile plain-version product, kernel launches counted;
 5. small tiles — the same app at mb=2048 over 16384^2 x 16384 (512 tasks),
-              where the runtime's per-task host cost shows.
+              where the runtime's per-task host cost shows;
+6. QR path  — the tiled QR at the repo's geqrf bench geometry (mb=6144,
+              nt=8, bf16 tile storage, qr_ib=512: 204 tasks a pass), tiles
+              regenerated on the card before each pass: one warm pass,
+              three timed passes, task, incarnation and launch counts
+              checked on every pass, then R's lower tiles, the
+              factorization residual and the least-squares ladder.
 
-It prints a ``{"kernels": [...]}`` line, then as its last line
+Every kernel count is set to 0 just before a path runs and read just
+after it.  It prints a ``{"kernels": [...]}`` line (launches summed over
+the paths), the card's name and power limit, then as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it fails before
 doing anything.  It imports nothing of JAX and nothing of ``parsec_tpu``.
 """
@@ -25,18 +35,21 @@ doing anything.  It imports nothing of JAX and nothing of ``parsec_tpu``.
 from __future__ import annotations
 
 import json
+import resource
 import subprocess
 import sys
 import threading
 import time
 
+import numpy as np
 import torch
 
 import parsec_tpu_torch
-from parsec_tpu_torch.apps import cuda_kernels
+from parsec_tpu_torch.apps import cuda_kernels, qr
 from parsec_tpu_torch.apps.cuda_kernels import gemm_tile, \
-    gemm_tile_reference
+    gemm_tile_reference, gram_tile, gram_tile_reference
 from parsec_tpu_torch.apps.gemm import gemm_taskpool, total_flops
+from parsec_tpu_torch.apps.qr_check import ls_refine, newest_payload
 from parsec_tpu_torch.core.context import Context
 from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
 
@@ -53,6 +66,25 @@ PEAKS = {
 #: kernel-vs-plain tolerance on max|kernel - plain| / max(1, max|plain|):
 #: bf16 products are exact in f32, so only the summation order differs
 TOL = {torch.bfloat16: 1e-4, torch.float32: 1e-5}
+
+#: every kernel's launch count, by the name the kernels line gives it
+COUNTERS = {"gemm_tile": cuda_kernels.gemm_tile_launches,
+            "gram_tile": cuda_kernels.gram_tile_launches}
+
+#: QR path limits: the factorization residual ||R'Rz - A'Az|| / ||A'Az||
+#: of a bf16-storage factor (the JAX package recorded 1.0e-2 for its own),
+#: and the least-squares ladder's best relative error
+QR_RESIDUAL_TOL = 3e-2
+QR_LADDER_TOL = 1e-5
+
+
+def reset_counts() -> None:
+    for c in COUNTERS.values():
+        c.reset()
+
+
+def read_counts() -> dict:
+    return {name: c.value for name, c in COUNTERS.items()}
 
 
 def log(msg: str) -> None:
@@ -100,18 +132,27 @@ def _library_addmm(A, B, C, alpha):
 
 
 def phase_kernels(dev: torch.device, peaks) -> dict:
-    """Kernel vs plain version on the card; timings at the main shape."""
+    """Kernel vs plain version on the card at the shapes and C/alpha forms
+    every path gives it; timings at the GEMM path's shape."""
     bf16_peak, f32_peak, mem_rate = peaks
     g = torch.Generator(device=dev).manual_seed(SEED)
-    cases = [("main", 12288, 12288, 12288, torch.bfloat16, 1.0),
-             ("ragged", 1000, 513, 777, torch.bfloat16, -1.0),
-             ("ragged", 1000, 513, 777, torch.float32, -1.0),
-             ("f32", 2048, 2048, 2048, torch.float32, 0.5)]
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (label, m, k, n, dtype, alpha, C is zero); the QR path's calls at
+    # 6144^3: UNMQR and TSMQR's Z take a zero C with alpha 1, TSMQR's
+    # other two a live C with alpha 1 and -1
+    cases = [("main", 12288, 12288, 12288, bf16, 1.0, False),
+             ("QR UNMQR/TSMQR Z", 6144, 6144, 6144, bf16, 1.0, True),
+             ("QR TSMQR inner", 6144, 6144, 6144, bf16, 1.0, False),
+             ("QR TSMQR C2", 6144, 6144, 6144, bf16, -1.0, False),
+             ("ragged", 1000, 513, 777, bf16, -1.0, False),
+             ("ragged", 1000, 513, 777, f32, -1.0, False),
+             ("f32", 2048, 2048, 2048, f32, 0.5, False)]
     entry = None
-    for label, m, k, n, dt, alpha in cases:
+    for label, m, k, n, dt, alpha, zero_c in cases:
         A = torch.randn((m, k), generator=g, device=dev).to(dt)
         B = torch.randn((k, n), generator=g, device=dev).to(dt)
-        C = torch.randn((m, n), generator=g, device=dev)
+        C = torch.zeros((m, n), device=dev) if zero_c else \
+            torch.randn((m, n), generator=g, device=dev)
         got = gemm_tile(A, B, C, alpha)
         torch.cuda.synchronize()
         ref = gemm_tile_reference(A, B, C, alpha)
@@ -119,8 +160,9 @@ def phase_kernels(dev: torch.device, peaks) -> dict:
         max_abs = (got - ref).abs().max().item()
         ok = err <= TOL[dt]
         log(f"kernel vs plain {label} {m}x{k}x{n} {str(dt)[6:]} "
-            f"alpha={alpha}: rel err {err:.3e} (tol {TOL[dt]:.0e}) "
-            f"max abs {max_abs:.3e} {'ok' if ok else 'FAIL'}")
+            f"alpha={alpha}{' zero C' if zero_c else ''}: rel err "
+            f"{err:.3e} (tol {TOL[dt]:.0e}) max abs {max_abs:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"gemm_tile disagrees with its plain "
                                  f"version: {err} > {TOL[dt]}")
@@ -209,7 +251,7 @@ def drive_gemm(ctx: Context, mb: int, mt: int, nt: int, kt: int,
     flops = total_flops(mt * mb, nt * mb, kt * mb)
     inc = _Incarnations(ctx)
     # counts go to 0 just before the path runs and are read just after
-    cuda_kernels.gemm_tile_launches.reset()
+    reset_counts()
     inc.take()
     times = []
     for p in range(passes + 1):
@@ -238,7 +280,8 @@ def drive_gemm(ctx: Context, mb: int, mt: int, nt: int, kt: int,
             f"{executed} device tasks, {cpu_runs} CPU incarnations")
         if p:
             times.append(dt)
-    launches = cuda_kernels.gemm_tile_launches.value
+    launches = read_counts()
+    log(f"[{label}] kernel launches on this path: {launches}")
     # C = C0 + (passes + 1) * A @ B, against the plain version tile by tile
     worst = 0.0
     for (m, n) in C.local_tiles():
@@ -261,7 +304,7 @@ def drive_gemm(ctx: Context, mb: int, mt: int, nt: int, kt: int,
             "gflops": flops / best / 1e9, "ntasks": ntasks}
 
 
-def phase_small_tiles(ctx: Context, gen: torch.Generator) -> None:
+def phase_small_tiles(ctx: Context, gen: torch.Generator) -> dict:
     mb, t = 2048, 8
     res = drive_gemm(ctx, mb, t, t, t, passes=3, gen=gen, label="mb=2048")
     # idle share, estimated: kernel time of one tile (CUDA events) times
@@ -274,6 +317,288 @@ def phase_small_tiles(ctx: Context, gen: torch.Generator) -> None:
     log(f"[mb=2048] best pass {res['best_s'] * 1e3:.1f} ms, "
         f"{res['gflops']:.1f} GFLOP/s; kernel {k_ms * 1e3:.1f} us/tile; "
         f"estimated device idle share {max(0.0, 1.0 - busy):.3f}")
+    return res["launches"]
+
+
+def phase_gram(dev: torch.device, peaks) -> dict:
+    """gram_tile vs its plain version on the card at the QR path's shape
+    and at ragged ones; timings and bound at the path's shape."""
+    _, f32_peak, mem_rate = peaks
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    cases = [("path", 6144, 512), ("ragged", 100, 36),
+             ("ragged", 1000, 36), ("ragged", 513, 257),
+             ("tall", 12288, 512)]
+    entry = None
+    for label, m, n in cases:
+        X = torch.randn((m, n), generator=g, device=dev)
+        got = gram_tile(X)
+        torch.cuda.synchronize()
+        ref = gram_tile_reference(X)
+        err = rel_err(got, ref)
+        max_abs = (got - ref).abs().max().item()
+        ok = err <= TOL[torch.float32]
+        log(f"gram_tile vs plain {label} {m}x{n}: rel err {err:.3e} "
+            f"(tol {TOL[torch.float32]:.0e}) max abs {max_abs:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"gram_tile disagrees with its plain "
+                                 f"version: {err} > {TOL[torch.float32]}")
+        if label == "path":
+            # least work: the upper triangle, m*n*(n+1) flop; X read and
+            # G written once
+            flops = float(m) * n * (n + 1)
+            nbytes = 4.0 * (m * n + n * n)
+            t_ops = flops / f32_peak * 1e3
+            t_bytes = nbytes / mem_rate * 1e3
+            bound = max(t_ops, t_bytes)
+            ms = time_ms(lambda: gram_tile(X), reps=50, warm=3)
+            plain_ms = time_ms(lambda: gram_tile_reference(X), reps=50,
+                               warm=3)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            lib_ms = time_ms(lambda: torch.mm(X.T, X), reps=50, warm=3)
+            log(f"gram_tile at {m}x{n} f32: kernel {ms:.4f} ms "
+                f"({2 * flops / ms / 1e9:.2f} TFLOP/s counted as 2mn^2), "
+                f"plain {plain_ms:.4f} ms, library_ms {lib_ms:.4f} "
+                f"(torch.mm(X.T, X), TF32 off), bound {bound:.4f} ms "
+                f"({'operations' if t_ops >= t_bytes else 'bytes'}), "
+                f"share of bound {bound / ms:.3f}")
+            entry = {"name": "gram_tile", "route": "cuda",
+                     "source": "parsec_tpu_torch/csrc/gram_tile.cu",
+                     "replaces": "parsec_tpu/apps/pallas_kernels.py:169",
+                     "launches": 0, "max_abs_err": max_abs, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes",
+                     "library_ms": lib_ms}
+        del X, got, ref
+    return entry
+
+
+def qr_tile_maker(A: TwoDimBlockCyclic, tdev: torch.device, seed: int,
+                  conditioned: bool = False):
+    """The QR operand, tile by tile, each tile from its own seeded
+    generator and rounded to the storage dtype — so it regenerates exactly
+    without a second resident copy.
+
+    The geqrf bench operand (``conditioned=False``): 0.05 * N(0, 1) + I in
+    every tile.  Its identity blocks make it near-singular at scale
+    (cond 1e3 already at n = 96), so the least-squares ladder, which
+    contracts only while cond^2 * eps_bf16 < 1, diverges on its bf16
+    factor — in the JAX package too.  The conditioned operand I +
+    (0.25 / sqrt(n)) * N(0, 1) keeps every singular value in [0.5, 1.5],
+    where the ladder's contract holds."""
+    n = A.lm
+    scale = 0.25 / n ** 0.5 if conditioned else 0.05
+
+    def tile(m: int, k: int) -> torch.Tensor:
+        g = torch.Generator(device=tdev).manual_seed(seed + m * A.nt + k)
+        t = scale * torch.randn(A.tile_shape(m, k), generator=g, device=tdev)
+        if m == k or not conditioned:
+            t.diagonal().add_(1.0)
+        return t.to(A.dtype)
+    return tile
+
+
+def qr_residual(A: TwoDimBlockCyclic, orig) -> float:
+    """Stochastic factorization check without Q: an orthogonal QR has
+    R^T R = A^T A, so compare the two quadratic forms on a random probe
+    (O(n^2) matvecs, tile-streamed; R from A's tiles, the operand
+    regenerated)."""
+    nt, mb = A.mt, A.mb
+    dev = orig(0, 0).device
+    rng = np.random.default_rng(123)
+    z = [torch.from_numpy(rng.standard_normal(mb).astype(np.float32))
+         .to(dev) for _ in range(nt)]
+    w = [torch.zeros(mb, device=dev) for _ in range(nt)]
+    v = [torch.zeros(mb, device=dev) for _ in range(nt)]
+    tiles = A.local_tiles()
+    for m, n in tiles:
+        w[m] += orig(m, n).float() @ z[n]
+        if m <= n:
+            v[m] += newest_payload(A, m, n).float() @ z[n]
+    y1 = [torch.zeros(mb, device=dev) for _ in range(nt)]
+    y2 = [torch.zeros(mb, device=dev) for _ in range(nt)]
+    for m, n in tiles:
+        y2[n] += orig(m, n).float().T @ w[m]
+        if m <= n:
+            y1[n] += newest_payload(A, m, n).float().T @ v[m]
+    num = float(torch.sqrt(sum(torch.sum((a - b) ** 2)
+                               for a, b in zip(y1, y2))))
+    den = float(torch.sqrt(sum(torch.sum(b ** 2) for b in y2)))
+    return num / den
+
+
+def qr_task_counts(nt: int) -> dict:
+    panel = nt * (nt - 1) // 2
+    return {"GEQRT": nt, "UNMQR": panel, "TSQRT": panel,
+            "TSMQR": sum((nt - 1 - k) ** 2 for k in range(nt))}
+
+
+def drive_qr(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
+             passes: int, label: str, ladder_steps: int = 4) -> dict:
+    """The tiled QR through the runtime at the ``qr_ib`` in force: the
+    bench operand regenerated on the device before every pass (outside
+    the timed window), one warm pass then ``passes`` timed passes of
+    insert + wait, tasks, incarnations and kernel launches checked on
+    every pass; then R's lower tiles and the factorization residual.  One
+    more pass factors the conditioned operand, on which the least-squares
+    ladder is held to its limit (the bench operand's ladder is printed: it
+    cannot converge, see ``qr_tile_maker``).  Returns numbers."""
+    dev = ctx.device_registry.accelerators[0]
+    on_card = dev.is_cuda
+    n = nt * mb
+    A = TwoDimBlockCyclic(mb, mb, n, n, dtype=dtype, name="A")
+    want = qr_task_counts(nt)
+    ntasks = sum(want.values())
+    ib = qr.effective_ib(mb)
+    blocks = mb // ib if ib else 1
+    want_launches = {"gemm_tile": want["UNMQR"] + 3 * want["TSMQR"],
+                     "gram_tile": 2 * blocks * want["GEQRT"]}
+    flops = qr.geqrf_flops(n, n)
+    inc = _Incarnations(ctx)
+
+    def factor(orig, what: str) -> float:
+        """Regenerate A from ``orig``, factor it once, check the counts;
+        returns the pass's wall time (insert + wait + synchronize)."""
+        t0 = time.perf_counter()
+        for (m, k) in A.local_tiles():
+            A.place_on_device(m, k, dev, orig(m, k))
+        if on_card:
+            torch.cuda.synchronize()
+        regen_s = time.perf_counter() - t0
+        launches0 = read_counts()
+        executed0 = dev.stats.executed_tasks
+        falls0 = qr.qr_guard_fallbacks.value
+        t0 = time.perf_counter()
+        ctx.add_taskpool(qr.qr_taskpool(A))
+        ctx.wait()
+        if on_card:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launched = {k: v - launches0[k] for k, v in read_counts().items()}
+        executed = dev.stats.executed_tasks - executed0
+        counts = inc.take()
+        device_runs = {c: counts.get((c, "exec_async"), 0) for c in want}
+        cpu_runs = sum(counts.get((c, "exec_end"), 0) for c in want)
+        if executed != ntasks or device_runs != want or cpu_runs:
+            raise AssertionError(
+                f"[{label}] {what}: executed_tasks {executed}, device "
+                f"incarnations {device_runs}, CPU incarnations {cpu_runs}; "
+                f"expected {ntasks}, {want}, 0")
+        if on_card and launched != want_launches:
+            raise AssertionError(f"[{label}] {what}: launched {launched}, "
+                                 f"expected {want_launches}")
+        log(f"[{label}] {what}: {dt * 1e3:.1f} ms, "
+            f"{flops / dt / 1e9:.1f} GFLOP/s, launches {launched}, "
+            f"{executed} device tasks {device_runs}, {cpu_runs} CPU "
+            f"incarnations, guard fallbacks "
+            f"{qr.qr_guard_fallbacks.value - falls0}; tiles regenerated "
+            f"in {regen_s * 1e3:.1f} ms (untimed)")
+        return dt
+
+    def lower_tiles_zero() -> None:
+        nonzero = [(m, k) for (m, k) in A.local_tiles() if m > k
+                   and bool(newest_payload(A, m, k).any())]
+        if nonzero:
+            raise AssertionError(f"[{label}] tiles below the diagonal are "
+                                 f"not zero: {nonzero}")
+
+    log(f"[{label}] mb={mb} nt={nt} n={n} {str(dtype)[6:]} storage, "
+        f"qr_ib={ib}: {ntasks} tasks a pass {want}, {flops:.4e} flop")
+    bench = qr_tile_maker(A, dev.tdev, SEED + 3)
+    conditioned = qr_tile_maker(A, dev.tdev, SEED + 4, conditioned=True)
+    # counts go to 0 just before the path runs and are read just after
+    reset_counts()
+    inc.take()
+    fallbacks0 = qr.qr_guard_fallbacks.value
+    times = [factor(bench, f"pass {p} ({'timed' if p else 'warm'})")
+             for p in range(passes + 1)][1:]
+
+    t0 = time.perf_counter()
+    lower_tiles_zero()
+    residual = qr_residual(A, bench)
+    bench_ladder = ls_refine(A, bench, steps=ladder_steps)
+    log(f"[{label}] bench operand: lower tiles zero; factorization "
+        f"residual ||R'Rz-A'Az||/||A'Az|| = {residual:.3e} (limit "
+        f"{QR_RESIDUAL_TOL:.0e}); LS-refine errors, held to no limit (the "
+        f"operand is too ill-conditioned for the ladder, see "
+        f"qr_tile_maker): "
+        f"{['%.3e' % h for h in bench_ladder]}; checks took "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not residual <= QR_RESIDUAL_TOL:
+        raise AssertionError(f"[{label}] residual {residual} > "
+                             f"{QR_RESIDUAL_TOL}")
+
+    factor(conditioned, "ladder pass (conditioned operand, untimed)")
+    lower_tiles_zero()
+    cond_residual = qr_residual(A, conditioned)
+    ladder = ls_refine(A, conditioned, steps=ladder_steps)
+    log(f"[{label}] conditioned operand: lower tiles zero; factorization "
+        f"residual {cond_residual:.3e}; LS-refine errors (CSNE direct, "
+        f"then one refinement step each): {['%.3e' % h for h in ladder]} "
+        f"(limit {QR_LADDER_TOL:.0e})")
+    if not cond_residual <= QR_RESIDUAL_TOL:
+        raise AssertionError(f"[{label}] conditioned residual "
+                             f"{cond_residual} > {QR_RESIDUAL_TOL}")
+    if not min(ladder) <= QR_LADDER_TOL:
+        raise AssertionError(f"[{label}] LS ladder {ladder} never reached "
+                             f"{QR_LADDER_TOL}")
+    launches = read_counts()
+    fallbacks = qr.qr_guard_fallbacks.value - fallbacks0
+    log(f"[{label}] kernel launches on this path: {launches}; guard "
+        f"fallbacks {fallbacks}")
+    best = min(times)
+    return {"launches": launches, "best_s": best,
+            "gflops": flops / best / 1e9, "ntasks": ntasks,
+            "fallbacks": fallbacks, "residual": residual,
+            "bench_ladder": bench_ladder, "ladder": ladder}
+
+
+def qr_class_times(dev: torch.device, mb: int, ib: int,
+                   dtype: torch.dtype) -> dict:
+    """Device time of one body of each QR task class at the path's shapes
+    (CUDA events, mean of 3 calls after a warm one), on the bench
+    operand's tiles: the breakdown of a pass, outside any path run."""
+    tile = qr_tile_maker(TwoDimBlockCyclic(mb, mb, 2 * mb, 2 * mb,
+                                           dtype=dtype), dev, SEED + 5)
+    T, B, C1, C2 = tile(0, 0), tile(1, 0), tile(0, 1), tile(1, 1)
+    q1 = torch.zeros((mb, mb), dtype=dtype, device=dev)
+    q2 = torch.zeros((2 * mb, mb), dtype=dtype, device=dev)
+    geqrt, tsqrt = qr._mk_geqrt(ib), qr._mk_tsqrt(ib)
+    unmqr, tsmqr = qr._mk_unmqr(), qr._mk_tsmqr()
+    out = geqrt(T, q1)
+    R, Q1 = out["T"], out["Q"]
+    Q2 = tsqrt(R, B, q2)["Q"]
+    return {"GEQRT": time_ms(lambda: geqrt(T, q1), reps=3),
+            "UNMQR": time_ms(lambda: unmqr(Q1, C1), reps=3),
+            "TSQRT": time_ms(lambda: tsqrt(R, B, q2), reps=3),
+            "TSMQR": time_ms(lambda: tsmqr(Q2, C1, C2), reps=3)}
+
+
+def phase_qr(ctx: Context) -> dict:
+    mb, nt = 6144, 8
+    ib = qr.effective_ib(mb)        # the registered qr_ib, 512
+    torch.cuda.reset_peak_memory_stats()
+    res = drive_qr(ctx, mb, nt, torch.bfloat16, passes=3,
+                   label="QR path mb=6144")
+    log(f"[QR path mb=6144] best pass {res['best_s'] * 1e3:.1f} ms, "
+        f"{res['gflops']:.1f} GFLOP/s (geqrf_flops(n, n) / best pass); "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB; peak host RSS of the process so far "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f}"
+        f" GiB")
+    # where the time goes, estimated: one body of each class timed alone,
+    # times the class's tasks in a pass, against the best pass
+    ms = qr_class_times(torch.device("cuda", 0), mb, ib, torch.bfloat16)
+    counts = qr_task_counts(nt)
+    busy = sum(ms[c] * counts[c] for c in counts) * 1e-3
+    log("[QR path mb=6144] device ms per task: "
+        + ", ".join(f"{c} {ms[c]:.2f} x {counts[c]} = "
+                    f"{ms[c] * counts[c]:.0f}" for c in counts)
+        + f"; sum {busy * 1e3:.0f} ms against the best pass "
+        f"{res['best_s'] * 1e3:.0f} ms: estimated device idle share "
+        f"{max(0.0, 1.0 - busy / res['best_s']):.3f}")
+    return res["launches"]
 
 
 def main() -> int:
@@ -292,28 +617,43 @@ def main() -> int:
         f"parsec_tpu_torch {parsec_tpu_torch.__version__}; "
         f"bound from the {key} peaks")
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     path = cuda_kernels.build(verbose=True)
-    log(f"build: {path.name} in {time.perf_counter() - t0:.1f} s "
+    log(f"build: {path.name} from {len(cuda_kernels.sources())} sources in "
+        f"{time.perf_counter() - t0:.1f} s "
         f"(nvcc {cuda_kernels.last_build_seconds:.1f} s)")
 
-    entry = phase_kernels(dev, peaks)
+    entries = {"gemm_tile": phase_kernels(dev, peaks),
+               "gram_tile": phase_gram(dev, peaks)}
+    torch.cuda.empty_cache()
 
+    per_path = {}
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     with Context(nb_cores=4) as ctx:
         res = drive_gemm(ctx, 12288, 3, 3, 4, passes=3, gen=gen,
-                         label="main path mb=12288")
-        entry["launches"] = res["launches"]
-        log(f"[main path mb=12288] best pass {res['best_s'] * 1e3:.1f} ms, "
+                         label="GEMM path mb=12288")
+        per_path["GEMM mb=12288"] = res["launches"]
+        log(f"[GEMM path mb=12288] best pass {res['best_s'] * 1e3:.1f} ms, "
             f"{res['gflops']:.1f} GFLOP/s")
     torch.cuda.empty_cache()
     with Context(nb_cores=4) as ctx:
-        phase_small_tiles(ctx, gen)
+        per_path["GEMM mb=2048"] = phase_small_tiles(ctx, gen)
+    torch.cuda.empty_cache()
+    with Context(nb_cores=4) as ctx:
+        per_path["QR mb=6144"] = phase_qr(ctx)
+    torch.cuda.empty_cache()
 
-    if entry["launches"] <= 0:
-        raise AssertionError("gemm_tile was never launched on the main path")
-    print(json.dumps({"kernels": [entry]}))
+    for path_name, launches in per_path.items():
+        log(f"launches on path {path_name}: {launches}")
+    for kname, entry in entries.items():
+        entry["launches"] = sum(l[kname] for l in per_path.values())
+        if entry["launches"] <= 0:
+            raise AssertionError(f"{kname} was never launched on a path")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card "
+        f"check")
+    print(json.dumps({"kernels": list(entries.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -8,14 +8,14 @@ for Hopper, and tiles are staged into device memory by the CUDA device
 module.  It imports nothing of ``parsec_tpu`` and never imports JAX; the
 module layout mirrors ``parsec_tpu`` so each counterpart is easy to find.
 
-Ported so far (the tiled-GEMM main path):
+Ported so far (the tiled-GEMM main path and the tiled QR):
   ``utils``/``containers`` — config registry, logging, concurrent containers
   ``data``                 — Data/DataCopy coherency, arenas, repos, tiled
                              matrices, the carry from the JAX package's arrays
   ``core`` + ``sched``     — taskpools, dep engine, termdet, schedulers
   ``devices``              — device registry and the CUDA device module
   ``dsl.ptg``              — the PTG front-end
-  ``apps``                 — the tiled GEMM and its Hopper tile kernel
+  ``apps``                 — the tiled GEMM and QR and their Hopper kernels
 """
 
 __version__ = "0.1.0"

@@ -11,16 +11,17 @@ only the order of the f32 summation differs).
 
 The tiled GEMM also runs here through the runtime under a 1 MiB device
 copy-cache budget, so that tiles are evicted and written back to the host
-between launches on the card.
+between launches on the card; the tiled QR runs on the card against the
+same run on the CPU-backed device module.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from parsec_tpu_torch.apps import cuda_kernels
+from parsec_tpu_torch.apps import cuda_kernels, qr
 from parsec_tpu_torch.apps.cuda_kernels import gemm_tile, \
-    gemm_tile_reference
+    gemm_tile_reference, gram_tile, gram_tile_reference
 from parsec_tpu_torch.apps.gemm import gemm_taskpool
 from parsec_tpu_torch.core.context import Context
 from parsec_tpu_torch.data.carry import (Layout, from_reference_arrays,
@@ -100,3 +101,70 @@ def test_gemm_under_memory_budget_on_the_card(card, panel):
     assert err <= (1e-4 if panel == "bfloat16" else 1e-5)
     assert cuda_kernels.gemm_tile_launches.value - before == (n // mb) ** 3
     assert stats.evictions > 0 and stats.bytes_out > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(6144, 512), (100, 36), (1000, 36),
+                                   (513, 257), (12288, 512), (0, 40),
+                                   (7, 1)])
+def test_gram_tile_matches_plain_version(card, shape):
+    g = torch.Generator(device=card).manual_seed(9)
+    X = torch.randn(shape, generator=g, device=card)
+    before = cuda_kernels.gram_tile_launches.value
+    got = gram_tile(X)
+    torch.cuda.synchronize()
+    ref = gram_tile_reference(X)
+    err = ((got - ref).abs().max() / ref.abs().max().clamp(min=1.0)).item() \
+        if ref.numel() else 0.0
+    assert err <= 1e-5
+    assert torch.equal(got, got.T)          # mirrored, not recomputed
+    assert cuda_kernels.gram_tile_launches.value == before + 1
+
+
+@pytest.mark.cuda
+def test_gram_tile_rejects_what_it_does_not_take(card):
+    with pytest.raises(TypeError):
+        gram_tile(torch.zeros((8, 4), device=card, dtype=torch.bfloat16))
+    X = torch.zeros((8, 4), device=card)
+    with pytest.raises(ValueError):
+        gram_tile(X.t())                        # not contiguous
+    with pytest.raises(ValueError):
+        gram_tile(torch.zeros((8, 4), device="meta"))   # another device
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("panel", ["float32", "bfloat16"])
+def test_qr_on_the_card_matches_the_cpu_run(card, panel):
+    """mb=256, nt=3, qr_ib=128 (14 tasks): R on the card against the same
+    taskpool on the CPU-backed module (plain versions).  Tolerance 1e-4
+    in f32 (true-f32 arithmetic in another order) and 3e-2 in bf16 (a
+    bf16 rounding flip re-enters the trailing matrix; see
+    tests/test_torch_qr.py)."""
+    mb, nt = 256, 3
+    n = mb * nt
+    rng = np.random.default_rng(41)
+    a = (0.05 * rng.standard_normal((n, n))
+         + np.kron(np.ones((nt, nt)), np.eye(mb))).astype(np.float32)
+    outs = {}
+    launches = {}
+    params.set("qr_ib", 128)
+    try:
+        for where in ("cpu", "cuda"):
+            mats = from_reference_arrays({"A": a}, Layout(mb, mb, panel))
+            for c in (cuda_kernels.gemm_tile_launches,
+                      cuda_kernels.gram_tile_launches):
+                c.reset()
+            with Context(nb_cores=2, device=where) as ctx:
+                ctx.add_taskpool(qr.qr_taskpool(mats["A"]))
+                ctx.wait(timeout=300)
+            outs[where] = to_reference_arrays(mats)["A"]
+            launches[where] = (cuda_kernels.gemm_tile_launches.value,
+                               cuda_kernels.gram_tile_launches.value)
+    finally:
+        params.unset("qr_ib")
+    # 3 UNMQR + 3 x 5 TSMQR on K1; 2 Grams x 2 blocks x 3 GEQRT on K2
+    assert launches == {"cpu": (0, 0), "cuda": (18, 12)}
+    got, ref = outs["cuda"], outs["cpu"]
+    assert not np.tril(got, -1).any()
+    err = np.abs(got - ref).max() / max(1.0, np.abs(ref).max())
+    assert err <= (1e-4 if panel == "float32" else 3e-2)

@@ -1,15 +1,20 @@
-"""The port's GEMM tile kernel against the JAX package's Pallas kernel.
+"""The port's tile kernels against the JAX package's Pallas kernels.
 
-On the CPU the wrapper ``gemm_tile`` takes its plain version; these tests
-hold that plain version against ``pallas_gemm_tile`` run as
-tests/test_pallas.py runs it (Pallas in interpret mode on the CPU, 128
-blocks at 256^2), and ragged shapes against the JAX fallback path.
+On the CPU the wrappers ``gemm_tile`` and ``gram_tile`` take their plain
+versions; these tests hold those plain versions against
+``pallas_gemm_tile`` and ``pallas_gram_tile`` run as tests/test_pallas.py
+runs them (Pallas in interpret mode on the CPU, 128 blocks), and ragged
+shapes against the JAX fallback paths.  ``tri_inv``, the matmul-only
+triangular inverse of the QR panel, is held against the JAX one.
 
 Tolerances, as max|port - jax| / max(1, max|jax|): 1e-5 for f32 inputs
 (only the order of the f32 summation differs) and 1e-3 for bf16 inputs
-(the tests/test_pallas.py bound).  The kernel itself, which needs the
-card, is held against the plain version in tests/test_torch_cuda.py.
+(the tests/test_pallas.py bound).  The kernels themselves, which need the
+card, are held against the plain versions in tests/test_torch_cuda.py.
 """
+
+import shutil
+import stat
 
 import jax
 import ml_dtypes
@@ -17,10 +22,13 @@ import numpy as np
 import pytest
 import torch
 
-from parsec_tpu.apps.pallas_kernels import pallas_gemm_tile
+from parsec_tpu.apps.pallas_kernels import pallas_gemm_tile, \
+    pallas_gram_tile
+from parsec_tpu.apps.potrf import tri_inv as jax_tri_inv
 from parsec_tpu_torch.apps import cuda_kernels
 from parsec_tpu_torch.apps.cuda_kernels import gemm_tile, \
-    gemm_tile_reference
+    gemm_tile_reference, gram_tile, gram_tile_reference
+from parsec_tpu_torch.apps.potrf import tri_inv
 
 TOL = {"f32": 1e-5, "bf16": 1e-3}
 
@@ -96,3 +104,73 @@ def test_plain_version_keeps_tf32_off():
         assert torch.backends.cuda.matmul.allow_tf32 is False
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.parametrize("shape,blocks", [((512, 256), (128, 128)),
+                                          ((100, 36), None)],
+                         ids=["blocked-512x256", "fallback-100x36"])
+def test_gram_plain_matches_pallas(shape, blocks):
+    """512x256 runs the blocked Pallas Gram program in interpret mode (f32
+    VMEM accumulator over a K-innermost grid of 128 blocks, HIGHEST);
+    100x36 is off the 128 grid and takes the JAX fallback, where the
+    port has none (the kernel masks the edge).  Tolerance 1e-5: both sides
+    are true f32, only the summation order differs."""
+    X = np.random.default_rng(2).standard_normal(shape).astype(np.float32)
+    fn = pallas_gram_tile(*blocks) if blocks else pallas_gram_tile()
+    ref = np.asarray(jax.jit(fn)(X))
+    got = gram_tile(torch.from_numpy(X))
+    assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape
+    assert _rel_err(got.numpy(), ref) < 1e-5
+
+
+def test_gram_cpu_tensors_take_the_plain_version_without_counting():
+    cuda_kernels.gram_tile_launches.reset()
+    X = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (64, 24)).astype(np.float32))
+    torch.testing.assert_close(gram_tile(X), gram_tile_reference(X),
+                               rtol=0, atol=0)
+    assert cuda_kernels.gram_tile_launches.value == 0
+
+
+@pytest.mark.parametrize("n", [64, 1024], ids=["leaf", "recursive"])
+def test_tri_inv_matches_jax(n):
+    """n=1024 takes the recursive branch above the 512 leaf.  The JAX
+    side runs at HIGHEST, the port in f32 with TF32 off; tolerance 1e-5
+    (only the order of f32 sums differs).  The result inverts L."""
+    rng = np.random.default_rng(n)
+    L = (np.tril(0.05 * rng.standard_normal((n, n)))
+         + np.eye(n)).astype(np.float32)
+    ref = np.asarray(jax_tri_inv(jax.numpy.asarray(L),
+                                 precision=jax.lax.Precision.HIGHEST))
+    got = tri_inv(torch.from_numpy(L)).numpy()
+    assert _rel_err(got, ref) < 1e-5
+    assert np.abs(got @ L - np.eye(n)).max() < 1e-4
+    assert not np.triu(got, 1).any()
+
+
+def test_library_name_changes_with_any_source(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_kernels._CSRC, csrc)
+    monkeypatch.setattr(cuda_kernels, "_CSRC", csrc)
+    names = {cuda_kernels.library_path().name}
+    assert {p.name for p in cuda_kernels.sources()} >= {"gemm_tile.cu",
+                                                        "gram_tile.cu"}
+    for src in cuda_kernels.sources():
+        src.write_text(src.read_text() + "\n// edited\n")
+        names.add(cuda_kernels.library_path().name)
+    assert len(names) == 1 + len(cuda_kernels.sources())
+
+
+def test_build_failure_names_the_source(tmp_path, monkeypatch):
+    """A stand-in ``nvcc`` that fails on one source: the build raises with
+    that source's name and leaves nothing behind."""
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text('#!/bin/sh\ncase "$*" in *gram_tile.cu*) '
+                    'echo broken >&2; exit 3;; esac\n')
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(cuda_kernels, "_BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="gram_tile.cu"):
+        cuda_kernels.build()
+    assert list((tmp_path / "build").iterdir()) == []
