@@ -9,9 +9,11 @@ no result line):
 2. build    — compile every kernel from ``parsec_tpu_torch/csrc`` with nvcc
               (one process per source, all started together);
 3. kernels  — hold each kernel against its plain PyTorch version on the
-              card at every shape, C and alpha the paths give it, and
-              time kernel, plain version and one library call at the
-              shape its main path gives it;
+              card at every shape, C and alpha the paths give it (and
+              check which route K1 took), and time kernel, plain version
+              and one library call at every shape the paths give it (K1:
+              12288^3, 6144^3, 2048^3); K2 twice on one input must agree
+              bit for bit;
 4. GEMM path — the tiled GEMM at the repo's bench geometry (mb=12288,
               mt=nt=3, kt=4; A and B bf16, C f32), tiles born on the card:
               one warm pass, three timed passes, C checked against a
@@ -26,8 +28,11 @@ no result line):
               factorization residual and the least-squares ladder.
 
 Every kernel count is set to 0 just before a path runs and read just
-after it.  It prints a ``{"kernels": [...]}`` line (launches summed over
-the paths), the card's name and power limit, then as its last line
+after it; every K1 launch on a path must have taken the wgmma route.
+``nvidia-smi`` reads the SM clock and power draw before a path's first
+pass and after its last timed one, outside the timed window.  It prints a
+``{"kernels": [...]}`` line (launches summed over the paths), the card's
+name and power limit, then as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it fails before
 doing anything.  It imports nothing of JAX and nothing of ``parsec_tpu``.
 """
@@ -70,6 +75,12 @@ TOL = {torch.bfloat16: 1e-4, torch.float32: 1e-5}
 #: every kernel's launch count, by the name the kernels line gives it
 COUNTERS = {"gemm_tile": cuda_kernels.gemm_tile_launches,
             "gram_tile": cuda_kernels.gram_tile_launches}
+#: K1's launches by route
+ROUTES = cuda_kernels.gemm_tile_route_launches
+
+#: K1's launches per pass at each shape the paths give it, by path
+K1_SHAPES = {12288: {"GEMM mb=12288": 36}, 6144: {"QR mb=6144": 448},
+             2048: {"GEMM mb=2048": 512}}
 
 #: QR path limits: the factorization residual ||R'Rz - A'Az|| / ||A'Az||
 #: of a bf16-storage factor (the JAX package recorded 1.0e-2 for its own),
@@ -79,12 +90,16 @@ QR_LADDER_TOL = 1e-5
 
 
 def reset_counts() -> None:
-    for c in COUNTERS.values():
+    for c in (*COUNTERS.values(), *ROUTES.values()):
         c.reset()
 
 
 def read_counts() -> dict:
     return {name: c.value for name, c in COUNTERS.items()}
+
+
+def read_routes() -> dict:
+    return {name: c.value for name, c in ROUTES.items()}
 
 
 def log(msg: str) -> None:
@@ -99,6 +114,21 @@ def peaks_for(name: str):
     else:
         key = "H100 SXM"
     return key, PEAKS[key]
+
+
+def sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def read_clock(label: str, when: str) -> None:
+    """One ``nvidia-smi`` reading of the SM clock and power draw, taken
+    outside every timed window: under a sustained load the card lowers its
+    clock to hold its power limit."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"[{label}] SM clock, power draw {when}: {out}")
 
 
 def time_ms(fn, reps: int, warm: int = 1) -> float:
@@ -131,73 +161,118 @@ def _library_addmm(A, B, C, alpha):
         "torch.addmm(out_dtype=float32)"
 
 
+def k1_bound(A, B, C, bf16_peak: float, mem_rate: float):
+    """Least time of one K1 call: 2mnk flop at the bf16 tensor-core peak
+    against A and B read once, C read and O written once."""
+    m, k = A.shape
+    n = B.shape[1]
+    t_ops = 2.0 * m * n * k / bf16_peak * 1e3
+    t_bytes = (A.numel() * A.element_size() + B.numel() * B.element_size()
+               + 2 * C.numel() * 4) / mem_rate * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def in_turns(fns: dict, reps: int, rounds: int = 3) -> dict:
+    """The least device time of each ``fns`` entry over ``rounds`` rounds
+    taken in turns: the card lowers its clock to hold its power limit
+    under a sustained load, so one version timed after another would pay
+    for the other's heat."""
+    got = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            got[name].append(time_ms(fn, reps=reps, warm=1))
+    return {name: min(v) for name, v in got.items()}
+
+
+def time_k1(A, B, C, alpha, peaks) -> dict:
+    """K1, its plain version and one library call on the same operands,
+    with the bound, at one shape; kernel and library in turns."""
+    m, k = A.shape
+    n = B.shape[1]
+    reps = 5 if m >= 12288 else 20
+    bound, by = k1_bound(A, B, C, peaks[0], peaks[2])
+    plain_ms = time_ms(lambda: gemm_tile_reference(A, B, C, alpha),
+                       reps=3)
+    fns = {"kernel": lambda: gemm_tile(A, B, C, alpha)}
+    try:
+        _, lib_name = _library_addmm(A, B, C, alpha)
+        fns["library"] = lambda: _library_addmm(A, B, C, alpha)
+    except (TypeError, RuntimeError) as exc:
+        lib_name = f"none ({type(exc).__name__})"
+    t = in_turns(fns, reps)
+    ms, lib_ms = t["kernel"], t.get("library")
+    log(f"gemm_tile at {m}x{k}x{n} bf16: kernel {ms:.4f} ms "
+        f"({2.0 * m * n * k / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} "
+        f"ms, library_ms {lib_ms} ({lib_name}), bound {bound:.4f} ms ({by}),"
+        f" share of bound {bound / ms:.3f}, launches per pass "
+        f"{K1_SHAPES[m]}")
+    return {"shape": [m, k, n], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+            "share_of_bound": bound / ms, "launches_per_pass": K1_SHAPES[m]}
+
+
 def phase_kernels(dev: torch.device, peaks) -> dict:
     """Kernel vs plain version on the card at the shapes and C/alpha forms
-    every path gives it; timings at the GEMM path's shape."""
-    bf16_peak, f32_peak, mem_rate = peaks
+    every path gives it, with the route each call took; timings at every
+    shape the paths give it."""
     g = torch.Generator(device=dev).manual_seed(SEED)
     bf16, f32 = torch.bfloat16, torch.float32
-    # (label, m, k, n, dtype, alpha, C is zero); the QR path's calls at
-    # 6144^3: UNMQR and TSMQR's Z take a zero C with alpha 1, TSMQR's
-    # other two a live C with alpha 1 and -1
-    cases = [("main", 12288, 12288, 12288, bf16, 1.0, False),
-             ("QR UNMQR/TSMQR Z", 6144, 6144, 6144, bf16, 1.0, True),
-             ("QR TSMQR inner", 6144, 6144, 6144, bf16, 1.0, False),
-             ("QR TSMQR C2", 6144, 6144, 6144, bf16, -1.0, False),
-             ("ragged", 1000, 513, 777, bf16, -1.0, False),
-             ("ragged", 1000, 513, 777, f32, -1.0, False),
-             ("f32", 2048, 2048, 2048, f32, 0.5, False)]
-    entry = None
-    for label, m, k, n, dt, alpha, zero_c in cases:
+    # (label, m, k, n, dtype, alpha, C is zero, route, timed); the QR
+    # path's calls at 6144^3: UNMQR and TSMQR's Z take a zero C with alpha
+    # 1, TSMQR's other two a live C with alpha 1 and -1
+    cases = [("main", 12288, 12288, 12288, bf16, 1.0, False, "wgmma", True),
+             ("QR UNMQR/TSMQR Z", 6144, 6144, 6144, bf16, 1.0, True,
+              "wgmma", False),
+             ("QR TSMQR inner", 6144, 6144, 6144, bf16, 1.0, False,
+              "wgmma", True),
+             ("QR TSMQR C2", 6144, 6144, 6144, bf16, -1.0, False, "wgmma",
+              False),
+             ("GEMM mb=2048", 2048, 2048, 2048, bf16, 1.0, False, "wgmma",
+              True),
+             ("ragged", 1000, 520, 776, bf16, 0.5, False, "wgmma", False),
+             ("ragged", 1000, 513, 777, bf16, -1.0, False, "wmma", False),
+             ("ragged", 1000, 513, 777, f32, -1.0, False, "fma", False),
+             ("f32", 2048, 2048, 2048, f32, 0.5, False, "fma", False)]
+    entry, shapes = None, []
+    for label, m, k, n, dt, alpha, zero_c, route, timed in cases:
         A = torch.randn((m, k), generator=g, device=dev).to(dt)
         B = torch.randn((k, n), generator=g, device=dev).to(dt)
         C = torch.zeros((m, n), device=dev) if zero_c else \
             torch.randn((m, n), generator=g, device=dev)
+        routes0 = read_routes()
         got = gemm_tile(A, B, C, alpha)
         torch.cuda.synchronize()
+        took = [r for r, v in read_routes().items() if v != routes0[r]]
         ref = gemm_tile_reference(A, B, C, alpha)
         err = rel_err(got, ref)
         max_abs = (got - ref).abs().max().item()
-        ok = err <= TOL[dt]
+        ok = err <= TOL[dt] and took == [route]
         log(f"kernel vs plain {label} {m}x{k}x{n} {str(dt)[6:]} "
-            f"alpha={alpha}{' zero C' if zero_c else ''}: rel err "
-            f"{err:.3e} (tol {TOL[dt]:.0e}) max abs {max_abs:.3e} "
+            f"alpha={alpha}{' zero C' if zero_c else ''}: route {took}, rel "
+            f"err {err:.3e} (tol {TOL[dt]:.0e}) max abs {max_abs:.3e} "
             f"{'ok' if ok else 'FAIL'}")
+        if took != [route]:
+            raise AssertionError(f"gemm_tile took route {took}, expected "
+                                 f"{route}")
         if not ok:
             raise AssertionError(f"gemm_tile disagrees with its plain "
                                  f"version: {err} > {TOL[dt]}")
+        del got, ref
+        if timed:
+            shapes.append(time_k1(A, B, C, alpha, peaks))
         if label == "main":
-            del got, ref
-            flops = 2.0 * m * n * k
-            nbytes = (A.numel() * A.element_size()
-                      + B.numel() * B.element_size() + 2 * C.numel() * 4)
-            t_ops = flops / bf16_peak * 1e3
-            t_bytes = nbytes / mem_rate * 1e3
-            bound = max(t_ops, t_bytes)
-            ms = time_ms(lambda: gemm_tile(A, B, C, alpha), reps=5)
-            plain_ms = time_ms(lambda: gemm_tile_reference(A, B, C, alpha),
-                               reps=3)
-            try:
-                _, lib_name = _library_addmm(A, B, C, alpha)
-                lib_ms = time_ms(lambda: _library_addmm(A, B, C, alpha),
-                                 reps=5)
-            except (TypeError, RuntimeError) as exc:
-                lib_name, lib_ms = f"none ({type(exc).__name__})", None
-            log(f"gemm_tile at {m}^3 bf16: kernel {ms:.3f} ms "
-                f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms,"
-                f" library_ms {lib_ms} ({lib_name}), bound {bound:.3f} ms "
-                f"({'operations' if t_ops >= t_bytes else 'bytes'}), "
-                f"share of bound {bound / ms:.3f}")
+            t = shapes[-1]
             entry = {"name": "gemm_tile", "route": "cuda",
                      "source": "parsec_tpu_torch/csrc/gemm_tile.cu",
                      "replaces": "parsec_tpu/apps/pallas_kernels.py:74",
-                     "launches": 0, "max_abs_err": max_abs, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": "operations" if t_ops >= t_bytes
-                     else "bytes",
-                     "library_ms": lib_ms}
+                     "launches": 0, "max_abs_err": max_abs, "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"]}
         del A, B, C
         torch.cuda.empty_cache()
+    entry["shapes"] = shapes
     return entry
 
 
@@ -253,15 +328,19 @@ def drive_gemm(ctx: Context, mb: int, mt: int, nt: int, kt: int,
     # counts go to 0 just before the path runs and are read just after
     reset_counts()
     inc.take()
+    if on_card:
+        read_clock(label, "before the passes")
     times = []
     for p in range(passes + 1):
         launches0 = cuda_kernels.gemm_tile_launches.value
+        wgmma0 = ROUTES["wgmma"].value
         executed0 = dev.stats.executed_tasks
         t0 = time.perf_counter()
         ctx.add_taskpool(gemm_taskpool(A, B, C))
         ctx.wait()
         dt = time.perf_counter() - t0
         launched = cuda_kernels.gemm_tile_launches.value - launches0
+        wgmma = ROUTES["wgmma"].value - wgmma0
         executed = dev.stats.executed_tasks - executed0
         counts = inc.take()
         device_runs = counts.get(("GEMM", "exec_async"), 0)
@@ -271,17 +350,22 @@ def drive_gemm(ctx: Context, mb: int, mt: int, nt: int, kt: int,
                 f"[{label}] pass {p}: executed_tasks {executed}, device "
                 f"incarnations {device_runs}, CPU incarnations {cpu_runs}; "
                 f"expected {ntasks}, {ntasks}, 0")
-        if on_card and launched != ntasks:
+        if on_card and (launched != ntasks or wgmma != ntasks):
             raise AssertionError(f"[{label}] pass {p}: gemm_tile launched "
-                                 f"{launched} times, expected {ntasks}")
+                                 f"{launched} times, {wgmma} on the wgmma "
+                                 f"route, expected {ntasks} and {ntasks}")
         kind = "warm" if p == 0 else "timed"
         log(f"[{label}] pass {p} ({kind}): {dt * 1e3:.1f} ms, "
-            f"{flops / dt / 1e9:.1f} GFLOP/s, {launched} kernel launches, "
-            f"{executed} device tasks, {cpu_runs} CPU incarnations")
+            f"{flops / dt / 1e9:.1f} GFLOP/s, {launched} kernel launches "
+            f"({wgmma} wgmma), {executed} device tasks, {cpu_runs} CPU "
+            f"incarnations")
         if p:
             times.append(dt)
+    if on_card:
+        read_clock(label, "after the last timed pass")
     launches = read_counts()
-    log(f"[{label}] kernel launches on this path: {launches}")
+    log(f"[{label}] kernel launches on this path: {launches}; K1 by route "
+        f"{read_routes()}")
     # C = C0 + (passes + 1) * A @ B, against the plain version tile by tile
     worst = 0.0
     for (m, n) in C.local_tiles():
@@ -327,6 +411,7 @@ def phase_gram(dev: torch.device, peaks) -> dict:
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     cases = [("path", 6144, 512), ("ragged", 100, 36),
              ("ragged", 1000, 36), ("ragged", 513, 257),
+             ("ragged", 6145, 512), ("narrow", 333, 1), ("narrow", 333, 33),
              ("tall", 12288, 512)]
     entry = None
     for label, m, n in cases:
@@ -344,6 +429,15 @@ def phase_gram(dev: torch.device, peaks) -> dict:
             raise AssertionError(f"gram_tile disagrees with its plain "
                                  f"version: {err} > {TOL[torch.float32]}")
         if label == "path":
+            again = gram_tile(X)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError("gram_tile: two calls on one input "
+                                     "differ")
+            log(f"gram_tile at {m}x{n}: two calls bit-identical; split plan "
+                f"(splits, rows) "
+                f"{cuda_kernels.gram_split_plan(m, n, sm_count(dev))}")
+            del again
             # least work: the upper triangle, m*n*(n+1) flop; X read and
             # G written once
             flops = float(m) * n * (n + 1)
@@ -351,17 +445,18 @@ def phase_gram(dev: torch.device, peaks) -> dict:
             t_ops = flops / f32_peak * 1e3
             t_bytes = nbytes / mem_rate * 1e3
             bound = max(t_ops, t_bytes)
-            ms = time_ms(lambda: gram_tile(X), reps=50, warm=3)
-            plain_ms = time_ms(lambda: gram_tile_reference(X), reps=50,
-                               warm=3)
             torch.backends.cuda.matmul.allow_tf32 = False
-            lib_ms = time_ms(lambda: torch.mm(X.T, X), reps=50, warm=3)
+            t = in_turns({"kernel": lambda: gram_tile(X),
+                          "plain": lambda: gram_tile_reference(X),
+                          "library": lambda: torch.mm(X.T, X)}, reps=200)
+            ms, plain_ms, lib_ms = t["kernel"], t["plain"], t["library"]
             log(f"gram_tile at {m}x{n} f32: kernel {ms:.4f} ms "
                 f"({2 * flops / ms / 1e9:.2f} TFLOP/s counted as 2mn^2), "
                 f"plain {plain_ms:.4f} ms, library_ms {lib_ms:.4f} "
                 f"(torch.mm(X.T, X), TF32 off), bound {bound:.4f} ms "
                 f"({'operations' if t_ops >= t_bytes else 'bytes'}), "
-                f"share of bound {bound / ms:.3f}")
+                f"share of bound {bound / ms:.3f}; kernel / library "
+                f"{ms / lib_ms:.3f}")
             entry = {"name": "gram_tile", "route": "cuda",
                      "source": "parsec_tpu_torch/csrc/gram_tile.cu",
                      "replaces": "parsec_tpu/apps/pallas_kernels.py:169",
@@ -467,6 +562,7 @@ def drive_qr(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
             torch.cuda.synchronize()
         regen_s = time.perf_counter() - t0
         launches0 = read_counts()
+        wgmma0 = ROUTES["wgmma"].value
         executed0 = dev.stats.executed_tasks
         falls0 = qr.qr_guard_fallbacks.value
         t0 = time.perf_counter()
@@ -476,6 +572,7 @@ def drive_qr(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
             torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launched = {k: v - launches0[k] for k, v in read_counts().items()}
+        wgmma = ROUTES["wgmma"].value - wgmma0
         executed = dev.stats.executed_tasks - executed0
         counts = inc.take()
         device_runs = {c: counts.get((c, "exec_async"), 0) for c in want}
@@ -485,11 +582,14 @@ def drive_qr(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
                 f"[{label}] {what}: executed_tasks {executed}, device "
                 f"incarnations {device_runs}, CPU incarnations {cpu_runs}; "
                 f"expected {ntasks}, {want}, 0")
-        if on_card and launched != want_launches:
+        if on_card and (launched != want_launches
+                        or wgmma != want_launches["gemm_tile"]):
             raise AssertionError(f"[{label}] {what}: launched {launched}, "
-                                 f"expected {want_launches}")
+                                 f"{wgmma} K1 on the wgmma route, expected "
+                                 f"{want_launches}, all K1 on wgmma")
         log(f"[{label}] {what}: {dt * 1e3:.1f} ms, "
-            f"{flops / dt / 1e9:.1f} GFLOP/s, launches {launched}, "
+            f"{flops / dt / 1e9:.1f} GFLOP/s, launches {launched} ({wgmma} "
+            f"K1 wgmma), "
             f"{executed} device tasks {device_runs}, {cpu_runs} CPU "
             f"incarnations, guard fallbacks "
             f"{qr.qr_guard_fallbacks.value - falls0}; tiles regenerated "
@@ -511,8 +611,12 @@ def drive_qr(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
     reset_counts()
     inc.take()
     fallbacks0 = qr.qr_guard_fallbacks.value
+    if on_card:
+        read_clock(label, "before the passes")
     times = [factor(bench, f"pass {p} ({'timed' if p else 'warm'})")
              for p in range(passes + 1)][1:]
+    if on_card:
+        read_clock(label, "after the last timed pass")
 
     t0 = time.perf_counter()
     lower_tiles_zero()
@@ -545,8 +649,8 @@ def drive_qr(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
                              f"{QR_LADDER_TOL}")
     launches = read_counts()
     fallbacks = qr.qr_guard_fallbacks.value - fallbacks0
-    log(f"[{label}] kernel launches on this path: {launches}; guard "
-        f"fallbacks {fallbacks}")
+    log(f"[{label}] kernel launches on this path: {launches}; K1 by route "
+        f"{read_routes()}; guard fallbacks {fallbacks}")
     best = min(times)
     return {"launches": launches, "best_s": best,
             "gflops": flops / best / 1e9, "ntasks": ntasks,

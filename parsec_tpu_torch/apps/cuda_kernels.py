@@ -9,46 +9,23 @@ sources; it is bound through a plain C interface with ``ctypes``.
 ``gemm_tile`` — the GEMM-accumulate tile ``O = C + alpha * A @ B``
 --------------------------------------------------------------------
 
-Replaces ``parsec_tpu/apps/pallas_kernels.py::pallas_gemm_tile`` (the
-blocked Pallas program over ``_blocked_matmul``).  Source:
-``parsec_tpu_torch/csrc/gemm_tile.cu``, CUDA C++ for ``sm_90a``.
-
-Types: (bf16, bf16, f32) — the tiled-GEMM main path — and (f32, f32, f32).
-Accumulation is f32; alpha is a runtime scalar; any (m, n, k), the ragged
-edge masked inside the kernel, so there is no unaligned-shape fallback.
-bf16 runs on the tensor cores (WMMA m16n16k16, f32 accumulators) from
-shared-memory tiles filled by a double-buffered ``cp.async`` pipeline
-(128x128x32 block tiles, 8 warps of 64x32).  f32 runs on plain f32 FMA,
-never TF32, to keep the reference's f32 semantics.  The K loop runs inside
-the block: it takes the place of the TPU program's sequential K grid axis
-and its scratch accumulator, since CUDA blocks run in no order.  The
-kernel allocates nothing (the wrapper makes ``O`` with ``torch.empty``)
-and is functional: ``O`` never aliases ``C``.
-
-Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): at the main
-path's 12288^3 tile the work is 2 * 12288^3 = 3.71e12 flop, 3.75 ms at the
-tensor-core peak, against 1.81 GB of traffic (A and B once in bf16, C read
-and O written in f32), 0.54 ms at the memory rate — compute-bound.  A PCIe
-card has lower peaks; ``chip_smoke.py`` prints the bound it uses.
-
-What the simple design leaves on the table: ``mma.sync``-class WMMA cannot
-reach Hopper's full tensor-core rate — that needs ``wgmma`` fed by TMA
-loads, a deeper ring of stages and warp-specialised producer/consumer
-warps, persistent blocks and a swizzled shared layout instead of padding;
-the epilogue goes through a per-warp shared scratch.  Those are for a
-later change; the measured times stand in PERF.md.
+Replaces ``parsec_tpu/apps/pallas_kernels.py::pallas_gemm_tile``.
+Source: ``parsec_tpu_torch/csrc/gemm_tile.cu``, whose header holds the
+design, its bound and what it leaves.  Types (bf16, bf16, f32) — every
+path's call — and (f32, f32, f32); f32 accumulation; any (m, n, k); ``O``
+is a new tensor that never aliases ``C``.  ``gemm_route`` picks one of
+three hand-written routes before launch: ``wgmma`` (bf16 wherever TMA
+can describe the operands), ``wmma`` (any other bf16 call) and ``fma``
+(f32, never TF32).
 
 ``gram_tile`` — the f32 Gram matrix ``G = X^T X``
 -------------------------------------------------
 
-Replaces ``parsec_tpu/apps/pallas_kernels.py::pallas_gram_tile`` (the
-blocked Pallas program over ``_blocked_gram``, run at HIGHEST precision).
-Source: ``parsec_tpu_torch/csrc/gram_tile.cu``.  X is f32 (m, n), G the
-full (n, n) f32 matrix, any shape.  Plain f32 FMA, never TF32: G feeds
-the QR panel's Cholesky, whose error grows as cond^2.  Upper 32x32 tiles
-only, mirrored; the rows of X split among four k-groups inside a block.
-Bound on an H100 SXM at the QR path's 6144 x 512: m*n*(n+1) = 1.61e9 flop,
-0.024 ms at 67 TFLOP/s f32, against 13.6 MB (0.004 ms) — operation-bound.
+Replaces ``parsec_tpu/apps/pallas_kernels.py::pallas_gram_tile`` (run at
+HIGHEST precision).  Source: ``parsec_tpu_torch/csrc/gram_tile.cu``, whose
+header holds the design.  Plain f32 FMA, never TF32, split-K over the
+rows of X by ``gram_split_plan``, the partials in scratch the wrapper
+makes and summed in a fixed order, so two calls give bit-identical G.
 
 Each ``*_reference`` is the plain version: the same function in PyTorch
 with TF32 switched off.  A wrapper takes it only for CPU tensors; for
@@ -58,6 +35,7 @@ CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -96,8 +74,20 @@ class Counter:
 #: launches of the gemm_tile kernel; the wrapper adds one per launch and
 #: nowhere else (CPU calls take the plain version and do not count)
 gemm_tile_launches = Counter()
-#: launches of the gram_tile kernel, counted the same way
+#: the same launches by route (``gemm_route``): each launch adds one to
+#: ``gemm_tile_launches`` and one to its route's count
+gemm_tile_route_launches = {"wgmma": Counter(), "wmma": Counter(),
+                            "fma": Counter()}
+#: launches of the gram_tile kernels (both passes: one per call), counted
+#: the same way
 gram_tile_launches = Counter()
+
+#: the Gram kernel's output tile, rows of X per stage and blocks per SM:
+#: copies of gram_tile.cu's kT, kKC and kBlocksPerSM, which the split plan
+#: and the scratch size need (a test holds them equal)
+GRAM_TILE = 64
+GRAM_STAGE_ROWS = 16
+GRAM_BLOCKS_PER_SM = 6
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -182,7 +172,8 @@ def _load() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for name in ("parsec_gemm_tile_bf16", "parsec_gemm_tile_f32"):
+            for name in ("parsec_gemm_tile_bf16_wgmma",
+                         "parsec_gemm_tile_bf16", "parsec_gemm_tile_f32"):
                 fn = getattr(lib, name)
                 fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                ctypes.c_void_p, ctypes.c_void_p,
@@ -191,7 +182,9 @@ def _load() -> ctypes.CDLL:
                                ctypes.c_void_p]
                 fn.restype = ctypes.c_int
             fn = lib.parsec_gram_tile_f32
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_longlong,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _lib = lib
@@ -207,10 +200,31 @@ def gemm_tile_reference(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     return C + alpha * (A.float() @ B.float()).to(C.dtype)
 
 
-_TYPES = {(torch.bfloat16, torch.bfloat16, torch.float32):
-          "parsec_gemm_tile_bf16",
-          (torch.float32, torch.float32, torch.float32):
-          "parsec_gemm_tile_f32"}
+_TYPES = {(torch.bfloat16, torch.bfloat16, torch.float32),
+          (torch.float32, torch.float32, torch.float32)}
+
+
+def gemm_route(m: int, n: int, k: int, dtype: torch.dtype, a_ptr: int,
+               b_ptr: int, c_ptr: int) -> str:
+    """The route ``gemm_tile`` takes for A (m, k) and B (k, n) of
+    ``dtype`` and an f32 C at the given addresses: ``"wgmma"`` where TMA
+    can describe the bf16 operands (rows of a whole number of 16 bytes,
+    16-byte aligned bases, k > 0) and C is 8-byte aligned for the
+    epilogue's paired loads, ``"wmma"`` for any other bf16 call, ``"fma"``
+    for f32."""
+    if dtype == torch.float32:
+        return "fma"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"gemm_route: no route for {dtype}")
+    tma = (k > 0 and k % 8 == 0 and n % 8 == 0 and a_ptr % 16 == 0
+           and b_ptr % 16 == 0 and c_ptr % 8 == 0)
+    return "wgmma" if tma else "wmma"
+
+
+#: the C entry of each route
+_GEMM_ENTRIES = {"wgmma": "parsec_gemm_tile_bf16_wgmma",
+                 "wmma": "parsec_gemm_tile_bf16",
+                 "fma": "parsec_gemm_tile_f32"}
 
 
 def gemm_tile(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
@@ -231,8 +245,7 @@ def gemm_tile(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     if k2 != k or tuple(C.shape) != (m, n):
         raise ValueError(f"gemm_tile: shapes do not agree: A {tuple(A.shape)}"
                          f", B {tuple(B.shape)}, C {tuple(C.shape)}")
-    fname = _TYPES.get((A.dtype, B.dtype, C.dtype))
-    if fname is None:
+    if (A.dtype, B.dtype, C.dtype) not in _TYPES:
         raise TypeError("gemm_tile: supported (A, B, C) dtypes are "
                         "(bf16, bf16, f32) and (f32, f32, f32), got "
                         f"({A.dtype}, {B.dtype}, {C.dtype})")
@@ -241,15 +254,43 @@ def gemm_tile(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     O = torch.empty_like(C, memory_format=torch.contiguous_format)
     if m == 0 or n == 0:
         return O        # empty output: nothing to launch, nothing counted
-    fn = getattr(_load(), fname)
-    err = fn(A.data_ptr(), B.data_ptr(), C.data_ptr(), O.data_ptr(),
-             m, n, k, float(alpha), A.device.index,
-             torch.cuda.current_stream(A.device).cuda_stream)
+    route = gemm_route(m, n, k, A.dtype, A.data_ptr(), B.data_ptr(),
+                       C.data_ptr())
+    launch = getattr(_load(), _GEMM_ENTRIES[route])
+    err = launch(A.data_ptr(), B.data_ptr(), C.data_ptr(), O.data_ptr(), m,
+                 n, k, float(alpha), A.device.index,
+                 torch.cuda.current_stream(A.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"gemm_tile: kernel launch failed with CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"gemm_tile: {route} kernel launch failed with "
+                           f"CUDA error {err}")
     gemm_tile_launches.add()
+    gemm_tile_route_launches[route].add()
     return O
+
+
+def gram_upper_tiles(n: int) -> int:
+    """Upper ``GRAM_TILE``-square tiles of an (n, n) Gram matrix."""
+    nb = -(-n // GRAM_TILE)
+    return nb * (nb + 1) // 2
+
+
+def gram_split_plan(m: int, n: int, sms: int) -> tuple:
+    """``(splits, rows_per_split)`` for the Gram kernel over X (m, n): the
+    rows cut into ``splits`` runs of ``rows_per_split`` rows (a whole
+    number of stages), the last one possibly shorter and none empty, as
+    many as the upper tiles allow within ``GRAM_BLOCKS_PER_SM`` blocks on
+    each of ``sms`` SMs (one wave, no tail).  m = 0 gives one empty
+    run."""
+    stages = max(1, -(-m // GRAM_STAGE_ROWS))
+    want = GRAM_BLOCKS_PER_SM * sms // gram_upper_tiles(n)
+    splits = max(1, min(stages, want, 65535))
+    rows = -(-stages // splits) * GRAM_STAGE_ROWS
+    return max(1, -(-m // rows)), rows
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def gram_tile_reference(X: torch.Tensor) -> torch.Tensor:
@@ -280,8 +321,13 @@ def gram_tile(X: torch.Tensor) -> torch.Tensor:
     G = torch.empty((n, n), dtype=torch.float32, device=X.device)
     if n == 0:
         return G        # empty output: nothing to launch, nothing counted
+    splits, rows = gram_split_plan(m, n, _sm_count(X.device.index))
+    tiles = gram_upper_tiles(n)
+    partials = torch.empty((splits, tiles, GRAM_TILE, GRAM_TILE),
+                           dtype=torch.float32, device=X.device)
     err = _load().parsec_gram_tile_f32(
-        X.data_ptr(), G.data_ptr(), m, n, X.device.index,
+        X.data_ptr(), G.data_ptr(), partials.data_ptr(), partials.numel(), m,
+        n, splits, rows, X.device.index,
         torch.cuda.current_stream(X.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gram_tile: kernel launch failed with CUDA "

@@ -168,3 +168,111 @@ def test_qr_on_the_card_matches_the_cpu_run(card, panel):
     assert not np.tril(got, -1).any()
     err = np.abs(got - ref).max() / max(1.0, np.abs(ref).max())
     assert err <= (1e-4 if panel == "float32" else 3e-2)
+
+
+def _route_moved(before: dict) -> list:
+    return [r for r, c in cuda_kernels.gemm_tile_route_launches.items()
+            if c.value != before[r]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,alpha,zero_c", [
+    ((1000, 520, 776), -1.0, False),     # off the 128 x 256 tile grid
+    ((1000, 8, 776), 0.5, False),        # K below one stage (64)
+    ((1000, 16, 776), -1.0, False),
+    ((40, 520, 776), 1.0, False),        # M below one warpgroup's 64 rows
+    ((256, 1024, 136), 0.5, False),      # non-square: a wrong B major-ness
+    ((136, 1024, 256), -1.0, False),     # would not survive both
+    ((1000, 520, 776), 1.0, True)],      # zero C
+    ids=["ragged", "k8", "k16", "m40", "wide-k", "tall-n", "zero-c"])
+def test_gemm_tile_wgmma_route(card, shape, alpha, zero_c):
+    m, k, n = shape
+    g = torch.Generator(device=card).manual_seed(11)
+    a = torch.randn((m, k), generator=g, device=card).bfloat16()
+    b = torch.randn((k, n), generator=g, device=card).bfloat16()
+    c = torch.zeros((m, n), device=card) if zero_c else \
+        torch.randn((m, n), generator=g, device=card)
+    before = {r: v.value for r, v in
+              cuda_kernels.gemm_tile_route_launches.items()}
+    got = gemm_tile(a, b, c, alpha)
+    torch.cuda.synchronize()
+    ref = gemm_tile_reference(a, b, c, alpha)
+    err = ((got - ref).abs().max() / ref.abs().max().clamp(min=1.0)).item()
+    assert err <= 1e-4
+    assert _route_moved(before) == ["wgmma"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "misaligned"])
+def test_gemm_tile_wmma_route(card, case):
+    """Shapes TMA cannot describe take the WMMA kernel: N and K not
+    multiples of 8, or an A that is a contiguous view 2 bytes past a
+    16-byte boundary."""
+    g = torch.Generator(device=card).manual_seed(13)
+    if case == "ragged":
+        m, k, n = 1000, 513, 777
+        a = torch.randn((m, k), generator=g, device=card).bfloat16()
+    else:
+        m, k, n = 256, 256, 264
+        flat = torch.randn(m * k + 1, generator=g, device=card).bfloat16()
+        a = flat[1:].view(m, k)
+        assert a.is_contiguous() and a.data_ptr() % 16 == 2
+    b = torch.randn((k, n), generator=g, device=card).bfloat16()
+    c = torch.randn((m, n), generator=g, device=card)
+    before = {r: v.value for r, v in
+              cuda_kernels.gemm_tile_route_launches.items()}
+    got = gemm_tile(a, b, c, -1.0)
+    torch.cuda.synchronize()
+    ref = gemm_tile_reference(a, b, c, -1.0)
+    err = ((got - ref).abs().max() / ref.abs().max().clamp(min=1.0)).item()
+    assert err <= 1e-4
+    assert _route_moved(before) == ["wmma"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(6144, 512), (6145, 512), (20, 512),
+                                   (0, 512), (333, 1), (333, 33)],
+                         ids=["qr", "ragged-split", "under-split", "m0",
+                              "n1", "n33"])
+def test_gram_tile_split_k_repeats_bit_for_bit(card, shape):
+    """The split plan at the QR path's shape, at M not a multiple of the
+    split, at M below the split count the QR shape gets, at M = 0 and at
+    narrow N; two calls on one input give the same bits (the partials are
+    summed in a fixed order, no atomics)."""
+    g = torch.Generator(device=card).manual_seed(17)
+    X = torch.randn(shape, generator=g, device=card)
+    got = gram_tile(X)
+    again = gram_tile(X)
+    torch.cuda.synchronize()
+    ref = gram_tile_reference(X)
+    err = ((got - ref).abs().max() / ref.abs().max().clamp(min=1.0)).item() \
+        if ref.numel() else 0.0
+    assert err <= 1e-5
+    assert torch.equal(got, again)
+    assert torch.equal(got, got.T)
+    if shape[0] == 0:
+        assert not got.any()
+
+
+@pytest.mark.cuda
+def test_gram_tile_refuses_a_short_scratch(card):
+    """The C entry is told the scratch's length and refuses a plan whose
+    partials would not fit it (cudaErrorInvalidValue), launching nothing."""
+    m, n = 6144, 512
+    X = torch.zeros((m, n), device=card)
+    G = torch.empty((n, n), device=card)
+    splits, rows = cuda_kernels.gram_split_plan(
+        m, n, torch.cuda.get_device_properties(card).multi_processor_count)
+    need = splits * cuda_kernels.gram_upper_tiles(n) \
+        * cuda_kernels.GRAM_TILE ** 2
+    P = torch.empty(need, device=card)
+    lib = cuda_kernels._load()
+    stream = torch.cuda.current_stream(card).cuda_stream
+    assert lib.parsec_gram_tile_f32(X.data_ptr(), G.data_ptr(), P.data_ptr(),
+                                    need - 1, m, n, splits, rows,
+                                    card.index, stream) == 1
+    assert lib.parsec_gram_tile_f32(X.data_ptr(), G.data_ptr(), P.data_ptr(),
+                                    need, m, n, splits, rows, card.index,
+                                    stream) == 0
+    torch.cuda.synchronize()
+    assert not G.any()

@@ -13,6 +13,7 @@ Tolerances, as max|port - jax| / max(1, max|jax|): 1e-5 for f32 inputs
 card, are held against the plain versions in tests/test_torch_cuda.py.
 """
 
+import re
 import shutil
 import stat
 
@@ -174,3 +175,74 @@ def test_build_failure_names_the_source(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="gram_tile.cu"):
         cuda_kernels.build()
     assert list((tmp_path / "build").iterdir()) == []
+
+
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("m,n,k,ptrs,route", [
+    (12288, 12288, 12288, (0, 0, 0), "wgmma"),      # GEMM mb=12288
+    (6144, 6144, 6144, (256, 512, 1024), "wgmma"),   # QR updates
+    (2048, 2048, 2048, (16, 32, 8), "wgmma"),        # GEMM mb=2048
+    (1000, 776, 520, (0, 0, 0), "wgmma"),            # ragged, multiples of 8
+    (40, 776, 8, (0, 0, 0), "wgmma"),                # under one stage of K
+    (1000, 777, 520, (0, 0, 0), "wmma"),             # n % 8
+    (1000, 776, 513, (0, 0, 0), "wmma"),             # k % 8
+    (1000, 776, 0, (0, 0, 0), "wmma"),               # k = 0
+    (256, 256, 256, (2, 0, 0), "wmma"),              # A misaligned
+    (256, 256, 256, (0, 8, 0), "wmma"),              # B misaligned
+    (256, 256, 256, (0, 0, 4), "wmma"),              # C misaligned
+    (256, 256, 256, (0, 0, 0), "fma")],              # f32
+    ids=["mb12288", "qr6144", "mb2048", "ragged8", "k8", "n-odd", "k-odd",
+         "k0", "a-misaligned", "b-misaligned", "c-misaligned", "f32"])
+def test_gemm_route_by_shape_and_alignment(m, n, k, ptrs, route):
+    """TMA describes a bf16 operand only with rows of a whole number of 16
+    bytes on 16-byte aligned bases; the epilogue pairs C's columns."""
+    dtype = torch.float32 if route == "fma" else BF16
+    base = 1 << 20
+    a, b, c = (base + p for p in ptrs)
+    assert cuda_kernels.gemm_route(m, n, k, dtype, a, b, c) == route
+
+
+def test_gemm_route_refuses_other_types():
+    with pytest.raises(TypeError):
+        cuda_kernels.gemm_route(8, 8, 8, torch.float16, 0, 0, 0)
+
+
+@pytest.mark.parametrize("m", [0, 1, 15, 16, 20, 100, 6143, 6144, 6145,
+                               12288, 100000])
+@pytest.mark.parametrize("n", [1, 33, 512])
+def test_gram_split_plan_covers_every_row_once(m, n):
+    """The runs [s * rows, min(m, (s + 1) * rows)) of the plan tile the
+    rows of X: every row in exactly one run, no run empty (one empty run at
+    m = 0), each run a whole number of stages, and the grid within the
+    blocks the plan aims at (or one run a tile when the tiles alone
+    exceed it)."""
+    sms = 132
+    splits, rows = cuda_kernels.gram_split_plan(m, n, sms)
+    assert rows % cuda_kernels.GRAM_STAGE_ROWS == 0 and splits >= 1
+    runs = [range(s * rows, min(m, (s + 1) * rows)) for s in range(splits)]
+    covered = [r for run in runs for r in run]
+    assert covered == list(range(m))
+    assert all(len(run) > 0 for run in runs) or (m == 0 and splits == 1)
+    tiles = cuda_kernels.gram_upper_tiles(n)
+    assert (splits * tiles <= cuda_kernels.GRAM_BLOCKS_PER_SM * sms
+            or splits == 1)
+
+
+def test_gram_split_plan_at_the_qr_shape():
+    """6144 x 512 on 132 SMs: 36 upper tiles, 22 runs of 288 rows (the last
+    96), 792 blocks, all that 6 a SM allow: one wave."""
+    assert cuda_kernels.gram_upper_tiles(512) == 36
+    assert cuda_kernels.gram_split_plan(6144, 512, 132) == (22, 288)
+
+
+@pytest.mark.parametrize("name,kernel_name", [
+    ("GRAM_TILE", "kT"), ("GRAM_STAGE_ROWS", "kKC"),
+    ("GRAM_BLOCKS_PER_SM", "kBlocksPerSM")])
+def test_gram_plan_constants_match_the_kernel(name, kernel_name):
+    """The wrapper sizes the split plan and its scratch from copies of the
+    kernel's own constants: the two must not drift apart."""
+    src = (cuda_kernels._CSRC / "gram_tile.cu").read_text()
+    found = re.findall(rf"constexpr int {kernel_name} = (\d+);", src)
+    assert found == [str(getattr(cuda_kernels, name))]
