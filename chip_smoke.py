@@ -10,10 +10,12 @@ no result line):
               (one process per source, all started together);
 3. kernels  — hold each kernel against its plain PyTorch version on the
               card at every shape, C and alpha the paths give it (and
-              check which route K1 took), and time kernel, plain version
-              and one library call at every shape the paths give it (K1:
-              12288^3, 6144^3, 2048^3); K2 twice on one input must agree
-              bit for bit;
+              check which route K1 took; K1's transposed-B, bf16-C
+              variant at 6144^3 and on each route at ragged shapes), and
+              time kernel, plain version and one library call at every
+              shape the paths give it (K1: 12288^3, 6144^3 for QR and for
+              potrf, 2048^3); K2 twice on one input must agree bit for
+              bit;
 4. GEMM path — the tiled GEMM at the repo's bench geometry (mb=12288,
               mt=nt=3, kt=4; A and B bf16, C f32), tiles born on the card:
               one warm pass, three timed passes, C checked against a
@@ -25,7 +27,14 @@ no result line):
               regenerated on the card before each pass: one warm pass,
               three timed passes, task, incarnation and launch counts
               checked on every pass, then R's lower tiles, the
-              factorization residual and the least-squares ladder.
+              factorization residual and the least-squares ladder;
+7. potrf path — the tiled Cholesky at the JAX package's north-star
+              geometry (mb=6144, nt=16, bf16 tile storage: 816 tasks a
+              pass), the bench's operand regenerated on the card before
+              each pass (lower tiles only): one warm pass, five timed
+              passes (median, best and band of GFLOP/s), task, launch
+              and Cholesky-flag checks on every pass, then the backward
+              error and the iterative-refinement ladder once.
 
 Every kernel count is set to 0 just before a path runs and read just
 after it; every K1 launch on a path must have taken the wgmma route.
@@ -39,8 +48,11 @@ doing anything.  It imports nothing of JAX and nothing of ``parsec_tpu``.
 
 from __future__ import annotations
 
+import collections
+import gc
 import json
 import resource
+import statistics
 import subprocess
 import sys
 import threading
@@ -50,10 +62,11 @@ import numpy as np
 import torch
 
 import parsec_tpu_torch
-from parsec_tpu_torch.apps import cuda_kernels, qr
+from parsec_tpu_torch.apps import cuda_kernels, potrf, qr
 from parsec_tpu_torch.apps.cuda_kernels import gemm_tile, \
     gemm_tile_reference, gram_tile, gram_tile_reference
 from parsec_tpu_torch.apps.gemm import gemm_taskpool, total_flops
+from parsec_tpu_torch.apps.potrf_check import backward_error, refine_solve
 from parsec_tpu_torch.apps.qr_check import ls_refine, newest_payload
 from parsec_tpu_torch.core.context import Context
 from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
@@ -78,15 +91,17 @@ COUNTERS = {"gemm_tile": cuda_kernels.gemm_tile_launches,
 #: K1's launches by route
 ROUTES = cuda_kernels.gemm_tile_route_launches
 
-#: K1's launches per pass at each shape the paths give it, by path
-K1_SHAPES = {12288: {"GEMM mb=12288": 36}, 6144: {"QR mb=6144": 448},
-             2048: {"GEMM mb=2048": 512}}
-
 #: QR path limits: the factorization residual ||R'Rz - A'Az|| / ||A'Az||
 #: of a bf16-storage factor (the JAX package recorded 1.0e-2 for its own),
 #: and the least-squares ladder's best relative error
 QR_RESIDUAL_TOL = 3e-2
 QR_LADDER_TOL = 1e-5
+
+#: potrf path limits, the JAX package's own (tests/test_potrf_check.py):
+#: the backward error ||A - LL'||_F / ||A||_F of a bf16-storage factor,
+#: and the last residual of the f32 iterative-refinement ladder
+POTRF_BWD_TOL = 5e-2
+POTRF_IR_TOL = 1e-5
 
 
 def reset_counts() -> None:
@@ -147,17 +162,27 @@ def time_ms(fn, reps: int, warm: int = 1) -> float:
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
-    return ((got - ref).abs().max()
-            / ref.abs().max().clamp(min=1.0)).item()
+    """max|got - ref| / max(1, max|ref|).  For bf16 outputs each element's
+    difference first loses one unit in the last place of ref: kernel and
+    plain version each round an f32 sum once, and two sums in another
+    order that straddle a rounding boundary land one bf16 ulp apart."""
+    d = (got.float() - ref.float()).abs()
+    if ref.dtype == torch.bfloat16:
+        _, e = torch.frexp(ref.float())
+        d = (d - torch.ldexp(torch.ones_like(d), e - 8)).clamp(min=0.0)
+    return (d.max() / ref.float().abs().max().clamp(min=1.0)).item()
 
 
-def _library_addmm(A, B, C, alpha):
-    """One PyTorch call computing C + alpha * A @ B on the same operands
+def _library_addmm(A, B, C, alpha, trans_b=False):
+    """One PyTorch call computing C + alpha * A @ B (``A @ B^T`` with
+    ``trans_b``, B read transposed in place) on the same operands
     (cuBLAS).  bf16 operands with an f32 C need ``out_dtype``; the port
     never calls this."""
+    Bm = B.mT if trans_b else B
     if A.dtype == C.dtype:
-        return torch.addmm(C, A, B, alpha=alpha), "torch.addmm"
-    return torch.addmm(C, A, B, alpha=alpha, out_dtype=C.dtype), \
+        return torch.addmm(C, A, Bm, alpha=alpha), \
+            "torch.addmm" + ("(C, A, B.mT)" if trans_b else "")
+    return torch.addmm(C, A, Bm, alpha=alpha, out_dtype=C.dtype), \
         "torch.addmm(out_dtype=float32)"
 
 
@@ -165,10 +190,10 @@ def k1_bound(A, B, C, bf16_peak: float, mem_rate: float):
     """Least time of one K1 call: 2mnk flop at the bf16 tensor-core peak
     against A and B read once, C read and O written once."""
     m, k = A.shape
-    n = B.shape[1]
+    n = C.shape[1]
     t_ops = 2.0 * m * n * k / bf16_peak * 1e3
     t_bytes = (A.numel() * A.element_size() + B.numel() * B.element_size()
-               + 2 * C.numel() * 4) / mem_rate * 1e3
+               + 2 * C.numel() * C.element_size()) / mem_rate * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
 
@@ -185,31 +210,36 @@ def in_turns(fns: dict, reps: int, rounds: int = 3) -> dict:
     return {name: min(v) for name, v in got.items()}
 
 
-def time_k1(A, B, C, alpha, peaks) -> dict:
+def time_k1(A, B, C, alpha, trans_b, per_pass, peaks) -> dict:
     """K1, its plain version and one library call on the same operands,
-    with the bound, at one shape; kernel and library in turns."""
+    with the bound, at one shape; kernel and library in turns.
+    ``per_pass``: the launches a pass makes at this shape, by path."""
     m, k = A.shape
-    n = B.shape[1]
+    n = C.shape[1]
     reps = 5 if m >= 12288 else 20
     bound, by = k1_bound(A, B, C, peaks[0], peaks[2])
-    plain_ms = time_ms(lambda: gemm_tile_reference(A, B, C, alpha),
-                       reps=3)
-    fns = {"kernel": lambda: gemm_tile(A, B, C, alpha)}
+    plain_ms = time_ms(
+        lambda: gemm_tile_reference(A, B, C, alpha, trans_b), reps=3)
+    fns = {"kernel": lambda: gemm_tile(A, B, C, alpha, trans_b)}
     try:
-        _, lib_name = _library_addmm(A, B, C, alpha)
-        fns["library"] = lambda: _library_addmm(A, B, C, alpha)
+        _, lib_name = _library_addmm(A, B, C, alpha, trans_b)
+        fns["library"] = lambda: _library_addmm(A, B, C, alpha, trans_b)
     except (TypeError, RuntimeError) as exc:
         lib_name = f"none ({type(exc).__name__})"
     t = in_turns(fns, reps)
     ms, lib_ms = t["kernel"], t.get("library")
-    log(f"gemm_tile at {m}x{k}x{n} bf16: kernel {ms:.4f} ms "
+    what = f"A @ B^T, {str(C.dtype)[6:]} C" if trans_b else \
+        f"A @ B, {str(C.dtype)[6:]} C"
+    log(f"gemm_tile at {m}x{k}x{n} bf16 ({what}): kernel {ms:.4f} ms "
         f"({2.0 * m * n * k / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} "
         f"ms, library_ms {lib_ms} ({lib_name}), bound {bound:.4f} ms ({by}),"
-        f" share of bound {bound / ms:.3f}, launches per pass "
-        f"{K1_SHAPES[m]}")
-    return {"shape": [m, k, n], "ms": ms, "plain_ms": plain_ms,
+        f" share of bound {bound / ms:.3f}, kernel / library "
+        f"{ms / lib_ms if lib_ms else float('nan'):.3f}, launches per pass "
+        f"{per_pass}")
+    return {"shape": [m, k, n], "trans_b": trans_b,
+            "c_dtype": str(C.dtype)[6:], "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
-            "share_of_bound": bound / ms, "launches_per_pass": K1_SHAPES[m]}
+            "share_of_bound": bound / ms, "launches_per_pass": per_pass}
 
 
 def phase_kernels(dev: torch.device, peaks) -> dict:
@@ -218,37 +248,54 @@ def phase_kernels(dev: torch.device, peaks) -> dict:
     shape the paths give it."""
     g = torch.Generator(device=dev).manual_seed(SEED)
     bf16, f32 = torch.bfloat16, torch.float32
-    # (label, m, k, n, dtype, alpha, C is zero, route, timed); the QR
-    # path's calls at 6144^3: UNMQR and TSMQR's Z take a zero C with alpha
-    # 1, TSMQR's other two a live C with alpha 1 and -1
-    cases = [("main", 12288, 12288, 12288, bf16, 1.0, False, "wgmma", True),
-             ("QR UNMQR/TSMQR Z", 6144, 6144, 6144, bf16, 1.0, True,
-              "wgmma", False),
-             ("QR TSMQR inner", 6144, 6144, 6144, bf16, 1.0, False,
-              "wgmma", True),
-             ("QR TSMQR C2", 6144, 6144, 6144, bf16, -1.0, False, "wgmma",
-              False),
-             ("GEMM mb=2048", 2048, 2048, 2048, bf16, 1.0, False, "wgmma",
-              True),
-             ("ragged", 1000, 520, 776, bf16, 0.5, False, "wgmma", False),
-             ("ragged", 1000, 513, 777, bf16, -1.0, False, "wmma", False),
-             ("ragged", 1000, 513, 777, f32, -1.0, False, "fma", False),
-             ("f32", 2048, 2048, 2048, f32, 0.5, False, "fma", False)]
+    # (label, m, k, n, dtype, alpha, C is zero, trans_b, route, launches a
+    # pass by path when timed); the QR path's calls at 6144^3: UNMQR and
+    # TSMQR's Z take a zero C with alpha 1, TSMQR's other two a live C with
+    # alpha 1 and -1; the potrf path's SYRK and GEMM take B as (n, k) and a
+    # bf16 C with alpha -1 (with trans_b a bf16 A gets a bf16 C)
+    cases = [("main", 12288, 12288, 12288, bf16, 1.0, False, False, "wgmma",
+              {"GEMM mb=12288": 36}),
+             ("QR UNMQR/TSMQR Z", 6144, 6144, 6144, bf16, 1.0, True, False,
+              "wgmma", None),
+             ("QR TSMQR inner", 6144, 6144, 6144, bf16, 1.0, False, False,
+              "wgmma", {"QR mb=6144": 448}),
+             ("QR TSMQR C2", 6144, 6144, 6144, bf16, -1.0, False, False,
+              "wgmma", None),
+             ("potrf SYRK/GEMM", 6144, 6144, 6144, bf16, -1.0, False, True,
+              "wgmma", {"potrf mb=6144": 680}),
+             ("GEMM mb=2048", 2048, 2048, 2048, bf16, 1.0, False, False,
+              "wgmma", {"GEMM mb=2048": 512}),
+             ("ragged", 1000, 520, 776, bf16, 0.5, False, False, "wgmma",
+              None),
+             ("ragged", 1000, 513, 777, bf16, -1.0, False, False, "wmma",
+              None),
+             ("ragged", 1000, 513, 777, f32, -1.0, False, False, "fma",
+              None),
+             ("f32", 2048, 2048, 2048, f32, 0.5, False, False, "fma", None),
+             ("ragged", 1000, 520, 778, bf16, -1.0, False, True, "wgmma",
+              None),
+             ("ragged", 1000, 513, 777, bf16, -1.0, False, True, "wmma",
+              None),
+             ("ragged", 1000, 513, 777, f32, -1.0, False, True, "fma",
+              None)]
     entry, shapes = None, []
-    for label, m, k, n, dt, alpha, zero_c, route, timed in cases:
+    for label, m, k, n, dt, alpha, zero_c, trans_b, route, per_pass in cases:
         A = torch.randn((m, k), generator=g, device=dev).to(dt)
-        B = torch.randn((k, n), generator=g, device=dev).to(dt)
+        B = torch.randn((n, k) if trans_b else (k, n), generator=g,
+                        device=dev).to(dt)
         C = torch.zeros((m, n), device=dev) if zero_c else \
             torch.randn((m, n), generator=g, device=dev)
+        C = C.to(dt) if trans_b else C
         routes0 = read_routes()
-        got = gemm_tile(A, B, C, alpha)
+        got = gemm_tile(A, B, C, alpha, trans_b)
         torch.cuda.synchronize()
         took = [r for r, v in read_routes().items() if v != routes0[r]]
-        ref = gemm_tile_reference(A, B, C, alpha)
+        ref = gemm_tile_reference(A, B, C, alpha, trans_b)
         err = rel_err(got, ref)
-        max_abs = (got - ref).abs().max().item()
+        max_abs = (got.float() - ref.float()).abs().max().item()
         ok = err <= TOL[dt] and took == [route]
-        log(f"kernel vs plain {label} {m}x{k}x{n} {str(dt)[6:]} "
+        form = f"B^T, {str(C.dtype)[6:]} C" if trans_b else "B"
+        log(f"kernel vs plain {label} {m}x{k}x{n} {str(dt)[6:]} ({form}) "
             f"alpha={alpha}{' zero C' if zero_c else ''}: route {took}, rel "
             f"err {err:.3e} (tol {TOL[dt]:.0e}) max abs {max_abs:.3e} "
             f"{'ok' if ok else 'FAIL'}")
@@ -259,8 +306,8 @@ def phase_kernels(dev: torch.device, peaks) -> dict:
             raise AssertionError(f"gemm_tile disagrees with its plain "
                                  f"version: {err} > {TOL[dt]}")
         del got, ref
-        if timed:
-            shapes.append(time_k1(A, B, C, alpha, peaks))
+        if per_pass:
+            shapes.append(time_k1(A, B, C, alpha, trans_b, per_pass, peaks))
         if label == "main":
             t = shapes[-1]
             entry = {"name": "gemm_tile", "route": "cuda",
@@ -705,6 +752,238 @@ def phase_qr(ctx: Context) -> dict:
     return res["launches"]
 
 
+def live_cuda_tensors(top: int = 6) -> list:
+    """The largest groups of live CUDA tensors by shape and dtype, as
+    (GiB, count, shape, dtype), after a cyclic collection."""
+    gc.collect()
+    groups = collections.Counter()
+    counts = collections.Counter()
+    for o in gc.get_objects():
+        if isinstance(o, torch.Tensor) and o.is_cuda:
+            key = (tuple(o.shape), str(o.dtype)[6:])
+            groups[key] += o.numel() * o.element_size()
+            counts[key] += 1
+    return [(round(b / 2**30, 2), counts[k], *k)
+            for k, b in groups.most_common(top)]
+
+
+def potrf_task_counts(nt: int) -> dict:
+    panel = nt * (nt - 1) // 2
+    return {"POTRF": nt - 1, "POTRFL": 1, "TRSM": panel, "SYRK": panel,
+            "GEMM": sum(n * (nt - 1 - n) for n in range(1, nt - 1))}
+
+
+def potrf_tile_maker(A: TwoDimBlockCyclic, tdev: torch.device):
+    """The JAX package's potrf bench operand (``bench.py::_tile_generator``
+    as ``run_potrf_bench`` stages it), tile by tile: column j of tile (m, k)
+    holds (j * 1e-5 + s * 1e-3) mod 1, s the tile's index in
+    ``A.local_tiles()`` (upper tiles counted), plus n on a diagonal tile's
+    diagonal, all in f32, then rounded to the storage dtype.  It
+    regenerates exactly, without a second resident copy.  The diagonal
+    tiles are not symmetric (every row is the same)."""
+    index = {t: i for i, t in enumerate(A.local_tiles())}
+    col = torch.arange(A.nb, dtype=torch.float32, device=tdev) * 1e-5
+    n = float(A.lm)
+
+    def tile(m: int, k: int) -> torch.Tensor:
+        s = float(np.float32(index[(m, k)]) * np.float32(1e-3))
+        t = ((col + s) % 1.0).repeat(A.mb, 1)
+        if m == k:
+            t.diagonal().add_(n)
+        return t.to(A.dtype)
+    return tile
+
+
+def drive_potrf(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
+                passes: int, label: str, ir_steps: int = 3) -> dict:
+    """The tiled Cholesky through the runtime: the bench operand's lower
+    tiles regenerated on the device before every pass (outside the timed
+    window), one warm pass then ``passes`` timed passes of insert + wait +
+    synchronize; tasks, incarnations, kernel launches and the pool's
+    Cholesky flag checked on every pass (the flag is read after the timed
+    window).  Then, once, the backward error and the refinement ladder of
+    the last factor.  Returns numbers."""
+    dev = ctx.device_registry.accelerators[0]
+    on_card = dev.is_cuda
+    n = nt * mb
+    A = TwoDimBlockCyclic(mb, mb, n, n, dtype=dtype, name="A")
+    want = potrf_task_counts(nt)
+    ntasks = sum(want.values())
+    want_k1 = want["SYRK"] + want["GEMM"]
+    flops = potrf.potrf_flops(n)
+    orig = potrf_tile_maker(A, dev.tdev)
+    lower = [(m, k) for (m, k) in A.local_tiles() if m >= k]
+    inc = _Incarnations(ctx)
+    executed_flops = 0.0
+
+    def factor(what: str) -> float:
+        nonlocal executed_flops
+        t0 = time.perf_counter()
+        for (m, k) in lower:
+            A.place_on_device(m, k, dev, orig(m, k))
+        if on_card:
+            torch.cuda.synchronize()
+        regen_s = time.perf_counter() - t0
+        launches0 = read_counts()
+        wgmma0 = ROUTES["wgmma"].value
+        executed0 = dev.stats.executed_tasks
+        t0 = time.perf_counter()
+        tp = potrf.potrf_taskpool(A)
+        ctx.add_taskpool(tp)
+        ctx.wait()
+        if on_card:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        failed = tp.cholesky_check.failed()
+        launched = {k: v - launches0[k] for k, v in read_counts().items()}
+        wgmma = ROUTES["wgmma"].value - wgmma0
+        executed = dev.stats.executed_tasks - executed0
+        counts = inc.take()
+        device_runs = {c: counts.get((c, "exec_async"), 0) for c in want}
+        cpu_runs = sum(counts.get((c, "exec_end"), 0) for c in want)
+        executed_flops = sum(tp.task_classes[c].properties["flops"] * want[c]
+                             for c in want)
+        if executed != ntasks or device_runs != want or cpu_runs:
+            raise AssertionError(
+                f"[{label}] {what}: executed_tasks {executed}, device "
+                f"incarnations {device_runs}, CPU incarnations {cpu_runs}; "
+                f"expected {ntasks}, {want}, 0")
+        if on_card and (launched != {"gemm_tile": want_k1, "gram_tile": 0}
+                        or wgmma != want_k1):
+            raise AssertionError(f"[{label}] {what}: launched {launched}, "
+                                 f"{wgmma} K1 on the wgmma route, expected "
+                                 f"{want_k1} K1 launches, all on wgmma")
+        if failed:
+            raise AssertionError(f"[{label}] {what}: a Cholesky factor "
+                                 f"failed (info != 0 or not finite)")
+        mem = ""
+        if on_card:
+            # W tiles die in Data <-> DataCopy reference cycles, which only
+            # the cyclic collector frees: collect between passes (outside
+            # the timed window) and show what that freed
+            held = torch.cuda.memory_allocated()
+            gc.collect()
+            mem = (f"; device memory {held / 2**30:.2f} GiB allocated after "
+                   f"the pass, {torch.cuda.memory_allocated() / 2**30:.2f} "
+                   f"GiB once reference cycles are collected, peak "
+                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(f"[{label}] {what}: {dt * 1e3:.1f} ms, "
+            f"{flops / dt / 1e9:.1f} GFLOP/s (n^3/3), executed "
+            f"{executed_flops / dt / 1e9:.1f} GFLOP/s, launches {launched} "
+            f"({wgmma} K1 wgmma), {executed} device tasks {device_runs}, "
+            f"{cpu_runs} CPU incarnations, Cholesky flag clear; tiles "
+            f"regenerated in {regen_s * 1e3:.1f} ms (untimed){mem}")
+        return dt
+
+    log(f"[{label}] mb={mb} nt={nt} n={n} {str(dtype)[6:]} storage: "
+        f"{ntasks} tasks a pass {want}, {len(lower)} lower tiles, "
+        f"{flops:.4e} flop (n^3/3)")
+    # counts go to 0 just before the path runs and are read just after
+    reset_counts()
+    inc.take()
+    if on_card:
+        read_clock(label, "before the passes")
+    times = [factor(f"pass {p} ({'timed' if p else 'warm'})")
+             for p in range(passes + 1)][1:]
+    if on_card:
+        read_clock(label, "after the last timed pass")
+        log(f"[{label}] live CUDA tensors after the passes (GiB, count, "
+            f"shape, dtype): {live_cuda_tensors()}")
+    launches = read_counts()
+    log(f"[{label}] kernel launches on this path: {launches}; K1 by route "
+        f"{read_routes()}")
+
+    t0 = time.perf_counter()
+    bwd = backward_error(A, orig)
+    t1 = time.perf_counter()
+    ir = refine_solve(A, orig, steps=ir_steps)
+    log(f"[{label}] backward error ||A-LL'||_F/||A||_F = {bwd:.4e} (limit "
+        f"{POTRF_BWD_TOL:.0e}, {t1 - t0:.1f} s); IR residuals (direct, then "
+        f"one refinement step each): {['%.3e' % h for h in ir]} (last "
+        f"limit {POTRF_IR_TOL:.0e}, {time.perf_counter() - t1:.1f} s)")
+    if not bwd <= POTRF_BWD_TOL:
+        raise AssertionError(f"[{label}] backward error {bwd} > "
+                             f"{POTRF_BWD_TOL}")
+    if not ir[-1] <= POTRF_IR_TOL:
+        raise AssertionError(f"[{label}] last IR residual {ir[-1]} > "
+                             f"{POTRF_IR_TOL}")
+    gflops = [flops / t / 1e9 for t in times]
+    return {"launches": launches, "times": times, "gflops": gflops,
+            "median_gflops": statistics.median(gflops),
+            "executed_flops": executed_flops, "ntasks": ntasks,
+            "backward_error": bwd, "ir": ir}
+
+
+def potrf_class_times(dev: torch.device, mb: int,
+                      dtype: torch.dtype) -> dict:
+    """Device time of one body of each potrf task class at the path's
+    shapes (CUDA events, mean of 3 calls after a warm one), on the bench
+    operand's tiles: the breakdown of a pass, outside any path run."""
+    tile = potrf_tile_maker(TwoDimBlockCyclic(mb, mb, 2 * mb, 2 * mb,
+                                              dtype=dtype), dev)
+    T, C, D = tile(0, 0), tile(1, 0), tile(1, 1)
+    check = potrf.CholeskyCheck()
+    factor, last = potrf._mk_potrf(check), potrf._mk_potrf_last(check)
+    w = torch.zeros((mb, mb), device=dev)
+    W = factor(T, w)["W"]
+    R = potrf._k_trsm(W, C)
+    ms = {"POTRF": time_ms(lambda: factor(T, w), reps=3),
+          "POTRFL": time_ms(lambda: last(D), reps=3),
+          "TRSM": time_ms(lambda: potrf._k_trsm(W, C), reps=3),
+          "SYRK": time_ms(lambda: potrf._k_syrk(D, R), reps=3),
+          "GEMM": time_ms(lambda: potrf._k_gemm(D, R, R), reps=3)}
+    if check.failed():
+        raise AssertionError("potrf class times: a Cholesky factor failed")
+    return ms
+
+
+def phase_potrf(ctx: Context) -> dict:
+    mb, nt = 6144, 16
+    label = "potrf path mb=6144"
+    torch.cuda.reset_peak_memory_stats()
+    res = drive_potrf(ctx, mb, nt, torch.bfloat16, passes=5, label=label)
+    g = res["gflops"]
+    med_s = statistics.median(res["times"])
+    log(f"[{label}] tiled_potrf_mp_gflops: median {res['median_gflops']:.1f}"
+        f" GFLOP/s over {len(g)} timed passes (median-of-{len(g)}), best "
+        f"{max(g):.1f}, band [{min(g):.1f}, {max(g):.1f}]; executed-flop "
+        f"rate {res['executed_flops'] / med_s / 1e9:.1f} GFLOP/s at the "
+        f"median pass; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # where the time goes, estimated: one body of each class timed alone,
+    # times the class's tasks in a pass, against the median pass
+    ms = potrf_class_times(torch.device("cuda", 0), mb, torch.bfloat16)
+    counts = potrf_task_counts(nt)
+    busy = sum(ms[c] * counts[c] for c in counts) * 1e-3
+    log(f"[{label}] device ms per task: "
+        + ", ".join(f"{c} {ms[c]:.2f} x {counts[c]} = "
+                    f"{ms[c] * counts[c]:.0f}" for c in counts)
+        + f"; sum {busy * 1e3:.0f} ms against the median pass "
+        f"{med_s * 1e3:.0f} ms: estimated device idle share "
+        f"{max(0.0, 1.0 - busy / med_s):.3f}")
+    return res["launches"]
+
+
+def phase_gemm(ctx: Context, gen: torch.Generator) -> dict:
+    res = drive_gemm(ctx, 12288, 3, 3, 4, passes=3, gen=gen,
+                     label="GEMM path mb=12288")
+    log(f"[GEMM path mb=12288] best pass {res['best_s'] * 1e3:.1f} ms, "
+        f"{res['gflops']:.1f} GFLOP/s")
+    return res["launches"]
+
+
+def in_context(phase) -> dict:
+    """Run one path in a Context of its own.  Once the Context has ended,
+    what the path held (its tiles die in reference cycles) is freed before
+    the next path starts, so that each path's peak memory is its own."""
+    with Context(nb_cores=4) as ctx:
+        launches = phase(ctx)
+    del ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -733,21 +1012,12 @@ def main() -> int:
                "gram_tile": phase_gram(dev, peaks)}
     torch.cuda.empty_cache()
 
-    per_path = {}
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    with Context(nb_cores=4) as ctx:
-        res = drive_gemm(ctx, 12288, 3, 3, 4, passes=3, gen=gen,
-                         label="GEMM path mb=12288")
-        per_path["GEMM mb=12288"] = res["launches"]
-        log(f"[GEMM path mb=12288] best pass {res['best_s'] * 1e3:.1f} ms, "
-            f"{res['gflops']:.1f} GFLOP/s")
-    torch.cuda.empty_cache()
-    with Context(nb_cores=4) as ctx:
-        per_path["GEMM mb=2048"] = phase_small_tiles(ctx, gen)
-    torch.cuda.empty_cache()
-    with Context(nb_cores=4) as ctx:
-        per_path["QR mb=6144"] = phase_qr(ctx)
-    torch.cuda.empty_cache()
+    per_path = {
+        "GEMM mb=12288": in_context(lambda ctx: phase_gemm(ctx, gen)),
+        "GEMM mb=2048": in_context(lambda ctx: phase_small_tiles(ctx, gen)),
+        "QR mb=6144": in_context(phase_qr),
+        "potrf mb=6144": in_context(phase_potrf)}
 
     for path_name, launches in per_path.items():
         log(f"launches on path {path_name}: {launches}")

@@ -11,12 +11,15 @@ sources; it is bound through a plain C interface with ``ctypes``.
 
 Replaces ``parsec_tpu/apps/pallas_kernels.py::pallas_gemm_tile``.
 Source: ``parsec_tpu_torch/csrc/gemm_tile.cu``, whose header holds the
-design, its bound and what it leaves.  Types (bf16, bf16, f32) — every
-path's call — and (f32, f32, f32); f32 accumulation; any (m, n, k); ``O``
-is a new tensor that never aliases ``C``.  ``gemm_route`` picks one of
-three hand-written routes before launch: ``wgmma`` (bf16 wherever TMA
-can describe the operands), ``wmma`` (any other bf16 call) and ``fma``
-(f32, never TF32).
+design, its bound and what it leaves.  Types (bf16, bf16, f32) — the GEMM
+and QR paths' calls — and (f32, f32, f32); with ``trans_b`` (B given as
+(n, k), ``O = C + alpha * A @ B^T``: the Cholesky updates) (bf16, bf16,
+bf16) — the potrf path's calls, C read and O written in bf16 — and (f32,
+f32, f32).  f32 accumulation seeded from C, one rounding to C's type;
+any (m, n, k); ``O`` is a new tensor that never aliases ``C``.
+``gemm_route`` picks one of three hand-written routes before launch:
+``wgmma`` (bf16 wherever TMA can describe the operands), ``wmma`` (any
+other bf16 call) and ``fma`` (f32, never TF32).
 
 ``gram_tile`` — the f32 Gram matrix ``G = X^T X``
 -------------------------------------------------
@@ -178,8 +181,8 @@ def _load() -> ctypes.CDLL:
                 fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                ctypes.c_void_p, ctypes.c_void_p,
                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_float, ctypes.c_int,
-                               ctypes.c_void_p]
+                               ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_void_p]
                 fn.restype = ctypes.c_int
             fn = lib.parsec_gram_tile_f32
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
@@ -191,33 +194,54 @@ def _load() -> ctypes.CDLL:
         return _lib
 
 
+def check_f32_matmul(what: str) -> None:
+    """Refuse to build ``what`` with TF32 on: its f32 products must be
+    true f32 (the reference's HIGHEST, or its f32 run on the CPU)."""
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError(
+            f"{what} needs true f32 products: switch TF32 off "
+            "(torch.backends.cuda.matmul.allow_tf32 = False, "
+            "torch.set_float32_matmul_precision('highest'))")
+
+
 def gemm_tile_reference(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
-                        alpha: float = 1.0) -> torch.Tensor:
-    """Plain version of the tile kernel: ``C + alpha * (A @ B)`` with the
-    product taken in f32.  TF32 is switched off here (and stays off):
-    the reference's f32 products are full f32."""
+                        alpha: float = 1.0,
+                        trans_b: bool = False) -> torch.Tensor:
+    """Plain version of the tile kernel: ``C + alpha * (A @ B)`` (``A @
+    B^T`` with ``trans_b``) with the product and the sum taken in f32 and
+    rounded once to C's type, as the reference's blocked kernel seeds its
+    f32 accumulator from C and casts at the end.  TF32 is switched off
+    here (and stays off): the reference's f32 products are full f32."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    return C + alpha * (A.float() @ B.float()).to(C.dtype)
+    Bm = B.mT if trans_b else B
+    return (C.float() + alpha * (A.float() @ Bm.float())).to(C.dtype)
 
 
-_TYPES = {(torch.bfloat16, torch.bfloat16, torch.float32),
-          (torch.float32, torch.float32, torch.float32)}
+#: (A, B, C, trans_b) types the kernel takes
+_TYPES = {(torch.bfloat16, torch.bfloat16, torch.float32, False),
+          (torch.float32, torch.float32, torch.float32, False),
+          (torch.bfloat16, torch.bfloat16, torch.bfloat16, True),
+          (torch.float32, torch.float32, torch.float32, True)}
 
 
 def gemm_route(m: int, n: int, k: int, dtype: torch.dtype, a_ptr: int,
-               b_ptr: int, c_ptr: int) -> str:
-    """The route ``gemm_tile`` takes for A (m, k) and B (k, n) of
-    ``dtype`` and an f32 C at the given addresses: ``"wgmma"`` where TMA
-    can describe the bf16 operands (rows of a whole number of 16 bytes,
-    16-byte aligned bases, k > 0) and C is 8-byte aligned for the
-    epilogue's paired loads, ``"wmma"`` for any other bf16 call, ``"fma"``
-    for f32."""
+               b_ptr: int, c_ptr: int, trans_b: bool = False,
+               c_dtype: torch.dtype = torch.float32) -> str:
+    """The route ``gemm_tile`` takes for A (m, k) and B (k, n) — (n, k)
+    with ``trans_b`` — of ``dtype`` and a C of ``c_dtype`` at the given
+    addresses: ``"wgmma"`` where TMA can describe the bf16 operands (rows
+    of a whole number of 16 bytes, 16-byte aligned bases, k > 0) and the
+    epilogue can pair C's columns (n even, C aligned to a pair of its
+    elements), ``"wmma"`` for any other bf16 call, ``"fma"`` for f32."""
     if dtype == torch.float32:
         return "fma"
     if dtype != torch.bfloat16:
         raise TypeError(f"gemm_route: no route for {dtype}")
-    tma = (k > 0 and k % 8 == 0 and n % 8 == 0 and a_ptr % 16 == 0
-           and b_ptr % 16 == 0 and c_ptr % 8 == 0)
+    pair = 2 * (2 if c_dtype == torch.bfloat16 else 4)
+    b_rows = n % 2 == 0 if trans_b else n % 8 == 0   # k % 8 covers (n, k)
+    tma = (k > 0 and k % 8 == 0 and b_rows and a_ptr % 16 == 0
+           and b_ptr % 16 == 0 and c_ptr % pair == 0)
     return "wgmma" if tma else "wmma"
 
 
@@ -228,37 +252,42 @@ _GEMM_ENTRIES = {"wgmma": "parsec_gemm_tile_bf16_wgmma",
 
 
 def gemm_tile(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
-              alpha: float = 1.0) -> torch.Tensor:
-    """``C + alpha * A @ B`` as a new tensor.  CPU tensors take the plain
+              alpha: float = 1.0, trans_b: bool = False) -> torch.Tensor:
+    """``C + alpha * A @ B`` as a new tensor; with ``trans_b``, B is
+    (n, k) and the product is ``A @ B^T``.  CPU tensors take the plain
     version; CUDA tensors launch the kernel on the current stream or
     raise."""
     devs = {t.device.type for t in (A, B, C)}
     if devs == {"cpu"}:
-        return gemm_tile_reference(A, B, C, alpha)
+        return gemm_tile_reference(A, B, C, alpha, trans_b)
     if devs != {"cuda"} or not (A.device == B.device == C.device):
         raise ValueError("gemm_tile: A, B and C must lie on one device, "
                          f"got {A.device}, {B.device}, {C.device}")
     if A.dim() != 2 or B.dim() != 2 or C.dim() != 2:
         raise ValueError("gemm_tile: A, B and C must be matrices")
     m, k = A.shape
-    k2, n = B.shape
+    n, k2 = B.shape if trans_b else B.shape[::-1]
     if k2 != k or tuple(C.shape) != (m, n):
         raise ValueError(f"gemm_tile: shapes do not agree: A {tuple(A.shape)}"
-                         f", B {tuple(B.shape)}, C {tuple(C.shape)}")
-    if (A.dtype, B.dtype, C.dtype) not in _TYPES:
+                         f", B {tuple(B.shape)}{'^T' if trans_b else ''}, "
+                         f"C {tuple(C.shape)}")
+    if (A.dtype, B.dtype, C.dtype, bool(trans_b)) not in _TYPES:
         raise TypeError("gemm_tile: supported (A, B, C) dtypes are "
-                        "(bf16, bf16, f32) and (f32, f32, f32), got "
-                        f"({A.dtype}, {B.dtype}, {C.dtype})")
+                        "(bf16, bf16, f32) and (f32, f32, f32), and with "
+                        "trans_b (bf16, bf16, bf16) and (f32, f32, f32); got "
+                        f"({A.dtype}, {B.dtype}, {C.dtype}), trans_b="
+                        f"{bool(trans_b)}")
     if not (A.is_contiguous() and B.is_contiguous() and C.is_contiguous()):
         raise ValueError("gemm_tile: A, B and C must be contiguous")
     O = torch.empty_like(C, memory_format=torch.contiguous_format)
     if m == 0 or n == 0:
         return O        # empty output: nothing to launch, nothing counted
     route = gemm_route(m, n, k, A.dtype, A.data_ptr(), B.data_ptr(),
-                       C.data_ptr())
+                       C.data_ptr(), trans_b, C.dtype)
     launch = getattr(_load(), _GEMM_ENTRIES[route])
     err = launch(A.data_ptr(), B.data_ptr(), C.data_ptr(), O.data_ptr(), m,
-                 n, k, float(alpha), A.device.index,
+                 n, k, float(alpha), int(bool(trans_b)),
+                 int(C.dtype == torch.bfloat16), A.device.index,
                  torch.cuda.current_stream(A.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gemm_tile: {route} kernel launch failed with "

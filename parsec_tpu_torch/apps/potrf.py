@@ -1,22 +1,65 @@
-"""Pieces of the tiled Cholesky driver that other apps already need.
+"""Tiled Cholesky factorization (dpotrf, lower): the north-star app.
 
-Only :func:`tri_inv` is here so far, the lower-triangular inverse of the
-JAX package's ``parsec_tpu/apps/potrf.py`` that the QR panel construction
-(apps/qr.py) uses; the POTRF/TRSM/SYRK/GEMM task classes come with the
-potrf slice.
+The port of ``parsec_tpu/apps/potrf.py``: the DPLASMA-style dpotrf_L
+dataflow
 
-The inverse is pure matrix products, as in the reference, whose design
-notes give the reason: a triangular solve runs far below the matmul rate
-on an accelerator.  Every product is a float32 ``torch.matmul`` with TF32
-off wherever the reference passes ``precision=HIGHEST`` (the QR driver
-checks that TF32 is off when it builds a taskpool).
+    POTRF(k)    : L[k,k]  = chol(A[k,k]);  W[k] = L[k,k]^-1   (k < NT-1)
+    POTRFL      : L[NT-1,NT-1] = chol(A[NT-1,NT-1])  (no panel below it)
+    TRSM(m,k)   : A[m,k]  = A[m,k] @ W[k]^T                  (m > k)
+    SYRK(m,k)   : A[m,m] -= A[m,k] @ A[m,k]^T                (k < m)
+    GEMM(m,n,k) : A[m,n] -= A[m,k] @ A[n,k]^T                (m > n > k)
+
+with the reference's five task classes, flows, priorities (POTRF > TRSM >
+SYRK > GEMM at equal k), f32 ``"w"`` arena and executed-flop weights.
+POTRF emits the tile inverse W (``tri_inv``: matrix products only, since a
+triangular solve runs far below the matmul rate on an accelerator), so
+each TRSM is one product against W.
+
+Tiles are f32, or bf16 storage (the bench's mixed-precision mode): the
+Cholesky runs on the f32 upcast, W always stays f32, products accumulate
+in f32 and results round once to the tile's type.
+
+Kernels and precision on the card:
+  * SYRK and GEMM run the transposed-B variant of the hand-written GEMM
+    tile kernel, ``gemm_tile(L, R, C, -1.0, trans_b=True)`` (K1; bf16
+    tiles read and written in bf16 on its ``wgmma`` route, f32 tiles on
+    its ``fma`` route);
+  * TRSM is one f32 product in the card's BLAS (``C.float() @ W^T``), as
+    the reference leaves its mixed bf16 x f32 product to XLA outside any
+    Pallas kernel; ``potrf_taskpool`` refuses to build while TF32 is on, so
+    every f32 product is a full f32 product;
+  * the Cholesky goes to the card's solver library through
+    ``torch.linalg.cholesky_ex``.
+
+Two differences from the reference's bodies are deliberate:
+  * the device POTRF factors the symmetrized tile (T + T^T)/2, as
+    ``jnp.linalg.cholesky`` does by default (``symmetrize_input=True``);
+    the CPU bodies read the lower triangle only, as numpy's Cholesky
+    does.  The two differ on a diagonal tile that is not symmetric;
+  * where the reference's Cholesky returns NaNs for a tile that is not
+    positive definite, ``cholesky_ex`` reports it in ``info`` without
+    synchronising the host: each POTRF folds ``info != 0`` and a
+    non-finite factor into the pool's device flag
+    (``tp.cholesky_check``), which the caller reads once the pool has
+    run.  The CPU bodies raise, as numpy does.
+
+Single rank, and one launch per task: the chain-fusion properties of the
+reference (``fuse_chain``/``coaffinity``) are not set, as chain fusion is
+not ported, nor are ``recovery_collections`` (recovery is not ported).
 """
 
 from __future__ import annotations
 
 import math
+import threading
+from typing import Dict, Optional
 
 import torch
+
+from parsec_tpu_torch.apps.cuda_kernels import check_f32_matmul, gemm_tile
+from parsec_tpu_torch.core.taskpool import ParameterizedTaskpool
+from parsec_tpu_torch.data.matrix import TiledMatrix
+from parsec_tpu_torch.dsl.ptg.api import DATA, IN, NEW, OUT, PTG, Range, TASK
 
 #: recursive-inversion leaf: below this order the Newton iteration runs
 #: directly (log2(leaf) + 1 products of leaf x leaf)
@@ -47,3 +90,228 @@ def tri_inv(L: torch.Tensor) -> torch.Tensor:
     X21 = -(X22 @ (L[h:, :h] @ X11))
     top = torch.cat([X11, L.new_zeros((h, n - h))], dim=1)
     return torch.cat([top, torch.cat([X21, X22], dim=1)], dim=0)
+
+
+class CholeskyCheck:
+    """Failed Cholesky factors of one taskpool, recorded on the device.
+
+    ``fold`` ORs a boolean scalar into this pool's flag on the scalar's
+    device, on the current stream, so no task body waits for the host.
+    ``failed`` reads every flag, a host synchronisation: call it after the
+    pool has run, outside any timed window."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._flags: Dict[torch.device, torch.Tensor] = {}
+
+    def fold(self, bad: torch.Tensor) -> None:
+        with self._lock:
+            flag = self._flags.get(bad.device)
+            if flag is None:
+                self._flags[bad.device] = bad.clone()
+            else:
+                flag |= bad
+
+    def failed(self) -> bool:
+        with self._lock:
+            flags = list(self._flags.values())
+        return any(bool(f) for f in flags)
+
+
+def _cholesky(T: torch.Tensor, check: CholeskyCheck) -> torch.Tensor:
+    """The f32 Cholesky factor of the symmetrized tile, as
+    ``jnp.linalg.cholesky`` computes it; a failure goes to ``check``."""
+    Tf = T.float()
+    L, info = torch.linalg.cholesky_ex((Tf + Tf.mT) / 2)
+    check.fold((info != 0) | ~torch.isfinite(L).all())
+    return L
+
+
+def _mk_potrf(check: CholeskyCheck):
+    def fn(T, W):
+        # factor in f32 even under bf16 tile storage; the inverse W always
+        # stays f32: it multiplies every panel tile
+        L = _cholesky(T, check)
+        return {"T": L.to(T.dtype), "W": tri_inv(L)}
+    return fn
+
+
+def _mk_potrf_last(check: CholeskyCheck):
+    # the last diagonal tile has no TRSM consumers: no inverse
+    def fn(T):
+        return _cholesky(T, check).to(T.dtype)
+    return fn
+
+
+def _k_trsm(W, C):
+    # C <- C @ L^-T == C @ W^T (W = L^-1 from POTRF): one f32 product
+    return (C.float() @ W.float().mT).to(C.dtype)
+
+
+def _k_syrk(T, R):
+    return gemm_tile(R, R, T, -1.0, trans_b=True)
+
+
+def _k_gemm(C, L, R):
+    return gemm_tile(L, R, C, -1.0, trans_b=True)
+
+
+def _cpu_potrf(T, W):
+    L = torch.linalg.cholesky(T.float())
+    eye = torch.eye(L.shape[0], dtype=L.dtype)
+    return {"T": L.to(T.dtype),
+            "W": torch.linalg.solve_triangular(L, eye, upper=False)}
+
+
+def _cpu_potrf_last(T):
+    return torch.linalg.cholesky(T.float()).to(T.dtype)
+
+
+def _cpu_trsm(W, C):
+    return (C.float() @ W.float().T).to(C.dtype)
+
+
+def _cpu_syrk(T, R):
+    r = R.float()
+    return (T.float() - r @ r.T).to(T.dtype)
+
+
+def _cpu_gemm(C, L, R):
+    return (C.float() - L.float() @ R.float().T).to(C.dtype)
+
+
+def potrf_taskpool(A: TiledMatrix, device: str = "cuda",
+                   precision: Optional[str] = None) -> ParameterizedTaskpool:
+    """Factor the lower triangle of A in place: A = L @ L^T.  Requires a
+    square tile grid evenly dividing A.
+
+    ``device``: "cuda"/"gpu" gives every task class its device body ahead
+    of the CPU body; anything else leaves the CPU bodies only.
+    ``precision``: None or "highest" — with TF32 refused, every f32
+    product is a full f32 product, which is what both of the reference's
+    precisions give in its f32 run.  The pool's ``cholesky_check`` records
+    failed device factors."""
+    if A.mt != A.nt:
+        raise ValueError("potrf needs a square tile grid")
+    if A.lm % A.mb or A.ln % A.nb:
+        raise ValueError("potrf tiles must divide the matrix evenly")
+    if precision not in (None, "highest"):
+        raise ValueError(f"potrf: precision {precision!r}: only full f32 "
+                         "products (None or 'highest') are ported")
+    check_f32_matmul("the tiled Cholesky")
+    NT = A.mt
+    mb = A.mb
+    use_device = device in ("cuda", "gpu")
+    check = CholeskyCheck()
+
+    def bodies(tb, kernel, cpu_fn):
+        if use_device:
+            tb.body(kernel, device=device)
+        tb.body(cpu_fn)
+        return tb
+
+    p = PTG("potrf", NT=NT)
+    # the panel inverse is always f32, even when tiles store bf16
+    p.arena("w", (mb, mb), dtype=torch.float32)
+
+    tb = p.task("POTRF", k=Range(0, NT - 2)) \
+        .affinity(lambda k, A=A: A(k, k)) \
+        .priority(lambda k, NT=NT: 3 * NT - 3 * k + 3) \
+        .flow("T", "RW",
+              IN(DATA(lambda k, A=A: A(k, k)), when=lambda k: k == 0),
+              IN(TASK("SYRK", "T", lambda k: dict(k=k - 1, m=k)),
+                 when=lambda k: k > 0),
+              OUT(DATA(lambda k, A=A: A(k, k)))) \
+        .flow("W", "RW",
+              IN(NEW("w")),
+              OUT(TASK("TRSM", "W",
+                       lambda k, NT=NT: [dict(m=m, k=k)
+                                         for m in range(k + 1, NT)])))
+    bodies(tb, _mk_potrf(check), _cpu_potrf)
+
+    # the final diagonal tile: no panel below it, so no inverse is needed
+    tb = p.task("POTRFL") \
+        .affinity(lambda A=A, NT=NT: A(NT - 1, NT - 1)) \
+        .priority(lambda NT=NT: 6) \
+        .flow("T", "RW",
+              IN(DATA(lambda A=A, NT=NT: A(NT - 1, NT - 1)),
+                 when=lambda NT=NT: NT == 1),
+              IN(TASK("SYRK", "T", lambda NT=NT: dict(k=NT - 2, m=NT - 1)),
+                 when=lambda NT=NT: NT > 1),
+              OUT(DATA(lambda A=A, NT=NT: A(NT - 1, NT - 1))))
+    bodies(tb, _mk_potrf_last(check), _cpu_potrf_last)
+
+    tb = p.task("TRSM", k=Range(0, NT - 2),
+                m=Range(lambda k: k + 1, NT - 1)) \
+        .affinity(lambda m, k, A=A: A(m, k)) \
+        .priority(lambda k, NT=NT: 3 * NT - 3 * k + 2) \
+        .flow("W", "READ", IN(TASK("POTRF", "W", lambda k: dict(k=k)))) \
+        .flow("C", "RW",
+              IN(DATA(lambda m, k, A=A: A(m, k)), when=lambda k: k == 0),
+              IN(TASK("GEMM", "C", lambda m, k: dict(m=m, n=k, k=k - 1)),
+                 when=lambda k: k > 0),
+              OUT(TASK("SYRK", "R", lambda m, k: dict(k=k, m=m))),
+              OUT(TASK("GEMM", "L",
+                       lambda m, k: [dict(m=m, n=n, k=k)
+                                     for n in range(k + 1, m)]),
+                  when=lambda m, k: m > k + 1),
+              OUT(TASK("GEMM", "R",
+                       lambda m, k, NT=NT: [dict(m=m2, n=m, k=k)
+                                            for m2 in range(m + 1, NT)]),
+                  when=lambda m, NT=NT: m < NT - 1),
+              OUT(DATA(lambda m, k, A=A: A(m, k))))
+    bodies(tb, _k_trsm, _cpu_trsm)
+
+    tb = p.task("SYRK", m=Range(1, NT - 1), k=Range(0, lambda m: m - 1)) \
+        .affinity(lambda m, A=A: A(m, m)) \
+        .priority(lambda k, NT=NT: 3 * NT - 3 * k + 1) \
+        .flow("T", "RW",
+              IN(DATA(lambda m, A=A: A(m, m)), when=lambda k: k == 0),
+              IN(TASK("SYRK", "T", lambda m, k: dict(m=m, k=k - 1)),
+                 when=lambda k: k > 0),
+              OUT(TASK("POTRF", "T", lambda m: dict(k=m)),
+                  when=lambda m, k, NT=NT: k == m - 1 and m < NT - 1),
+              OUT(TASK("POTRFL", "T", lambda: dict()),
+                  when=lambda m, k, NT=NT: k == m - 1 and m == NT - 1),
+              OUT(TASK("SYRK", "T", lambda m, k: dict(m=m, k=k + 1)),
+                  when=lambda m, k: k < m - 1)) \
+        .flow("R", "READ", IN(TASK("TRSM", "C", lambda m, k: dict(m=m,
+                                                                  k=k))))
+    bodies(tb, _k_syrk, _cpu_syrk)
+
+    tb = p.task("GEMM", n=Range(1, NT - 2),
+                m=Range(lambda n: n + 1, NT - 1),
+                k=Range(0, lambda n: n - 1)) \
+        .affinity(lambda m, n, A=A: A(m, n)) \
+        .priority(lambda k, NT=NT: 3 * NT - 3 * k) \
+        .flow("C", "RW",
+              IN(DATA(lambda m, n, A=A: A(m, n)), when=lambda k: k == 0),
+              IN(TASK("GEMM", "C", lambda m, n, k: dict(m=m, n=n, k=k - 1)),
+                 when=lambda k: k > 0),
+              OUT(TASK("TRSM", "C", lambda m, n: dict(m=m, k=n)),
+                  when=lambda n, k: k == n - 1),
+              OUT(TASK("GEMM", "C", lambda m, n, k: dict(m=m, n=n, k=k + 1)),
+                  when=lambda n, k: k < n - 1)) \
+        .flow("L", "READ", IN(TASK("TRSM", "C", lambda m, k: dict(m=m,
+                                                                  k=k)))) \
+        .flow("R", "READ", IN(TASK("TRSM", "C", lambda n, k: dict(m=n,
+                                                                  k=k))))
+    bodies(tb, _k_gemm, _cpu_gemm)
+
+    tp = p.build()
+    for name, tc in tp.task_classes.items():
+        # executed-flop weights for device load balancing (TRSM runs as a
+        # full product against W, so it carries 2mb^3, not the mb^3 of a
+        # true triangular solve)
+        tc.properties["flops"] = {"POTRF": mb ** 3,
+                                  "POTRFL": mb ** 3 / 3.0,
+                                  "TRSM": 2.0 * mb ** 3,
+                                  "SYRK": 2.0 * mb ** 3,
+                                  "GEMM": 2.0 * mb ** 3}[name]
+    tp.cholesky_check = check
+    return tp
+
+
+def potrf_flops(n: int) -> float:
+    """Useful FLOPs of an n x n Cholesky (n^3/3)."""
+    return n ** 3 / 3.0

@@ -72,7 +72,8 @@ from __future__ import annotations
 
 import torch
 
-from parsec_tpu_torch.apps.cuda_kernels import Counter, gemm_tile, gram_tile
+from parsec_tpu_torch.apps.cuda_kernels import Counter, \
+    check_f32_matmul, gemm_tile, gram_tile
 from parsec_tpu_torch.apps.potrf import tri_inv
 from parsec_tpu_torch.core.taskpool import ParameterizedTaskpool
 from parsec_tpu_torch.data.matrix import TiledMatrix
@@ -101,17 +102,6 @@ def effective_ib(mb: int) -> int:
     if ib <= 0 or ib >= mb or mb % ib:
         return 0
     return ib
-
-
-def check_f32_matmul() -> None:
-    """Refuse to run the panel construction with TF32 on: its products
-    must be true f32 (the reference's HIGHEST)."""
-    if torch.backends.cuda.matmul.allow_tf32 or \
-            torch.get_float32_matmul_precision() != "highest":
-        raise RuntimeError(
-            "the QR panel construction needs true f32 products: switch "
-            "TF32 off (torch.backends.cuda.matmul.allow_tf32 = False, "
-            "torch.set_float32_matmul_precision('highest'))")
 
 
 def _flag(like: torch.Tensor) -> torch.Tensor:
@@ -364,7 +354,7 @@ def qr_taskpool(A: TiledMatrix, device: str = "cuda") -> ParameterizedTaskpool:
         raise NotImplementedError(
             "multi-rank QR (the routed RSTORE/CSTORE classes) is not "
             "ported yet")
-    check_f32_matmul()
+    check_f32_matmul("the QR panel construction")
     NT = A.mt
     mb = A.mb
     use_device = device in ("cuda", "gpu")

@@ -28,7 +28,7 @@ from typing import Callable, List
 import numpy as np
 import torch
 
-from parsec_tpu_torch.apps.qr import check_f32_matmul
+from parsec_tpu_torch.apps.cuda_kernels import check_f32_matmul
 
 
 def newest_payload(A, m, n) -> torch.Tensor:
@@ -100,7 +100,7 @@ def ls_refine(A, orig_tile: Callable[[int, int], torch.Tensor],
     refinement rounds.  Returns the per-iterate relative error history
     ||x_k - x_true||_2 / ||x_true||_2 (entry 0 = the direct CSNE solve).
     Vectors live on the device of ``orig_tile``'s tiles."""
-    check_f32_matmul()
+    check_f32_matmul("the least-squares ladder")
     NT, mb = A.mt, A.mb
     dev = orig_tile(0, 0).device
     rng = np.random.default_rng(seed)

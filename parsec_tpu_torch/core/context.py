@@ -53,9 +53,9 @@ params.register("termdet_batch", 64,
                 "1 = a lock round-trip per task")
 params.register("runtime_gc_freeze", 1,
                 "freeze the already-imported object graph out of cyclic "
-                "GC's full-collection scans at first Context bring-up "
-                "(gc.freeze, the CPython production idiom).  Once per "
-                "process; cycles allocated BEFORE bring-up are never "
+                "GC's full-collection scans just before the first Context "
+                "is made (gc.freeze, the CPython production idiom).  Once "
+                "per process; cycles allocated BEFORE that are never "
                 "reclaimed afterwards.  0 = leave the collector alone")
 
 #: optional planes of the JAX package this port does not carry yet:
@@ -153,13 +153,26 @@ class Context:
     there is none; "cpu" attaches one CPU-backed device module (tests).
     None reads the MCA param ``device`` (default "cuda")."""
 
+    def __new__(cls, nb_cores: Optional[int] = None,
+                scheduler: Optional[str] = None,
+                rank: int = 0, nranks: int = 1,
+                argv: Optional[List[str]] = None,
+                device: Optional[str] = None):
+        if argv is not None:
+            params.parse_cmdline(argv)
+        # freeze before this object exists: a frozen Context (and what it
+        # is given later: devices, taskpools, their tiles) would never be
+        # reclaimed, since the collector takes the permanent generation's
+        # references as live
+        if int(params.get("runtime_gc_freeze", 1)):
+            _freeze_import_graph()
+        return super().__new__(cls)
+
     def __init__(self, nb_cores: Optional[int] = None,
                  scheduler: Optional[str] = None,
                  rank: int = 0, nranks: int = 1,
                  argv: Optional[List[str]] = None,
                  device: Optional[str] = None):
-        if argv is not None:
-            params.parse_cmdline(argv)
         _check_unported_planes()
         if nranks != 1:
             raise NotImplementedError(
@@ -187,9 +200,6 @@ class Context:
         from parsec_tpu_torch.devices import init_devices
         self.device_registry = init_devices(self, device)
         self.devices = self.device_registry.devices
-
-        if int(params.get("runtime_gc_freeze", 1)):
-            _freeze_import_graph()
 
         # termination detection: pools default to the MCA-selected module
         # but may name their own via Taskpool.termdet_name

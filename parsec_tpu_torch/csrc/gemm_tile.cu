@@ -1,19 +1,29 @@
-// GEMM-accumulate tile kernel: O = C + alpha * A @ B, for Hopper (sm_90a).
+// GEMM-accumulate tile kernel: O = C + alpha * A @ B, for Hopper (sm_90a),
+// and its transposed-B variant O = C + alpha * A @ B^T.
 //
-// The tile body of the tiled-GEMM task graph (parsec_tpu_torch/apps/gemm.py)
-// and of the QR updates (apps/qr.py: UNMQR, TSMQR).  It replaces the blocked
-// Pallas kernel of the JAX package (parsec_tpu/apps/pallas_kernels.py::
-// pallas_gemm_tile over _blocked_matmul).
+// The tile body of the tiled-GEMM task graph (parsec_tpu_torch/apps/gemm.py),
+// of the QR updates (apps/qr.py: UNMQR, TSMQR) and, as the transposed-B
+// variant, of the Cholesky updates (apps/potrf.py: SYRK, GEMM).  It
+// replaces the blocked Pallas kernel of the JAX package
+// (parsec_tpu/apps/pallas_kernels.py::pallas_gemm_tile over
+// _blocked_matmul), which seeds an f32 accumulator from C and casts to C's
+// type once at the end: so does every route here.
 //
-//   A (M, K), B (K, N): both bf16 or both f32, row-major, contiguous.
-//   C, O (M, N): f32, row-major, contiguous; O does not alias C.
+//   A (M, K): bf16 or f32, row-major, contiguous.
+//   B: the type of A, row-major, contiguous; (K, N), or (N, K) when
+//   trans_b is set (A @ B^T: the Cholesky updates' L @ R^T).
+//   C, O (M, N): row-major, contiguous; O does not alias C.  f32, or bf16
+//   with trans_b and bf16 operands (read and written in bf16, summed in
+//   f32, rounded once to nearest even).
 //   Any M, N, K: the ragged edge is masked inside the kernels.
 //
 // Three routes, chosen by the wrapper (apps/cuda_kernels.py::gemm_route)
 // from the types, the shape and the pointers before launch:
 //
-// wgmma (bf16, every shape TMA can describe: K % 8 == 0, N % 8 == 0, K > 0,
-// A and B 16-byte aligned, C 8-byte aligned) — every call on the paths.
+// wgmma (bf16, every shape TMA can describe: K % 8 == 0, K > 0, B's rows a
+// whole number of 16 bytes (N % 8 == 0, or nothing more with trans_b), N
+// even, A and B 16-byte aligned, C aligned to a pair of its elements) —
+// every call on the paths.
 //   * Persistent blocks, at most one per SM, in clusters of two on
 //     neighbouring SMs, walk the 256 x 256 cluster tiles in a grouped
 //     raster: 8 cluster tile rows at a time, so that the clusters in flight
@@ -30,15 +40,17 @@
 //     registers up (setmaxnreg 40), the consumers take them (232): a
 //     consumer holds its 64 x 256 f32 accumulator in registers.
 //   * Each consumer warpgroup runs wgmma.mma_async m64n256k16 on its 64 rows:
-//     A K-major, B MN-major (the transpose-B flag: B stays row-major as the
-//     caller gives it).  One k-block's products stay in flight while the
-//     next stage is awaited; a stage goes back to the producer as soon as
-//     the products that read it are done.
+//     A K-major; B MN-major (the transpose-B flag: B stays row-major as the
+//     caller gives it), or, given as (N, K), K-major like A: its boxes are
+//     64 rows of N by the 64 K-columns of a stage, read with the same
+//     descriptor as A's and the flag cleared.  One k-block's products stay
+//     in flight while the next stage is awaited; a stage goes back to the
+//     producer as soon as the products that read it are done.
 //   * TMA zero-fills boxes that reach past M, N or K, so the main loop has
 //     no edge branches; the epilogue writes O = C + alpha * acc straight
 //     from the accumulator registers, eight column blocks at a time (all
-//     their float2 loads of C in flight before the first float2 store of
-//     O), rows and columns past the edge masked.
+//     their loads of C, a pair of columns each, in flight before the first
+//     store of O), rows and columns past the edge masked.
 //   * The TMA descriptors are built on the host at every call (the
 //     pointers change), through cuTensorMapEncodeTiled obtained with
 //     cudaGetDriverEntryPoint, so the library needs no -lcuda; they reach
@@ -46,10 +58,11 @@
 //
 // wmma (bf16, the shapes TMA cannot describe): WMMA m16n16k16 with f32
 // accumulators from padded, double-buffered shared tiles filled element by
-// element with the edge masked.
+// element with the edge masked; a B given as (N, K) is staged N-major and
+// read as column-major fragments.
 //
 // fma (f32): plain f32 FMA, never TF32, to keep the reference's f32
-// semantics.
+// semantics; a B given as (N, K) is staged like A.
 //
 // The K loop runs inside a block in every route: it takes the place of the
 // TPU program's sequential K grid axis and its scratch accumulator, since
@@ -58,7 +71,8 @@
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): 2*M*N*K flop
 // against A and B read once in bf16, C read and O written in f32; at the
 // paths' 2048^3, 6144^3 and 12288^3 tiles it is the operations (12288^3:
-// 3.75 ms against 0.54 ms of traffic).
+// 3.75 ms against 0.54 ms of traffic; the Cholesky updates' 6144^3 with a
+// bf16 C: 0.469 ms against 0.090 ms).
 //
 // What the design leaves: A is not multicast (a 2 x 2 cluster sharing it
 // too was slower), one tile's epilogue does not overlap the same
@@ -68,8 +82,10 @@
 // zero C and a transposed copy of V (apps/qr.py), which a beta = 0
 // epilogue and wgmma's transpose-A would spare.
 //
-// C interface (bound with ctypes): each entry launches on `stream` of
-// `device` and returns a cudaError_t as an int (0 = launched).
+// C interface (bound with ctypes): each entry takes the same arguments,
+// trans_b and c_bf16 among them, launches on `stream` of `device` and
+// returns a cudaError_t as an int (0 = launched); a combination its route
+// does not take is cudaErrorInvalidValue, and nothing is launched.
 
 #include <cuda.h>  // CUtensorMap and its enums; no libcuda symbol is linked
 #include <cuda_bf16.h>
@@ -79,6 +95,7 @@
 #include <cstddef>
 #include <cstdint>
 #include <mutex>
+#include <type_traits>
 
 namespace {
 
@@ -223,8 +240,10 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D (64 x N, f32, registers) += A (64 x 16, K-major) @ B (16 x N, MN-major,
-// the transpose-B flag); scale_d == 0 overwrites D instead
+// D (64 x N, f32, registers) += A (64 x 16, K-major) @ B (16 x N: MN-major
+// with the transpose-B flag TnspB = 1, K-major with 0); scale_d == 0
+// overwrites D instead
+template <int TnspB>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a,
                                                 uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -249,7 +268,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n"
+      "}, %128, %129, p, 1, 1, 0, %131;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -267,7 +286,38 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TnspB));
+}
+
+// a pair of C's columns as f32 (8- or 4-byte aligned), and a pair of O's
+// columns from f32 (bf16: rounded to nearest even), streamed past L1
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+
+__device__ __forceinline__ float2 load_pair(const bf16* p) {
+  const uint32_t u = __ldg(reinterpret_cast<const unsigned int*>(p));
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xFFFF0000u));
+}
+
+__device__ __forceinline__ void store_pair(float* p, float x, float y) {
+  __stcs(reinterpret_cast<float2*>(p), make_float2(x, y));
+}
+
+__device__ __forceinline__ void store_pair(bf16* p, float x, float y) {
+  const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16_rn(x));
+  const uint32_t hi = __bfloat16_as_ushort(__float2bfloat16_rn(y));
+  __stcs(reinterpret_cast<unsigned int*>(p), lo | (hi << 16));
+}
+
+// one element of C as f32, and one element of O from f32
+__device__ __forceinline__ float load_one(const float* p) { return *p; }
+__device__ __forceinline__ float load_one(const bf16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_one(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
 // output tile number -> (tile row, tile column) in the grouped raster:
@@ -285,14 +335,15 @@ __device__ __forceinline__ void tile_coords(int tile, int tiles_m,
 
 // the cluster walks (128 kWgCluster) x 256 tiles, block r of it takes rows
 // 128 r.. of each, and the B slab the blocks share is loaded once for all
-// of them: each block multicasts its share of the 64-column boxes into
-// every block of the cluster
+// of them: each block multicasts its share of the 64-column boxes (with
+// TransB: of the boxes of 64 B rows) into every block of the cluster.  CT
+// is C's and O's type.
+template <bool TransB, typename CT>
 __global__ void __launch_bounds__(kWgThreads, 1)
     gemm_tile_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
                            const __grid_constant__ CUtensorMap tmB,
-                           const float* __restrict__ C,
-                           float* __restrict__ O, int M, int N, int K,
-                           float alpha) {
+                           const CT* __restrict__ C, CT* __restrict__ O,
+                           int M, int N, int K, float alpha) {
   constexpr int S = kWgStages;
   constexpr int CL = kWgCluster;
   extern __shared__ uint8_t smem_raw[];
@@ -342,10 +393,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           tma_load_2d(sA + stage * kWgABytes, &tmA, bar, kb * kWgBK, row);
 #pragma unroll
           for (int c = 0; c < kWgBN / 64; ++c)
-            if (c % CL == rank)
+            if (c % CL == rank) {
+              // box c: B's columns (TransB: rows) pn * 256 + 64 c.. of
+              // this stage's K-rows (TransB: K-columns)
+              const int bn = pn * kWgBN + c * 64;
               tma_load_2d_multicast(sB + stage * kWgBBytes + c * kWgBoxBytes,
-                                    &tmB, bar, pn * kWgBN + c * 64,
-                                    kb * kWgBK, (1u << CL) - 1);
+                                    &tmB, bar, TransB ? kb * kWgBK : bn,
+                                    TransB ? bn : kb * kWgBK, (1u << CL) - 1);
+            }
           if (++stage == S) {
             stage = 0;
             phase ^= 1;
@@ -383,15 +438,19 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         // A: this warpgroup's 64 rows of 128 bytes, 8-row groups 1 KB
         // apart, k16 steps 32 bytes along the swizzled row.  B: 64-column
         // boxes kWgBoxBytes apart (leading offset), 8-row groups of K 1 KB
-        // apart (stride offset), k16 steps 16 rows = 2 KB.
+        // apart (stride offset), k16 steps 16 rows = 2 KB; with TransB its
+        // 256 rows of 128 bytes are read as A's are (the boxes of 64 rows
+        // lie end to end).
         const uint32_t a = sA + stage * kWgABytes + wg * 64 * 128;
         const uint32_t b = sB + stage * kWgBBytes;
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kWgBK / 16; ++kk)
-          wgmma_m64n256k16(acc, sw128_desc(a + kk * 32, 16, 1024),
-                           sw128_desc(b + kk * 2048, kWgBoxBytes, 1024),
-                           (kb | kk) != 0);
+          wgmma_m64n256k16<TransB ? 0 : 1>(
+              acc, sw128_desc(a + kk * 32, 16, 1024),
+              TransB ? sw128_desc(b + kk * 32, 16, 1024)
+                     : sw128_desc(b + kk * 2048, kWgBoxBytes, 1024),
+              (kb | kk) != 0);
         wgmma_commit();
         wgmma_wait<1>();  // the previous k-block's products are done
         if (kb > 0 && signals) mbar_arrive_cluster(empty + 8 * prev, warp);
@@ -422,10 +481,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int row = row0 + 8 * h;
-            // N % 8 == 0: both columns of a pair are inside or outside
+            // N even: both columns of a pair are inside or outside
             cv[j][h] = col < N && row < M
-                           ? __ldg(reinterpret_cast<const float2*>(
-                                 C + static_cast<size_t>(row) * N + col))
+                           ? load_pair(C + static_cast<size_t>(row) * N + col)
                            : make_float2(0.0f, 0.0f);
           }
         }
@@ -436,12 +494,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           for (int h = 0; h < 2; ++h) {
             const int row = row0 + 8 * h;
             if (col < N && row < M)
-              __stcs(reinterpret_cast<float2*>(
-                         O + static_cast<size_t>(row) * N + col),
-                     make_float2(
+              store_pair(O + static_cast<size_t>(row) * N + col,
                          fmaf(alpha, acc[4 * (j0 + j) + 2 * h], cv[j][h].x),
                          fmaf(alpha, acc[4 * (j0 + j) + 2 * h + 1],
-                              cv[j][h].y)));
+                              cv[j][h].y));
           }
         }
       }
@@ -462,50 +518,62 @@ constexpr int kThreads = 256;         // 8 warps
 constexpr int kALd = kBK + 8;         // padded smem row (bf16 elements)
 constexpr int kBLd = kBN + 8;
 
-// Fill one stage: the BM x BK slab of A and the BK x BN slab of B starting
-// at k0, element by element with the edge masked to zero (the rows of these
-// shapes need not be 16-byte aligned).
-__device__ __forceinline__ void load_stage(bf16 (*As)[kALd], bf16 (*Bs)[kBLd],
-                                           const bf16* __restrict__ A,
-                                           const bf16* __restrict__ B, int M,
-                                           int N, int K, int m0, int n0,
-                                           int k0, int tid) {
+// the rows x cols (k0, c0 the first) slab of a row-major (R, Cn) matrix
+// into S, element by element with the edge masked to zero (the rows of
+// these shapes need not be 16-byte aligned)
+template <int Rows, int Cols, int Ld>
+__device__ __forceinline__ void load_slab(bf16 (*S)[Ld],
+                                          const bf16* __restrict__ X, int R,
+                                          int Cn, int r0, int c0, int tid) {
   const bf16 zero = __float2bfloat16(0.0f);
 #pragma unroll
-  for (int i = 0; i < (kBM * kBK / 8) / kThreads; ++i) {
+  for (int i = 0; i < (Rows * Cols / 8) / kThreads; ++i) {
     const int c = tid + i * kThreads;
-    const int r = c / (kBK / 8);
-    const int col = (c % (kBK / 8)) * 8;
-    const int gr = m0 + r;
-    const int gc = k0 + col;
+    const int r = c / (Cols / 8);
+    const int col = (c % (Cols / 8)) * 8;
+    const int gr = r0 + r;
+    const int gc = c0 + col;
 #pragma unroll
     for (int e = 0; e < 8; ++e)
-      As[r][col + e] = (gr < M && gc + e < K)
-                           ? A[static_cast<size_t>(gr) * K + gc + e]
-                           : zero;
-  }
-#pragma unroll
-  for (int i = 0; i < (kBK * kBN / 8) / kThreads; ++i) {
-    const int c = tid + i * kThreads;
-    const int r = c / (kBN / 8);
-    const int col = (c % (kBN / 8)) * 8;
-    const int gr = k0 + r;
-    const int gc = n0 + col;
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      Bs[r][col + e] = (gr < K && gc + e < N)
-                           ? B[static_cast<size_t>(gr) * N + gc + e]
-                           : zero;
+      S[r][col + e] = (gr < R && gc + e < Cn)
+                          ? X[static_cast<size_t>(gr) * Cn + gc + e]
+                          : zero;
   }
 }
 
+// B's stage in shared memory: the BK x BN slab of a (K, N) B, or with
+// TransB the BN x BK slab of an (N, K) B, N-major like A's
+template <bool TransB>
+struct WmmaB {
+  static constexpr int kRows = TransB ? kBN : kBK;
+  static constexpr int kLd = TransB ? kALd : kBLd;
+};
+
+// Fill one stage: the BM x BK slab of A and B's slab starting at k0.
+template <bool TransB>
+__device__ __forceinline__ void load_stage(
+    bf16 (*As)[kALd], bf16 (*Bs)[WmmaB<TransB>::kLd],
+    const bf16* __restrict__ A, const bf16* __restrict__ B, int M, int N,
+    int K, int m0, int n0, int k0, int tid) {
+  load_slab<kBM, kBK, kALd>(As, A, M, K, m0, k0, tid);
+  if constexpr (TransB)
+    load_slab<kBN, kBK, kALd>(Bs, B, N, K, n0, k0, tid);
+  else
+    load_slab<kBK, kBN, kBLd>(Bs, B, K, N, k0, n0, tid);
+}
+
+template <bool TransB, typename CT>
 __global__ void __launch_bounds__(kThreads)
     gemm_tile_bf16_kernel(const bf16* __restrict__ A,
                           const bf16* __restrict__ B,
-                          const float* __restrict__ C, float* __restrict__ O,
+                          const CT* __restrict__ C, CT* __restrict__ O,
                           int M, int N, int K, float alpha) {
+  using SB = WmmaB<TransB>;
+  // a B^T slab's rows are N-indexed: column-major fragments of B
+  using BLayout = typename std::conditional<TransB, wmma::col_major,
+                                            wmma::row_major>::type;
   __shared__ __align__(128) bf16 As[2][kBM][kALd];
-  __shared__ __align__(128) bf16 Bs[2][kBK][kBLd];
+  __shared__ __align__(128) bf16 Bs[2][SB::kRows][SB::kLd];
   __shared__ __align__(128) float Cs[kThreads / 32][16 * 16];
 
   const int tid = threadIdx.x;
@@ -523,28 +591,35 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kWN / 16; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
   const int nk = (K + kBK - 1) / kBK;
-  if (nk > 0) load_stage(As[0], Bs[0], A, B, M, N, K, m0, n0, 0, tid);
+  if (nk > 0)
+    load_stage<TransB>(As[0], Bs[0], A, B, M, N, K, m0, n0, 0, tid);
   for (int kt = 0; kt < nk; ++kt) {
     const int cur = kt & 1;
     if (kt + 1 < nk)
       // the other stage was last read before the previous iteration's
       // closing barrier, so it may be refilled now
-      load_stage(As[cur ^ 1], Bs[cur ^ 1], A, B, M, N, K, m0, n0,
-                 (kt + 1) * kBK, tid);
+      load_stage<TransB>(As[cur ^ 1], Bs[cur ^ 1], A, B, M, N, K, m0, n0,
+                         (kt + 1) * kBK, tid);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
           af[kWM / 16];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout>
           bfrag[kWN / 16];
 #pragma unroll
       for (int i = 0; i < kWM / 16; ++i)
         wmma::load_matrix_sync(af[i], &As[cur][wm * kWM + i * 16][kk], kALd);
 #pragma unroll
-      for (int j = 0; j < kWN / 16; ++j)
-        wmma::load_matrix_sync(bfrag[j], &Bs[cur][kk][wn * kWN + j * 16],
-                               kBLd);
+      for (int j = 0; j < kWN / 16; ++j) {
+        const int bn = wn * kWN + j * 16;
+        const bf16* bp;
+        if constexpr (TransB)
+          bp = &Bs[cur][bn][kk];
+        else
+          bp = &Bs[cur][kk][bn];
+        wmma::load_matrix_sync(bfrag[j], bp, SB::kLd);
+      }
 #pragma unroll
       for (int i = 0; i < kWM / 16; ++i)
 #pragma unroll
@@ -570,7 +645,7 @@ __global__ void __launch_bounds__(kThreads)
         const int gc = cb + e % 16;
         if (gr < M && gc < N) {
           const size_t idx = static_cast<size_t>(gr) * N + gc;
-          O[idx] = fmaf(alpha, scratch[e], C[idx]);
+          store_one(O + idx, fmaf(alpha, scratch[e], load_one(C + idx)));
         }
       }
       __syncwarp();
@@ -586,6 +661,24 @@ constexpr int kFB = 64;   // block tile (rows and cols)
 constexpr int kFK = 16;   // K step
 constexpr int kFT = 4;    // outputs per thread along each dimension
 
+// the kFB x kFK slab of a row-major (R, K) matrix from row r0, column k0,
+// stored k-major into S, the edge masked to zero
+__device__ __forceinline__ void load_f32_slab(float (*S)[kFB + 4],
+                                              const float* __restrict__ X,
+                                              int R, int K, int r0, int k0,
+                                              int tid) {
+#pragma unroll
+  for (int i = 0; i < (kFB * kFK) / 256; ++i) {
+    const int e = tid + i * 256;
+    const int r = e / kFK;
+    const int c = e % kFK;
+    const int gr = r0 + r;
+    const int gc = k0 + c;
+    S[c][r] = (gr < R && gc < K) ? X[static_cast<size_t>(gr) * K + gc] : 0.0f;
+  }
+}
+
+template <bool TransB>
 __global__ void __launch_bounds__(256)
     gemm_tile_f32_kernel(const float* __restrict__ A,
                          const float* __restrict__ B,
@@ -605,25 +698,20 @@ __global__ void __launch_bounds__(256)
     for (int j = 0; j < kFT; ++j) acc[i][j] = 0.0f;
 
   for (int k0 = 0; k0 < K; k0 += kFK) {
+    load_f32_slab(As, A, M, K, m0, k0, tid);
+    if constexpr (TransB) {
+      load_f32_slab(Bs, B, N, K, n0, k0, tid);   // B (N, K): staged as A
+    } else {
 #pragma unroll
-    for (int i = 0; i < (kFB * kFK) / 256; ++i) {
-      const int e = tid + i * 256;
-      const int r = e / kFK;
-      const int c = e % kFK;
-      const int gr = m0 + r;
-      const int gc = k0 + c;
-      As[c][r] = (gr < M && gc < K) ? A[static_cast<size_t>(gr) * K + gc]
-                                    : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < (kFK * kFB) / 256; ++i) {
-      const int e = tid + i * 256;
-      const int r = e / kFB;
-      const int c = e % kFB;
-      const int gr = k0 + r;
-      const int gc = n0 + c;
-      Bs[r][c] = (gr < K && gc < N) ? B[static_cast<size_t>(gr) * N + gc]
-                                    : 0.0f;
+      for (int i = 0; i < (kFK * kFB) / 256; ++i) {
+        const int e = tid + i * 256;
+        const int r = e / kFB;
+        const int c = e % kFB;
+        const int gr = k0 + r;
+        const int gc = n0 + c;
+        Bs[r][c] = (gr < K && gc < N) ? B[static_cast<size_t>(gr) * N + gc]
+                                      : 0.0f;
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -724,8 +812,9 @@ struct ClusterLaunch {
   ClusterLaunch(const ClusterLaunch&) = delete;  // cfg points into it
 };
 
-// once per device: lift the dynamic shared-memory limit above 48 KB and
-// count the clusters that fit the card at once
+// once per device and kernel variant: lift the dynamic shared-memory limit
+// above 48 KB and count the clusters that fit the card at once
+template <bool TransB, typename CT>
 cudaError_t wgmma_setup(int device, int* clusters) {
   static std::once_flag once[kMaxDevices];
   static cudaError_t err[kMaxDevices];
@@ -733,8 +822,8 @@ cudaError_t wgmma_setup(int device, int* clusters) {
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   std::call_once(once[device], [device] {
     err[device] = cudaFuncSetAttribute(
-        gemm_tile_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kWgSmem);
+        gemm_tile_wgmma_kernel<TransB, CT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
     int sms = 0;
     if (err[device] == cudaSuccess)
       err[device] = cudaDeviceGetAttribute(
@@ -742,7 +831,7 @@ cudaError_t wgmma_setup(int device, int* clusters) {
     if (err[device] != cudaSuccess) return;
     ClusterLaunch probe(sms / kWgCluster * kWgCluster, nullptr);
     err[device] = cudaOccupancyMaxActiveClusters(
-        &count[device], gemm_tile_wgmma_kernel, &probe.cfg);
+        &count[device], gemm_tile_wgmma_kernel<TransB, CT>, &probe.cfg);
     if (err[device] == cudaSuccess && count[device] < 1)
       err[device] = cudaErrorInvalidConfiguration;
   });
@@ -750,67 +839,105 @@ cudaError_t wgmma_setup(int device, int* clusters) {
   return err[device];
 }
 
-}  // namespace
+// whether a pointer to C or O holds a pair of columns aligned for the
+// epilogue's paired loads and stores (8 bytes of f32, 4 of bf16)
+bool pair_aligned(const void* p, int c_bf16) {
+  return (reinterpret_cast<uintptr_t>(p) & (c_bf16 ? 3u : 7u)) == 0;
+}
 
-// the wgmma route
-extern "C" int parsec_gemm_tile_bf16_wgmma(const void* A, const void* B,
-                                           const void* C, void* O, int M,
-                                           int N, int K, float alpha,
-                                           int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (M <= 0 || N <= 0) return 0;
-  if (K <= 0 || K % 8 != 0 || N % 8 != 0 || !aligned16(A) ||
-      !aligned16(B) || (reinterpret_cast<uintptr_t>(C) & 7u) != 0 ||
-      (reinterpret_cast<uintptr_t>(O) & 7u) != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+template <bool TransB, typename CT>
+int wgmma_launch(const void* A, const void* B, const void* C, void* O,
+                 int M, int N, int K, float alpha, int device,
+                 void* stream) {
   int fit = 0;
-  err = wgmma_setup(device, &fit);
+  cudaError_t err = wgmma_setup<TransB, CT>(device, &fit);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap ta, tb;
+  // B (K, N): boxes of 64 K-rows by 64 columns; B (N, K): boxes of 64
+  // rows by the 64 K-columns of a stage, as A's
   if (!bf16_map(&ta, A, M, K, kWgBM, kWgBK) ||
-      !bf16_map(&tb, B, K, N, kWgBK, 64))
+      !(TransB ? bf16_map(&tb, B, N, K, 64, kWgBK)
+               : bf16_map(&tb, B, K, N, kWgBK, 64)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = ((M + kWgBM * kWgCluster - 1) / (kWgBM * kWgCluster)) *
                     ((N + kWgBN - 1) / kWgBN);
   ClusterLaunch launch((tiles < fit ? tiles : fit) * kWgCluster,
                        static_cast<cudaStream_t>(stream));
-  err = cudaLaunchKernelEx(&launch.cfg, gemm_tile_wgmma_kernel, ta, tb,
-                           static_cast<const float*>(C),
-                           static_cast<float*>(O), M, N, K, alpha);
+  err = cudaLaunchKernelEx(&launch.cfg, gemm_tile_wgmma_kernel<TransB, CT>,
+                           ta, tb, static_cast<const CT*>(C),
+                           static_cast<CT*>(O), M, N, K, alpha);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the wmma route
-extern "C" int parsec_gemm_tile_bf16(const void* A, const void* B,
-                                     const void* C, void* O, int M, int N,
-                                     int K, float alpha, int device,
-                                     void* stream) {
+}  // namespace
+
+// the wgmma route: (trans_b, c_bf16) = (0, 0), B (K, N) and an f32 C, or
+// (1, 1), B (N, K) and a bf16 C
+extern "C" int parsec_gemm_tile_bf16_wgmma(const void* A, const void* B,
+                                           const void* C, void* O, int M,
+                                           int N, int K, float alpha,
+                                           int trans_b, int c_bf16,
+                                           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (trans_b != c_bf16) return static_cast<int>(cudaErrorInvalidValue);
+  if (M <= 0 || N <= 0) return 0;
+  // TMA: A's rows and B's (N long, or K long with trans_b) a whole number
+  // of 16 bytes; the epilogue: N even
+  if (K <= 0 || K % 8 != 0 || N % (trans_b ? 2 : 8) != 0 || !aligned16(A) ||
+      !aligned16(B) || !pair_aligned(C, c_bf16) || !pair_aligned(O, c_bf16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return trans_b ? wgmma_launch<true, bf16>(A, B, C, O, M, N, K, alpha,
+                                            device, stream)
+                 : wgmma_launch<false, float>(A, B, C, O, M, N, K, alpha,
+                                              device, stream);
+}
+
+// the wmma route: the same (trans_b, c_bf16) pairs as the wgmma route
+extern "C" int parsec_gemm_tile_bf16(const void* A, const void* B,
+                                     const void* C, void* O, int M, int N,
+                                     int K, float alpha, int trans_b,
+                                     int c_bf16, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (trans_b != c_bf16) return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0 || N <= 0) return 0;
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* a = static_cast<const bf16*>(A);
   const bf16* b = static_cast<const bf16*>(B);
-  const float* c = static_cast<const float*>(C);
-  float* o = static_cast<float*>(O);
-  gemm_tile_bf16_kernel<<<grid, kThreads, 0, s>>>(a, b, c, o, M, N, K, alpha);
+  if (trans_b)
+    gemm_tile_bf16_kernel<true, bf16><<<grid, kThreads, 0, s>>>(
+        a, b, static_cast<const bf16*>(C), static_cast<bf16*>(O), M, N, K,
+        alpha);
+  else
+    gemm_tile_bf16_kernel<false, float><<<grid, kThreads, 0, s>>>(
+        a, b, static_cast<const float*>(C), static_cast<float*>(O), M, N, K,
+        alpha);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the fma route (f32)
+// the fma route (f32): trans_b either way, c_bf16 = 0
 extern "C" int parsec_gemm_tile_f32(const void* A, const void* B,
                                     const void* C, void* O, int M, int N,
-                                    int K, float alpha, int device,
-                                    void* stream) {
+                                    int K, float alpha, int trans_b,
+                                    int c_bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (c_bf16) return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0 || N <= 0) return 0;
   const dim3 grid((N + kFB - 1) / kFB, (M + kFB - 1) / kFB);
-  gemm_tile_f32_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(A), static_cast<const float*>(B),
-      static_cast<const float*>(C), static_cast<float*>(O), M, N, K, alpha);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* a = static_cast<const float*>(A);
+  const float* b = static_cast<const float*>(B);
+  const float* c = static_cast<const float*>(C);
+  float* o = static_cast<float*>(O);
+  if (trans_b)
+    gemm_tile_f32_kernel<true><<<grid, 256, 0, s>>>(a, b, c, o, M, N, K,
+                                                    alpha);
+  else
+    gemm_tile_f32_kernel<false><<<grid, 256, 0, s>>>(a, b, c, o, M, N, K,
+                                                     alpha);
   return static_cast<int>(cudaGetLastError());
 }

@@ -99,6 +99,16 @@ def _nbytes(payload: Any) -> int:
     return int(getattr(payload, "nbytes", 0))
 
 
+def _forget_on(device_ref, key: int, nbytes: int) -> None:
+    """Finalizer of a device copy.  It holds its device weakly: the
+    finalizer registry is a root, and a strong reference would reach the
+    device's context, its taskpools and their matrices, and so keep the
+    very copy it waits on (and every tile of the context) alive."""
+    device = device_ref()
+    if device is not None:
+        device._forget(key, nbytes)
+
+
 class CudaKernel:
     """Device incarnation spec: a functional torch function over flow
     payloads.
@@ -538,7 +548,7 @@ class CudaDevice(Device):
             self._bytes_used += nbytes
             _drop_pin_locked()
             self._mem_lock.notify_all()
-        weakref.finalize(dc, self._forget, key, nbytes)
+        weakref.finalize(dc, _forget_on, weakref.ref(self), key, nbytes)
         self.stats.bytes_in += nbytes
 
     def sync(self, timeout: Optional[float] = None) -> None:
@@ -589,7 +599,7 @@ class CudaDevice(Device):
         with self._mem_lock:
             self._lru[key] = (weakref.ref(dc), nbytes, offset)
             self._bytes_used += nbytes
-        weakref.finalize(dc, self._forget, key, nbytes)
+        weakref.finalize(dc, _forget_on, weakref.ref(self), key, nbytes)
 
     def _forget(self, key: int, nbytes: int) -> None:
         """Finalizer: a device copy died with its (temporary) datum —

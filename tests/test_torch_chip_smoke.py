@@ -103,3 +103,59 @@ def test_bench_operand_defeats_the_ladder_and_the_conditioned_one_not():
 def test_qr_task_counts_at_the_bench_geometry():
     assert _chip_smoke().qr_task_counts(8) == {
         "GEQRT": 8, "UNMQR": 28, "TSQRT": 28, "TSMQR": 140}
+
+
+@pytest.mark.parametrize("dtype,mb,nt", [
+    (torch.bfloat16, 32, 3), (torch.float32, 16, 4), (torch.bfloat16, 16, 1)],
+    ids=["bf16", "f32", "one-tile"])
+def test_potrf_path_rehearsal_on_cpu(dtype, mb, nt):
+    """The potrf path end to end at a tiny size: regenerated lower
+    tiles, per-class incarnation counts, the Cholesky flag, the backward
+    error and the refinement ladder within the limits the card run
+    holds."""
+    chip_smoke = _chip_smoke()
+    from parsec_tpu_torch.core.context import Context
+    with Context(nb_cores=2, device="cpu") as ctx:
+        res = chip_smoke.drive_potrf(ctx, mb, nt, dtype, passes=2,
+                                     label="rehearsal")
+    assert res["ntasks"] == sum(chip_smoke.potrf_task_counts(nt).values())
+    assert res["launches"] == NO_LAUNCHES
+    assert len(res["times"]) == 2
+    assert res["backward_error"] <= chip_smoke.POTRF_BWD_TOL
+    assert res["ir"][-1] <= chip_smoke.POTRF_IR_TOL
+
+
+def test_potrf_task_counts_at_the_bench_geometry():
+    counts = _chip_smoke().potrf_task_counts(16)
+    assert counts == {"POTRF": 15, "POTRFL": 1, "TRSM": 120, "SYRK": 120,
+                      "GEMM": 560}
+    assert sum(counts.values()) == 816
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_potrf_operand_is_the_bench_operand(dtype):
+    """The card's per-tile generator gives bench.py's potrf operand bit for
+    bit (``_tile_generator``, seeded by the tile's index in
+    ``local_tiles()``, n on the diagonal tiles), in either storage type."""
+    import ml_dtypes
+    import numpy as np
+    import types
+    sys.path.insert(0, str(ROOT))
+    try:
+        import bench
+    finally:
+        sys.path.remove(str(ROOT))
+    chip_smoke = _chip_smoke()
+    from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
+    mb, nt = 48, 3
+    A = TwoDimBlockCyclic(mb, mb, mb * nt, mb * nt, dtype=dtype)
+    tile = chip_smoke.potrf_tile_maker(A, torch.device("cpu"))
+    np_dtype = ml_dtypes.bfloat16 if dtype == "bfloat16" else np.float32
+    gen = bench._tile_generator(types.SimpleNamespace(mb=mb, nb=mb,
+                                                      dtype=np_dtype))
+    for i, (m, k) in enumerate(A.local_tiles()):
+        want = np.asarray(gen(float(i), float(A.lm) if m == k else 0.0))
+        got = tile(m, k)
+        assert got.dtype == A.dtype
+        assert np.array_equal(got.float().numpy(), want.astype(np.float32)), \
+            (m, k)

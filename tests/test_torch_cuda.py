@@ -9,17 +9,20 @@ Tolerance, as max|kernel - plain| / max(1, max|plain|): 1e-4 with bf16
 inputs and 1e-5 with f32 inputs (products are exact in f32 in both cases;
 only the order of the f32 summation differs).
 
+K1's transposed-B variant writes a bf16 C: kernel and plain version each
+round an f32 sum once, so each element may also land one bf16 ulp apart.
+
 The tiled GEMM also runs here through the runtime under a 1 MiB device
 copy-cache budget, so that tiles are evicted and written back to the host
-between launches on the card; the tiled QR runs on the card against the
-same run on the CPU-backed device module.
+between launches on the card; the tiled QR and the tiled Cholesky run on
+the card against the same runs on the CPU-backed device module.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from parsec_tpu_torch.apps import cuda_kernels, qr
+from parsec_tpu_torch.apps import cuda_kernels, potrf, qr
 from parsec_tpu_torch.apps.cuda_kernels import gemm_tile, \
     gemm_tile_reference, gram_tile, gram_tile_reference
 from parsec_tpu_torch.apps.gemm import gemm_taskpool
@@ -276,3 +279,96 @@ def test_gram_tile_refuses_a_short_scratch(card):
                                     stream) == 0
     torch.cuda.synchronize()
     assert not G.any()
+
+
+def _err(got, ref):
+    """max|got - ref| / max(1, max|ref|), each element's difference less
+    one bf16 ulp of ref when the output is bf16."""
+    d = (got.float() - ref.float()).abs()
+    if ref.dtype == torch.bfloat16:
+        _, e = torch.frexp(ref.float())
+        d = (d - torch.ldexp(torch.ones_like(d), e - 8)).clamp(min=0.0)
+    return (d.max() / ref.float().abs().max().clamp(min=1.0)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,offset,route", [
+    ((512, 512, 512), torch.bfloat16, 0, "wgmma"),
+    ((1000, 520, 778), torch.bfloat16, 0, "wgmma"),   # ragged, n % 8 != 0
+    ((1000, 8, 776), torch.bfloat16, 0, "wgmma"),     # K below one stage
+    ((256, 1024, 136), torch.bfloat16, 0, "wgmma"),   # non-square: a wrong
+    ((136, 1024, 256), torch.bfloat16, 0, "wgmma"),   # B major-ness fails
+    ((40, 520, 6), torch.bfloat16, 0, "wgmma"),       # one pair of columns
+    ((1000, 520, 777), torch.bfloat16, 0, "wmma"),    # n odd
+    ((1000, 513, 778), torch.bfloat16, 0, "wmma"),    # k % 8 != 0
+    ((256, 256, 264), torch.bfloat16, 2, "wmma"),     # A misaligned
+    ((1000, 513, 777), torch.float32, 0, "fma"),
+    ((256, 256, 256), torch.float32, 0, "fma")],
+    ids=["aligned", "ragged", "k8", "wide-k", "tall-n", "n6", "n-odd",
+         "k-odd", "a-misaligned", "f32-ragged", "f32"])
+def test_gemm_tile_trans_b_on_every_route(card, shape, dtype, offset, route):
+    """``C - A @ B^T`` with B given as (n, k) and C in the operands' type
+    (bf16: read and written in bf16), against its plain version, on the
+    route the shape and the pointers pick."""
+    m, k, n = shape
+    g = torch.Generator(device=card).manual_seed(19)
+    flat = torch.randn(m * k + offset, generator=g, device=card).to(dtype)
+    a = flat[offset:].view(m, k)
+    assert a.is_contiguous() and a.data_ptr() % 16 == 2 * offset
+    b = torch.randn((n, k), generator=g, device=card).to(dtype)
+    c = torch.randn((m, n), generator=g, device=card).to(dtype)
+    before = {r: v.value for r, v in
+              cuda_kernels.gemm_tile_route_launches.items()}
+    got = gemm_tile(a, b, c, -1.0, trans_b=True)
+    torch.cuda.synchronize()
+    ref = gemm_tile_reference(a, b, c, -1.0, trans_b=True)
+    assert got.dtype == dtype
+    assert _err(got, ref) <= (1e-4 if dtype == torch.bfloat16 else 1e-5)
+    assert _route_moved(before) == [route]
+
+
+@pytest.mark.cuda
+def test_gemm_tile_trans_b_rejects_what_it_does_not_take(card):
+    bf = torch.zeros((8, 8), device=card, dtype=torch.bfloat16)
+    f = torch.zeros((8, 8), device=card)
+    with pytest.raises(TypeError):
+        gemm_tile(bf, bf, f, -1.0, trans_b=True)       # f32 C with B^T
+    with pytest.raises(TypeError):
+        gemm_tile(bf, bf, bf, -1.0)                     # bf16 C without
+    with pytest.raises(ValueError):
+        gemm_tile(bf, torch.zeros((8, 16), device=card,
+                                  dtype=torch.bfloat16), bf, trans_b=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("panel", ["float32", "bfloat16"])
+def test_potrf_on_the_card_matches_the_cpu_run(card, panel):
+    """mb=256, nt=3 (7 tasks): the factor on the card against the same
+    taskpool on the CPU-backed module (plain versions).  SYRK and GEMM are
+    4 K1 launches, on ``wgmma`` with bf16 tiles and ``fma`` with f32.
+    Tolerance 1e-4 in f32 (true f32 in another order) and 2e-2 in bf16 (a
+    bf16 rounding flip re-enters the trailing matrix)."""
+    mb, nt = 256, 3
+    n = mb * nt
+    rng = np.random.default_rng(43)
+    B = rng.standard_normal((n, n)).astype(np.float32)
+    a = (B @ B.T + n * np.eye(n)).astype(np.float32)
+    outs, routes = {}, {}
+    for where in ("cpu", "cuda"):
+        mats = from_reference_arrays({"A": a}, Layout(mb, mb, panel))
+        before = {r: v.value for r, v in
+                  cuda_kernels.gemm_tile_route_launches.items()}
+        with Context(nb_cores=2, device=where) as ctx:
+            tp = potrf.potrf_taskpool(mats["A"])
+            ctx.add_taskpool(tp)
+            ctx.wait(timeout=300)
+        assert not tp.cholesky_check.failed()
+        outs[where] = np.tril(to_reference_arrays(mats)["A"])
+        routes[where] = {r: v.value - before[r] for r, v in
+                         cuda_kernels.gemm_tile_route_launches.items()
+                         if v.value != before[r]}
+    assert routes == {"cpu": {}, "cuda": {
+        "wgmma" if panel == "bfloat16" else "fma": 4}}
+    got, ref = outs["cuda"], outs["cpu"]
+    err = np.abs(got - ref).max() / max(1.0, np.abs(ref).max())
+    assert err <= (1e-4 if panel == "float32" else 2e-2)

@@ -246,3 +246,102 @@ def test_gram_plan_constants_match_the_kernel(name, kernel_name):
     src = (cuda_kernels._CSRC / "gram_tile.cu").read_text()
     found = re.findall(rf"constexpr int {kernel_name} = (\d+);", src)
     assert found == [str(getattr(cuda_kernels, name))]
+
+
+# -- the transposed-B, bf16-C variant (the Cholesky updates) ------------------
+
+def _bf16_ulps_apart(got, ref):
+    """Elementwise |got - ref| in units of the last place of ref's bf16
+    value (both are bf16 values held as f32)."""
+    _, e = np.frexp(ref)
+    return np.abs(got - ref) / np.ldexp(1.0, e - 8)
+
+
+def _trans_b_operands(m, k, n, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((m, k)).astype(ml_dtypes.bfloat16)
+    b = rng.standard_normal((n, k)).astype(ml_dtypes.bfloat16)
+    c = rng.standard_normal((m, n)).astype(ml_dtypes.bfloat16)
+    return a, b, c
+
+
+@pytest.mark.parametrize("shape", [(128, 256, 64), (100, 72, 136)],
+                         ids=["aligned", "ragged"])
+def test_trans_b_bf16_c_plain_rounds_once(shape):
+    """The plain version of ``C - A @ B^T`` with a bf16 C: an f32 sum seeded
+    from C, rounded once to bf16 — a numpy oracle accumulating in f32 and
+    rounding at the end.  Rounding the product to bf16 before the sum (the
+    double rounding the f32-C plain version's cast would give) misses the
+    oracle far more often."""
+    m, k, n = shape
+    a, b, c = _trans_b_operands(m, k, n, seed=12)
+    a32, b32, c32 = (x.astype(np.float32) for x in (a, b, c))
+    prod = a32 @ b32.T
+    oracle = (c32 + np.float32(-1.0) * prod).astype(ml_dtypes.bfloat16)
+    got = gemm_tile(_to_torch(a), _to_torch(b), _to_torch(c), -1.0,
+                    trans_b=True)
+    assert got.dtype == torch.bfloat16
+    got32 = got.float().numpy()
+    ref32 = oracle.astype(np.float32)
+    assert _bf16_ulps_apart(got32, ref32).max() <= 1.0
+    assert np.mean(got32 != ref32) <= 1e-2      # f32 sums in another order
+    twice = (c32 - prod.astype(ml_dtypes.bfloat16).astype(np.float32)) \
+        .astype(ml_dtypes.bfloat16).astype(np.float32)
+    assert np.mean(twice != ref32) > 10 * max(np.mean(got32 != ref32),
+                                              1.0 / got32.size)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_trans_b_plain_matches_pallas_blocked(kind):
+    """``C - A @ B^T`` against the blocked Pallas program in interpret mode
+    on A, B^T made contiguous and C in the tile type (the reference's
+    kernel seeds its f32 accumulator from C and casts once at the end, as
+    the variant does): 1e-5 in f32, one bf16 ulp in bf16."""
+    m, k, n = 256, 256, 128
+    if kind == "bf16":
+        a, b, c = _trans_b_operands(m, k, n, seed=13)
+    else:
+        rng = np.random.default_rng(13)
+        a, b, c = (rng.standard_normal(s).astype(np.float32)
+                   for s in ((m, k), (n, k), (m, n)))
+    fn = pallas_gemm_tile(-1.0, bm=128, bn=128, bk=128)
+    ref = np.asarray(jax.jit(fn)(a, np.ascontiguousarray(b.T), c),
+                     np.float32)
+    got = gemm_tile(_to_torch(a), _to_torch(b), _to_torch(c), -1.0,
+                    trans_b=True).float().numpy()
+    if kind == "bf16":
+        assert _bf16_ulps_apart(got, ref).max() <= 1.0
+    else:
+        assert _rel_err(got, ref) < 1e-5
+
+
+def test_trans_b_cpu_tensors_take_the_plain_version_without_counting():
+    cuda_kernels.gemm_tile_launches.reset()
+    a, b, c = (_to_torch(x) for x in _trans_b_operands(64, 32, 48, 14))
+    out = gemm_tile(a, b, c, -1.0, trans_b=True)
+    torch.testing.assert_close(
+        out, gemm_tile_reference(a, b, c, -1.0, trans_b=True), rtol=0,
+        atol=0)
+    assert out.dtype == torch.bfloat16 and out.data_ptr() != c.data_ptr()
+    assert cuda_kernels.gemm_tile_launches.value == 0
+
+
+@pytest.mark.parametrize("m,n,k,ptrs,dtype,route", [
+    (6144, 6144, 6144, (256, 512, 1024), BF16, "wgmma"),  # potrf updates
+    (1000, 778, 520, (0, 0, 0), BF16, "wgmma"),   # n even: no TMA rule on n
+    (40, 6, 8, (0, 0, 4), BF16, "wgmma"),         # bf16 C: 4-byte pairs
+    (1000, 777, 520, (0, 0, 0), BF16, "wmma"),    # n odd: no column pairs
+    (1000, 778, 513, (0, 0, 0), BF16, "wmma"),    # k % 8: B^T's rows
+    (256, 256, 256, (0, 2, 0), BF16, "wmma"),     # B misaligned
+    (256, 256, 256, (0, 0, 2), BF16, "wmma"),     # C misaligned
+    (256, 256, 256, (0, 0, 0), torch.float32, "fma")],
+    ids=["potrf6144", "ragged-n", "small", "n-odd", "k-odd",
+         "b-misaligned", "c-misaligned", "f32"])
+def test_gemm_route_with_trans_b(m, n, k, ptrs, dtype, route):
+    """B given as (n, k) puts TMA's row rule on k, which A's rows already
+    carry; the epilogue still pairs C's columns, now bf16 (4 bytes)."""
+    base = 1 << 20
+    a, b, c = (base + p for p in ptrs)
+    c_dtype = BF16 if dtype == BF16 else torch.float32
+    assert cuda_kernels.gemm_route(m, n, k, dtype, a, b, c, trans_b=True,
+                                   c_dtype=c_dtype) == route

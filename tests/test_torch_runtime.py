@@ -176,3 +176,44 @@ def test_unported_plane_knob_raises(knob):
             port_context.Context(nb_cores=1, device="cpu")
     finally:
         port_params.unset(knob)
+
+
+_RECLAIM = """
+import gc, weakref, torch
+from parsec_tpu_torch.apps.gemm import gemm_taskpool
+from parsec_tpu_torch.core.context import Context
+from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
+
+def run():
+    with Context(nb_cores=2, device="cpu") as ctx:
+        dev = ctx.device_registry.accelerators[0]
+        mats = [TwoDimBlockCyclic(8, 8, 16, 16, name=n) for n in "ABC"]
+        for M in mats:
+            for (m, n) in M.local_tiles():
+                M.place_on_device(m, n, dev, torch.ones(8, 8))
+        ctx.add_taskpool(gemm_taskpool(*mats))
+        ctx.wait(timeout=60)
+        return [weakref.ref(x) for x in (ctx, dev, *mats)]
+
+refs = run() + run()
+gc.collect()
+alive = [r() for r in refs if r() is not None]
+assert not alive, alive
+"""
+
+
+@pytest.mark.parametrize("process", ["fresh", "this"])
+def test_an_ended_context_and_its_tiles_are_reclaimed(process):
+    """Once a Context has ended and nothing of the caller holds it, the
+    cyclic collector frees it with its device module, its taskpools and
+    their matrices (tiles born on the device included).  "fresh": the
+    first Context of a process, made when the import graph is frozen out
+    of the collector; both cases: the finalizers of device copies, which
+    sit in a process-wide registry."""
+    if process == "this":
+        exec(compile(_RECLAIM, "<reclaim>", "exec"), {})
+        return
+    import subprocess
+    import sys
+    subprocess.run([sys.executable, "-c", _RECLAIM], check=True,
+                   timeout=240)
