@@ -15,7 +15,13 @@ no result line):
               time kernel, plain version and one library call at every
               shape the paths give it (K1: 12288^3, 6144^3 for QR and for
               potrf, 2048^3); K2 twice on one input must agree bit for
-              bit;
+              bit.  K1's grouped launch (the device module's fused waves:
+              8 members at each path's shape, and ragged) must give the
+              bits of single launches and agree with the plain version,
+              and its in-place form (``out=C``, donation) the bits of the
+              out-of-place call; both are timed against single launches,
+              the library and their bound (8 x 2048^3, 8 x 6144^3
+              transposed-B; in place at 6144^3);
 4. GEMM path — the tiled GEMM at the repo's bench geometry (mb=12288,
               mt=nt=3, kt=4; A and B bf16, C f32), tiles born on the card:
               one warm pass, three timed passes, C checked against a
@@ -36,12 +42,24 @@ no result line):
               and Cholesky-flag checks on every pass, then the backward
               error and the iterative-refinement ladder once.
 
+Every path runs the device module as configured — at its defaults (wave
+fusion, chain fusion, buffer donation; ``device_max_faults`` 0, which it
+asserts before anything else runs), or as the MCA environment sets it,
+e.g. one launch per task with
+``PARSEC_MCA_DEVICE_FUSE=1 PARSEC_MCA_DEVICE_FUSE_PANEL=0
+PARSEC_MCA_DEVICE_DONATE=0``.  Each path prints its mean wave width
+(fused tasks per fused launch), chained launches, donations and device
+memory peak, and must count no device fault; at the defaults the potrf
+path must fuse waves and chain panels, and the QR path chain panels.
 Every kernel count is set to 0 just before a path runs and read just
-after it; every K1 launch on a path must have taken the wgmma route.
+after it; K1's tiles on a path are its single launches plus the members
+of its grouped launches, and every one must have taken the wgmma route.
 ``nvidia-smi`` reads the SM clock and power draw before a path's first
 pass and after its last timed one, outside the timed window.  It prints a
-``{"kernels": [...]}`` line (launches summed over the paths), the card's
-name and power limit, then as its last line
+``{"device_module": {...}, "paths": {...}}`` line (the knobs in force and
+each path's pass time, wave width, chained launches, donations and
+memory peak), a ``{"kernels": [...]}`` line (launches summed over the
+paths), the card's name and power limit, then as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it fails before
 doing anything.  It imports nothing of JAX and nothing of ``parsec_tpu``.
 """
@@ -64,12 +82,16 @@ import torch
 import parsec_tpu_torch
 from parsec_tpu_torch.apps import cuda_kernels, potrf, qr
 from parsec_tpu_torch.apps.cuda_kernels import gemm_tile, \
-    gemm_tile_reference, gram_tile, gram_tile_reference
+    gemm_tile_grouped, gemm_tile_grouped_reference, gemm_tile_reference, \
+    gram_tile, gram_tile_reference
 from parsec_tpu_torch.apps.gemm import gemm_taskpool, total_flops
 from parsec_tpu_torch.apps.potrf_check import backward_error, refine_solve
 from parsec_tpu_torch.apps.qr_check import ls_refine, newest_payload
 from parsec_tpu_torch.core.context import Context
 from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
+# registers the device module's knobs, read before any Context exists
+from parsec_tpu_torch.devices import cuda as _cuda  # noqa: F401
+from parsec_tpu_torch.utils.mca import params
 
 SEED = 20261016
 
@@ -87,9 +109,17 @@ TOL = {torch.bfloat16: 1e-4, torch.float32: 1e-5}
 
 #: every kernel's launch count, by the name the kernels line gives it
 COUNTERS = {"gemm_tile": cuda_kernels.gemm_tile_launches,
+            "gemm_tile_grouped": cuda_kernels.gemm_tile_grouped_launches,
             "gram_tile": cuda_kernels.gram_tile_launches}
-#: K1's launches by route
+#: K1's single launches by route
 ROUTES = cuda_kernels.gemm_tile_route_launches
+#: the calls K1's grouped launches carried (all on the wgmma route)
+GROUPED_MEMBERS = cuda_kernels.gemm_tile_grouped_members
+
+#: the device module's counters a path reports
+DEVICE_STATS = ("fused_launches", "fused_tasks", "chained_launches",
+                "chained_tasks", "donated_tasks", "donations_refused",
+                "faults")
 
 #: QR path limits: the factorization residual ||R'Rz - A'Az|| / ||A'Az||
 #: of a bf16-storage factor (the JAX package recorded 1.0e-2 for its own),
@@ -105,8 +135,66 @@ POTRF_IR_TOL = 1e-5
 
 
 def reset_counts() -> None:
-    for c in (*COUNTERS.values(), *ROUTES.values()):
+    for c in (*COUNTERS.values(), *ROUTES.values(), GROUPED_MEMBERS):
         c.reset()
+
+
+def k1_tiles() -> tuple:
+    """(K1 tiles, of them on the wgmma route) so far: single launches plus
+    grouped members."""
+    return (cuda_kernels.gemm_tile_launches.value + GROUPED_MEMBERS.value,
+            ROUTES["wgmma"].value + GROUPED_MEMBERS.value)
+
+
+def device_settings() -> dict:
+    """The device module's knobs in force (MCA defaults or environment)."""
+    return {k: params.get(k) for k in (
+        "device_fuse", "device_fuse_panel", "device_donate",
+        "device_fuse_donate", "device_max_faults", "device_runahead")}
+
+
+def check_no_degraded_mode() -> None:
+    """Degraded mode hands a task that faulted on the card to its CPU
+    body: the measured paths run with it off (``device_max_faults`` 0)."""
+    if int(params.get("device_max_faults")) != 0:
+        raise AssertionError(
+            f"device_max_faults is {params.get('device_max_faults')}: "
+            f"the measured paths must run with degraded mode off (0)")
+
+
+def at_defaults() -> bool:
+    return int(params.get("device_fuse")) > 1 and \
+        int(params.get("device_fuse_panel")) == 1
+
+
+def device_counts(dev) -> dict:
+    return {k: getattr(dev.stats, k) for k in DEVICE_STATS}
+
+
+def report_device(label: str, dev, before: dict, need_fused: bool = False,
+                  need_chained: bool = False) -> dict:
+    """The device module's counters over a path (against ``before``):
+    printed with the mean wave width; a device fault fails the path, and
+    at the defaults so does a missing fusion the path must show."""
+    d = {k: v - before[k] for k, v in device_counts(dev).items()}
+    width = d["fused_tasks"] / d["fused_launches"] \
+        if d["fused_launches"] else 1.0
+    d["mean_wave_width"] = width
+    log(f"[{label}] device module {device_settings()}: fused launches "
+        f"{d['fused_launches']} carrying {d['fused_tasks']} tasks (mean "
+        f"wave width {width:.2f}), chained launches "
+        f"{d['chained_launches']} carrying {d['chained_tasks']} tasks, "
+        f"donated tasks {d['donated_tasks']}, donations refused "
+        f"{d['donations_refused']}, faults {d['faults']}")
+    if d["faults"]:
+        raise AssertionError(f"[{label}] {d['faults']} device faults")
+    if at_defaults():
+        if need_fused and d["fused_launches"] <= 0:
+            raise AssertionError(f"[{label}] no wave fused at the defaults")
+        if need_chained and d["chained_launches"] <= 0:
+            raise AssertionError(f"[{label}] no chained launch at the "
+                                 f"defaults")
+    return d
 
 
 def read_counts() -> dict:
@@ -323,6 +411,193 @@ def phase_kernels(dev: torch.device, peaks) -> dict:
     return entry
 
 
+def _library_grouped(As, Bs, Cs, alpha, trans_b):
+    """Library yardsticks of a grouped call on the same operands: a loop
+    of ``_library_addmm`` calls, and one ``torch.baddbmm`` on operands
+    stacked beforehand (None where it does not take the types).  The port
+    never calls either."""
+    def loop():
+        return [_library_addmm(A, B, C, alpha, trans_b)[0]
+                for A, B, C in zip(As, Bs, Cs)]
+    fns = {"library loop": loop}
+    Ast, Bst, Cst = (torch.stack(x) for x in (As, Bs, Cs))
+    Bm = Bst.mT if trans_b else Bst
+    try:
+        if Ast.dtype == Cst.dtype:
+            torch.baddbmm(Cst, Ast, Bm, alpha=alpha)
+            fns["library baddbmm"] = lambda: torch.baddbmm(Cst, Ast, Bm,
+                                                           alpha=alpha)
+        else:
+            torch.baddbmm(Cst, Ast, Bm, alpha=alpha, out_dtype=Cst.dtype)
+            fns["library baddbmm"] = lambda: torch.baddbmm(
+                Cst, Ast, Bm, alpha=alpha, out_dtype=Cst.dtype)
+    except (TypeError, RuntimeError) as exc:
+        log(f"torch.baddbmm does not take {str(Ast.dtype)[6:]} x "
+            f"{str(Cst.dtype)[6:]}: {type(exc).__name__}")
+    return fns
+
+
+def phase_k1_forms(dev: torch.device, peaks, entry: dict) -> dict:
+    """K1's grouped launch and in-place form on the card.
+
+    Grouped: 8 members at every shape, C and alpha the paths' fused waves
+    give it, and 3 ragged members: each member bit-identical to its single
+    launch, within tolerance of the plain version, and again bit-identical
+    written into C (``out=C``); one grouped launch counted with its
+    members.  Timed at 8 x 2048^3 (bf16, bf16, f32) and 8 x 6144^3
+    transposed-B with a bf16 C against 8 single launches, the library
+    (a loop of addmm, one baddbmm on pre-stacked operands) and 8 x the
+    single call's bound.  In place: ``out=C`` bit-identical to the
+    out-of-place call at the QR and potrf 6144^3 forms, timed at the
+    potrf one against out of place (recorded in ``entry``, K1's entry).
+    Returns the grouped launch's kernels-line entry."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    bf16 = torch.bfloat16
+    # (label, members, m, k, n, alpha, C is zero, trans_b, timed)
+    cases = [("GEMM mb=12288 wave", 8, 12288, 12288, 12288, 1.0, False,
+              False, False),
+             ("GEMM mb=2048 wave", 8, 2048, 2048, 2048, 1.0, False, False,
+              True),
+             ("QR UNMQR/TSMQR Z wave", 8, 6144, 6144, 6144, 1.0, True,
+              False, False),
+             ("QR TSMQR inner/C2 wave", 8, 6144, 6144, 6144, -1.0, False,
+              False, False),
+             ("potrf SYRK/GEMM wave", 8, 6144, 6144, 6144, -1.0, False,
+              True, True),
+             ("ragged", 3, 1000, 520, 776, 0.5, False, False, False),
+             ("ragged", 3, 1000, 520, 778, -1.0, False, True, False)]
+    grouped, shapes = None, []
+    for label, n, m, k, nn, alpha, zero_c, trans_b, timed in cases:
+        As = [torch.randn((m, k), generator=g, device=dev).to(bf16)
+              for _ in range(n)]
+        Bs = [torch.randn((nn, k) if trans_b else (k, nn), generator=g,
+                          device=dev).to(bf16) for _ in range(n)]
+        Cs = [(torch.zeros((m, nn), device=dev) if zero_c else
+               torch.randn((m, nn), generator=g, device=dev))
+              .to(bf16 if trans_b else torch.float32) for _ in range(n)]
+        launches0 = cuda_kernels.gemm_tile_grouped_launches.value
+        members0 = GROUPED_MEMBERS.value
+        got = gemm_tile_grouped(As, Bs, Cs, alpha, trans_b)
+        torch.cuda.synchronize()
+        counted = (cuda_kernels.gemm_tile_grouped_launches.value - launches0,
+                   GROUPED_MEMBERS.value - members0)
+        errs, max_abs, same = [], 0.0, True
+        for i in range(n):
+            single = gemm_tile(As[i], Bs[i], Cs[i], alpha, trans_b)
+            same = same and torch.equal(got[i], single)
+            ref = gemm_tile_reference(As[i], Bs[i], Cs[i], alpha, trans_b)
+            errs.append(rel_err(got[i], ref))
+            max_abs = max(max_abs,
+                          (got[i].float() - ref.float()).abs().max().item())
+            del single, ref
+        outs = [c.clone() for c in Cs]
+        inplace = gemm_tile_grouped(As, Bs, outs, alpha, trans_b, out=outs)
+        torch.cuda.synchronize()
+        same_inplace = all(o is x and torch.equal(o, y)
+                           for o, x, y in zip(inplace, outs, got))
+        del outs, inplace
+        ok = counted == (1, n) and same and same_inplace and \
+            max(errs) <= TOL[bf16]
+        form = f"B^T, {'bf16' if trans_b else 'f32'} C" if trans_b else \
+            "B, f32 C"
+        log(f"grouped kernel vs plain {label}: {n} x {m}x{k}x{nn} ({form}) "
+            f"alpha={alpha}{' zero C' if zero_c else ''}: counted (launches,"
+            f" members) {counted}, bit-identical to single launches {same}, "
+            f"in place (out=C) bit-identical {same_inplace}, worst rel err "
+            f"{max(errs):.3e} (tol {TOL[bf16]:.0e}) max abs {max_abs:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"gemm_tile_grouped {label} failed its "
+                                 f"check")
+        if timed:
+            reps = 5 if m >= 6144 else 20
+            bound, by = k1_bound(As[0], Bs[0], Cs[0], peaks[0], peaks[2])
+            bound *= n
+            plain_ms = time_ms(lambda: gemm_tile_grouped_reference(
+                As, Bs, Cs, alpha, trans_b), reps=1)
+            fns = {"grouped": lambda: gemm_tile_grouped(As, Bs, Cs, alpha,
+                                                        trans_b),
+                   "singles": lambda: [gemm_tile(a, b, c, alpha, trans_b)
+                                       for a, b, c in zip(As, Bs, Cs)]}
+            fns.update(_library_grouped(As, Bs, Cs, alpha, trans_b))
+            t = in_turns(fns, reps)
+            lib_ms = t.get("library baddbmm", t["library loop"])
+            log(f"gemm_tile_grouped at {n} x {m}x{k}x{nn} bf16 ({form}): "
+                f"grouped {t['grouped']:.4f} ms, {n} single launches "
+                f"{t['singles']:.4f} ms, plain {plain_ms:.4f} ms, library "
+                f"loop of {n} addmm {t['library loop']:.4f} ms, library "
+                f"baddbmm {t.get('library baddbmm')}, bound {bound:.4f} ms "
+                f"({by}, {n} x one call's), share of bound "
+                f"{bound / t['grouped']:.3f}, grouped / singles "
+                f"{t['grouped'] / t['singles']:.3f}, grouped / library "
+                f"{t['grouped'] / lib_ms:.3f}")
+            shapes.append({"members": n, "shape": [m, k, nn],
+                           "trans_b": trans_b,
+                           "c_dtype": "bfloat16" if trans_b else "float32",
+                           "ms": t["grouped"], "singles_ms": t["singles"],
+                           "plain_ms": plain_ms,
+                           "library_loop_ms": t["library loop"],
+                           "library_baddbmm_ms": t.get("library baddbmm"),
+                           "bound_ms": bound, "bound_by": by,
+                           "share_of_bound": bound / t["grouped"]})
+            if label.startswith("potrf"):
+                grouped = {"name": "gemm_tile_grouped", "route": "cuda",
+                           "source": "parsec_tpu_torch/csrc/gemm_tile.cu",
+                           "replaces": "parsec_tpu/apps/pallas_kernels.py:74",
+                           "launches": 0, "max_abs_err": max_abs,
+                           "ms": t["grouped"], "plain_ms": plain_ms,
+                           "bound_ms": bound, "bound_by": by,
+                           "library_ms": lib_ms}
+        del As, Bs, Cs, got
+        torch.cuda.empty_cache()
+    grouped["shapes"] = shapes
+
+    # in place: out=C against out of place, at the QR and potrf forms
+    for label, trans_b, c_dtype, timed in (
+            ("QR 6144^3 (B, f32 C)", False, torch.float32, False),
+            ("potrf 6144^3 (B^T, bf16 C)", True, bf16, True)):
+        A = torch.randn((6144, 6144), generator=g, device=dev).to(bf16)
+        B = torch.randn((6144, 6144), generator=g, device=dev).to(bf16)
+        C = torch.randn((6144, 6144), generator=g, device=dev).to(c_dtype)
+        want = gemm_tile(A, B, C, -1.0, trans_b)
+        C2 = C.clone()
+        ptr = C2.data_ptr()
+        got = gemm_tile(A, B, C2, -1.0, trans_b, out=C2)
+        torch.cuda.synchronize()
+        ref = gemm_tile_reference(A, B, C, -1.0, trans_b)
+        err = rel_err(C2, ref)
+        ok = got is C2 and C2.data_ptr() == ptr and torch.equal(C2, want) \
+            and err <= TOL[bf16]
+        log(f"in-place kernel {label}: O written into C's storage "
+            f"{C2.data_ptr() == ptr}, bit-identical to out of place "
+            f"{torch.equal(C2, want)}, rel err vs plain {err:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"in-place gemm_tile {label} failed its "
+                                 f"check")
+        if timed:
+            # in place on C2 (its values drift pass after pass; the time
+            # does not depend on them)
+            t = in_turns({"out of place":
+                          lambda: gemm_tile(A, B, C, -1.0, trans_b),
+                          "in place":
+                          lambda: gemm_tile(A, B, C2, -1.0, trans_b,
+                                            out=C2)}, reps=20)
+            bound, by = k1_bound(A, B, C, peaks[0], peaks[2])
+            log(f"gemm_tile in place at 6144^3 bf16 ({label}): in place "
+                f"{t['in place']:.4f} ms, out of place "
+                f"{t['out of place']:.4f} ms, bound {bound:.4f} ms ({by}), "
+                f"in place / out of place "
+                f"{t['in place'] / t['out of place']:.3f}")
+            entry["in_place"] = {"shape": [6144, 6144, 6144], "trans_b": True,
+                                 "c_dtype": "bfloat16", "ms": t["in place"],
+                                 "out_of_place_ms": t["out of place"],
+                                 "bound_ms": bound, "bound_by": by}
+        del A, B, C, C2, want, ref
+        torch.cuda.empty_cache()
+    return grouped
+
+
 class _Incarnations:
     """Counts, per task class, device launches handed to the device
     module (``exec_async``) and bodies run inline (``exec_end``)."""
@@ -375,19 +650,20 @@ def drive_gemm(ctx: Context, mb: int, mt: int, nt: int, kt: int,
     # counts go to 0 just before the path runs and are read just after
     reset_counts()
     inc.take()
+    dev0 = device_counts(dev)
     if on_card:
+        torch.cuda.reset_peak_memory_stats()
         read_clock(label, "before the passes")
     times = []
     for p in range(passes + 1):
-        launches0 = cuda_kernels.gemm_tile_launches.value
-        wgmma0 = ROUTES["wgmma"].value
+        tiles0, wgmma0 = k1_tiles()
         executed0 = dev.stats.executed_tasks
         t0 = time.perf_counter()
         ctx.add_taskpool(gemm_taskpool(A, B, C))
         ctx.wait()
         dt = time.perf_counter() - t0
-        launched = cuda_kernels.gemm_tile_launches.value - launches0
-        wgmma = ROUTES["wgmma"].value - wgmma0
+        launched = k1_tiles()[0] - tiles0
+        wgmma = k1_tiles()[1] - wgmma0
         executed = dev.stats.executed_tasks - executed0
         counts = inc.take()
         device_runs = counts.get(("GEMM", "exec_async"), 0)
@@ -398,12 +674,12 @@ def drive_gemm(ctx: Context, mb: int, mt: int, nt: int, kt: int,
                 f"incarnations {device_runs}, CPU incarnations {cpu_runs}; "
                 f"expected {ntasks}, {ntasks}, 0")
         if on_card and (launched != ntasks or wgmma != ntasks):
-            raise AssertionError(f"[{label}] pass {p}: gemm_tile launched "
-                                 f"{launched} times, {wgmma} on the wgmma "
+            raise AssertionError(f"[{label}] pass {p}: gemm_tile computed "
+                                 f"{launched} tiles, {wgmma} on the wgmma "
                                  f"route, expected {ntasks} and {ntasks}")
         kind = "warm" if p == 0 else "timed"
         log(f"[{label}] pass {p} ({kind}): {dt * 1e3:.1f} ms, "
-            f"{flops / dt / 1e9:.1f} GFLOP/s, {launched} kernel launches "
+            f"{flops / dt / 1e9:.1f} GFLOP/s, {launched} K1 tiles "
             f"({wgmma} wgmma), {executed} device tasks, {cpu_runs} CPU "
             f"incarnations")
         if p:
@@ -411,8 +687,13 @@ def drive_gemm(ctx: Context, mb: int, mt: int, nt: int, kt: int,
     if on_card:
         read_clock(label, "after the last timed pass")
     launches = read_counts()
-    log(f"[{label}] kernel launches on this path: {launches}; K1 by route "
-        f"{read_routes()}")
+    log(f"[{label}] kernel launches on this path: {launches}; K1 single "
+        f"launches by route {read_routes()}, grouped members "
+        f"{GROUPED_MEMBERS.value}"
+        + (f"; peak device memory "
+           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+           if on_card else ""))
+    device = report_device(label, dev, dev0)
     # C = C0 + (passes + 1) * A @ B, against the plain version tile by tile
     worst = 0.0
     for (m, n) in C.local_tiles():
@@ -432,14 +713,27 @@ def drive_gemm(ctx: Context, mb: int, mt: int, nt: int, kt: int,
         raise AssertionError(f"[{label}] C disagrees: {worst}")
     best = min(times)
     return {"launches": launches, "best_s": best,
-            "gflops": flops / best / 1e9, "ntasks": ntasks}
+            "gflops": flops / best / 1e9, "ntasks": ntasks,
+            "device": device}
+
+
+def path_summary(res: dict, pass_s: float) -> dict:
+    """What a path reports for the device module's A/B: its pass time, wave
+    width, chains, donations and device memory peak."""
+    d = res["device"]
+    return {"launches": res["launches"], "pass_ms": pass_s * 1e3,
+            "mean_wave_width": d["mean_wave_width"],
+            "fused_launches": d["fused_launches"],
+            "chained_launches": d["chained_launches"],
+            "donated_tasks": d["donated_tasks"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
 def phase_small_tiles(ctx: Context, gen: torch.Generator) -> dict:
     mb, t = 2048, 8
     res = drive_gemm(ctx, mb, t, t, t, passes=3, gen=gen, label="mb=2048")
-    # idle share, estimated: kernel time of one tile (CUDA events) times
-    # the launches of a pass, against the pass's wall time
+    # idle share, estimated: kernel time of one tile (CUDA events, a single
+    # launch) times the tiles of a pass, against the pass's wall time
     A = torch.randn((mb, mb), generator=gen, device="cuda").bfloat16()
     B = torch.randn((mb, mb), generator=gen, device="cuda").bfloat16()
     C = torch.randn((mb, mb), generator=gen, device="cuda")
@@ -448,7 +742,7 @@ def phase_small_tiles(ctx: Context, gen: torch.Generator) -> dict:
     log(f"[mb=2048] best pass {res['best_s'] * 1e3:.1f} ms, "
         f"{res['gflops']:.1f} GFLOP/s; kernel {k_ms * 1e3:.1f} us/tile; "
         f"estimated device idle share {max(0.0, 1.0 - busy):.3f}")
-    return res["launches"]
+    return path_summary(res, res["best_s"])
 
 
 def phase_gram(dev: torch.device, peaks) -> dict:
@@ -577,7 +871,8 @@ def qr_task_counts(nt: int) -> dict:
 
 
 def drive_qr(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
-             passes: int, label: str, ladder_steps: int = 4) -> dict:
+             passes: int, label: str, ladder_steps: int = 4,
+             require_fusion: bool = False) -> dict:
     """The tiled QR through the runtime at the ``qr_ib`` in force: the
     bench operand regenerated on the device before every pass (outside
     the timed window), one warm pass then ``passes`` timed passes of
@@ -585,7 +880,9 @@ def drive_qr(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
     every pass; then R's lower tiles and the factorization residual.  One
     more pass factors the conditioned operand, on which the least-squares
     ladder is held to its limit (the bench operand's ladder is printed: it
-    cannot converge, see ``qr_tile_maker``).  Returns numbers."""
+    cannot converge, see ``qr_tile_maker``).  ``require_fusion``: at the
+    device module's defaults the timed passes must chain panels.  Returns
+    numbers."""
     dev = ctx.device_registry.accelerators[0]
     on_card = dev.is_cuda
     n = nt * mb
@@ -594,8 +891,8 @@ def drive_qr(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
     ntasks = sum(want.values())
     ib = qr.effective_ib(mb)
     blocks = mb // ib if ib else 1
-    want_launches = {"gemm_tile": want["UNMQR"] + 3 * want["TSMQR"],
-                     "gram_tile": 2 * blocks * want["GEQRT"]}
+    want_k1 = want["UNMQR"] + 3 * want["TSMQR"]
+    want_k2 = 2 * blocks * want["GEQRT"]
     flops = qr.geqrf_flops(n, n)
     inc = _Incarnations(ctx)
 
@@ -609,7 +906,7 @@ def drive_qr(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
             torch.cuda.synchronize()
         regen_s = time.perf_counter() - t0
         launches0 = read_counts()
-        wgmma0 = ROUTES["wgmma"].value
+        tiles0, wgmma0 = k1_tiles()
         executed0 = dev.stats.executed_tasks
         falls0 = qr.qr_guard_fallbacks.value
         t0 = time.perf_counter()
@@ -619,7 +916,8 @@ def drive_qr(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
             torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launched = {k: v - launches0[k] for k, v in read_counts().items()}
-        wgmma = ROUTES["wgmma"].value - wgmma0
+        tiles = k1_tiles()[0] - tiles0
+        wgmma = k1_tiles()[1] - wgmma0
         executed = dev.stats.executed_tasks - executed0
         counts = inc.take()
         device_runs = {c: counts.get((c, "exec_async"), 0) for c in want}
@@ -629,14 +927,15 @@ def drive_qr(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
                 f"[{label}] {what}: executed_tasks {executed}, device "
                 f"incarnations {device_runs}, CPU incarnations {cpu_runs}; "
                 f"expected {ntasks}, {want}, 0")
-        if on_card and (launched != want_launches
-                        or wgmma != want_launches["gemm_tile"]):
+        if on_card and (tiles != want_k1 or wgmma != want_k1
+                        or launched["gram_tile"] != want_k2):
             raise AssertionError(f"[{label}] {what}: launched {launched}, "
-                                 f"{wgmma} K1 on the wgmma route, expected "
-                                 f"{want_launches}, all K1 on wgmma")
+                                 f"{tiles} K1 tiles, {wgmma} on the wgmma "
+                                 f"route, expected {want_k1} K1 tiles, all "
+                                 f"on wgmma, and {want_k2} K2 launches")
         log(f"[{label}] {what}: {dt * 1e3:.1f} ms, "
-            f"{flops / dt / 1e9:.1f} GFLOP/s, launches {launched} ({wgmma} "
-            f"K1 wgmma), "
+            f"{flops / dt / 1e9:.1f} GFLOP/s, launches {launched} ({tiles} "
+            f"K1 tiles, {wgmma} wgmma), "
             f"{executed} device tasks {device_runs}, {cpu_runs} CPU "
             f"incarnations, guard fallbacks "
             f"{qr.qr_guard_fallbacks.value - falls0}; tiles regenerated "
@@ -658,12 +957,14 @@ def drive_qr(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
     reset_counts()
     inc.take()
     fallbacks0 = qr.qr_guard_fallbacks.value
+    dev0 = device_counts(dev)
     if on_card:
         read_clock(label, "before the passes")
     times = [factor(bench, f"pass {p} ({'timed' if p else 'warm'})")
              for p in range(passes + 1)][1:]
     if on_card:
         read_clock(label, "after the last timed pass")
+    device = report_device(label, dev, dev0, need_chained=require_fusion)
 
     t0 = time.perf_counter()
     lower_tiles_zero()
@@ -696,13 +997,15 @@ def drive_qr(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
                              f"{QR_LADDER_TOL}")
     launches = read_counts()
     fallbacks = qr.qr_guard_fallbacks.value - fallbacks0
-    log(f"[{label}] kernel launches on this path: {launches}; K1 by route "
-        f"{read_routes()}; guard fallbacks {fallbacks}")
+    log(f"[{label}] kernel launches on this path: {launches}; K1 single "
+        f"launches by route {read_routes()}, grouped members "
+        f"{GROUPED_MEMBERS.value}; guard fallbacks {fallbacks}")
     best = min(times)
     return {"launches": launches, "best_s": best,
             "gflops": flops / best / 1e9, "ntasks": ntasks,
             "fallbacks": fallbacks, "residual": residual,
-            "bench_ladder": bench_ladder, "ladder": ladder}
+            "bench_ladder": bench_ladder, "ladder": ladder,
+            "device": device}
 
 
 def qr_class_times(dev: torch.device, mb: int, ib: int,
@@ -731,13 +1034,14 @@ def phase_qr(ctx: Context) -> dict:
     ib = qr.effective_ib(mb)        # the registered qr_ib, 512
     torch.cuda.reset_peak_memory_stats()
     res = drive_qr(ctx, mb, nt, torch.bfloat16, passes=3,
-                   label="QR path mb=6144")
+                   label="QR path mb=6144", require_fusion=True)
     log(f"[QR path mb=6144] best pass {res['best_s'] * 1e3:.1f} ms, "
         f"{res['gflops']:.1f} GFLOP/s (geqrf_flops(n, n) / best pass); "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB; peak host RSS of the process so far "
         f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f}"
         f" GiB")
+    summary = path_summary(res, res["best_s"])
     # where the time goes, estimated: one body of each class timed alone,
     # times the class's tasks in a pass, against the best pass
     ms = qr_class_times(torch.device("cuda", 0), mb, ib, torch.bfloat16)
@@ -749,7 +1053,7 @@ def phase_qr(ctx: Context) -> dict:
         + f"; sum {busy * 1e3:.0f} ms against the best pass "
         f"{res['best_s'] * 1e3:.0f} ms: estimated device idle share "
         f"{max(0.0, 1.0 - busy / res['best_s']):.3f}")
-    return res["launches"]
+    return summary
 
 
 def live_cuda_tensors(top: int = 6) -> list:
@@ -795,14 +1099,16 @@ def potrf_tile_maker(A: TwoDimBlockCyclic, tdev: torch.device):
 
 
 def drive_potrf(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
-                passes: int, label: str, ir_steps: int = 3) -> dict:
+                passes: int, label: str, ir_steps: int = 3,
+                require_fusion: bool = False) -> dict:
     """The tiled Cholesky through the runtime: the bench operand's lower
     tiles regenerated on the device before every pass (outside the timed
     window), one warm pass then ``passes`` timed passes of insert + wait +
     synchronize; tasks, incarnations, kernel launches and the pool's
     Cholesky flag checked on every pass (the flag is read after the timed
     window).  Then, once, the backward error and the refinement ladder of
-    the last factor.  Returns numbers."""
+    the last factor.  ``require_fusion``: at the device module's defaults
+    the passes must fuse waves and chain panels.  Returns numbers."""
     dev = ctx.device_registry.accelerators[0]
     on_card = dev.is_cuda
     n = nt * mb
@@ -825,7 +1131,7 @@ def drive_potrf(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
             torch.cuda.synchronize()
         regen_s = time.perf_counter() - t0
         launches0 = read_counts()
-        wgmma0 = ROUTES["wgmma"].value
+        tiles0, wgmma0 = k1_tiles()
         executed0 = dev.stats.executed_tasks
         t0 = time.perf_counter()
         tp = potrf.potrf_taskpool(A)
@@ -836,7 +1142,8 @@ def drive_potrf(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
         dt = time.perf_counter() - t0
         failed = tp.cholesky_check.failed()
         launched = {k: v - launches0[k] for k, v in read_counts().items()}
-        wgmma = ROUTES["wgmma"].value - wgmma0
+        tiles = k1_tiles()[0] - tiles0
+        wgmma = k1_tiles()[1] - wgmma0
         executed = dev.stats.executed_tasks - executed0
         counts = inc.take()
         device_runs = {c: counts.get((c, "exec_async"), 0) for c in want}
@@ -848,11 +1155,12 @@ def drive_potrf(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
                 f"[{label}] {what}: executed_tasks {executed}, device "
                 f"incarnations {device_runs}, CPU incarnations {cpu_runs}; "
                 f"expected {ntasks}, {want}, 0")
-        if on_card and (launched != {"gemm_tile": want_k1, "gram_tile": 0}
-                        or wgmma != want_k1):
+        if on_card and (tiles != want_k1 or wgmma != want_k1
+                        or launched["gram_tile"]):
             raise AssertionError(f"[{label}] {what}: launched {launched}, "
-                                 f"{wgmma} K1 on the wgmma route, expected "
-                                 f"{want_k1} K1 launches, all on wgmma")
+                                 f"{tiles} K1 tiles, {wgmma} on the wgmma "
+                                 f"route, expected {want_k1} K1 tiles, all "
+                                 f"on wgmma, and no K2")
         if failed:
             raise AssertionError(f"[{label}] {what}: a Cholesky factor "
                                  f"failed (info != 0 or not finite)")
@@ -870,7 +1178,8 @@ def drive_potrf(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
         log(f"[{label}] {what}: {dt * 1e3:.1f} ms, "
             f"{flops / dt / 1e9:.1f} GFLOP/s (n^3/3), executed "
             f"{executed_flops / dt / 1e9:.1f} GFLOP/s, launches {launched} "
-            f"({wgmma} K1 wgmma), {executed} device tasks {device_runs}, "
+            f"({tiles} K1 tiles, {wgmma} wgmma), {executed} device tasks "
+            f"{device_runs}, "
             f"{cpu_runs} CPU incarnations, Cholesky flag clear; tiles "
             f"regenerated in {regen_s * 1e3:.1f} ms (untimed){mem}")
         return dt
@@ -881,6 +1190,7 @@ def drive_potrf(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
     # counts go to 0 just before the path runs and are read just after
     reset_counts()
     inc.take()
+    dev0 = device_counts(dev)
     if on_card:
         read_clock(label, "before the passes")
     times = [factor(f"pass {p} ({'timed' if p else 'warm'})")
@@ -890,8 +1200,11 @@ def drive_potrf(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
         log(f"[{label}] live CUDA tensors after the passes (GiB, count, "
             f"shape, dtype): {live_cuda_tensors()}")
     launches = read_counts()
-    log(f"[{label}] kernel launches on this path: {launches}; K1 by route "
-        f"{read_routes()}")
+    log(f"[{label}] kernel launches on this path: {launches}; K1 single "
+        f"launches by route {read_routes()}, grouped members "
+        f"{GROUPED_MEMBERS.value}")
+    device = report_device(label, dev, dev0, need_fused=require_fusion,
+                           need_chained=require_fusion)
 
     t0 = time.perf_counter()
     bwd = backward_error(A, orig)
@@ -911,7 +1224,7 @@ def drive_potrf(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
     return {"launches": launches, "times": times, "gflops": gflops,
             "median_gflops": statistics.median(gflops),
             "executed_flops": executed_flops, "ntasks": ntasks,
-            "backward_error": bwd, "ir": ir}
+            "backward_error": bwd, "ir": ir, "device": device}
 
 
 def potrf_class_times(dev: torch.device, mb: int,
@@ -941,7 +1254,8 @@ def phase_potrf(ctx: Context) -> dict:
     mb, nt = 6144, 16
     label = "potrf path mb=6144"
     torch.cuda.reset_peak_memory_stats()
-    res = drive_potrf(ctx, mb, nt, torch.bfloat16, passes=5, label=label)
+    res = drive_potrf(ctx, mb, nt, torch.bfloat16, passes=5, label=label,
+                      require_fusion=True)
     g = res["gflops"]
     med_s = statistics.median(res["times"])
     log(f"[{label}] tiled_potrf_mp_gflops: median {res['median_gflops']:.1f}"
@@ -950,6 +1264,7 @@ def phase_potrf(ctx: Context) -> dict:
         f"rate {res['executed_flops'] / med_s / 1e9:.1f} GFLOP/s at the "
         f"median pass; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    summary = path_summary(res, med_s)
     # where the time goes, estimated: one body of each class timed alone,
     # times the class's tasks in a pass, against the median pass
     ms = potrf_class_times(torch.device("cuda", 0), mb, torch.bfloat16)
@@ -961,7 +1276,7 @@ def phase_potrf(ctx: Context) -> dict:
         + f"; sum {busy * 1e3:.0f} ms against the median pass "
         f"{med_s * 1e3:.0f} ms: estimated device idle share "
         f"{max(0.0, 1.0 - busy / med_s):.3f}")
-    return res["launches"]
+    return summary
 
 
 def phase_gemm(ctx: Context, gen: torch.Generator) -> dict:
@@ -969,19 +1284,20 @@ def phase_gemm(ctx: Context, gen: torch.Generator) -> dict:
                      label="GEMM path mb=12288")
     log(f"[GEMM path mb=12288] best pass {res['best_s'] * 1e3:.1f} ms, "
         f"{res['gflops']:.1f} GFLOP/s")
-    return res["launches"]
+    return path_summary(res, res["best_s"])
 
 
 def in_context(phase) -> dict:
     """Run one path in a Context of its own.  Once the Context has ended,
     what the path held (its tiles die in reference cycles) is freed before
     the next path starts, so that each path's peak memory is its own."""
+    torch.cuda.reset_peak_memory_stats()
     with Context(nb_cores=4) as ctx:
-        launches = phase(ctx)
+        summary = phase(ctx)
     del ctx
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return summary
 
 
 def main() -> int:
@@ -999,6 +1315,8 @@ def main() -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"parsec_tpu_torch {parsec_tpu_torch.__version__}; "
         f"bound from the {key} peaks")
+    log(f"device module: {device_settings()}")
+    check_no_degraded_mode()
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
@@ -1008,7 +1326,10 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s "
         f"(nvcc {cuda_kernels.last_build_seconds:.1f} s)")
 
-    entries = {"gemm_tile": phase_kernels(dev, peaks),
+    k1 = phase_kernels(dev, peaks)
+    torch.cuda.empty_cache()
+    entries = {"gemm_tile": k1,
+               "gemm_tile_grouped": phase_k1_forms(dev, peaks, k1),
                "gram_tile": phase_gram(dev, peaks)}
     torch.cuda.empty_cache()
 
@@ -1019,12 +1340,19 @@ def main() -> int:
         "QR mb=6144": in_context(phase_qr),
         "potrf mb=6144": in_context(phase_potrf)}
 
-    for path_name, launches in per_path.items():
-        log(f"launches on path {path_name}: {launches}")
+    for path_name, res in per_path.items():
+        log(f"launches on path {path_name}: {res['launches']}")
     for kname, entry in entries.items():
-        entry["launches"] = sum(l[kname] for l in per_path.values())
-        if entry["launches"] <= 0:
+        entry["launches"] = sum(r["launches"][kname]
+                                for r in per_path.values())
+        # at one launch per task (device_fuse=1) no grouped launch is on
+        # a path
+        on_path = kname != "gemm_tile_grouped" or \
+            int(params.get("device_fuse")) > 1
+        if on_path and entry["launches"] <= 0:
             raise AssertionError(f"{kname} was never launched on a path")
+    print(json.dumps({"device_module": device_settings(),
+                      "paths": per_path}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card "
         f"check")
     print(json.dumps({"kernels": list(entries.values())}))

@@ -16,10 +16,16 @@ and QR paths' calls — and (f32, f32, f32); with ``trans_b`` (B given as
 (n, k), ``O = C + alpha * A @ B^T``: the Cholesky updates) (bf16, bf16,
 bf16) — the potrf path's calls, C read and O written in bf16 — and (f32,
 f32, f32).  f32 accumulation seeded from C, one rounding to C's type;
-any (m, n, k); ``O`` is a new tensor that never aliases ``C``.
-``gemm_route`` picks one of three hand-written routes before launch:
-``wgmma`` (bf16 wherever TMA can describe the operands), ``wmma`` (any
-other bf16 call) and ``fma`` (f32, never TF32).
+any (m, n, k).  ``O`` is a new tensor, or with ``out=C`` C itself (in
+place: the device module's buffer donation; bit-identical to the
+out-of-place call).  ``gemm_route`` picks one of three hand-written routes
+before launch: ``wgmma`` (bf16 wherever TMA can describe the operands),
+``wmma`` (any other bf16 call) and ``fma`` (f32, never TF32).
+
+``gemm_tile_grouped`` runs n <= ``GEMM_GROUP_MAX`` equal-shape calls (a
+wave of the device module's wave fusion) as ONE persistent ``wgmma``
+launch; a group whose members do not all take the ``wgmma`` route runs as
+single launches on their own routes.
 
 ``gram_tile`` — the f32 Gram matrix ``G = X^T X``
 -------------------------------------------------
@@ -81,9 +87,18 @@ gemm_tile_launches = Counter()
 #: ``gemm_tile_launches`` and one to its route's count
 gemm_tile_route_launches = {"wgmma": Counter(), "wmma": Counter(),
                             "fma": Counter()}
+#: grouped launches of the gemm_tile kernel (``gemm_tile_grouped``, all on
+#: the wgmma route) and the calls they carried; a grouped launch adds
+#: nothing to ``gemm_tile_launches``, so single launches plus grouped
+#: members count K1's tiles
+gemm_tile_grouped_launches = Counter()
+gemm_tile_grouped_members = Counter()
 #: launches of the gram_tile kernels (both passes: one per call), counted
 #: the same way
 gram_tile_launches = Counter()
+
+#: the most calls one grouped K1 launch carries (gemm_tile.cu's kMaxGroup)
+GEMM_GROUP_MAX = 8
 
 #: the Gram kernel's output tile, rows of X per stage and blocks per SM:
 #: copies of gram_tile.cu's kT, kKC and kBlocksPerSM, which the split plan
@@ -184,6 +199,13 @@ def _load() -> ctypes.CDLL:
                                ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, ctypes.c_void_p]
                 fn.restype = ctypes.c_int
+            fn = lib.parsec_gemm_tile_bf16_wgmma_grouped
+            ptrs = ctypes.POINTER(ctypes.c_void_p)
+            fn.argtypes = [ptrs, ptrs, ptrs, ptrs, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
             fn = lib.parsec_gram_tile_f32
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_void_p, ctypes.c_longlong,
@@ -251,39 +273,73 @@ _GEMM_ENTRIES = {"wgmma": "parsec_gemm_tile_bf16_wgmma",
                  "fma": "parsec_gemm_tile_f32"}
 
 
-def gemm_tile(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
-              alpha: float = 1.0, trans_b: bool = False) -> torch.Tensor:
-    """``C + alpha * A @ B`` as a new tensor; with ``trans_b``, B is
-    (n, k) and the product is ``A @ B^T``.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel on the current stream or
-    raise."""
-    devs = {t.device.type for t in (A, B, C)}
-    if devs == {"cpu"}:
-        return gemm_tile_reference(A, B, C, alpha, trans_b)
-    if devs != {"cuda"} or not (A.device == B.device == C.device):
-        raise ValueError("gemm_tile: A, B and C must lie on one device, "
+def _gemm_shape(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                trans_b: bool, out: Optional[torch.Tensor],
+                what: str = "gemm_tile") -> tuple:
+    """(m, n, k) of one call on CUDA tensors, after every check the kernel
+    needs: one device, matrices whose shapes agree, a type set K1 takes,
+    contiguous operands, and an ``out`` shaped and typed as C that is C
+    itself or overlaps neither A nor B."""
+    devs = {t.device for t in (A, B, C)}
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"{what}: A, B and C must lie on one device, "
                          f"got {A.device}, {B.device}, {C.device}")
     if A.dim() != 2 or B.dim() != 2 or C.dim() != 2:
-        raise ValueError("gemm_tile: A, B and C must be matrices")
+        raise ValueError(f"{what}: A, B and C must be matrices")
     m, k = A.shape
     n, k2 = B.shape if trans_b else B.shape[::-1]
     if k2 != k or tuple(C.shape) != (m, n):
-        raise ValueError(f"gemm_tile: shapes do not agree: A {tuple(A.shape)}"
+        raise ValueError(f"{what}: shapes do not agree: A {tuple(A.shape)}"
                          f", B {tuple(B.shape)}{'^T' if trans_b else ''}, "
                          f"C {tuple(C.shape)}")
     if (A.dtype, B.dtype, C.dtype, bool(trans_b)) not in _TYPES:
-        raise TypeError("gemm_tile: supported (A, B, C) dtypes are "
+        raise TypeError(f"{what}: supported (A, B, C) dtypes are "
                         "(bf16, bf16, f32) and (f32, f32, f32), and with "
                         "trans_b (bf16, bf16, bf16) and (f32, f32, f32); got "
                         f"({A.dtype}, {B.dtype}, {C.dtype}), trans_b="
                         f"{bool(trans_b)}")
     if not (A.is_contiguous() and B.is_contiguous() and C.is_contiguous()):
-        raise ValueError("gemm_tile: A, B and C must be contiguous")
-    O = torch.empty_like(C, memory_format=torch.contiguous_format)
+        raise ValueError(f"{what}: A, B and C must be contiguous")
+    if out is not None:
+        if out.device != C.device or out.dtype != C.dtype or \
+                out.shape != C.shape or not out.is_contiguous():
+            raise ValueError(f"{what}: out must be a contiguous tensor "
+                             "shaped, typed and placed as C")
+        if (out.data_ptr() != C.data_ptr() and _overlaps(out, C)) or \
+                _overlaps(out, A) or _overlaps(out, B):
+            raise ValueError(f"{what}: out may be C itself but must not "
+                             "overlap C, A or B otherwise")
+    return m, n, k
+
+
+def _overlaps(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Whether the bytes of two contiguous tensors overlap."""
+    if x.numel() == 0 or y.numel() == 0:
+        return False
+    x0, y0 = x.data_ptr(), y.data_ptr()
+    return x0 < y0 + y.numel() * y.element_size() and \
+        y0 < x0 + x.numel() * x.element_size()
+
+
+def gemm_tile(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+              alpha: float = 1.0, trans_b: bool = False,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``C + alpha * A @ B`` as a new tensor, or into ``out`` (which may be
+    C itself: in place); with ``trans_b``, B is (n, k) and the product is
+    ``A @ B^T``.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel on the current stream or raise."""
+    if {t.device.type for t in (A, B, C)} == {"cpu"}:
+        got = gemm_tile_reference(A, B, C, alpha, trans_b)
+        return got if out is None else out.copy_(got)
+    m, n, k = _gemm_shape(A, B, C, trans_b, out)
+    O = torch.empty_like(C, memory_format=torch.contiguous_format) \
+        if out is None else out
     if m == 0 or n == 0:
         return O        # empty output: nothing to launch, nothing counted
+    # C and O must both pair-align for the wgmma epilogue: test the OR of
+    # their addresses
     route = gemm_route(m, n, k, A.dtype, A.data_ptr(), B.data_ptr(),
-                       C.data_ptr(), trans_b, C.dtype)
+                       C.data_ptr() | O.data_ptr(), trans_b, C.dtype)
     launch = getattr(_load(), _GEMM_ENTRIES[route])
     err = launch(A.data_ptr(), B.data_ptr(), C.data_ptr(), O.data_ptr(), m,
                  n, k, float(alpha), int(bool(trans_b)),
@@ -295,6 +351,69 @@ def gemm_tile(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     gemm_tile_launches.add()
     gemm_tile_route_launches[route].add()
     return O
+
+
+def gemm_tile_grouped_reference(As, Bs, Cs, alpha: float = 1.0,
+                                trans_b: bool = False) -> list:
+    """Plain version of the grouped launch: one ``gemm_tile_reference``
+    per member."""
+    return [gemm_tile_reference(A, B, C, alpha, trans_b)
+            for A, B, C in zip(As, Bs, Cs)]
+
+
+def gemm_tile_grouped(As, Bs, Cs, alpha: float = 1.0, trans_b: bool = False,
+                      out=None) -> list:
+    """``[C_i + alpha * A_i @ B_i]`` (``B_i^T`` with ``trans_b``) over n
+    equal-shape calls, as new tensors or into ``out`` (a list; ``out[i]``
+    may be ``Cs[i]``).  On CUDA tensors the calls run as one persistent
+    ``wgmma`` launch per ``GEMM_GROUP_MAX`` members when every member
+    takes that route, and as single launches on their own routes
+    otherwise; a failed grouped launch raises.  CPU tensors take the
+    plain version."""
+    As, Bs, Cs = list(As), list(Bs), list(Cs)
+    outs = [None] * len(Cs) if out is None else list(out)
+    if not len(As) == len(Bs) == len(Cs) == len(outs):
+        raise ValueError("gemm_tile_grouped: As, Bs, Cs and out must have "
+                         "one entry per call")
+    if all(t.device.type == "cpu" for t in (*As, *Bs, *Cs)):
+        got = gemm_tile_grouped_reference(As, Bs, Cs, alpha, trans_b)
+        return [g if o is None else o.copy_(g) for g, o in zip(got, outs)]
+    shapes = [_gemm_shape(A, B, C, trans_b, o, "gemm_tile_grouped")
+              for A, B, C, o in zip(As, Bs, Cs, outs)]
+    first = (As[0].dtype, Cs[0].dtype, As[0].device)
+    if any(s != shapes[0] for s in shapes) or \
+            any((A.dtype, C.dtype, A.device) != first
+                for A, C in zip(As, Cs)):
+        raise ValueError("gemm_tile_grouped: the calls must share one "
+                         "shape, one type set and one device")
+    m, n, k = shapes[0]
+    Os = [torch.empty_like(C, memory_format=torch.contiguous_format)
+          if o is None else o for C, o in zip(Cs, outs)]
+    if len(Cs) == 1 or any(
+            gemm_route(m, n, k, A.dtype, A.data_ptr(), B.data_ptr(),
+                       C.data_ptr() | O.data_ptr(), trans_b, C.dtype)
+            != "wgmma" for A, B, C, O in zip(As, Bs, Cs, Os)):
+        return [gemm_tile(A, B, C, alpha, trans_b, out=O)
+                for A, B, C, O in zip(As, Bs, Cs, Os)]
+    if m == 0 or n == 0:
+        return Os       # empty outputs: nothing to launch, nothing counted
+    launch = _load().parsec_gemm_tile_bf16_wgmma_grouped
+    dev = As[0].device
+    for lo in range(0, len(Cs), GEMM_GROUP_MAX):
+        hi = min(lo + GEMM_GROUP_MAX, len(Cs))
+        ptrs = [(ctypes.c_void_p * (hi - lo))(*(t.data_ptr()
+                                                 for t in ts[lo:hi]))
+                for ts in (As, Bs, Cs, Os)]
+        err = launch(*ptrs, hi - lo, m, n, k, float(alpha),
+                     int(bool(trans_b)), int(Cs[0].dtype == torch.bfloat16),
+                     dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"gemm_tile_grouped: grouped wgmma launch of "
+                               f"{hi - lo} calls failed with CUDA error "
+                               f"{err}")
+        gemm_tile_grouped_launches.add()
+        gemm_tile_grouped_members.add(hi - lo)
+    return Os
 
 
 def gram_upper_tiles(n: int) -> int:

@@ -9,8 +9,10 @@ Owner-computes: the task runs where C(m, n) lives.
 
 The device body of every GEMM task is ``gemm_tile`` (apps/cuda_kernels.py),
 the hand-written Hopper kernel: bf16 A/B panels with an f32 C give
-tensor-core products with f32 accumulation.  The CPU body is the kernel's
-plain version.
+tensor-core products with f32 accumulation.  It writes C in place when
+the device module donates the tile, and a fused wave of GEMM tasks runs
+as one ``gemm_tile_grouped`` launch.  The CPU body is the kernel's plain
+version.
 """
 
 from __future__ import annotations
@@ -18,17 +20,24 @@ from __future__ import annotations
 from typing import Optional
 
 from parsec_tpu_torch.apps.cuda_kernels import gemm_tile, \
-    gemm_tile_reference
+    gemm_tile_grouped, gemm_tile_reference
 from parsec_tpu_torch.core.taskpool import ParameterizedTaskpool
 from parsec_tpu_torch.data.matrix import TiledMatrix
 from parsec_tpu_torch.dsl.ptg.api import DATA, IN, OUT, PTG, Range, TASK
 
 
 def _tile_kernel(alpha: float):
-    """Accumulation step of the k-chain: Ci + alpha * Ai@Bi.
+    """Accumulation step of the k-chain: Ci + alpha * Ai@Bi, into Ci's
+    storage when donated; a wave of steps is one grouped launch.
     (beta is applied once by the SCALE task class, not per step.)"""
-    def fn(Ai, Bi, Ci):
-        return gemm_tile(Ai, Bi, Ci, alpha)
+    def fn(Ai, Bi, Ci, *, donate=False):
+        return gemm_tile(Ai, Bi, Ci, alpha, out=Ci if donate else None)
+
+    def grouped(calls, *, donate=False):
+        As, Bs, Cs = zip(*calls)
+        return gemm_tile_grouped(As, Bs, Cs, alpha,
+                                 out=Cs if donate else None)
+    fn.grouped = grouped
     return fn
 
 

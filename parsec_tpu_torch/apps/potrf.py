@@ -43,9 +43,12 @@ Two differences from the reference's bodies are deliberate:
     (``tp.cholesky_check``), which the caller reads once the pool has
     run.  The CPU bodies raise, as numpy does.
 
-Single rank, and one launch per task: the chain-fusion properties of the
-reference (``fuse_chain``/``coaffinity``) are not set, as chain fusion is
-not ported, nor are ``recovery_collections`` (recovery is not ported).
+On the device module at its defaults, SYRK and GEMM write their tile in
+place when it is donated, and a wave of them is one grouped K1 launch;
+POTRF(k) is chain-held and runs in the step of its TRSM wave
+(``fuse_chain``), and TRSM follows the diagonal tile's device
+(``coaffinity``), as in the reference.  Single rank; the reference's
+``recovery_collections`` are not set (recovery is not ported).
 """
 
 from __future__ import annotations
@@ -56,7 +59,8 @@ from typing import Dict, Optional
 
 import torch
 
-from parsec_tpu_torch.apps.cuda_kernels import check_f32_matmul, gemm_tile
+from parsec_tpu_torch.apps.cuda_kernels import check_f32_matmul, \
+    gemm_tile, gemm_tile_grouped
 from parsec_tpu_torch.core.taskpool import ParameterizedTaskpool
 from parsec_tpu_torch.data.matrix import TiledMatrix
 from parsec_tpu_torch.dsl.ptg.api import DATA, IN, NEW, OUT, PTG, Range, TASK
@@ -148,12 +152,29 @@ def _k_trsm(W, C):
     return (C.float() @ W.float().mT).to(C.dtype)
 
 
-def _k_syrk(T, R):
-    return gemm_tile(R, R, T, -1.0, trans_b=True)
+def _k_syrk(T, R, *, donate=False):
+    return gemm_tile(R, R, T, -1.0, trans_b=True, out=T if donate else None)
 
 
-def _k_gemm(C, L, R):
-    return gemm_tile(L, R, C, -1.0, trans_b=True)
+def _k_gemm(C, L, R, *, donate=False):
+    return gemm_tile(L, R, C, -1.0, trans_b=True, out=C if donate else None)
+
+
+def _syrk_wave(calls, *, donate=False):
+    # a wave of SYRK tasks: one grouped K1 launch
+    Ts, Rs = zip(*calls)
+    return gemm_tile_grouped(Rs, Rs, Ts, -1.0, trans_b=True,
+                             out=Ts if donate else None)
+
+
+def _gemm_wave(calls, *, donate=False):
+    Cs, Ls, Rs = zip(*calls)
+    return gemm_tile_grouped(Ls, Rs, Cs, -1.0, trans_b=True,
+                             out=Cs if donate else None)
+
+
+_k_syrk.grouped = _syrk_wave
+_k_gemm.grouped = _gemm_wave
 
 
 def _cpu_potrf(T, W):
@@ -308,6 +329,15 @@ def potrf_taskpool(A: TiledMatrix, device: str = "cuda",
                                   "TRSM": 2.0 * mb ** 3,
                                   "SYRK": 2.0 * mb ** 3,
                                   "GEMM": 2.0 * mb ** 3}[name]
+    # cross-panel chain fusion (devices/cuda.py): the POTRF(k) -> TRSM(*,k)
+    # panel is the spine of the DAG (each TRSM's only missing input is W),
+    # so the device module holds POTRF(k) and runs it in its TRSM wave's
+    # launch step; TRSM co-locates on the diagonal tile's device so the
+    # whole panel is one wave there.  A/B knob:
+    # PARSEC_MCA_DEVICE_FUSE_PANEL=0 restores the per-kernel panel path.
+    tp.task_classes["POTRF"].properties["fuse_chain"] = ("W", "TRSM")
+    tp.task_classes["TRSM"].properties["coaffinity"] = \
+        lambda loc, A=A: A(loc["k"], loc["k"])
     tp.cholesky_check = check
     return tp
 

@@ -63,9 +63,15 @@ the host once per GEQRT and TSQRT.  Each fallback taken adds one to
 ``qr_guard_fallbacks``; a fallback runs ``torch.linalg.qr`` on the same
 device — it is the algorithm's own guard, not a device fallback.
 
+On the device module at its defaults, UNMQR and TSMQR write their tiles
+in place when they are donated, and a wave of either runs each of its K1
+products as one grouped launch (the casts between them stay per task);
+GEQRT(k) and the TSQRT(*,k) column are chain-held and run in the step of
+the wave that consumes them (``fuse_chain``), with TSQRT on the diagonal
+tile's device (``coaffinity``), as in the reference.
+
 Single rank only: the routed store classes of the reference exist for
-multi-rank runs, which the port's Context does not carry yet.  Nor are
-the chain-fusion properties set (chain fusion is not ported).
+multi-rank runs, which the port's Context does not carry yet.
 """
 
 from __future__ import annotations
@@ -73,7 +79,7 @@ from __future__ import annotations
 import torch
 
 from parsec_tpu_torch.apps.cuda_kernels import Counter, \
-    check_f32_matmul, gemm_tile, gram_tile
+    check_f32_matmul, gemm_tile_grouped, gram_tile
 from parsec_tpu_torch.apps.potrf import tri_inv
 from parsec_tpu_torch.core.taskpool import ParameterizedTaskpool
 from parsec_tpu_torch.data.matrix import TiledMatrix
@@ -190,12 +196,22 @@ def _mk_geqrt(ib: int = 0):
     return fn
 
 
+def _unmqr_wave(calls, *, donate=False):
+    """UNMQR over a wave of (Q, C): bf16 operands, f32 accumulation (one
+    K1 launch for the wave, accumulating into a zero C it owns), rounded
+    once to storage — into C's own storage when donated."""
+    zeros = [torch.zeros((Q.shape[1], C.shape[1]), dtype=torch.float32,
+                         device=C.device) for Q, C in calls]
+    prods = gemm_tile_grouped([Q.T.contiguous() for Q, _ in calls],
+                              [C for _, C in calls], zeros, out=zeros)
+    return [{"C": C.copy_(P) if donate else P.to(C.dtype)}
+            for (_, C), P in zip(calls, prods)]
+
+
 def _mk_unmqr():
-    def fn(Q, C):
-        # bf16 operands, f32 accumulation (K1), rounded once to storage
-        zero = torch.zeros((Q.shape[1], C.shape[1]), dtype=torch.float32,
-                           device=C.device)
-        return {"C": gemm_tile(Q.T.contiguous(), C, zero).to(C.dtype)}
+    def fn(Q, C, *, donate=False):
+        return _unmqr_wave([(Q, C)], donate=donate)[0]
+    fn.grouped = _unmqr_wave
     return fn
 
 
@@ -283,19 +299,65 @@ def _mk_tsqrt(ib: int = 0):
     return fn
 
 
+def _tsmqr_wave(calls, *, donate=False):
+    """TSMQR over a wave of (Q, C1, C2): f32 accumulation through the
+    5-product WY application, each of its three K1 products one grouped
+    launch for the wave; intermediates round to the storage dtype where
+    the reference rounds them (per task), outputs round back to it — into
+    C1's and C2's own storage when donated.
+
+    A grouped product needs every member's operands at once, so the wave
+    holds n tasks' temporaries: each is dropped as soon as the next
+    product has read it, and C1's update lands before the third product
+    so that only the bf16 Z and C2's f32 seed live through it."""
+    mb = calls[0][1].shape[0]
+    Vs = [Q[:mb] for Q, _, _ in calls]
+    Tts = [Q[mb:] for Q, _, _ in calls]
+    # C1.float() seeds the product, and a bf16 tile's private f32 copy
+    # takes its result; C1's update makes the copy again rather than hold
+    # it across the other two products
+    C1fs = [C1.float() for _, C1, _ in calls]
+    inners = gemm_tile_grouped(
+        [V.T.contiguous() for V in Vs], [C2 for _, _, C2 in calls], C1fs,
+        1.0, out=[f if f is not C1 else None
+                  for f, (_, C1, _) in zip(C1fs, calls)])
+    del C1fs
+    for i, Tt in enumerate(Tts):
+        inners[i] = inners[i].to(Tt.dtype)
+    Zs = [torch.zeros(x.shape, device=x.device) for x in inners]
+    Zs = gemm_tile_grouped(Tts, inners, Zs, 1.0, out=Zs)
+    del inners
+    C1ns = []
+    for i, ((_, C1, _), V) in enumerate(zip(calls, Vs)):
+        if donate:
+            C1.copy_(C1.float() - Zs[i])
+            C1ns.append(C1)
+        else:
+            C1ns.append((C1.float() - Zs[i]).to(C1.dtype))
+        Zs[i] = Zs[i].to(V.dtype)
+    # C2.float() is C2 itself for f32 storage: accumulate in place only
+    # when C2 is donated, always into a bf16 tile's private f32 copy
+    C2fs = [C2.float() for _, _, C2 in calls]
+    C2ns = gemm_tile_grouped(
+        Vs, Zs, C2fs, -1.0,
+        out=[f if donate or f is not C2 else None
+             for f, (_, _, C2) in zip(C2fs, calls)])
+    del C2fs, Zs
+    outs = []
+    for (_, C1, C2), C1n, C2n in zip(calls, C1ns, C2ns):
+        if donate:
+            if C2n is not C2:
+                C2.copy_(C2n)
+            outs.append({"C1": C1, "C2": C2})
+        else:
+            outs.append({"C1": C1n, "C2": C2n.to(C2.dtype)})
+    return outs
+
+
 def _mk_tsmqr():
-    def fn(Q, C1, C2):
-        mb = C1.shape[0]
-        V, Tt = Q[:mb], Q[mb:]
-        # f32 accumulation through the 5-product WY application (K1);
-        # intermediates round to the storage dtype where the reference
-        # rounds them, outputs round back to it
-        C1f = C1.float()
-        inner = gemm_tile(V.T.contiguous(), C2, C1f, 1.0)
-        zero = torch.zeros_like(inner)
-        Z = gemm_tile(Tt, inner.to(Tt.dtype), zero, 1.0)
-        C2n = gemm_tile(V, Z.to(V.dtype), C2.float(), -1.0)
-        return {"C1": (C1f - Z).to(C1.dtype), "C2": C2n.to(C2.dtype)}
+    def fn(Q, C1, C2, *, donate=False):
+        return _tsmqr_wave([(Q, C1, C2)], donate=donate)[0]
+    fn.grouped = _tsmqr_wave
     return fn
 
 
@@ -473,6 +535,16 @@ def qr_taskpool(A: TiledMatrix, device: str = "cuda") -> ParameterizedTaskpool:
                                   "UNMQR": 2.0 * mb ** 3,
                                   "TSQRT": 6.0 * mb ** 3,
                                   "TSMQR": 10.0 * mb ** 3}[name]
+    # cross-panel chain fusion (devices/cuda.py): the GEQRT(k) ->
+    # TSQRT(k+1,k) -> ... -> TSQRT(NT-1,k) column is the serial spine of the
+    # DAG — each link's only missing input is its predecessor's T — so the
+    # device module holds the links and runs the column in the launch step
+    # of the wave consuming it.  TSQRT co-locates on the diagonal tile's
+    # device so the column is a chain on ONE device.
+    tp.task_classes["GEQRT"].properties["fuse_chain"] = ("T", "TSQRT")
+    tp.task_classes["TSQRT"].properties["fuse_chain"] = ("T", "TSQRT")
+    tp.task_classes["TSQRT"].properties["coaffinity"] = \
+        lambda loc, A=A: A(loc["k"], loc["k"])
     return tp
 
 

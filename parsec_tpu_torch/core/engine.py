@@ -22,7 +22,8 @@ import torch
 from parsec_tpu_torch.containers.hash_table import REMOVE
 from parsec_tpu_torch.data.data import (ACCESS_READ, ACCESS_WRITE, Coherency,
                                         Data, DataCopy, FLAG_COW,
-                                        FLAG_SCRATCH, private_host, to_host)
+                                        FLAG_SCRATCH, materialize,
+                                        private_host, to_host)
 from parsec_tpu_torch.data.reshape import as_dtt, convert, needs_reshape
 from parsec_tpu_torch.core.task import (Dep, Flow, FromDesc, FromTask, New, Null,
                                   Task, TaskClass, ToDesc, ToTask)
@@ -196,6 +197,9 @@ def stage_in_host(task: Task) -> None:
         copy = task.data.get(flow.name)
         if copy is None or copy.data is None:
             continue
+        # a chain-held device task's output reaching a CPU body: run the
+        # held chain now (devices/cuda.py Deferred)
+        copy.payload = materialize(copy.payload)
         datum = copy.data
         with datum._lock:
             if copy.flags & FLAG_COW:
@@ -218,10 +222,10 @@ def stage_in_host(task: Task) -> None:
             src = datum.transfer_ownership(0, flow.access)
             if src is not None:
                 hp = host.payload
+                sp = src.payload = materialize(src.payload)
                 if isinstance(hp, torch.Tensor) and hp.device.type == "cpu" \
-                        and hp.shape == src.payload.shape \
-                        and hp.dtype == src.payload.dtype:
-                    hp.copy_(src.payload)   # D2H lands in the backing view
+                        and hp.shape == sp.shape and hp.dtype == sp.dtype:
+                    hp.copy_(sp)   # D2H lands in the backing view
                 else:
                     host.payload = private_host(src.payload)
                 host.version = src.version

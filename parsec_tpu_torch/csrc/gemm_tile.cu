@@ -12,10 +12,32 @@
 //   A (M, K): bf16 or f32, row-major, contiguous.
 //   B: the type of A, row-major, contiguous; (K, N), or (N, K) when
 //   trans_b is set (A @ B^T: the Cholesky updates' L @ R^T).
-//   C, O (M, N): row-major, contiguous; O does not alias C.  f32, or bf16
-//   with trans_b and bf16 operands (read and written in bf16, summed in
-//   f32, rounded once to nearest even).
+//   C, O (M, N): row-major, contiguous.  f32, or bf16 with trans_b and
+//   bf16 operands (read and written in bf16, summed in f32, rounded once
+//   to nearest even).  O may be C itself (in place: the device module's
+//   buffer donation), on every route; it must not overlap A or B.
 //   Any M, N, K: the ragged edge is masked inside the kernels.
+//
+// In place.  On every route each element of C is read by exactly one
+// thread, which then writes the same element of O, and no thread reads an
+// element another thread stores: the wgmma epilogue's lane owns its pairs
+// of columns in its rows of its block's rows of one cluster tile, and each
+// (member, cluster tile) is walked by exactly one cluster; the wmma
+// epilogue's lane owns element e of its warp's 16 x 16 fragment; an fma
+// thread owns its 4 x 4 outputs.  C and O carry no __restrict__ and C is
+// read through L2 (ld.global.cg), never the read-only path, so an O that is
+// C is well defined, and the result is bit-identical to the out-of-place
+// call's.
+//
+// Grouped (the wave fusion of the device module): one persistent wgmma
+// launch over n <= kMaxGroup equal-shape calls, each with its own A, B, C
+// and O.  The n pairs of A/B TMA maps travel in one __grid_constant__
+// parameter struct (8 x 2 x 128 B = 2 KB, inside the 4 KB of kernel
+// parameters) beside the C and O pointers.  The persistent clusters walk
+// (member, cluster tile) pairs member-major, so the two blocks of a
+// cluster always work on one member and the B multicast stays sound; the
+// mbarrier stages and phases run on unbroken across members.  A single
+// call is the same kernel with a group of one.
 //
 // Three routes, chosen by the wrapper (apps/cuda_kernels.py::gemm_route)
 // from the types, the shape and the pointers before launch:
@@ -82,10 +104,12 @@
 // zero C and a transposed copy of V (apps/qr.py), which a beta = 0
 // epilogue and wgmma's transpose-A would spare.
 //
-// C interface (bound with ctypes): each entry takes the same arguments,
-// trans_b and c_bf16 among them, launches on `stream` of `device` and
-// returns a cudaError_t as an int (0 = launched); a combination its route
-// does not take is cudaErrorInvalidValue, and nothing is launched.
+// C interface (bound with ctypes): each single-call entry takes the same
+// arguments, trans_b and c_bf16 among them, and the grouped entry the same
+// with arrays of n A, B, C and O pointers; each launches on `stream` of
+// `device` and returns a cudaError_t as an int (0 = launched); a
+// combination its route does not take is cudaErrorInvalidValue, and
+// nothing is launched.
 
 #include <cuda.h>  // CUtensorMap and its enums; no libcuda symbol is linked
 #include <cuda_bf16.h>
@@ -289,14 +313,15 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TnspB));
 }
 
-// a pair of C's columns as f32 (8- or 4-byte aligned), and a pair of O's
-// columns from f32 (bf16: rounded to nearest even), streamed past L1
+// a pair of C's columns as f32 (8- or 4-byte aligned), read through L2 (a
+// coherent load: O may be C), and a pair of O's columns from f32 (bf16:
+// rounded to nearest even), streamed past L1
 __device__ __forceinline__ float2 load_pair(const float* p) {
-  return __ldg(reinterpret_cast<const float2*>(p));
+  return __ldcg(reinterpret_cast<const float2*>(p));
 }
 
 __device__ __forceinline__ float2 load_pair(const bf16* p) {
-  const uint32_t u = __ldg(reinterpret_cast<const unsigned int*>(p));
+  const uint32_t u = __ldcg(reinterpret_cast<const unsigned int*>(p));
   return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xFFFF0000u));
 }
 
@@ -333,17 +358,27 @@ __device__ __forceinline__ void tile_coords(int tile, int tiles_m,
   pn = r / rows;
 }
 
-// the cluster walks (128 kWgCluster) x 256 tiles, block r of it takes rows
-// 128 r.. of each, and the B slab the blocks share is loaded once for all
-// of them: each block multicasts its share of the 64-column boxes (with
-// TransB: of the boxes of 64 B rows) into every block of the cluster.  CT
-// is C's and O's type.
-template <bool TransB, typename CT>
+// the operands of up to G equal-shape calls: their TMA maps, C and O
+constexpr int kMaxGroup = 8;
+
+template <typename CT, int G>
+struct alignas(64) WgArgs {
+  CUtensorMap a[G];
+  CUtensorMap b[G];
+  const CT* c[G];
+  CT* o[G];
+};
+
+// the cluster walks (member, (128 kWgCluster) x 256 tile) pairs, member
+// by member; block r of it takes rows 128 r.. of each tile, and the B slab
+// the blocks share is loaded once for all of them: each block multicasts
+// its share of the 64-column boxes (with TransB: of the boxes of 64 B rows)
+// into every block of the cluster.  CT is C's and O's type; `members` <= G
+// entries of `args` are live.
+template <bool TransB, typename CT, int G>
 __global__ void __launch_bounds__(kWgThreads, 1)
-    gemm_tile_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
-                           const __grid_constant__ CUtensorMap tmB,
-                           const CT* __restrict__ C, CT* __restrict__ O,
-                           int M, int N, int K, float alpha) {
+    gemm_tile_wgmma_kernel(const __grid_constant__ WgArgs<CT, G> args,
+                           int members, int M, int N, int K, float alpha) {
   constexpr int S = kWgStages;
   constexpr int CL = kWgCluster;
   extern __shared__ uint8_t smem_raw[];
@@ -358,6 +393,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int tiles_m = (M + kWgBM * CL - 1) / (kWgBM * CL);
   const int tiles_n = (N + kWgBN - 1) / kWgBN;
   const int tiles = tiles_m * tiles_n;
+  const int items = tiles * members;
   const int nk = (K + kWgBK - 1) / kWgBK;
   const int wg = threadIdx.x / 128;
   const int rank = static_cast<int>(cluster_rank());
@@ -382,15 +418,18 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     if (threadIdx.x == 256) {
       int stage = 0;
       uint32_t phase = 0;
-      for (int tile = cluster; tile < tiles; tile += clusters) {
+      for (int item = cluster; item < items; item += clusters) {
+        const int member = item / tiles;
+        const CUtensorMap* tmA = &args.a[member];
+        const CUtensorMap* tmB = &args.b[member];
         int pm, pn;
-        tile_coords(tile, tiles_m, tiles_n, pm, pn);
+        tile_coords(item - member * tiles, tiles_m, tiles_n, pm, pn);
         const int row = (pm * CL + rank) * kWgBM;  // past M: TMA zero-fills
         for (int kb = 0; kb < nk; ++kb) {
           mbar_wait(empty + 8 * stage, phase ^ 1);
           const uint32_t bar = full + 8 * stage;
           mbar_expect_tx(bar, kWgABytes + kWgBBytes);
-          tma_load_2d(sA + stage * kWgABytes, &tmA, bar, kb * kWgBK, row);
+          tma_load_2d(sA + stage * kWgABytes, tmA, bar, kb * kWgBK, row);
 #pragma unroll
           for (int c = 0; c < kWgBN / 64; ++c)
             if (c % CL == rank) {
@@ -398,7 +437,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
               // this stage's K-rows (TransB: K-columns)
               const int bn = pn * kWgBN + c * 64;
               tma_load_2d_multicast(sB + stage * kWgBBytes + c * kWgBoxBytes,
-                                    &tmB, bar, TransB ? kb * kWgBK : bn,
+                                    tmB, bar, TransB ? kb * kWgBK : bn,
                                     TransB ? bn : kb * kWgBK, (1u << CL) - 1);
             }
           if (++stage == S) {
@@ -428,9 +467,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     for (int i = 0; i < kWgBN / 2; ++i) acc[i] = 0.0f;
     int stage = 0;
     uint32_t phase = 0;
-    for (int tile = cluster; tile < tiles; tile += clusters) {
+    for (int item = cluster; item < items; item += clusters) {
+      const int member = item / tiles;
+      const CT* C = args.c[member];
+      CT* O = args.o[member];
       int pm, pn;
-      tile_coords(tile, tiles_m, tiles_n, pm, pn);
+      tile_coords(item - member * tiles, tiles_m, tiles_n, pm, pn);
       int prev = 0;
       fence_regs(acc);
       for (int kb = 0; kb < nk; ++kb) {
@@ -471,7 +513,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           (pm * CL + rank) * kWgBM + wg * 64 + warp * 16 + lane / 4;
       const int col0 = pn * kWgBN + 2 * (lane % 4);
       // kEpiBatch column blocks at a time: all their loads of C are in
-      // flight before the first store of O (C read-only, O streamed)
+      // flight before the first store of O (each element is loaded and
+      // stored by this thread alone, so O may be C; O streamed)
 #pragma unroll
       for (int j0 = 0; j0 < kWgBN / 8; j0 += kEpiBatch) {
         float2 cv[kEpiBatch][2];
@@ -566,8 +609,8 @@ template <bool TransB, typename CT>
 __global__ void __launch_bounds__(kThreads)
     gemm_tile_bf16_kernel(const bf16* __restrict__ A,
                           const bf16* __restrict__ B,
-                          const CT* __restrict__ C, CT* __restrict__ O,
-                          int M, int N, int K, float alpha) {
+                          const CT* C, CT* O, int M, int N, int K,
+                          float alpha) {
   using SB = WmmaB<TransB>;
   // a B^T slab's rows are N-indexed: column-major fragments of B
   using BLayout = typename std::conditional<TransB, wmma::col_major,
@@ -682,8 +725,8 @@ template <bool TransB>
 __global__ void __launch_bounds__(256)
     gemm_tile_f32_kernel(const float* __restrict__ A,
                          const float* __restrict__ B,
-                         const float* __restrict__ C, float* __restrict__ O,
-                         int M, int N, int K, float alpha) {
+                         const float* C, float* O, int M, int N, int K,
+                         float alpha) {
   __shared__ float As[kFK][kFB + 4];  // A slab, stored k-major
   __shared__ float Bs[kFK][kFB + 4];
   const int tid = threadIdx.x;
@@ -814,7 +857,7 @@ struct ClusterLaunch {
 
 // once per device and kernel variant: lift the dynamic shared-memory limit
 // above 48 KB and count the clusters that fit the card at once
-template <bool TransB, typename CT>
+template <bool TransB, typename CT, int G>
 cudaError_t wgmma_setup(int device, int* clusters) {
   static std::once_flag once[kMaxDevices];
   static cudaError_t err[kMaxDevices];
@@ -822,7 +865,7 @@ cudaError_t wgmma_setup(int device, int* clusters) {
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   std::call_once(once[device], [device] {
     err[device] = cudaFuncSetAttribute(
-        gemm_tile_wgmma_kernel<TransB, CT>,
+        gemm_tile_wgmma_kernel<TransB, CT, G>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
     int sms = 0;
     if (err[device] == cudaSuccess)
@@ -831,7 +874,7 @@ cudaError_t wgmma_setup(int device, int* clusters) {
     if (err[device] != cudaSuccess) return;
     ClusterLaunch probe(sms / kWgCluster * kWgCluster, nullptr);
     err[device] = cudaOccupancyMaxActiveClusters(
-        &count[device], gemm_tile_wgmma_kernel<TransB, CT>, &probe.cfg);
+        &count[device], gemm_tile_wgmma_kernel<TransB, CT, G>, &probe.cfg);
     if (err[device] == cudaSuccess && count[device] < 1)
       err[device] = cudaErrorInvalidConfiguration;
   });
@@ -845,27 +888,42 @@ bool pair_aligned(const void* p, int c_bf16) {
   return (reinterpret_cast<uintptr_t>(p) & (c_bf16 ? 3u : 7u)) == 0;
 }
 
-template <bool TransB, typename CT>
-int wgmma_launch(const void* A, const void* B, const void* C, void* O,
-                 int M, int N, int K, float alpha, int device,
-                 void* stream) {
+// whether one call's operands suit the wgmma route (see the header)
+bool wgmma_operands(const void* A, const void* B, const void* C,
+                    const void* O, int N, int K, int trans_b, int c_bf16) {
+  // TMA: A's rows and B's (N long, or K long with trans_b) a whole number
+  // of 16 bytes; the epilogue: N even
+  return K > 0 && K % 8 == 0 && N % (trans_b ? 2 : 8) == 0 &&
+         aligned16(A) && aligned16(B) && pair_aligned(C, c_bf16) &&
+         pair_aligned(O, c_bf16);
+}
+
+// n <= G equal-shape calls in one launch (one call: G = 1)
+template <bool TransB, typename CT, int G>
+int wgmma_launch(const void* const* A, const void* const* B,
+                 const void* const* C, void* const* O, int n, int M, int N,
+                 int K, float alpha, int device, void* stream) {
   int fit = 0;
-  cudaError_t err = wgmma_setup<TransB, CT>(device, &fit);
+  cudaError_t err = wgmma_setup<TransB, CT, G>(device, &fit);
   if (err != cudaSuccess) return static_cast<int>(err);
-  CUtensorMap ta, tb;
-  // B (K, N): boxes of 64 K-rows by 64 columns; B (N, K): boxes of 64
-  // rows by the 64 K-columns of a stage, as A's
-  if (!bf16_map(&ta, A, M, K, kWgBM, kWgBK) ||
-      !(TransB ? bf16_map(&tb, B, N, K, 64, kWgBK)
-               : bf16_map(&tb, B, K, N, kWgBK, 64)))
-    return static_cast<int>(cudaErrorInvalidValue);
+  WgArgs<CT, G> args;
+  for (int i = 0; i < n; ++i) {
+    // B (K, N): boxes of 64 K-rows by 64 columns; B (N, K): boxes of 64
+    // rows by the 64 K-columns of a stage, as A's
+    if (!bf16_map(&args.a[i], A[i], M, K, kWgBM, kWgBK) ||
+        !(TransB ? bf16_map(&args.b[i], B[i], N, K, 64, kWgBK)
+                 : bf16_map(&args.b[i], B[i], K, N, kWgBK, 64)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    args.c[i] = static_cast<const CT*>(C[i]);
+    args.o[i] = static_cast<CT*>(O[i]);
+  }
   const int tiles = ((M + kWgBM * kWgCluster - 1) / (kWgBM * kWgCluster)) *
-                    ((N + kWgBN - 1) / kWgBN);
+                    ((N + kWgBN - 1) / kWgBN) * n;
   ClusterLaunch launch((tiles < fit ? tiles : fit) * kWgCluster,
                        static_cast<cudaStream_t>(stream));
-  err = cudaLaunchKernelEx(&launch.cfg, gemm_tile_wgmma_kernel<TransB, CT>,
-                           ta, tb, static_cast<const CT*>(C),
-                           static_cast<CT*>(O), M, N, K, alpha);
+  err = cudaLaunchKernelEx(&launch.cfg,
+                           gemm_tile_wgmma_kernel<TransB, CT, G>, args, n, M,
+                           N, K, alpha);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -883,15 +941,33 @@ extern "C" int parsec_gemm_tile_bf16_wgmma(const void* A, const void* B,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (trans_b != c_bf16) return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0 || N <= 0) return 0;
-  // TMA: A's rows and B's (N long, or K long with trans_b) a whole number
-  // of 16 bytes; the epilogue: N even
-  if (K <= 0 || K % 8 != 0 || N % (trans_b ? 2 : 8) != 0 || !aligned16(A) ||
-      !aligned16(B) || !pair_aligned(C, c_bf16) || !pair_aligned(O, c_bf16))
+  if (!wgmma_operands(A, B, C, O, N, K, trans_b, c_bf16))
     return static_cast<int>(cudaErrorInvalidValue);
-  return trans_b ? wgmma_launch<true, bf16>(A, B, C, O, M, N, K, alpha,
-                                            device, stream)
-                 : wgmma_launch<false, float>(A, B, C, O, M, N, K, alpha,
-                                              device, stream);
+  return trans_b ? wgmma_launch<true, bf16, 1>(&A, &B, &C, &O, 1, M, N, K,
+                                               alpha, device, stream)
+                 : wgmma_launch<false, float, 1>(&A, &B, &C, &O, 1, M, N, K,
+                                                 alpha, device, stream);
+}
+
+// the grouped wgmma route: n (1..8) calls of one shape, member i reading
+// A[i], B[i], C[i] and writing O[i] (O[i] may be C[i]); every member must
+// suit the route, or nothing is launched
+extern "C" int parsec_gemm_tile_bf16_wgmma_grouped(
+    const void* const* A, const void* const* B, const void* const* C,
+    void* const* O, int n, int M, int N, int K, float alpha, int trans_b,
+    int c_bf16, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (trans_b != c_bf16 || n < 1 || n > kMaxGroup)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M <= 0 || N <= 0) return 0;
+  for (int i = 0; i < n; ++i)
+    if (!wgmma_operands(A[i], B[i], C[i], O[i], N, K, trans_b, c_bf16))
+      return static_cast<int>(cudaErrorInvalidValue);
+  return trans_b ? wgmma_launch<true, bf16, kMaxGroup>(
+                       A, B, C, O, n, M, N, K, alpha, device, stream)
+                 : wgmma_launch<false, float, kMaxGroup>(
+                       A, B, C, O, n, M, N, K, alpha, device, stream);
 }
 
 // the wmma route: the same (trans_b, c_bf16) pairs as the wgmma route

@@ -72,10 +72,21 @@ def torch_dtype(dtype: Any) -> torch.dtype:
     return _NP_TO_TORCH[np.dtype(dtype)]
 
 
+def materialize(payload: Any) -> Any:
+    """``payload`` itself, or — for the deferred output of a chain-held
+    device task (devices/cuda.py ``Deferred``) — the tensor it resolves
+    to, running the held chain on its device first.  Every host reader of
+    a payload comes through here."""
+    if getattr(payload, "parsec_deferred", False):
+        return payload.force()
+    return payload
+
+
 def to_host(payload: Any) -> torch.Tensor:
     """``payload``'s values as a CPU tensor.  A CPU tensor or a numpy
     array comes back as an alias of its storage; a device tensor is
     copied down (on the current stream, synchronously)."""
+    payload = materialize(payload)
     if isinstance(payload, torch.Tensor):
         return payload if payload.device.type == "cpu" \
             else payload.to("cpu")
@@ -86,6 +97,7 @@ def private_host(payload: Any) -> torch.Tensor:
     """A CPU tensor with storage of its own — never an alias of
     ``payload`` (``torch.from_numpy``, a same-device ``.to()`` and
     ``.contiguous()`` all alias, so writers must come through here)."""
+    payload = materialize(payload)
     if isinstance(payload, torch.Tensor) and payload.device.type != "cpu":
         return payload.to("cpu")
     return to_host(payload).clone()
@@ -106,7 +118,9 @@ class DataCopy:
         self.payload = payload
         self.coherency = coherency
         self.version = version
-        self.readers = 0          # active reader count (stage-out gating)
+        #: device tasks that read this copy and are not launched yet: an
+        #: in-place write (buffer donation) of the datum waits them out
+        self.readers = 0
         self.flags = 0
         self.arena = None         # owning arena, if arena-allocated
         #: repo-entry holds on an arena copy: a NEW-flow buffer chained
@@ -306,7 +320,7 @@ class Data:
                     host.version >= newest.version):
                 pass   # already current: no D2H transfer
             else:
-                src = newest.payload
+                src = materialize(newest.payload)
                 if host is None:
                     host = self.create_copy(0, payload=private_host(src),
                                             coherency=Coherency.SHARED,

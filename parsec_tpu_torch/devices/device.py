@@ -25,7 +25,9 @@ class DeviceStats:
     """Per-device counters (reference: device.h:132-137)."""
 
     __slots__ = ("executed_tasks", "bytes_in", "bytes_out", "faults",
-                 "evictions")
+                 "evictions", "fused_launches", "fused_tasks",
+                 "chained_launches", "chained_tasks", "donated_tasks",
+                 "donations_refused")
 
     def __init__(self):
         self.executed_tasks = 0
@@ -33,6 +35,21 @@ class DeviceStats:
         self.bytes_out = 0
         self.faults = 0
         self.evictions = 0
+        #: wavefront launch fusion counters: waves of more than one task
+        #: run in one manager step behind one launch event, and how many
+        #: tasks rode them (devices/cuda.py manager batching)
+        self.fused_launches = 0
+        self.fused_tasks = 0
+        #: cross-panel chain fusion counters: launches that ran a held
+        #: panel chain in front of a consumer wave (or alone, when forced),
+        #: and how many tasks (held + wave) rode them (device_fuse_panel)
+        self.chained_launches = 0
+        self.chained_tasks = 0
+        #: buffer donation: tasks whose written flows were handed their
+        #: staged inputs as output storage, and launches that could have
+        #: donated but were refused by a hazard (device_donate)
+        self.donated_tasks = 0
+        self.donations_refused = 0
 
     def as_dict(self) -> Dict[str, int]:
         return {k: getattr(self, k) for k in self.__slots__}
@@ -130,6 +147,9 @@ class DeviceRegistry:
             accs = [d for d in accs if d.space in allowed]
         if not accs:
             return None
+        dev = self._coaffinity_device(task)
+        if dev is not None and (allowed is None or dev.space in allowed):
+            return dev
         for flow in task.task_class.flows:
             if not (flow.access & ACCESS_WRITE):
                 continue
@@ -154,6 +174,37 @@ class DeviceRegistry:
                         and (allowed is None or sp in allowed):
                     return self.devices[sp]
         return min(accs, key=lambda d: d.load / d.weight)
+
+    def _coaffinity_device(self, task: Task) -> Optional[Device]:
+        """Panel co-location hint: a task class carrying a 'coaffinity'
+        property (locals -> data ref) prefers the device holding that
+        datum — e.g. TRSM(m,k)/TSQRT(m,k) follow their panel's diagonal
+        tile A(k,k), so the POTRF->TRSM / TSQRT column chain stays on
+        ONE device and cross-panel chain fusion (devices/cuda.py
+        device_fuse_panel, which also gates this hint) can run it in a
+        single launch step."""
+        coaff = task.task_class.properties.get("coaffinity")
+        if coaff is None:
+            return None
+        from parsec_tpu_torch.utils.mca import params
+        try:
+            if not int(params.get("device_fuse_panel", 1)):
+                return None
+            datum = coaff(task.locals).resolve()
+        except Exception:
+            return None
+        pref = datum.preferred_device
+        if pref is not None and 1 <= pref < len(self.devices) \
+                and self.devices[pref].enabled:
+            return self.devices[pref]
+        v = datum.newest_version()
+        for sp, c in datum.copies().items():
+            if 1 <= sp < len(self.devices) \
+                    and c.coherency != Coherency.INVALID \
+                    and c.version == v and c.payload is not None \
+                    and self.devices[sp].enabled:
+                return self.devices[sp]
+        return None
 
     def flush_all(self) -> None:
         for d in self.devices[1:]:

@@ -311,7 +311,10 @@ class TaskBuilder:
     def _device_body(self, fn: Callable, device: str) -> "TaskBuilder":
         from parsec_tpu_torch.core.task import HookReturn
         from parsec_tpu_torch.devices.cuda import CudaKernel
-        names = [p.name for p in inspect.signature(fn).parameters.values()]
+        # keyword-only parameters (``donate``) are the device module's to
+        # pass, not bound from flows or task parameters
+        names = [p.name for p in inspect.signature(fn).parameters.values()
+                 if p.kind is not inspect.Parameter.KEYWORD_ONLY]
         flow_names = [f.name for f in self._flows]
         writable = [f.name for f in self._flows if f.access & ACCESS_WRITE]
         spec = CudaKernel(fn, names, flow_names, writable)

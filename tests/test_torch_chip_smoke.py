@@ -44,7 +44,22 @@ def _chip_smoke():
     return chip_smoke
 
 
-NO_LAUNCHES = {"gemm_tile": 0, "gram_tile": 0}
+NO_LAUNCHES = {"gemm_tile": 0, "gemm_tile_grouped": 0, "gram_tile": 0}
+
+
+@pytest.mark.parametrize("max_faults", [1, 3])
+def test_refuses_degraded_mode(max_faults):
+    """The measured paths run with degraded mode off: a device_max_faults
+    set in the MCA environment stops the script before any path runs."""
+    chip_smoke = _chip_smoke()
+    from parsec_tpu_torch.utils.mca import params
+    chip_smoke.check_no_degraded_mode()          # the default, 0
+    params.set("device_max_faults", max_faults)
+    try:
+        with pytest.raises(AssertionError, match="degraded mode off"):
+            chip_smoke.check_no_degraded_mode()
+    finally:
+        params.unset("device_max_faults")
 
 
 @pytest.mark.parametrize("mb,t", [(24, 2), (8, 4)])

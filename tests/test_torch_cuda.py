@@ -12,10 +12,16 @@ only the order of the f32 summation differs).
 K1's transposed-B variant writes a bf16 C: kernel and plain version each
 round an f32 sum once, so each element may also land one bf16 ulp apart.
 
+K1's grouped launch must give the bits of single launches member by
+member, and its in-place form (``out=C``) the bits of the out-of-place
+call, on every route.
+
 The tiled GEMM also runs here through the runtime under a 1 MiB device
 copy-cache budget, so that tiles are evicted and written back to the host
 between launches on the card; the tiled QR and the tiled Cholesky run on
-the card against the same runs on the CPU-backed device module.
+the card against the same runs on the CPU-backed device module.  K1's
+tiles are counted as single launches plus grouped members: the device
+module fuses waves at its defaults.
 """
 
 import numpy as np
@@ -24,12 +30,18 @@ import torch
 
 from parsec_tpu_torch.apps import cuda_kernels, potrf, qr
 from parsec_tpu_torch.apps.cuda_kernels import gemm_tile, \
-    gemm_tile_reference, gram_tile, gram_tile_reference
+    gemm_tile_grouped, gemm_tile_reference, gram_tile, gram_tile_reference
 from parsec_tpu_torch.apps.gemm import gemm_taskpool
 from parsec_tpu_torch.core.context import Context
 from parsec_tpu_torch.data.carry import (Layout, from_reference_arrays,
                                          to_reference_arrays)
 from parsec_tpu_torch.utils.mca import params
+
+
+def _k1_tiles() -> int:
+    """K1 tiles computed so far: single launches plus grouped members."""
+    return cuda_kernels.gemm_tile_launches.value + \
+        cuda_kernels.gemm_tile_grouped_members.value
 
 
 @pytest.fixture
@@ -87,7 +99,7 @@ def test_gemm_under_memory_budget_on_the_card(card, panel):
     a, b = (mats[k].to_array().float() for k in "AB")    # panel-rounded
     want = gemm_tile_reference(a, b, beta * torch.from_numpy(arrays["C"]),
                                alpha)
-    before = cuda_kernels.gemm_tile_launches.value
+    before = _k1_tiles()
     params.set("device_mem_mb", 1)          # 48 tiles against 1 MiB
     params.set("device_inflight_depth", 2)
     try:
@@ -102,7 +114,7 @@ def test_gemm_under_memory_budget_on_the_card(card, panel):
     got = torch.from_numpy(to_reference_arrays(mats)["C"])
     err = ((got - want).abs().max() / want.abs().max().clamp(min=1.0)).item()
     assert err <= (1e-4 if panel == "bfloat16" else 1e-5)
-    assert cuda_kernels.gemm_tile_launches.value - before == (n // mb) ** 3
+    assert _k1_tiles() - before == (n // mb) ** 3
     assert stats.evictions > 0 and stats.bytes_out > 0
 
 
@@ -155,13 +167,14 @@ def test_qr_on_the_card_matches_the_cpu_run(card, panel):
         for where in ("cpu", "cuda"):
             mats = from_reference_arrays({"A": a}, Layout(mb, mb, panel))
             for c in (cuda_kernels.gemm_tile_launches,
+                      cuda_kernels.gemm_tile_grouped_members,
                       cuda_kernels.gram_tile_launches):
                 c.reset()
             with Context(nb_cores=2, device=where) as ctx:
                 ctx.add_taskpool(qr.qr_taskpool(mats["A"]))
                 ctx.wait(timeout=300)
             outs[where] = to_reference_arrays(mats)["A"]
-            launches[where] = (cuda_kernels.gemm_tile_launches.value,
+            launches[where] = (_k1_tiles(),
                                cuda_kernels.gram_tile_launches.value)
     finally:
         params.unset("qr_ib")
@@ -358,6 +371,7 @@ def test_potrf_on_the_card_matches_the_cpu_run(card, panel):
         mats = from_reference_arrays({"A": a}, Layout(mb, mb, panel))
         before = {r: v.value for r, v in
                   cuda_kernels.gemm_tile_route_launches.items()}
+        grouped0 = cuda_kernels.gemm_tile_grouped_members.value
         with Context(nb_cores=2, device=where) as ctx:
             tp = potrf.potrf_taskpool(mats["A"])
             ctx.add_taskpool(tp)
@@ -367,8 +381,123 @@ def test_potrf_on_the_card_matches_the_cpu_run(card, panel):
         routes[where] = {r: v.value - before[r] for r, v in
                          cuda_kernels.gemm_tile_route_launches.items()
                          if v.value != before[r]}
+        # grouped launches all take the wgmma route
+        grouped = cuda_kernels.gemm_tile_grouped_members.value - grouped0
+        if grouped:
+            routes[where]["wgmma"] = routes[where].get("wgmma", 0) + grouped
     assert routes == {"cpu": {}, "cuda": {
         "wgmma" if panel == "bfloat16" else "fma": 4}}
     got, ref = outs["cuda"], outs["cpu"]
     err = np.abs(got - ref).max() / max(1.0, np.abs(ref).max())
     assert err <= (1e-4 if panel == "float32" else 2e-2)
+
+
+def _operands(card, m, k, n, dtype, trans_b, seed, offset=0):
+    """A (with ``offset`` elements before it in its storage), B and C of
+    one call: B as (n, k) with ``trans_b``, C in the operands' type with
+    it (the types K1 takes)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    flat = torch.randn(m * k + offset, generator=g, device=card).to(dtype)
+    a = flat[offset:].view(m, k)
+    b = torch.randn((n, k) if trans_b else (k, n), generator=g,
+                    device=card).to(dtype)
+    c = torch.randn((m, n), generator=g, device=card)
+    return a, b, c.to(dtype) if trans_b else c
+
+
+GROUP_SHAPES = {"2048": ((2048, 2048, 2048), False),
+                "1024-trans": ((1024, 1024, 1024), True),
+                "ragged": ((1000, 520, 776), False),
+                "ragged-trans": ((1000, 520, 778), True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("members", [1, 2, 3, 8])
+@pytest.mark.parametrize("case", list(GROUP_SHAPES))
+def test_gemm_tile_grouped_matches_single_launches(card, members, case):
+    """n equal-shape calls in one grouped wgmma launch: each member
+    bit-identical to its single launch (the same tiles, summed in the same
+    order) and within tolerance of the plain version, out of place and
+    into C; one grouped launch counted with n members (n = 1: a single
+    launch)."""
+    (m, k, n), trans_b = GROUP_SHAPES[case]
+    ops = [_operands(card, m, k, n, torch.bfloat16, trans_b, 23 + i)
+           for i in range(members)]
+    As, Bs, Cs = (list(x) for x in zip(*ops))
+    singles = [gemm_tile(a, b, c, -1.0, trans_b) for a, b, c in ops]
+    launches0 = cuda_kernels.gemm_tile_grouped_launches.value
+    members0 = cuda_kernels.gemm_tile_grouped_members.value
+    got = gemm_tile_grouped(As, Bs, Cs, -1.0, trans_b)
+    torch.cuda.synchronize()
+    grouped = 1 if members > 1 else 0
+    assert cuda_kernels.gemm_tile_grouped_launches.value - launches0 == \
+        grouped
+    assert cuda_kernels.gemm_tile_grouped_members.value - members0 == \
+        members * grouped
+    refs = [gemm_tile_reference(a, b, c, -1.0, trans_b) for a, b, c in ops]
+    for g, s1, r in zip(got, singles, refs):
+        assert torch.equal(g, s1)
+        assert _err(g, r) <= 1e-4
+    outs = [c.clone() for c in Cs]
+    inplace = gemm_tile_grouped(As, Bs, outs, -1.0, trans_b, out=outs)
+    torch.cuda.synchronize()
+    for o, i, s1 in zip(outs, inplace, singles):
+        assert i is o and torch.equal(o, s1)
+
+
+@pytest.mark.cuda
+def test_gemm_tile_grouped_with_a_member_off_the_wgmma_route(card):
+    """One member TMA cannot describe (an A 2 bytes past a 16-byte
+    boundary): the group runs as single launches on each member's own
+    route, and no grouped launch is counted."""
+    ops = [_operands(card, 256, 256, 264, torch.bfloat16, False, 29),
+           _operands(card, 256, 256, 264, torch.bfloat16, False, 30,
+                     offset=1)]
+    before = {r: v.value for r, v in
+              cuda_kernels.gemm_tile_route_launches.items()}
+    launches0 = cuda_kernels.gemm_tile_grouped_launches.value
+    got = gemm_tile_grouped(*(list(x) for x in zip(*ops)), 0.5)
+    torch.cuda.synchronize()
+    assert cuda_kernels.gemm_tile_grouped_launches.value == launches0
+    moved = {r: v.value - before[r] for r, v in
+             cuda_kernels.gemm_tile_route_launches.items()}
+    assert moved == {"wgmma": 1, "wmma": 1, "fma": 0}
+    for g, (a, b, c) in zip(got, ops):
+        assert _err(g, gemm_tile_reference(a, b, c, 0.5)) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,trans_b,offset,route", [
+    ((1000, 520, 776), torch.bfloat16, False, 0, "wgmma"),
+    ((1000, 520, 778), torch.bfloat16, True, 0, "wgmma"),
+    ((1000, 513, 777), torch.bfloat16, False, 0, "wmma"),
+    ((256, 256, 264), torch.bfloat16, True, 1, "wmma"),
+    ((1000, 513, 777), torch.float32, False, 0, "fma"),
+    ((1000, 513, 777), torch.float32, True, 0, "fma")],
+    ids=["wgmma", "wgmma-trans", "wmma", "wmma-trans", "fma", "fma-trans"])
+def test_gemm_tile_in_place_is_bit_identical(card, shape, dtype, trans_b,
+                                             offset, route):
+    """``out=C`` writes O into C's storage, allocates nothing and gives
+    the out-of-place call's bits, on every route (each element of C is
+    read and then written by one thread alone)."""
+    m, k, n = shape
+    a, b, c = _operands(card, m, k, n, dtype, trans_b, 31, offset)
+    want = gemm_tile(a, b, c, -1.0, trans_b)
+    c2 = c.clone()
+    ptr = c2.data_ptr()
+    before = {r: v.value for r, v in
+              cuda_kernels.gemm_tile_route_launches.items()}
+    got = gemm_tile(a, b, c2, -1.0, trans_b, out=c2)
+    torch.cuda.synchronize()
+    assert got is c2 and c2.data_ptr() == ptr
+    assert torch.equal(c2, want)
+    assert _route_moved(before) == [route]
+
+
+@pytest.mark.cuda
+def test_gemm_tile_out_must_not_overlap_an_operand(card):
+    a, b, c = _operands(card, 64, 64, 64, torch.bfloat16, True, 37)
+    with pytest.raises(ValueError):
+        gemm_tile(a, b, c, -1.0, True, out=a)
+    with pytest.raises(ValueError):
+        gemm_tile(a, b, c, -1.0, True, out=b)

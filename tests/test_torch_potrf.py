@@ -6,7 +6,9 @@ runs its task bodies and ``potrf_taskpool(device="tpu")`` on its CPU XLA
 devices (plain ``jnp`` bodies: the reference has no Pallas kernel on this
 path); the port runs its bodies on CPU tensors (``gemm_tile``'s plain
 version for SYRK and GEMM) and its taskpool on the CPU-backed device
-module.
+module.  The whole slice runs both packages at their device modules'
+defaults (wave fusion, POTRF -> TRSM chain fusion, donation) and at one
+launch per task (``SETTINGS``).
 
 Tolerances, as max|port - jax| / max(1, max|jax|):
   * f32 tiles: 1e-5 for a body and for the factor after the whole slice
@@ -48,8 +50,29 @@ from parsec_tpu_torch.core.context import Context
 from parsec_tpu_torch.data.carry import (Layout, from_reference_arrays,
                                          to_reference_arrays)
 from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
+from parsec_tpu_torch.utils.mca import params as port_params
+from parsec_tpu.utils.mca import params as jax_params
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+#: (JAX knobs, port knobs) of each device-module setting: the defaults, and
+#: one launch per task (the port's A/B line PARSEC_MCA_DEVICE_FUSE=1
+#: PARSEC_MCA_DEVICE_FUSE_PANEL=0 PARSEC_MCA_DEVICE_DONATE=0)
+SETTINGS = {"defaults": ((), ()),
+            "one_launch_per_task": (
+                (("device_fuse", 1), ("device_fuse_panel", 0),
+                 ("device_dispatchers", 1)),
+                (("device_fuse", 1), ("device_fuse_panel", 0),
+                 ("device_donate", 0)))}
+
+
+def _fusions(stats) -> int:
+    """Launches that fused a wave or ran a held chain."""
+    return sum(s.fused_launches + s.chained_launches for s in stats)
+
+
+def _chains(stats) -> int:
+    return sum(s.chained_launches for s in stats)
+
 TOL_BODY = {"f32": 1e-5, "bf16": 1e-2}
 TOL_TILE = {"f32": 1e-5, "bf16": 1e-2}
 STORAGE = {"f32": (np.float32, "float32"),
@@ -260,28 +283,40 @@ def _counter(ctx):
     return done
 
 
-def _run_jax(a, mb, kind):
+def _run_jax(a, mb, kind, knobs=()):
     dt = STORAGE[kind][0]
     A = JaxMatrix(mb, mb, a.shape[0], a.shape[1], dtype=dt,
                   name="A").from_array(a.astype(dt))
-    with JaxContext(nb_cores=2) as ctx:
-        done = _counter(ctx)
-        ctx.add_taskpool(jax_potrf.potrf_taskpool(A, device="tpu"))
-        ctx.wait(timeout=300)
-    return A, np.asarray(A.to_array(), np.float32), dict(done)
+    for knob, value in knobs:
+        jax_params.set(knob, value)
+    try:
+        with JaxContext(nb_cores=2) as ctx:
+            done = _counter(ctx)
+            ctx.add_taskpool(jax_potrf.potrf_taskpool(A, device="tpu"))
+            ctx.wait(timeout=300)
+            stats = [d.stats for d in ctx.device_registry.accelerators]
+    finally:
+        for knob, _ in knobs:
+            jax_params.unset(knob)
+    return A, np.asarray(A.to_array(), np.float32), dict(done), stats
 
 
-def _run_port(a, mb, kind, device="cuda"):
+def _run_port(a, mb, kind, device="cuda", knobs=()):
     mats = from_reference_arrays({"A": a}, Layout(mb, mb, STORAGE[kind][1]))
-    with Context(nb_cores=2, device="cpu") as ctx:
-        done = _counter(ctx)
-        tp = potrf.potrf_taskpool(mats["A"], device=device)
-        ctx.add_taskpool(tp)
-        ctx.wait(timeout=300)
-        launched = sum(d.stats.executed_tasks
-                       for d in ctx.device_registry.accelerators)
+    for knob, value in knobs:
+        port_params.set(knob, value)
+    try:
+        with Context(nb_cores=2, device="cpu") as ctx:
+            done = _counter(ctx)
+            tp = potrf.potrf_taskpool(mats["A"], device=device)
+            ctx.add_taskpool(tp)
+            ctx.wait(timeout=300)
+            stats = [d.stats for d in ctx.device_registry.accelerators]
+    finally:
+        for knob, _ in knobs:
+            port_params.unset(knob)
     assert not tp.cholesky_check.failed()
-    return mats["A"], to_reference_arrays(mats)["A"], dict(done), launched
+    return mats["A"], to_reference_arrays(mats)["A"], dict(done), stats
 
 
 def _counts(nt):
@@ -307,23 +342,39 @@ def _llt_err(out, a, mb, nt):
     return np.abs(L @ L.T - eff).max() / np.abs(eff).max()
 
 
+@pytest.mark.parametrize("setting", list(SETTINGS))
 @pytest.mark.parametrize("operand", ["spd", "bench"])
 @pytest.mark.parametrize("nt", [1, 2, 5])
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
-def test_potrf_slice_matches_jax(kind, nt, operand):
+def test_potrf_slice_matches_jax(kind, nt, operand, setting):
     """mb=32: per-class task counts (nt=5: POTRF 4, POTRFL 1, TRSM 10,
-    SYRK 10, GEMM 10), every task a device launch, and the lower tiles
+    SYRK 10, GEMM 10), every task run on the device, and the lower tiles
     against the JAX package's.  The bench operand's diagonal tiles are not
     symmetric, so its LL^T is held against the symmetrized matrix both
-    device factorizations see."""
+    device factorizations see.  At the defaults both packages chain panels
+    (nt > 1: POTRF(k) is the only POTRF ready, so it reaches the device
+    alone and is held — the DAG decides it; whether a wave fuses depends
+    on timing and is not asserted), at one launch per task neither fuses
+    nor chains."""
     mb = 32
+    jax_knobs, port_knobs = SETTINGS[setting]
     a = _spd(mb * nt, 28) if operand == "spd" else _bench_operand(mb, nt)
-    _, ref, ref_done = _run_jax(a, mb, kind)
+    _, ref, ref_done, ref_stats = _run_jax(a, mb, kind, jax_knobs)
     cuda_kernels.gemm_tile_launches.reset()
-    _, got, got_done, launched = _run_port(a, mb, kind)
-    assert cuda_kernels.gemm_tile_launches.value == 0    # CPU: plain version
+    cuda_kernels.gemm_tile_grouped_launches.reset()
+    _, got, got_done, stats = _run_port(a, mb, kind, knobs=port_knobs)
+    # CPU: the plain versions ran
+    assert cuda_kernels.gemm_tile_launches.value == 0
+    assert cuda_kernels.gemm_tile_grouped_launches.value == 0
     assert got_done == ref_done == _counts(nt)
-    assert launched == sum(got_done.values())
+    assert sum(s.executed_tasks for s in stats) == sum(got_done.values())
+    if setting == "defaults":
+        if nt > 1:
+            assert _chains(stats) > 0 and _chains(ref_stats) > 0
+    else:
+        assert _fusions(stats) == _fusions(ref_stats) == 0
+        assert sum(s.executed_tasks for s in ref_stats) == \
+            sum(ref_done.values())
     for i in range(nt):
         for j in range(i + 1):
             blk = np.s_[i * mb:(i + 1) * mb, j * mb:(j + 1) * mb]
@@ -341,8 +392,9 @@ def test_potrf_cpu_bodies_match_numpy(nt):
     tests/test_apps_drivers.py holds its own: LL^T against A in f32."""
     mb = 16
     a = _spd(mb * nt, 0)
-    _, out, done, launched = _run_port(a, mb, "f32", device="cpu")
-    assert launched == 0 and done == _counts(nt)
+    _, out, done, stats = _run_port(a, mb, "f32", device="cpu")
+    assert sum(s.executed_tasks for s in stats) == 0
+    assert done == _counts(nt)
     L = np.tril(out).astype(np.float64)
     assert np.abs(L @ L.T - a).max() / np.abs(a).max() < 1e-4
 
@@ -360,7 +412,7 @@ def test_checks_match_jax_on_a_carried_factor(kind):
     n = mb * nt
     a = _spd(n, 29)
     dt = STORAGE[kind][0]
-    A, full, _ = _run_jax(a, mb, kind)
+    A, full, _, _ = _run_jax(a, mb, kind)
     stored = a.astype(dt)
     blk = lambda i, j: np.s_[i * mb:(i + 1) * mb, j * mb:(j + 1) * mb]  # noqa: E731
     ref_err = jax_check.backward_error(A, lambda i, j: stored[blk(i, j)])

@@ -21,6 +21,10 @@ Tolerances, as max|port - jax| / max(1, max|jax|):
     bench factor read 1.0e-2); measured up to 7.8e-3.
 RᵀR against AᵀA holds the reference's own bound (tests/test_apps_drivers
 .py: 1e-4 in f32).
+
+The whole slice runs both packages at their device modules' defaults (wave
+fusion, GEQRT/TSQRT column chains, donation) and at one launch per task
+(``SETTINGS``).
 """
 
 import collections
@@ -45,6 +49,15 @@ from parsec_tpu_torch.data.carry import (Layout, from_reference_arrays,
 from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
 from parsec_tpu_torch.utils.mca import params as port_params
 
+#: (JAX knobs, port knobs) of each device-module setting: the defaults, and
+#: one launch per task (the port's A/B line PARSEC_MCA_DEVICE_FUSE=1
+#: PARSEC_MCA_DEVICE_FUSE_PANEL=0 PARSEC_MCA_DEVICE_DONATE=0)
+SETTINGS = {"defaults": ((), ()),
+            "one_launch_per_task": (
+                (("device_fuse", 1), ("device_fuse_panel", 0),
+                 ("device_dispatchers", 1)),
+                (("device_fuse", 1), ("device_fuse_panel", 0),
+                 ("device_donate", 0)))}
 TOL_BODY = {"f32": 1e-5, "bf16": 1e-2}
 TOL_SLICE = {"f32": 1e-4, "bf16": 3e-2}
 STORAGE = {"f32": (np.float32, "float32"),
@@ -190,38 +203,71 @@ def _counter(ctx):
     return done
 
 
-def _run_jax(a, mb, kind, ib):
+def _fusions(stats) -> int:
+    """Launches that fused a wave or ran a held chain."""
+    return sum(s.fused_launches + s.chained_launches for s in stats)
+
+
+def _chains(stats) -> int:
+    return sum(s.chained_launches for s in stats)
+
+
+def _run_jax(a, mb, kind, ib, knobs=()):
     dt = STORAGE[kind][0]
     A = JaxMatrix(mb, mb, a.shape[0], a.shape[1], dtype=dt,
                   name="A").from_array(a.astype(dt))
     jax_params.set("qr_ib", ib)
     jax_params.set("qr_pallas_gram", 1)
+    for knob, value in knobs:
+        jax_params.set(knob, value)
     jax_qr._kernels.clear()
     try:
         with JaxContext(nb_cores=2) as ctx:
             done = _counter(ctx)
             ctx.add_taskpool(jax_qr.qr_taskpool(A, device="tpu"))
             ctx.wait(timeout=300)
+            stats = [d.stats for d in ctx.device_registry.accelerators]
     finally:
         jax_params.unset("qr_ib")
         jax_params.unset("qr_pallas_gram")
+        for knob, _ in knobs:
+            jax_params.unset(knob)
         jax_qr._kernels.clear()
-    return np.asarray(A.to_array(), np.float32), dict(done)
+    return np.asarray(A.to_array(), np.float32), dict(done), stats
 
 
-def _run_port(a, mb, kind, ib, device="cuda"):
+def _run_port(a, mb, kind, ib, device="cuda", knobs=()):
     mats = from_reference_arrays({"A": a}, Layout(mb, mb, STORAGE[kind][1]))
     port_params.set("qr_ib", ib)
+    for knob, value in knobs:
+        port_params.set(knob, value)
     try:
         with Context(nb_cores=2, device="cpu") as ctx:
             done = _counter(ctx)
             ctx.add_taskpool(qr.qr_taskpool(mats["A"], device=device))
             ctx.wait(timeout=300)
-            launched = sum(d.stats.executed_tasks
-                           for d in ctx.device_registry.accelerators)
+            stats = [d.stats for d in ctx.device_registry.accelerators]
     finally:
         port_params.unset("qr_ib")
-    return to_reference_arrays(mats)["A"], dict(done), launched
+        for knob, _ in knobs:
+            port_params.unset(knob)
+    return to_reference_arrays(mats)["A"], dict(done), stats
+
+
+def _check_settings(setting, done, stats, ref_done, ref_stats) -> None:
+    """Every task ran on the port's device; at the defaults both packages
+    chain panels (GEQRT(0) is the only task ready at the start, so it
+    reaches the device alone and is held — the DAG decides it; whether a
+    wave fuses depends on timing and is not asserted), at one launch per
+    task neither fuses nor chains (and the JAX package then launches every
+    task too)."""
+    assert sum(s.executed_tasks for s in stats) == sum(done.values())
+    if setting == "defaults":
+        assert _chains(stats) > 0 and _chains(ref_stats) > 0
+    else:
+        assert _fusions(stats) == _fusions(ref_stats) == 0
+        assert sum(s.executed_tasks for s in ref_stats) == \
+            sum(ref_done.values())
 
 
 def _rtr_err(out, a):
@@ -230,18 +276,23 @@ def _rtr_err(out, a):
     return np.abs(R.T @ R - ata).max() / np.abs(ata).max()
 
 
+@pytest.mark.parametrize("setting", list(SETTINGS))
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
-def test_qr_slice_matches_jax(kind):
-    """mb=256, nt=3, qr_ib=128: 14 tasks, every one a device launch."""
+def test_qr_slice_matches_jax(kind, setting):
+    """mb=256, nt=3, qr_ib=128: 14 tasks, every one run on the device."""
     mb, nt, ib = 256, 3, 128
+    jax_knobs, port_knobs = SETTINGS[setting]
     a = _operand(mb, 13, nt)
-    ref, ref_done = _run_jax(a, mb, kind, ib)
+    ref, ref_done, ref_stats = _run_jax(a, mb, kind, ib, jax_knobs)
     cuda_kernels.gram_tile_launches.reset()
-    got, got_done, launched = _run_port(a, mb, kind, ib)
-    assert cuda_kernels.gram_tile_launches.value == 0    # CPU: plain version
+    cuda_kernels.gemm_tile_grouped_launches.reset()
+    got, got_done, stats = _run_port(a, mb, kind, ib, knobs=port_knobs)
+    # CPU: the plain versions ran
+    assert cuda_kernels.gram_tile_launches.value == 0
+    assert cuda_kernels.gemm_tile_grouped_launches.value == 0
     assert got_done == ref_done == {"GEQRT": 3, "UNMQR": 3, "TSQRT": 3,
                                     "TSMQR": 5}
-    assert launched == sum(got_done.values())
+    _check_settings(setting, got_done, stats, ref_done, ref_stats)
     for i in range(nt):
         for j in range(nt):
             blk = np.s_[i * mb:(i + 1) * mb, j * mb:(j + 1) * mb]
@@ -256,12 +307,15 @@ def test_qr_slice_matches_jax(kind):
         assert _rtr_err(got, ar) < 3e-2
 
 
-def test_qr_slice_unblocked_matches_jax():
+@pytest.mark.parametrize("setting", list(SETTINGS))
+def test_qr_slice_unblocked_matches_jax(setting):
     mb, nt = 32, 3
+    jax_knobs, port_knobs = SETTINGS[setting]
     a = _operand(mb, 14, nt)
-    ref, ref_done = _run_jax(a, mb, "f32", 0)
-    got, got_done, _ = _run_port(a, mb, "f32", 0)
+    ref, ref_done, ref_stats = _run_jax(a, mb, "f32", 0, jax_knobs)
+    got, got_done, stats = _run_port(a, mb, "f32", 0, knobs=port_knobs)
     assert got_done == ref_done
+    _check_settings(setting, got_done, stats, ref_done, ref_stats)
     assert _rel(np.triu(got), np.triu(ref)) < TOL_SLICE["f32"]
     assert _rtr_err(got, a) < 1e-4
 
@@ -275,8 +329,8 @@ def test_qr_cpu_bodies_match_numpy(nt):
     mb = 8
     n = nt * mb
     a = np.random.default_rng(1).standard_normal((n, n)).astype(np.float32)
-    out, done, launched = _run_port(a, mb, "f32", 0, device="cpu")
-    assert launched == 0
+    out, done, stats = _run_port(a, mb, "f32", 0, device="cpu")
+    assert sum(s.executed_tasks for s in stats) == 0
     assert sum(done.values()) == nt + 2 * (nt * (nt - 1) // 2) + sum(
         (nt - 1 - k) ** 2 for k in range(nt))
     assert np.abs(np.tril(out, -1)).max() < 1e-4
