@@ -41,6 +41,20 @@ no result line):
               passes (median, best and band of GFLOP/s), task, launch
               and Cholesky-flag checks on every pass, then the backward
               error and the iterative-refinement ladder once.
+8. host     — the runtime alone on the host's CPU (named with its core
+              count): the twins of the JAX package's ``tasks`` probe
+              (20000 empty tasks, 4 streams) and ``ntasks`` probe (500
+              RW chains x 24, results checked), each at ``sched_native``
+              1 and 0 in turns; the native ``ntasks`` run must hand no
+              task back to Python (an empty bailout histogram).
+
+Every path runs on the native scheduler (``parsec_tpu_torch/native``:
+the C ready queue, dep countdown and ``run_quantum``) unless the MCA
+environment sets ``sched_native`` 0; at the default each path asserts it
+and prints the ready queue's pushes, pops and maximum depth and the C
+chain's bailouts by reason.  The small-tiles path runs once more on the
+Python ladder (``sched_native`` 0), right after its native run, and both
+best passes and estimated idle shares are printed.
 
 Every path runs the device module as configured — at its defaults (wave
 fusion, chain fusion, buffer donation; ``device_max_faults`` 0, which it
@@ -91,6 +105,8 @@ from parsec_tpu_torch.core.context import Context
 from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
 # registers the device module's knobs, read before any Context exists
 from parsec_tpu_torch.devices import cuda as _cuda  # noqa: F401
+from parsec_tpu_torch.dsl.ptg import DATA, IN, OUT, PTG, Range, TASK
+from parsec_tpu_torch.native import load_schedext
 from parsec_tpu_torch.utils.mca import params
 
 SEED = 20261016
@@ -739,10 +755,13 @@ def phase_small_tiles(ctx: Context, gen: torch.Generator) -> dict:
     C = torch.randn((mb, mb), generator=gen, device="cuda")
     k_ms = time_ms(lambda: gemm_tile(A, B, C, 1.0), reps=20)
     busy = res["ntasks"] * k_ms * 1e-3 / res["best_s"]
-    log(f"[mb=2048] best pass {res['best_s'] * 1e3:.1f} ms, "
-        f"{res['gflops']:.1f} GFLOP/s; kernel {k_ms * 1e3:.1f} us/tile; "
-        f"estimated device idle share {max(0.0, 1.0 - busy):.3f}")
-    return path_summary(res, res["best_s"])
+    idle = max(0.0, 1.0 - busy)
+    log(f"[mb=2048] sched_native {params.get('sched_native')}: best pass "
+        f"{res['best_s'] * 1e3:.1f} ms, {res['gflops']:.1f} GFLOP/s; kernel "
+        f"{k_ms * 1e3:.1f} us/tile; estimated device idle share {idle:.3f}")
+    summary = path_summary(res, res["best_s"])
+    summary["idle_share"] = idle
+    return summary
 
 
 def phase_gram(dev: torch.device, peaks) -> dict:
@@ -1287,17 +1306,184 @@ def phase_gemm(ctx: Context, gen: torch.Generator) -> dict:
     return path_summary(res, res["best_s"])
 
 
-def in_context(phase) -> dict:
-    """Run one path in a Context of its own.  Once the Context has ended,
+def bailouts() -> dict:
+    """The C chain's cumulative bailouts by reason (tasks it handed back
+    to Python)."""
+    return dict(load_schedext().bailout_stats())
+
+
+def bailout_delta(before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in bailouts().items()
+            if v != before.get(k, 0)}
+
+
+def report_scheduler(label: str, ctx: Context, bail0: dict) -> dict:
+    """The scheduler a path ran on, its native ready-queue counters and
+    the C chain's bailouts by reason over the path.  With ``sched_native``
+    on (the default) the path must have run on the native scheduler."""
+    name = ctx.scheduler.name
+    queue = ctx.scheduler.stats() if name == "native" else None
+    bail = bailout_delta(bail0)
+    log(f"[{label}] scheduler {name} (sched_native "
+        f"{params.get('sched_native')}): ready queue {queue}; C chain "
+        f"bailouts by reason {bail}")
+    if int(params.get("sched_native")) and name != "native":
+        raise AssertionError(f"[{label}] ran on {name}, not the native "
+                             f"scheduler")
+    return {"name": name, "queue": queue, "bailouts": bail}
+
+
+def in_context(phase, label: str, sched_native=None) -> dict:
+    """Run one path in a Context of its own (``sched_native``: the knob
+    for this path only, else as configured).  Once the Context has ended,
     what the path held (its tiles die in reference cycles) is freed before
     the next path starts, so that each path's peak memory is its own."""
     torch.cuda.reset_peak_memory_stats()
-    with Context(nb_cores=4) as ctx:
-        summary = phase(ctx)
+    if sched_native is not None:
+        params.set("sched_native", sched_native)
+    try:
+        bail0 = bailouts()
+        with Context(nb_cores=4) as ctx:
+            summary = phase(ctx)
+            summary["scheduler"] = report_scheduler(label, ctx, bail0)
+    finally:
+        if sched_native is not None:
+            params.unset("sched_native")
     del ctx
     gc.collect()
     torch.cuda.empty_cache()
     return summary
+
+
+def empty_pool(n: int):
+    """``n`` independent empty tasks (the JAX package's ``tasks`` probe
+    DAG, ``bench.py::_empty_pool``)."""
+    p = PTG("empty", N=n)
+    p.task("E", i=Range(0, n - 1)).flow("x", "CTL").body(lambda: None)
+    return p.build()
+
+
+def chain_pool(nc: int, nb: int):
+    """``nc`` independent RW chains of length ``nb`` over 1x1 tiles (the
+    JAX package's ``ntasks`` probe DAG, ``bench.py::_chain_pool``): every
+    task binds real data and releases a local successor."""
+    A = TwoDimBlockCyclic(1, 1, 1, nc, name="chains").from_array(
+        torch.zeros(1, nc))
+
+    def body(T):
+        T += 1.0
+
+    g = PTG("chains", NC=nc, NB=nb)
+    g.task("S", c=Range(0, nc - 1), k=Range(0, nb - 1)) \
+        .affinity(lambda c, k: A(0, c)) \
+        .flow("T", "RW",
+              IN(DATA(lambda c, k: A(0, c)), when=lambda c, k: k == 0),
+              IN(TASK("S", "T", lambda c, k: dict(c=c, k=k - 1)),
+                 when=lambda c, k: k > 0),
+              OUT(TASK("S", "T", lambda c, k: dict(c=c, k=k + 1)),
+                  when=lambda c, k, NB=nb: k < nb - 1)) \
+        .body(body)
+    return g.build(), A
+
+
+def host_probe(kind: str, sched_native: int, n: int = 20000,
+               nc: int = 500, nb: int = 24, cores: int = 4) -> dict:
+    """One host probe (``tasks``: ``n`` empty tasks; ``ntasks``: ``nc``
+    chains of ``nb``) at ``sched_native`` in a Context of ``cores``
+    streams on the CPU-backed device module, after a warm tenth: tasks/s
+    over add_taskpool + wait, and the C chain's bailouts by reason."""
+    params.set("sched_native", sched_native)
+    try:
+        with Context(nb_cores=cores, device="cpu") as ctx:
+            sched = ctx.scheduler.name
+            if kind == "tasks":
+                ctx.add_taskpool(empty_pool(max(1, n // 10)))
+                ctx.wait()
+                total, bail0 = n, bailouts()
+                t0 = time.perf_counter()
+                ctx.add_taskpool(empty_pool(n))
+                ctx.wait()
+            else:
+                ctx.add_taskpool(chain_pool(max(1, nc // 10), nb)[0])
+                ctx.wait()
+                tp, A = chain_pool(nc, nb)
+                total, bail0 = nc * nb, bailouts()
+                t0 = time.perf_counter()
+                ctx.add_taskpool(tp)
+                ctx.wait()
+            dt = time.perf_counter() - t0
+            bail = bailout_delta(bail0)
+    finally:
+        params.unset("sched_native")
+    if (sched == "native") != bool(sched_native):
+        raise AssertionError(f"host {kind}: ran on {sched} at sched_native "
+                             f"{sched_native}")
+    if kind == "ntasks":
+        # the number is only valid if every chain ran end to end
+        got = A.to_array()
+        if not bool((got == float(nb)).all()):
+            raise AssertionError(f"host ntasks: chain results wrong (want "
+                                 f"{nb}, got {got.flatten()[:4].tolist()})")
+        if sched_native and bail:
+            raise AssertionError(f"host ntasks: the C chain handed tasks "
+                                 f"back to Python: {bail}")
+    return {"sched": sched, "tasks": total, "seconds": dt,
+            "tasks_per_s": total / dt, "bailouts": bail}
+
+
+def host_cpu() -> str:
+    """The host's CPU model and core counts, from ``/proc/cpuinfo``: its
+    model name, or (where a virtualised kernel reports it as unknown) its
+    vendor, family and model numbers."""
+    import os
+    import platform
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break                    # the first processor only
+                key, _, value = line.partition(":")
+                info[key.strip()] = value.strip()
+    except OSError:
+        pass
+    model = info.get("model name", "unknown")
+    if model == "unknown":
+        model = (f"{info.get('vendor_id', 'unknown vendor')} family "
+                 f"{info.get('cpu family', '?')} model "
+                 f"{info.get('model', '?')}")
+    return (f"{model} ({platform.machine()}), {os.cpu_count()} cores "
+            f"({len(os.sched_getaffinity(0))} usable)")
+
+
+def phase_host(smi: str, rounds: int = 3, **sizes) -> dict:
+    """Both host probes at ``sched_native`` 1 and 0 in turns, ``rounds``
+    times each; the best of each, with the CPU named beside the card."""
+    cpu = host_cpu()
+    log(f"[host] CPU: {cpu}; card: {smi}")
+    best = {}
+    for r in range(rounds):
+        for kind in ("tasks", "ntasks"):
+            for flag in (1, 0):
+                res = host_probe(kind, flag, **sizes)
+                log(f"[host {kind}] round {r} sched_native {flag} "
+                    f"({res['sched']}): {res['tasks']} tasks in "
+                    f"{res['seconds'] * 1e3:.1f} ms, "
+                    f"{res['tasks_per_s']:.0f} tasks/s; C chain bailouts "
+                    f"{res['bailouts']}")
+                key = f"{kind} sched_native={flag}"
+                if key not in best or \
+                        res["tasks_per_s"] > best[key]["tasks_per_s"]:
+                    best[key] = res
+    for kind in ("tasks", "ntasks"):
+        nat, lad = best[f"{kind} sched_native=1"], \
+            best[f"{kind} sched_native=0"]
+        log(f"[host {kind}] best of {rounds}: native "
+            f"{nat['tasks_per_s']:.0f} tasks/s, ladder "
+            f"{lad['tasks_per_s']:.0f} tasks/s, native / ladder "
+            f"{nat['tasks_per_s'] / lad['tasks_per_s']:.2f} ({cpu}; card "
+            f"{smi})")
+    return {"cpu": cpu, "best": best}
 
 
 def main() -> int:
@@ -1333,18 +1519,37 @@ def main() -> int:
                "gram_tile": phase_gram(dev, peaks)}
     torch.cuda.empty_cache()
 
+    host = phase_host(smi)
+
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     per_path = {
-        "GEMM mb=12288": in_context(lambda ctx: phase_gemm(ctx, gen)),
-        "GEMM mb=2048": in_context(lambda ctx: phase_small_tiles(ctx, gen)),
-        "QR mb=6144": in_context(phase_qr),
-        "potrf mb=6144": in_context(phase_potrf)}
+        "GEMM mb=12288": in_context(lambda ctx: phase_gemm(ctx, gen),
+                                    "GEMM path mb=12288"),
+        # the small-tiles path at sched_native 1, then 0: native against
+        # the Python ladder, in turns
+        "GEMM mb=2048": in_context(lambda ctx: phase_small_tiles(ctx, gen),
+                                   "mb=2048", sched_native=1),
+        "GEMM mb=2048 ladder": in_context(
+            lambda ctx: phase_small_tiles(ctx, gen), "mb=2048 ladder",
+            sched_native=0),
+        "QR mb=6144": in_context(phase_qr, "QR path mb=6144"),
+        "potrf mb=6144": in_context(phase_potrf, "potrf path mb=6144")}
+    nat, lad = per_path["GEMM mb=2048"], per_path["GEMM mb=2048 ladder"]
+    log(f"[mb=2048] {nat['scheduler']['name']} against "
+        f"{lad['scheduler']['name']}: best pass {nat['pass_ms']:.1f} ms "
+        f"against {lad['pass_ms']:.1f} ms (ratio "
+        f"{nat['pass_ms'] / lad['pass_ms']:.3f}), estimated idle share "
+        f"{nat['idle_share']:.3f} against {lad['idle_share']:.3f}")
 
     for path_name, res in per_path.items():
         log(f"launches on path {path_name}: {res['launches']}")
+    # the kernels line counts the main path at the defaults: the ladder
+    # rerun of mb=2048 is an A/B of the scheduler, and its launches are
+    # printed above but left out of the sum
+    main_paths = [r for p, r in per_path.items()
+                  if p != "GEMM mb=2048 ladder"]
     for kname, entry in entries.items():
-        entry["launches"] = sum(r["launches"][kname]
-                                for r in per_path.values())
+        entry["launches"] = sum(r["launches"][kname] for r in main_paths)
         # at one launch per task (device_fuse=1) no grouped launch is on
         # a path
         on_path = kname != "gemm_tile_grouped" or \
@@ -1352,7 +1557,8 @@ def main() -> int:
         if on_path and entry["launches"] <= 0:
             raise AssertionError(f"{kname} was never launched on a path")
     print(json.dumps({"device_module": device_settings(),
-                      "paths": per_path}))
+                      "sched_native": params.get("sched_native"),
+                      "host": host, "paths": per_path}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card "
         f"check")
     print(json.dumps({"kernels": list(entries.values())}))

@@ -46,6 +46,12 @@ params.register("runtime_autopsy_s", 45.0,
                 "termdet counters, per-pool pending tasks and device "
                 "pipeline depths — so a stuck run is diagnosable from its "
                 "log (0 disables)")
+params.register("task_retry_max", 0,
+                "retry a transiently-failing idempotent task body up to "
+                "this many times before failing its pool with "
+                "TaskRetryExhausted (datarepo-versioned inputs plus a "
+                "pre-execution write-flow snapshot make re-execution "
+                "safe; 0 = off; read at Context construction)")
 params.register("termdet_batch", 64,
                 "per-worker termdet decrement batch: completion "
                 "decrements accumulate on the worker and flush to the "
@@ -192,6 +198,10 @@ class Context:
         self._pins = {}
         self.comm = None               # no comm layer in the port yet
         self.grapher = None            # DOT grapher (not ported)
+        self.ici = None                # ICI transport (not ported)
+        #: transient-task retry budget, cached off the worker hot path
+        #: (core/scheduling.task_progress and the C chain probe it)
+        self._retry_max = int(params.get("task_retry_max", 0))
         self._termdet_batch = max(1, int(params.get("termdet_batch", 64)))
         self._db_waiters = 0          # GIL-atomic int (plain reads)
         self._db_suppressed = 0       # doorbells coalesced away (stats)

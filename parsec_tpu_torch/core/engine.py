@@ -74,6 +74,42 @@ def deliver_dep(taskpool, succ_tc: TaskClass, succ_locals: Dict[str, int],
     # here so the instantiated task carries the full local set
     succ_locals = succ_tc.complete_locals(succ_locals)
     key = succ_tc.make_key(succ_locals)
+    nd = taskpool._native_deps
+    if nd is not None:
+        # native dep-countdown (parsec_tpu_torch/native/schedext.c DepTable,
+        # gated by sched_native): the counter decrement, the input/
+        # source recording, and the ready-transition test ride one C
+        # crossing per arrival (two on the first, which installs the
+        # record).  The GIL is the bucket lock; create() keeps an
+        # existing record, so two workers racing the first arrivals
+        # cannot wipe each other's count.
+        res = nd.arrive(key, flow_name, copy, source)
+        if res is False:
+            nd.create(key, succ_tc.nb_task_inputs(succ_locals),
+                      dict(succ_locals))
+            res = nd.arrive(key, flow_name, copy, source)
+        if res is None:
+            return None
+        locals_, inputs, sources = res
+        # C task construction when the vtable exists: the record's
+        # locals dict is exclusively owned (created at nd.create,
+        # dropped with the record), so the constructor may alias it
+        vt = succ_tc.native_vt()
+        task = vt.build_one(locals_) if vt is not None \
+            else Task(succ_tc, taskpool, locals_)
+        if taskpool.dynamic:
+            # see the non-native branch below for the ordering contract
+            # (dynamic pools are statically OFF the C chain, so this
+            # per-task move only runs where correctness needs it)
+            taskpool.termdet.taskpool_addto_nb_tasks(  # lint: ignore[PCL-HOT]
+                taskpool, 1)
+        if inputs is not None:
+            task.data.update(inputs)
+            task.pinned_flows.update(k for k, v in inputs.items()
+                                     if v is not None)
+        if sources is not None:
+            task.input_sources.update(sources)
+        return task
 
     def fn(rec):
         if rec is None:

@@ -13,8 +13,13 @@ from __future__ import annotations
 from threading import get_ident
 from typing import List, Optional
 
+import torch
+
 from parsec_tpu_torch.core import engine
+from parsec_tpu_torch.core.errors import FaultInjected, TaskRetryExhausted
 from parsec_tpu_torch.core.task import HookReturn, Task, TaskStatus
+from parsec_tpu_torch.data.data import ACCESS_WRITE
+from parsec_tpu_torch.utils import faultinject as _fi
 from parsec_tpu_torch.utils.output import debug_verbose, warning
 
 
@@ -37,6 +42,14 @@ def schedule(es, tasks: List[Task], distance: int = 0) -> None:
         return
     ctx = es.context
     sched = ctx.scheduler
+    if sched.NATIVE_BATCH:
+        # native ready queue (sched/native.py): READY transition and
+        # the priority-ordered insert ride ONE C crossing for the ring
+        sched.schedule(es, tasks, distance)
+        ctx.ring_doorbell(len(tasks))
+        return
+    # no Task.ready_at stamping: the JAX package stamps here for its
+    # telemetry planes, which the port does not carry yet
     for t in tasks:
         t.status = _READY
     sched.schedule(es, tasks, distance)
@@ -106,9 +119,26 @@ def task_progress(es, task: Task, distance: int = 0) -> None:
             if task.status < _PREPARED:
                 engine.prepare_input(es, task)
                 task.status = _PREPARED
+            if es.context._retry_max > 0 and task.retries == 0:
+                _snapshot_write_flows(task)
+            if _fi.ARMED:
+                # fault plan hooks (utils/faultinject.py): keyed
+                # delay_dispatch stalls a matching body (deterministic
+                # straggler injection); fail_task raises a transient,
+                # retryable failure
+                _fi.task_delay(task)
+                if _fi.task_fault(task):
+                    raise FaultInjected(f"{task}: injected transient "
+                                        "fault")
             task.status = _RUNNING
             ret = execute(es, task)
-        except Exception as exc:  # body/binding error: fail the pool
+        except Exception as exc:  # body/binding error: retry or fail pool
+            if _maybe_retry(es, task, exc, distance):
+                return
+            if task.retries:
+                exc = TaskRetryExhausted(
+                    f"{task}: still failing after {task.retries + 1} "
+                    "attempts", attempts=task.retries + 1, last=exc)
             es.context.record_error(exc, task)
             complete_execution(es, task, failed=True)
             return
@@ -130,6 +160,51 @@ def task_progress(es, task: Task, distance: int = 0) -> None:
             complete_execution(es, task, failed=True)
     finally:
         es.running_task = None
+
+
+def _snapshot_write_flows(task: Task) -> None:
+    """Transient-retry support: snapshot host write-flow payloads before
+    the first execution attempt, so a retried body re-runs against the
+    ORIGINAL inputs even if the failed attempt mutated them in place
+    (read-only and task-fed versioned inputs are already safe — the
+    datarepo pins their version).  Only armed when task_retry_max > 0.
+    The port's payloads are tensors: the snapshot clones host tensors
+    where the JAX package copies numpy arrays, and skips card tensors as
+    it skips device arrays (a device task's tile is not retried here, so
+    a clone would only cost card memory and bandwidth)."""
+    snap = {}
+    for flow in task.task_class.flows:
+        if not flow.access & ACCESS_WRITE:
+            continue
+        copy = task.data.get(flow.name)
+        p = copy.payload if copy is not None else None
+        if isinstance(p, torch.Tensor) and p.device.type == "cpu":
+            snap[flow.name] = p.clone()
+    task.retry_snap = snap
+
+
+def _maybe_retry(es, task: Task, exc: Exception, distance: int) -> bool:
+    """Transient-failure retry: reschedule an idempotent task whose body
+    raised, up to ``task_retry_max`` attempts.  Device-owned (ASYNC)
+    tasks are not retried here — the device layer has its own degrade
+    path."""
+    limit = es.context._retry_max
+    if limit <= 0 or task.retries >= limit or task.taskpool.cancelled:
+        return False
+    if not task.task_class.properties.get("idempotent", True):
+        return False
+    snap = task.retry_snap
+    for fname, arr in (snap or {}).items():
+        copy = task.data.get(fname)
+        if copy is not None:
+            copy.payload = arr.clone()
+    task.retries += 1
+    task.status = TaskStatus.READY
+    warning("%s: transient failure (%s: %s); retrying %d/%d", task,
+            type(exc).__name__, exc, task.retries, limit)
+    es.pins("task_retry", task)
+    schedule(es, [task], distance + 1)
+    return True
 
 
 def complete_execution(es, task: Task, failed: bool = False) -> None:
@@ -180,6 +255,64 @@ def complete_execution(es, task: Task, failed: bool = False) -> None:
         tp.termdet.taskpool_addto_nb_tasks(tp, -1)
 
 
+def _native_body_failed(es, task, exc, distance: int = 0) -> None:
+    """C-chain twin of ``task_progress``'s except branch: the trivial
+    hook raised (called from schedext's fast path so retry/containment
+    semantics stay byte-identical to the Python chain)."""
+    if _maybe_retry(es, task, exc, distance):
+        return
+    if task.retries:
+        exc = TaskRetryExhausted(
+            f"{task}: still failing after {task.retries + 1} "
+            "attempts", attempts=task.retries + 1, last=exc)
+    es.context.record_error(exc, task)
+    complete_execution(es, task, failed=True)
+
+
+def _native_hook_return(es, task, ret, distance: int = 0) -> None:
+    """C-chain twin of ``execute``'s return normalization plus
+    ``task_progress``'s dispatch, for a non-None return from a trivial
+    single-incarnation hook (AGAIN/ASYNC/DISABLE and raw values)."""
+    tc = task.task_class
+    if not isinstance(ret, HookReturn):
+        if isinstance(ret, int) and not isinstance(ret, bool):
+            try:
+                ret = HookReturn(ret)
+            except ValueError as exc:
+                # Python-chain parity: execute()'s HookReturn(ret) of
+                # an invalid code raises under task_progress's try and
+                # becomes a contained task failure — NOT an exception
+                # out of the worker loop (which would kill the thread
+                # and hang the run with zero recorded errors)
+                _native_body_failed(es, task, exc, distance)
+                return
+        else:
+            ret = _DONE
+    if ret == _NEXT or ret == _DISABLE:
+        # single-incarnation class: declining it leaves no taker
+        if ret == _DISABLE:
+            tc.chore_disabled_mask |= 1
+        else:
+            task.chore_mask &= ~1
+        warning("%s: no incarnation accepted the task", task)
+        ret = HookReturn.ERROR
+    if ret == _DONE:
+        cbs = es._pins_map.get("exec_end")   # inlined es.pins
+        if cbs:
+            for cb in cbs:
+                cb(es, "exec_end", task)
+        complete_execution(es, task)
+    elif ret == _ASYNC:
+        es.pins("exec_async", task)
+    elif ret == _AGAIN:
+        task.status = _READY
+        schedule(es, [task], distance + 1)
+    else:
+        es.context.record_error(
+            RuntimeError(f"{task} failed with {ret!r}"), task)
+        complete_execution(es, task, failed=True)
+
+
 def _td_flush(es) -> None:
     """Apply the worker's batched termdet decrements — the batch
     boundary (quantum end / idle / worker exit).  Each entry carries
@@ -205,19 +338,48 @@ def _td_flush(es) -> None:
 
 def worker_loop(es) -> None:
     """Steady-state worker (reference: __parsec_context_wait hot loop).
-    Termdet decrements accumulate per worker and flush at batch
-    boundaries and idle moments instead of locking per task."""
+
+    Native path: ``schedext.run_quantum`` runs pop + select-PINS + the
+    whole prepare/execute/complete chain of a single-cpu-incarnation
+    class for up to ``termdet_batch`` tasks in ONE GIL crossing; tasks
+    the C chain cannot take (device classes among them) pop out, select
+    already fired, for ``task_progress``.  Termdet decrements accumulate
+    per worker and flush at quantum boundaries and idle moments instead
+    of locking per task."""
     ctx = es.context
     sched = ctx.scheduler
+    native = sched.NATIVE_BATCH
+    # native hot path: pop straight off the C ready queue, skipping the
+    # select() frame (one Python call per task at 100k+ tasks/s)
+    pop = sched._q.pop if native else None
+    quantum = q = None
+    if native:
+        from parsec_tpu_torch.native import load_schedext
+        quantum, q = load_schedext().run_quantum, sched._q
     batch = ctx._termdet_batch
     es._td_tid = get_ident()
     es._td_acc = {} if batch > 1 else None
-    probe = lambda: sched.select(es)   # noqa: E731
+    probe = pop if pop is not None else (lambda: sched.select(es))
     pins_map = es._pins_map
     misses = 0
     done_since = 0
+    n = 0
     while not ctx.finished:
-        task = probe()
+        sel_fired = False
+        if quantum is not None:
+            n, task = quantum(es, q, batch)
+            # the C quantum fires select before handing a task back
+            sel_fired = task is not None
+            if n:
+                misses = 0
+                done_since += n
+                if done_since >= batch:
+                    _td_flush(es)
+                    done_since = 0
+        else:
+            task = probe()
+        if task is None and quantum is not None and n:
+            continue   # progressed this quantum; go straight back
         if task is None:
             # idle moment: flush batched termdet (termination needs the
             # final decrements) — unconditionally on a non-empty
@@ -237,10 +399,14 @@ def worker_loop(es) -> None:
             if task is None:
                 continue
         misses = 0
-        cbs = pins_map.get("select")   # inlined es.pins
-        if cbs:
-            for cb in cbs:
-                cb(es, "select", task)
+        # select fires exactly once per task: the C quantum already
+        # fired it for tasks IT hands back; doorbell tasks and the whole
+        # Python path arrive unfired
+        if not sel_fired:
+            cbs = pins_map.get("select")   # inlined es.pins
+            if cbs:
+                for cb in cbs:
+                    cb(es, "select", task)
         task_progress(es, task)
         done_since += 1
         if done_since >= batch:

@@ -267,6 +267,9 @@ class TaskClass:
         self.task_class_id = -1    # assigned by the taskpool
         self.repo = None           # DataRepo, created by the taskpool
         self.taskpool = None
+        #: native per-class vtable (schedext.TaskVT): False = not yet
+        #: resolved, None = native path off (sched_native=0)
+        self._vt = False
 
     def flow(self, name: str) -> Flow:
         return self._flow_by_name[name]
@@ -342,6 +345,133 @@ class TaskClass:
                 n += dep.multiplicity(locals_)
         return n
 
+    # binding-table kinds, mirrored by native/schedext.c (CK_*)
+    _CK_NULL, _CK_FROMDESC, _CK_NEW, _CK_FROMTASK, _CK_BAIL = 0, 1, 2, 3, 4
+    _CK_TOTASK, _CK_OBAIL = 10, 11
+
+    def _native_in_table(self):
+        """Per-in-flow binding table for the C ``prepare_input`` twin:
+        ``(flow_name, ((guard, kind, payload), ...))`` per flow, one
+        entry per dep in declaration order (guards are mutually
+        exclusive; the C plan picks the first applying one).  A dep the
+        C chain cannot bind (reshape dtt, writeback, unknown end)
+        becomes a BAIL entry — the instance pops back to Python."""
+        table = []
+        for flow in self._in_flows:
+            deps = []
+            for dep in flow.inputs:
+                end = dep.end
+                if isinstance(end, Null):
+                    deps.append((dep.guard, self._CK_NULL, None))
+                elif isinstance(end, FromDesc):
+                    if dep.dtt is not None:   # converting read: reshape
+                        deps.append((dep.guard, self._CK_BAIL, None))
+                    else:
+                        deps.append((dep.guard, self._CK_FROMDESC,
+                                     end.ref_fn))
+                elif isinstance(end, New):
+                    deps.append((dep.guard, self._CK_NEW, end.arena_name))
+                elif isinstance(end, FromTask):
+                    # only reachable unbound (empty range -> None); the
+                    # C side needs dep.multiplicity for the 0-edge test
+                    deps.append((dep.guard, self._CK_FROMTASK, dep))
+                else:
+                    deps.append((dep.guard, self._CK_BAIL, None))
+            table.append((flow.name, tuple(deps)))
+        return tuple(table)
+
+    def _native_out_table(self):
+        """Per-out-flow delivery table for the C ``release_deps`` twin:
+        ``(flow_name, flow_index, access, ((guard, kind, payload), ...))``
+        with payload ``(end, succ_tc, succ_flow_name, succ_write)`` for
+        local-capable ToTask deps.  Writebacks (ToDesc), reshaping edges
+        (any dtt on either side), and unresolvable successors are BAIL
+        entries; Null outputs deliver nothing and are omitted (exactly
+        the Python walk's no-op arm)."""
+        tp = self.taskpool
+        table = []
+        for flow in self._out_flows:
+            deps = []
+            for dep in flow.outputs:
+                end = dep.end
+                if isinstance(end, Null):
+                    continue
+                if not isinstance(end, ToTask):
+                    deps.append((dep.guard, self._CK_OBAIL, None))
+                    continue
+                succ_tc = tp.task_classes.get(end.task_class) \
+                    if tp is not None else None
+                succ_flow = succ_tc._flow_by_name.get(end.flow) \
+                    if succ_tc is not None else None
+                if (succ_tc is None or succ_flow is None
+                        or dep.dtt is not None
+                        or any(d.dtt is not None
+                               for d in succ_flow.inputs)):
+                    deps.append((dep.guard, self._CK_OBAIL, None))
+                    continue
+                deps.append((dep.guard, self._CK_TOTASK,
+                             (end, succ_tc, end.flow,
+                              int(bool(succ_flow.access & ACCESS_WRITE)))))
+            table.append((flow.name, flow.flow_index, flow.access,
+                          tuple(deps)))
+        return tuple(table)
+
+    def native_vt(self):
+        """The native per-class vtable (reference: the
+        ``parsec_task_class_t`` vtable — schedext.TaskVT): C-side task
+        construction for every class, plus the one-crossing progress
+        chains — trivial (no flows) and extended (data-carrying classes
+        via the binding tables above), both requiring a single cpu
+        incarnation.  None when the native hot path is off
+        (``sched_native=0``); resolved once per class (a class belongs to
+        exactly one taskpool).  Device classes (a ``"cuda"`` incarnation)
+        get construction only: their tasks pop back to Python at
+        ``run_quantum`` and are counted as ``non_trivial`` bailouts."""
+        vt = self._vt
+        if vt is not False:
+            return vt
+        self._vt = None
+        if self.taskpool is None:
+            self._vt = False    # not attached yet: retry at next ask
+            return None
+        from parsec_tpu_torch.utils.mca import params
+        if not int(params.get("sched_native", 1)):
+            return None
+        # no fallback: a failed build raises (native.NativeBuildError)
+        from parsec_tpu_torch.native import load_schedext
+        se = load_schedext()
+        # drift guard: the C chain hardcodes the TaskStatus values
+        if (int(TaskStatus.PENDING), int(TaskStatus.PREPARED),
+                int(TaskStatus.RUNNING),
+                int(TaskStatus.COMPLETE)) != (0, 2, 3, 4):
+            raise RuntimeError(
+                "TaskStatus drifted from schedext's hardcoded values")
+        single_cpu = (len(self.incarnations) == 1
+                      and self.incarnations[0][0] == "cpu"
+                      and getattr(self.taskpool, "dynamic_release",
+                                  None) is None)
+        trivial = (single_cpu and not self._in_flows
+                   and not self._out_flows and not self._write_flows)
+        # extended chain: data-carrying class with a static binding
+        # plan.  Dynamically-discovered (DTD) pools resolve successors
+        # from their runtime graph, not from flow tables: Python only.
+        cchain = (single_cpu and not trivial
+                  and not getattr(self.taskpool, "dynamic", False)
+                  and len(self.flows) <= 16)
+        hook = self.incarnations[0][1] if (trivial or cchain) else None
+        self._vt = se.TaskVT(self, self.taskpool, self.name,
+                             self._param_names,
+                             tuple(f.name for f in self.flows),
+                             self.priority, self.key_fn, hook,
+                             bool(trivial), int(bool(cchain)),
+                             self._native_in_table() if cchain else (),
+                             tuple(self._noin_flow_names)
+                             if cchain else (),
+                             self._native_out_table() if cchain else (),
+                             tuple(f.name for f in self._write_flows)
+                             if cchain else ())
+        return self._vt
+
     def rank_of(self, locals_: Dict[str, int]) -> int:
         if self.affinity is None:
             return 0
@@ -371,11 +501,19 @@ _task_seq = itertools.count()
 
 
 class Task:
-    """One task instance (reference: parsec_task_t)."""
+    """One task instance (reference: parsec_task_t).
+
+    Field contract with its C twin (native/schedext.c ``TaskCore``, built
+    by ``TaskClass.native_vt().build_*``): both carry exactly these
+    slots, so every layer of the port, devices/cuda.py included, reads
+    either one by attribute.  The JAX package's ``prof``, ``dtd`` and
+    ``mtr_t0`` slots belong to planes the port does not carry
+    (profiling, DTD, metrics) and are dropped from both."""
 
     __slots__ = ("task_class", "taskpool", "locals", "key", "priority",
                  "status", "data", "input_sources", "pinned_flows",
-                 "chore_mask", "seq", "device", "pool_epoch")
+                 "chore_mask", "seq", "device", "ready_at", "retries",
+                 "retry_snap", "pool_epoch")
 
     def __init__(self, task_class: TaskClass, taskpool, locals_: Dict[str, int]):
         self.task_class = task_class
@@ -400,6 +538,14 @@ class Task:
         self.chore_mask = 0xFFFF
         self.seq = next(_task_seq)
         self.device = None
+        #: stamp of the moment the task became READY; the port never
+        #: sets it (no telemetry plane reads it yet), but TaskCore
+        #: carries the slot and ReadyQueue.push_batch can stamp it
+        self.ready_at = None
+        #: transient-failure retry bookkeeping (core/scheduling
+        #: _maybe_retry; active only when task_retry_max > 0)
+        self.retries = 0
+        self.retry_snap = None
         #: the pool's generation at construction: batched termdet
         #: decrements are keyed by it (core/scheduling.py)
         self.pool_epoch = getattr(taskpool, "run_epoch", 0)

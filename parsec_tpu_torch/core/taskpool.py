@@ -28,6 +28,26 @@ from parsec_tpu_torch.core.task import Task, TaskClass
 
 _tp_ids = itertools.count(1)
 
+_ndep_cls = None
+
+
+def _native_dep_table():
+    """A native dep-countdown table (schedext.DepTable) when the
+    scheduler hot path is on, else None — the per-pool gate
+    engine.deliver_dep dispatches on.  The class resolves once per
+    process (a failed build raises, native.NativeBuildError); the
+    ``sched_native`` knob stays a live read so an A/B flip affects pools
+    created after it."""
+    global _ndep_cls
+    from parsec_tpu_torch.utils.mca import params
+    if not int(params.get("sched_native", 1)):
+        return None
+    if _ndep_cls is None:
+        from parsec_tpu_torch.native import load_schedext
+        _ndep_cls = load_schedext().DepTable
+    return _ndep_cls()
+
+
 class TaskpoolState(IntEnum):
     CREATED = 0
     ATTACHED = 1
@@ -58,9 +78,12 @@ class Taskpool:
         self.termdet_name: Optional[str] = None
         self.task_classes: Dict[str, TaskClass] = {}
         self.arenas: Dict[str, Arena] = {}
-        #: dep-countdown records for not-yet-ready tasks
-        #: (engine.deliver_dep)
+        #: dep-countdown records for not-yet-ready tasks; the native
+        #: twin (schedext.DepTable) replaces it wholesale when the
+        #: scheduler hot path is on — ONE of the two holds this pool's
+        #: records, selected once at construction (engine.deliver_dep)
         self.deps_table = ConcurrentHashTable()
+        self._native_deps = _native_dep_table()
         #: collection datums whose host copy a writeback replaced; their
         #: user-visible backing re-links at termination (engine._writeback)
         self.dirty_data: set = set()
@@ -89,6 +112,13 @@ class Taskpool:
         #: termdet's batched decrements are checked against; the port has
         #: no recovery plane, so it stays 0
         self.run_epoch = 0
+        #: the JAX package's recovery lineage log and minimal-replay
+        #: filter.  The port has no recovery plane, so both stay None;
+        #: they exist because the C chain reads them off every pool
+        #: (native/schedext.c gates_for: a missing attribute is an error
+        #: there, not a bailout)
+        self._lineage = None
+        self._replay_filter: Optional[set] = None
         #: memory-space indices this pool's tasks may execute on.  None =
         #: unrestricted; a frozenset restricts DeviceRegistry.best_device
         self.device_spaces: Optional[frozenset] = None
@@ -191,13 +221,35 @@ class ParameterizedTaskpool(Taskpool):
             # classes with no task-fed inputs skip the per-instance
             # countdown probe entirely (class-level partition, task.py)
             all_ready = not tc._ft_inputs
+            vt = tc.native_vt()
+            if vt is not None and all_ready and aff is None \
+                    and tc.key_fn is None and len(tc.params) == 1:
+                # flat dep-free class (the independent-task shape):
+                # enumerate AND construct directly from the parameter
+                # range in C — Python Task.__init__ and the per-
+                # instance dict build leave the startup hot loop
+                # entirely (schedext.TaskVT.build_range)
+                space = tc.params[0][1](self.globals, {})
+                if isinstance(space, range):
+                    tasks = vt.build_range(tc.params[0][0], space.start,
+                                           space.stop, space.step)
+                else:
+                    name = tc.params[0][0]
+                    tasks = vt.build_batch([{name: v} for v in space])
+                nb_local += len(tasks)
+                ready.extend(tasks)
+                continue
+            build = vt.build_one if vt is not None else None
             for locals_ in tc.iter_space(self.globals):
                 # owner-computes (TaskClass.rank_of)
                 if aff is not None and tc.rank_of(locals_) != myrank:
                     continue
                 nb_local += 1
                 if all_ready or tc.nb_task_inputs(locals_) == 0:
-                    append(Task(tc, self, locals_))
+                    # iter_space yields a fresh dict per instance, so
+                    # the C constructor may alias it (build_one)
+                    append(build(locals_) if build is not None
+                           else Task(tc, self, locals_))
         if nb_local:
             self.termdet.taskpool_addto_nb_tasks(self, nb_local)
         return ready

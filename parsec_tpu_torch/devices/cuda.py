@@ -108,6 +108,7 @@ from parsec_tpu_torch.data.data import (ACCESS_READ, ACCESS_WRITE, Coherency,
                                         Data, DataCopy, FLAG_COW,
                                         FLAG_SCRATCH, to_host)
 from parsec_tpu_torch.devices.device import Device
+from parsec_tpu_torch.utils import faultinject as _fi
 from parsec_tpu_torch.utils.mca import params
 from parsec_tpu_torch.utils.output import debug_verbose, warning
 
@@ -381,9 +382,15 @@ class CudaDevice(Device):
         cap_mb = int(params.get("device_mem_mb", 0))
         self._capacity = cap_mb * (1 << 20) if cap_mb > 0 else None
         self._bytes_used = 0
+        #: segment ledger over the device-memory budget (reference: the
+        #: GPU slab zone_malloc, utils/zone_malloc.c — PyTorch's caching
+        #: allocator owns physical memory, so the zone tracks logical
+        #: segments to drive eviction exactly where the reference drove
+        #: cudaMalloc'd slabs).  core.cpp's allocator: a native core that
+        #: does not build raises
         if self._capacity is not None:
-            from parsec_tpu_torch.utils.zone_alloc import ZoneAllocator
-            self._zone = ZoneAllocator(self._capacity)
+            from parsec_tpu_torch.native import NativeZoneAllocator
+            self._zone = NativeZoneAllocator(self._capacity)
         else:
             self._zone = None
         #: datum-id -> (weakref to device copy, nbytes, zone offset);
@@ -474,6 +481,10 @@ class CudaDevice(Device):
                 batch = self._pop_wave_locked()
                 self._launching += 1
             try:
+                if _fi.ARMED:
+                    # fault plan delay_dispatch: perturb the manager /
+                    # completer interleaving deterministically
+                    _fi.device_delay()
                 self._launch(batch)
             except Exception as exc:   # stage-in/launch failure
                 from parsec_tpu_torch.core import scheduling

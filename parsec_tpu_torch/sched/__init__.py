@@ -22,6 +22,13 @@ from parsec_tpu_torch.core.task import Task
 class Scheduler:
     name = "base"
 
+    #: native-batch contract: when True, core/scheduling.schedule hands
+    #: the raw ready ring to ``schedule()`` without the Python
+    #: status/ready_at loop — the scheduler performs the READY
+    #: transition (and stamping) itself, in one native crossing
+    #: (sched/native.py)
+    NATIVE_BATCH = False
+
     def install(self, context) -> None:
         self.context = context
 
@@ -46,11 +53,20 @@ def register(name: str, cls, priority: int = 0) -> None:
 
 
 def create(name: Optional[str] = None) -> Scheduler:
-    """The named scheduler, else the MCA ``sched`` param, else the
-    highest-priority component (``lfq``, the reference default).  The
-    port has no C ``native`` ready queue yet."""
+    """The named scheduler, else the MCA ``sched`` param, else the C
+    ``native`` ready queue while ``sched_native`` is on (the default),
+    else the highest-priority Python component (``lfq``).
+
+    Deliberate difference from the JAX package: no silent fallback.
+    There a schedext that does not build degrades to the Python ladder
+    with one warning; here it raises (native.NativeBuildError), and
+    ``sched_native=0`` is the one way onto the ladder."""
     from parsec_tpu_torch.utils.mca import params
     requested = name or (params.get("sched", "") or None)
+    if requested is None and int(params.get("sched_native", 1)):
+        from parsec_tpu_torch.native import load_schedext
+        load_schedext()   # raises with the compiler's stderr
+        requested = "native"
     selected, cls = components.select("sched", requested)
     inst = cls()
     inst.name = selected
@@ -60,3 +76,4 @@ def create(name: Optional[str] = None) -> Scheduler:
 # Import modules so they self-register.
 from parsec_tpu_torch.sched import simple as _simple          # noqa: E402,F401
 from parsec_tpu_torch.sched import local_queues as _lq        # noqa: E402,F401
+from parsec_tpu_torch.sched import native as _native          # noqa: E402,F401

@@ -174,3 +174,52 @@ def test_potrf_operand_is_the_bench_operand(dtype):
         assert got.dtype == A.dtype
         assert np.array_equal(got.float().numpy(), want.astype(np.float32)), \
             (m, k)
+
+
+@pytest.mark.parametrize("kind", ["tasks", "ntasks"])
+@pytest.mark.parametrize("sched_native", [1, 0])
+def test_host_probe_rehearsal_on_cpu(kind, sched_native):
+    """The host phase's probes at a small size on both scheduler paths:
+    the chains' results are checked inside, and on the native path
+    neither probe hands a task back to Python."""
+    chip_smoke = _chip_smoke()
+    res = chip_smoke.host_probe(kind, sched_native, n=400, nc=20, nb=6,
+                                cores=2)
+    assert res["sched"] == ("native" if sched_native else "lfq")
+    assert res["tasks"] == (400 if kind == "tasks" else 120)
+    assert res["tasks_per_s"] > 0
+    assert res["bailouts"] == {}
+
+
+def test_host_phase_rehearsal_on_cpu():
+    chip_smoke = _chip_smoke()
+    out = chip_smoke.phase_host("rehearsal card", rounds=1, n=200, nc=10,
+                                nb=4, cores=2)
+    assert set(out["best"]) == {f"{k} sched_native={f}"
+                                for k in ("tasks", "ntasks") for f in (1, 0)}
+    assert "cores" in out["cpu"]
+
+
+def test_report_scheduler_holds_the_native_default():
+    """A path must run on the native scheduler while sched_native is on;
+    its queue counters and bailout histogram are reported."""
+    chip_smoke = _chip_smoke()
+    from parsec_tpu_torch.core.context import Context
+    from parsec_tpu_torch.utils.mca import params
+    bail0 = chip_smoke.bailouts()
+    with Context(nb_cores=1, device="cpu") as ctx:
+        ctx.add_taskpool(chip_smoke.empty_pool(16))
+        ctx.wait(timeout=30)
+        rep = chip_smoke.report_scheduler("rehearsal", ctx, bail0)
+    assert rep["name"] == "native" and rep["bailouts"] == {}
+    assert rep["queue"]["pops"] == rep["queue"]["pushes"] == 16
+    with Context(nb_cores=1, device="cpu", scheduler="lfq") as ctx:
+        with pytest.raises(AssertionError, match="not the native"):
+            chip_smoke.report_scheduler("rehearsal", ctx, bail0)
+    params.set("sched_native", 0)
+    try:
+        with Context(nb_cores=1, device="cpu") as ctx:
+            assert chip_smoke.report_scheduler(
+                "rehearsal", ctx, bail0)["queue"] is None
+    finally:
+        params.unset("sched_native")

@@ -74,3 +74,139 @@ def test_no_source_imports_jax_or_the_reference(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def test_c_sources_import_only_the_port():
+    """The port's C extensions bind to the port's Python modules: every
+    module schedext.c imports at run time names ``parsec_tpu_torch``."""
+    import re
+    for src in sorted((PKG / "native").glob("*.c")):
+        names = re.findall(r'PyImport_ImportModule\("([^"]+)"\)',
+                           src.read_text())
+        assert names, src
+        bad = [n for n in names if not n.startswith("parsec_tpu_torch.")]
+        assert not bad, f"{src}: {bad}"
+
+
+_BLOCKED_RUN = r"""
+import importlib.abc, json, sys
+BLOCK = ("jax", "jaxlib", "parsec_tpu")
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCK):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+sys.path.insert(0, ROOT)
+import torch
+from parsec_tpu_torch import Context
+from parsec_tpu_torch.apps.gemm import gemm_taskpool
+from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
+from parsec_tpu_torch.dsl.ptg import DATA, IN, OUT, PTG, Range, TASK
+from parsec_tpu_torch.native import load_schedext
+
+se = load_schedext()
+A = TwoDimBlockCyclic(1, 1, 1, 1, name="A").from_array(torch.zeros(1, 1))
+g = PTG("iso", NB=5)
+g.task("E", i=Range(0, 9)).flow("x", "CTL").body(lambda: None)
+g.task("S", k=Range(0, 4)).affinity(lambda k: A(0, 0)) \
+    .flow("T", "RW",
+          IN(DATA(lambda k: A(0, 0)), when=lambda k: k == 0),
+          IN(TASK("S", "T", lambda k: dict(k=k - 1)), when=lambda k: k > 0),
+          OUT(TASK("S", "T", lambda k: dict(k=k + 1)), when=lambda k: k < 4),
+          OUT(DATA(lambda k: A(0, 0)), when=lambda k: k == 4)) \
+    .body(lambda T: T + 1.0)
+n, mb = 32, 16
+mats = [TwoDimBlockCyclic(mb, mb, n, n, name=nm).from_array(torch.ones(n, n))
+        for nm in "XYZ"]
+b0 = dict(se.bailout_stats())
+with Context(nb_cores=2, device="cpu") as ctx:
+    name = ctx.scheduler.name
+    ctx.add_taskpool(g.build())
+    ctx.add_taskpool(gemm_taskpool(*mats))
+    ctx.wait(timeout=60)
+b1 = se.bailout_stats()
+print(json.dumps({
+    "sched": name, "value": float(A.to_array()[0, 0]),
+    "gemm": float(mats[2].to_array()[0, 0]),
+    "bail": {k: b1[k] - b0[k] for k in b1 if b1[k] != b0[k]},
+    "bad": sorted(m for m in sys.modules
+                  if any(m == b or m.startswith(b + ".") for b in BLOCK))}))
+"""
+
+
+def test_a_port_dag_runs_the_native_path_with_jax_and_reference_refused():
+    """ensure_runtime's C-side imports (core.task, utils.faultinject,
+    core.scheduling, core.engine, utils.output, data.data) resolve inside
+    the port: a DAG runs the C chain with jax and parsec_tpu refused by
+    the import system."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PYTHONPATH")}
+    code = f"ROOT = {str(ROOT)!r}\n" + _BLOCKED_RUN
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=180, env=env, cwd=str(PKG))
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["sched"] == "native"
+    assert out["value"] == 5.0
+    assert out["gemm"] == 1.0 + 32.0          # C + A@B over ones
+    assert out["bad"] == []
+    # the RW chain's last task writes back (a static bailout), the device
+    # GEMMs pop back as non_trivial; the CTL tasks and the rest of the
+    # chain stay on the C chain
+    assert set(out["bail"]) == {"non_trivial"}, out["bail"]
+
+
+_BOTH = r"""
+import json, re, sys
+sys.path.insert(0, ROOT)
+import parsec_tpu.core.task as ref_task
+import parsec_tpu.native as ref_native
+import parsec_tpu_torch.core.task as port_task
+from parsec_tpu_torch.native import load_schedext
+from parsec_tpu_torch.core.task import TaskClass
+from parsec_tpu_torch.core.taskpool import ParameterizedTaskpool
+
+ref_se = ref_native.load_schedext()
+if ref_se is None:
+    print(json.dumps({"mods": [None]}))
+    sys.exit(0)
+port_se = load_schedext()
+seq = lambda m: int(re.match(r"count\((\d+)", repr(m._task_seq)).group(1))
+ref0, port0 = seq(ref_task), seq(port_task)
+tp = ParameterizedTaskpool("both")
+tc = tp.add_task_class(TaskClass("C", params=[("i", lambda g, l: range(3))],
+                                 body=lambda es, task: None))
+ts = tc.native_vt().build_range("i", 0, 3, 1)
+print(json.dumps({
+    "mods": [ref_se.__name__, port_se.__name__],
+    "files": [ref_se.__file__, port_se.__file__],
+    "port_type": type(ts[0]) is port_se.TaskCore,
+    "ref_type": type(ts[0]) is ref_se.TaskCore,
+    "seqs": [t.seq for t in ts], "port0": port0,
+    "port_after": seq(port_task), "ref_moved": seq(ref_task) - ref0}))
+"""
+
+
+def test_both_packages_extensions_load_in_one_process():
+    """The port's schedext has a module name of its own, so it loads
+    beside the JAX package's; a port TaskVT builds the port's TaskCore
+    and draws from the port's task sequence, never the reference's."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PYTHONPATH")}
+    env["JAX_PLATFORMS"] = "cpu"
+    code = f"ROOT = {str(ROOT)!r}\n" + _BOTH
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=180, env=env, cwd=str(PKG))
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    if out["mods"][0] is None:
+        pytest.skip("the JAX package's schedext did not build")
+    assert out["mods"] == ["schedext", "parsec_tpu_torch_schedext"]
+    assert out["files"][0] != out["files"][1]
+    assert out["port_type"] and not out["ref_type"]
+    assert out["seqs"] == [out["port0"] + i for i in range(3)]
+    assert out["port_after"] == out["port0"] + 3
+    assert out["ref_moved"] == 0
