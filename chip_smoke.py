@@ -46,7 +46,29 @@ no result line):
               (20000 empty tasks, 4 streams) and ``ntasks`` probe (500
               RW chains x 24, results checked), each at ``sched_native``
               1 and 0 in turns; the native ``ntasks`` run must hand no
-              task back to Python (an empty bailout histogram).
+              task back to Python (an empty bailout histogram).  Then the
+              twins of the JAX package's overhead probes: interleaved
+              pairs of the ``tasks`` probe armed and off, for the
+              telemetry plane (``metrics_enabled`` + ``liveattr_enable``),
+              the journal (``journal_enabled``) and the tracer (task
+              profiler + causal tracer), each printed as its minimum pair
+              ratio and us per task beside the JAX package's CPU gate.
+
+Telemetry.  Every path runs with the planes the reference installs at its
+defaults: the metrics registry with live attribution and health, the
+control-plane journal, the properties space, and the ready stamp.  After
+each path a ``[telemetry <path>]`` line reads the registry's scrape:
+the native pushes, pops and bailouts (equal to the path's scheduler
+line), the sampled latency-histogram count and liveattr's per-class done
+counts (held to the stride's arithmetic, see ``report_telemetry``), the
+straggler count, the health score and the journal's event count.  The
+GEMM mb=2048 and potrf paths run one more pass after their checks with
+the task profiler and the causal tracer installed, read the trace back
+through the port's reader and ``critpath.attribution``, and print the
+critical path's exec, queue, comm and idle (summing to the makespan
+within 5%), the device spans (one per task) and the in-flight share
+(the union of dispatch->done device spans over the traced pass).  No
+traced pass counts in the kernels line.
 
 Every path runs on the native scheduler (``parsec_tpu_torch/native``:
 the C ready queue, dep countdown and ``run_quantum``) unless the MCA
@@ -83,10 +105,13 @@ from __future__ import annotations
 import collections
 import gc
 import json
+import os
 import resource
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -107,6 +132,11 @@ from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
 from parsec_tpu_torch.devices import cuda as _cuda  # noqa: F401
 from parsec_tpu_torch.dsl.ptg import DATA, IN, OUT, PTG, Range, TASK
 from parsec_tpu_torch.native import load_schedext
+from parsec_tpu_torch.prof import critpath
+from parsec_tpu_torch.prof.causal import install_causal_tracer
+from parsec_tpu_torch.prof.pins import install_task_profiler
+from parsec_tpu_torch.prof.profiling import Profile
+from parsec_tpu_torch.prof.reader import intervals
 from parsec_tpu_torch.utils.mca import params
 
 SEED = 20261016
@@ -148,6 +178,15 @@ QR_LADDER_TOL = 1e-5
 #: and the last residual of the f32 iterative-refinement ladder
 POTRF_BWD_TOL = 5e-2
 POTRF_IR_TOL = 1e-5
+
+#: the critical path's buckets must sum to the makespan within this share
+#: of it (the JAX package's own tolerance, tests/test_critpath.py)
+CRITPATH_TOL = 0.05
+
+#: the JAX package's CPU gates for its overhead probes, in us per task
+#: (BENCH.md; bench.py ``_overhead_probe``): the telemetry plane <= 0.5,
+#: the tracer <= 8, the journal ~0 (no per-task emit site; taken as 0.1)
+OVERHEAD_GATES_US = {"telemetry": 0.5, "journal": 0.1, "tracer": 8.0}
 
 
 def reset_counts() -> None:
@@ -635,8 +674,128 @@ class _Incarnations:
         return out
 
 
+def completing_streams(ctx: Context) -> list:
+    """Every execution stream that completes tasks: the workers, and each
+    device module's own stream (its completer thread completes the card
+    tasks)."""
+    return list(ctx.streams) + [d.es for d in
+                                ctx.device_registry.accelerators
+                                if d.es is not None]
+
+
+def sampled_completions(ctx: Context) -> int:
+    """The completions the metrics plane has sampled so far.  In its
+    default single-hook mode ``RuntimeMetrics._complete`` observes a
+    completion when ``es.nb_tasks_done % metrics_sample == 0`` just
+    before the stream's counter moves on, so a stream that completed n
+    tasks sampled ceil(n / stride) of them."""
+    stride = ctx.metrics._sample
+    return sum(-(-es.nb_tasks_done // stride)
+               for es in completing_streams(ctx))
+
+
+def span_union(spans) -> float:
+    """Total length of the union of (begin, end) intervals."""
+    total, end = 0.0, None
+    for b, e in sorted(spans):
+        if end is None or b > end:
+            total += e - b
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def traced_pass(ctx: Context, run_pass, label: str, ntasks: int,
+                best_s: float) -> dict:
+    """One more pass (``run_pass()`` runs it and returns its wall time)
+    with the task profiler and the causal tracer installed; the trace is
+    written to a temporary directory and read back through the port's
+    reader and critpath.  Checks one exec and one device span per task,
+    and the critical path's buckets: they must exceed the makespan by
+    exactly the path's overlap (``overlap`` in ``attribute``'s result)
+    and, on the card, sum to it within CRITPATH_TOL (on the CPU-backed
+    module a task is short
+    against the host's scheduling delays, which the overlap absorbs).
+    Returns the buckets, the in-flight share (the union of the
+    dispatch->done device spans over the pass's wall time: host stamps
+    at both ends, the dispatch stamp taken once the wave is queued, so
+    it approximates the card's busy share — from above, less the time a
+    wave's first kernel runs before its span opens) and the
+    completions the metrics plane sampled during the pass (the tracer
+    consumes their ready stamps, so none reached the latency
+    histogram)."""
+    prof = Profile(label)
+    mods = [install_task_profiler(ctx, prof),
+            install_causal_tracer(ctx, prof)]
+    sampled0 = sampled_completions(ctx)
+    try:
+        wall = run_pass()
+    finally:
+        for mod in mods:
+            mod.uninstall(ctx)
+    sampled = sampled_completions(ctx) - sampled0
+    tmp = tempfile.mkdtemp(prefix="parsec_trace_")
+    try:
+        path = prof.dump(os.path.join(tmp, "pass.ptt"))
+        t0 = time.perf_counter()
+        rows, _metas = critpath.merge_traces([path])
+        tasks, preds, ready = critpath.build_dag(rows)
+        cpath = critpath.critical_path(tasks, preds)
+        att = critpath.attribute(cpath, tasks, ready)
+        over = att["overlap"]
+        read_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ivs = intervals(rows)
+    dev = [(iv["ts_begin"], iv["ts_end"]) for iv in ivs
+           if iv["name"].startswith("dev:")]
+    exe = [iv for iv in ivs if iv["name"] != "queue_wait"
+           and not iv["name"].startswith("dev:")]
+    b = att["buckets"]
+    total = sum(b.values())
+    inflight = span_union(dev) / wall
+    log(f"[{label}] traced pass (task profiler + causal tracer): "
+        f"{wall * 1e3:.1f} ms against the untraced best "
+        f"{best_s * 1e3:.1f} ms ({wall / best_s:.3f}x); {len(rows)} events "
+        f"({size / 2**20:.2f} MiB, read back and attributed in "
+        f"{read_s:.2f} s), {len(exe)} exec spans, {len(dev)} dev: spans "
+        f"for {ntasks} tasks; critical path of {len(att['path'])} tasks: "
+        f"exec {b['exec'] * 1e3:.3f} ms, queue {b['queue'] * 1e3:.3f} ms, "
+        f"comm {b['comm'] * 1e3:.3f} ms, idle {b['idle'] * 1e3:.3f} ms, "
+        f"sum {total * 1e3:.3f} ms against the makespan "
+        f"{att['makespan'] * 1e3:.3f} ms (tol {CRITPATH_TOL:.0%}; "
+        f"overlapping steps {over * 1e3:.3f} ms); "
+        f"in-flight share {inflight:.3f} (union of dispatch->done device "
+        f"spans over the pass; approximates the card's busy share from above, "
+        f"less what a wave runs before its span opens)")
+    if len(dev) != ntasks or len(exe) != ntasks:
+        raise AssertionError(f"[{label}] traced pass: {len(exe)} exec and "
+                             f"{len(dev)} dev: spans, expected {ntasks}")
+    # the buckets are rounded to 1e-6 s each
+    if abs(total - att["makespan"] - over) > 1e-5:
+        raise AssertionError(f"[{label}] critical-path buckets {b} sum to "
+                             f"{total}, not the makespan {att['makespan']} "
+                             f"plus the overlap {over}")
+    on_card = ctx.device_registry.accelerators[0].is_cuda
+    if on_card and abs(total - att["makespan"]) \
+            > CRITPATH_TOL * att["makespan"]:
+        raise AssertionError(f"[{label}] critical-path buckets {b} sum to "
+                             f"{total}, the makespan is {att['makespan']}")
+    return {"wall_ms": wall * 1e3, "untraced_best_ms": best_s * 1e3,
+            "events": len(rows), "dev_spans": len(dev),
+            "buckets_ms": {k: v * 1e3 for k, v in b.items()},
+            "makespan_ms": att["makespan"] * 1e3,
+            "overlap_ms": over * 1e3,
+            "critical_path_tasks": len(att["path"]),
+            "inflight_share": inflight, "sampled": sampled}
+
+
 def drive_gemm(ctx: Context, mb: int, mt: int, nt: int, kt: int,
-               passes: int, gen: torch.Generator, label: str) -> dict:
+               passes: int, gen: torch.Generator, label: str,
+               traced: bool = False) -> dict:
     """The tiled GEMM through the runtime: tiles born on the device, one
     warm pass then ``passes`` timed passes of insert + wait; checks C,
     kernel launches, executed tasks and incarnations.  Returns numbers."""
@@ -728,9 +887,23 @@ def drive_gemm(ctx: Context, mb: int, mt: int, nt: int, kt: int,
     if worst > 1e-3:
         raise AssertionError(f"[{label}] C disagrees: {worst}")
     best = min(times)
+    trace = None
+    if traced:
+        def one_pass() -> float:
+            executed0 = dev.stats.executed_tasks
+            t0 = time.perf_counter()
+            ctx.add_taskpool(gemm_taskpool(A, B, C))
+            ctx.wait()
+            dt = time.perf_counter() - t0
+            if dev.stats.executed_tasks - executed0 != ntasks:
+                raise AssertionError(f"[{label}] traced pass: executed "
+                                     f"{dev.stats.executed_tasks - executed0}"
+                                     f" tasks, expected {ntasks}")
+            return dt
+        trace = traced_pass(ctx, one_pass, label, ntasks, best)
     return {"launches": launches, "best_s": best,
             "gflops": flops / best / 1e9, "ntasks": ntasks,
-            "device": device}
+            "device": device, "trace": trace}
 
 
 def path_summary(res: dict, pass_s: float) -> dict:
@@ -745,9 +918,11 @@ def path_summary(res: dict, pass_s: float) -> dict:
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
-def phase_small_tiles(ctx: Context, gen: torch.Generator) -> dict:
+def phase_small_tiles(ctx: Context, gen: torch.Generator,
+                      traced: bool = False) -> dict:
     mb, t = 2048, 8
-    res = drive_gemm(ctx, mb, t, t, t, passes=3, gen=gen, label="mb=2048")
+    res = drive_gemm(ctx, mb, t, t, t, passes=3, gen=gen, label="mb=2048",
+                     traced=traced)
     # idle share, estimated: kernel time of one tile (CUDA events, a single
     # launch) times the tiles of a pass, against the pass's wall time
     A = torch.randn((mb, mb), generator=gen, device="cuda").bfloat16()
@@ -761,6 +936,12 @@ def phase_small_tiles(ctx: Context, gen: torch.Generator) -> dict:
         f"{k_ms * 1e3:.1f} us/tile; estimated device idle share {idle:.3f}")
     summary = path_summary(res, res["best_s"])
     summary["idle_share"] = idle
+    if res["trace"] is not None:
+        log(f"[mb=2048] in-flight share of the traced pass "
+            f"{res['trace']['inflight_share']:.3f} (approximates the "
+            f"card's busy share) beside the estimated busy share "
+            f"{1.0 - idle:.3f} (estimated idle share {idle:.3f})")
+        summary["trace"] = res["trace"]
     return summary
 
 
@@ -1119,7 +1300,7 @@ def potrf_tile_maker(A: TwoDimBlockCyclic, tdev: torch.device):
 
 def drive_potrf(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
                 passes: int, label: str, ir_steps: int = 3,
-                require_fusion: bool = False) -> dict:
+                require_fusion: bool = False, traced: bool = False) -> dict:
     """The tiled Cholesky through the runtime: the bench operand's lower
     tiles regenerated on the device before every pass (outside the timed
     window), one warm pass then ``passes`` timed passes of insert + wait +
@@ -1240,10 +1421,15 @@ def drive_potrf(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
         raise AssertionError(f"[{label}] last IR residual {ir[-1]} > "
                              f"{POTRF_IR_TOL}")
     gflops = [flops / t / 1e9 for t in times]
+    trace = None
+    if traced:
+        trace = traced_pass(ctx, lambda: factor("pass traced"), label,
+                            ntasks, min(times))
     return {"launches": launches, "times": times, "gflops": gflops,
             "median_gflops": statistics.median(gflops),
             "executed_flops": executed_flops, "ntasks": ntasks,
-            "backward_error": bwd, "ir": ir, "device": device}
+            "backward_error": bwd, "ir": ir, "device": device,
+            "trace": trace}
 
 
 def potrf_class_times(dev: torch.device, mb: int,
@@ -1274,7 +1460,7 @@ def phase_potrf(ctx: Context) -> dict:
     label = "potrf path mb=6144"
     torch.cuda.reset_peak_memory_stats()
     res = drive_potrf(ctx, mb, nt, torch.bfloat16, passes=5, label=label,
-                      require_fusion=True)
+                      require_fusion=True, traced=True)
     g = res["gflops"]
     med_s = statistics.median(res["times"])
     log(f"[{label}] tiled_potrf_mp_gflops: median {res['median_gflops']:.1f}"
@@ -1295,6 +1481,13 @@ def phase_potrf(ctx: Context) -> dict:
         + f"; sum {busy * 1e3:.0f} ms against the median pass "
         f"{med_s * 1e3:.0f} ms: estimated device idle share "
         f"{max(0.0, 1.0 - busy / med_s):.3f}")
+    idle = max(0.0, 1.0 - busy / med_s)
+    log(f"[{label}] in-flight share of the traced pass "
+        f"{res['trace']['inflight_share']:.3f} (approximates the "
+        f"card's busy share) beside the estimated busy share "
+        f"{1.0 - idle:.3f} (estimated idle share {idle:.3f})")
+    summary["idle_share"] = idle
+    summary["trace"] = res["trace"]
     return summary
 
 
@@ -1333,6 +1526,97 @@ def report_scheduler(label: str, ctx: Context, bail0: dict) -> dict:
     return {"name": name, "queue": queue, "bailouts": bail}
 
 
+def report_telemetry(label: str, ctx: Context, bail0: dict,
+                     traced_sampled: int = 0) -> dict:
+    """The metrics registry's scrape after a path, held to what the path
+    counted itself:
+
+    - the native pushes, pops and bailouts (``_collect_sched``) equal the
+      ready queue's own counters and the C chain's bailout delta (the
+      scheduler line); at ``sched_native`` 0 the registry reports none;
+    - liveattr's sampled completions S (its per-class done counts over
+      the stride) equal sum over the completing streams of
+      ceil(n_s / stride), the sampling rule of ``RuntimeMetrics._complete``;
+      hence N / stride <= S <= N / stride + E for the path's N tasks over
+      E streams (the workers plus the device module's completer stream);
+    - the latency histogram's count is S less the completions sampled in
+      a traced pass, whose ready stamps the causal tracer consumed;
+    - the health score lies in [0, 1] and the ready stamp is on.
+    Prints the straggler count and the journal's event count."""
+    m = ctx.metrics
+    if m is None or m.liveattr is None or m.health is None \
+            or ctx.journal is None or not ctx._ready_stamp:
+        raise AssertionError(f"[telemetry {label}] the default planes are "
+                             f"not all armed: metrics {m}, journal "
+                             f"{ctx.journal}, ready stamp "
+                             f"{ctx._ready_stamp}")
+    samples = [x for x in m.samples() if x["t"] != "section"]
+    by = collections.defaultdict(list)
+    for x in samples:
+        by[x["n"]].append(x)
+
+    def value(name):
+        return by[name][0]["v"] if by.get(name) else None
+
+    native = ctx.scheduler.name == "native"
+    pushes = value("parsec_sched_native_pushes_total")
+    pops = value("parsec_sched_native_pops_total")
+    bail_now = {x["l"]["reason"]: x["v"] for x in
+                by.get("parsec_sched_native_bailouts_total", [])}
+    bail = {r: v - bail0.get(r, 0) for r, v in bail_now.items()
+            if v != bail0.get(r, 0)}
+    if native:
+        queue = ctx.scheduler.stats()
+        if (pushes, pops) != (queue["pushes"], queue["pops"]) \
+                or bail != bailout_delta(bail0):
+            raise AssertionError(
+                f"[telemetry {label}] registry pushes {pushes}, pops "
+                f"{pops}, bailouts {bail}; the scheduler line: {queue}, "
+                f"{bailout_delta(bail0)}")
+    elif pushes is not None or pops is not None or bail:
+        raise AssertionError(f"[telemetry {label}] native counters "
+                             f"reported off the native scheduler")
+    stride = m._sample
+    streams = completing_streams(ctx)
+    n = sum(es.nb_tasks_done for es in streams)
+    executed = sum(d.stats.executed_tasks
+                   for d in ctx.device_registry.accelerators)
+    rows = m.liveattr.section()["recs"]
+    done = {r["cls"]: r["done"] for r in rows}
+    sampled = sum(done.values()) // stride
+    want = sampled_completions(ctx)
+    hist = by["parsec_task_latency_seconds"][0]["cnt"]
+    lo, hi = n / stride, n / stride + len(streams)
+    strag = sum(x["v"] for x in by.get("parsec_stragglers_total", []))
+    health = value("parsec_rank_health")
+    events = len(ctx.journal)
+    log(f"[telemetry {label}] native pushes {pushes}, pops {pops}, "
+        f"bailouts {bail} (the scheduler line's); {n} tasks completed "
+        f"({executed} on the card) over {len(streams)} streams; liveattr "
+        f"sampled {sampled} completions (sum of ceil(n_s/{stride}) over "
+        f"the streams: {want}; bound [{lo:.2f}, {hi:.2f}]), per-class "
+        f"done (x{stride}) {done}; latency histogram count {hist} "
+        f"({sampled} less {traced_sampled} sampled in a traced pass); "
+        f"stragglers {strag:g}; health score {health}; journal events "
+        f"{events}; ready stamp {ctx._ready_stamp}")
+    if sampled != want or not lo <= sampled <= hi:
+        raise AssertionError(f"[telemetry {label}] liveattr sampled "
+                             f"{sampled}, expected {want} in [{lo}, {hi}]")
+    if executed and executed != n:
+        raise AssertionError(f"[telemetry {label}] {executed} card tasks "
+                             f"but {n} completions")
+    if hist != sampled - traced_sampled:
+        raise AssertionError(f"[telemetry {label}] latency histogram "
+                             f"count {hist}, expected "
+                             f"{sampled - traced_sampled}")
+    if health is None or not 0.0 <= health <= 1.0 or strag < 0:
+        raise AssertionError(f"[telemetry {label}] health {health}, "
+                             f"stragglers {strag}")
+    return {"pushes": pushes, "pops": pops, "bailouts": bail, "tasks": n,
+            "sampled": sampled, "latency_count": hist, "done": done,
+            "stragglers": strag, "health": health, "journal_events": events}
+
+
 def in_context(phase, label: str, sched_native=None) -> dict:
     """Run one path in a Context of its own (``sched_native``: the knob
     for this path only, else as configured).  Once the Context has ended,
@@ -1346,6 +1630,10 @@ def in_context(phase, label: str, sched_native=None) -> dict:
         with Context(nb_cores=4) as ctx:
             summary = phase(ctx)
             summary["scheduler"] = report_scheduler(label, ctx, bail0)
+            trace = summary.get("trace")
+            summary["telemetry"] = report_telemetry(
+                label, ctx, bail0,
+                trace["sampled"] if trace is not None else 0)
     finally:
         if sched_native is not None:
             params.unset("sched_native")
@@ -1431,6 +1719,82 @@ def host_probe(kind: str, sched_native: int, n: int = 20000,
             "tasks_per_s": total / dt, "bailouts": bail}
 
 
+def overhead_probe(kind: str, n: int = 20000, pairs: int = 4,
+                   cores: int = 4) -> dict:
+    """The twin of the JAX package's ``_overhead_probe`` (bench.py):
+    interleaved pairs of the ``tasks`` probe at ``sched_native`` 1, off
+    then armed — ``telemetry``: ``metrics_enabled`` and
+    ``liveattr_enable`` at 0 against 1; ``journal``: ``journal_enabled``;
+    ``tracer``: the defaults, against the task profiler and the causal
+    tracer installed before the run.  Reports the minimum pair ratio
+    (off rate / armed rate - 1) and the minimum armed cost in us per
+    task: host noise moves single pairs both ways, a real cost shows in
+    every pair.  An armed run that raises, or a run whose task count is
+    wrong, fails."""
+    knobs = {"telemetry": ("metrics_enabled", "liveattr_enable"),
+             "journal": ("journal_enabled",), "tracer": ()}[kind]
+
+    def run(armed: int) -> float:
+        params.set("sched_native", 1)
+        for k in knobs:
+            params.set(k, armed)
+        try:
+            with Context(nb_cores=cores, device="cpu") as ctx:
+                planes = (ctx.metrics is not None, ctx.journal is not None)
+                mods = []
+                if kind == "tracer" and armed:
+                    prof = Profile("tracer probe")
+                    mods = [install_task_profiler(ctx, prof),
+                            install_causal_tracer(ctx, prof)]
+                ctx.add_taskpool(empty_pool(max(1, n // 10)))
+                ctx.wait()
+                t0 = time.perf_counter()
+                ctx.add_taskpool(empty_pool(n))
+                ctx.wait()
+                dt = time.perf_counter() - t0
+                for mod in mods:
+                    mod.uninstall(ctx)
+                done = sum(es.nb_tasks_done for es in ctx.streams)
+                sched = ctx.scheduler.name
+        finally:
+            params.unset("sched_native")
+            for k in knobs:
+                params.unset(k)
+        want_planes = {"telemetry": (bool(armed), True),
+                       "journal": (True, bool(armed)),
+                       "tracer": (True, True)}[kind]
+        if done != n + max(1, n // 10) or sched != "native" \
+                or planes != want_planes:
+            raise AssertionError(
+                f"overhead {kind} armed={armed}: {done} tasks on {sched}, "
+                f"planes (metrics, journal) {planes}; expected "
+                f"{n + max(1, n // 10)} on native, {want_planes}")
+        return n / dt
+
+    ratios, us, off_best, on_best = [], [], 0.0, 0.0
+    for _ in range(pairs):
+        off, on = run(0), run(1)
+        off_best, on_best = max(off_best, off), max(on_best, on)
+        ratios.append(max(0.0, off / on - 1.0))
+        us.append(max(0.0, (1.0 / on - 1.0 / off) * 1e6))
+    gate = OVERHEAD_GATES_US[kind]
+    armed = {"telemetry": "metrics_enabled + liveattr_enable (the JAX "
+                          "package's third knob, flightrec_enabled, is "
+                          "not ported)",
+             "journal": "journal_enabled",
+             "tracer": "task profiler + causal tracer"}[kind]
+    verdict = "within" if min(us) <= gate else "over"
+    log(f"[host overhead {kind}] armed: {armed}; {pairs} interleaved pairs "
+        f"of {n} tasks at sched_native 1: min pair ratio "
+        f"{min(ratios):+.4f}, {min(us):.3f} us/task (pairs "
+        f"{['%+.3f' % r for r in ratios]}; best off {off_best:.0f}, armed "
+        f"{on_best:.0f} tasks/s); the JAX package's CPU gate <= {gate} "
+        f"us/task: {verdict}")
+    return {"ratio": min(ratios), "us_per_task": min(us),
+            "pairs": ratios, "tasks_off": off_best, "tasks_on": on_best,
+            "gate_us": gate, "verdict": verdict}
+
+
 def host_cpu() -> str:
     """The host's CPU model and core counts, from ``/proc/cpuinfo``: its
     model name, or (where a virtualised kernel reports it as unknown) its
@@ -1483,7 +1847,11 @@ def phase_host(smi: str, rounds: int = 3, **sizes) -> dict:
             f"{lad['tasks_per_s']:.0f} tasks/s, native / ladder "
             f"{nat['tasks_per_s'] / lad['tasks_per_s']:.2f} ({cpu}; card "
             f"{smi})")
-    return {"cpu": cpu, "best": best}
+    # the overhead probes are the tasks probe's twins, at its size
+    overhead = {kind: overhead_probe(kind, n=sizes.get("n", 20000),
+                                     cores=sizes.get("cores", 4))
+                for kind in ("telemetry", "journal", "tracer")}
+    return {"cpu": cpu, "best": best, "overhead": overhead}
 
 
 def main() -> int:
@@ -1527,8 +1895,9 @@ def main() -> int:
                                     "GEMM path mb=12288"),
         # the small-tiles path at sched_native 1, then 0: native against
         # the Python ladder, in turns
-        "GEMM mb=2048": in_context(lambda ctx: phase_small_tiles(ctx, gen),
-                                   "mb=2048", sched_native=1),
+        "GEMM mb=2048": in_context(
+            lambda ctx: phase_small_tiles(ctx, gen, traced=True), "mb=2048",
+            sched_native=1),
         "GEMM mb=2048 ladder": in_context(
             lambda ctx: phase_small_tiles(ctx, gen), "mb=2048 ladder",
             sched_native=0),

@@ -18,10 +18,17 @@ raises when there is none.  ``Context(device="cpu")`` (or the MCA param
 ``device=cpu``) attaches one CPU-backed instance of the same module
 instead, for tests on a host without a card.
 
-The port carries the flat virtual-process map only, and none of the
-optional planes of the JAX package (control-plane journal, ICI transport,
-PINS modules, metrics, flight recorder, recovery): each one's knob is
-registered with default 0 and raises NotImplementedError when set.
+Telemetry: as in the JAX package, every Context installs at its defaults
+the control-plane journal (``journal_enabled``), the properties space,
+the PINS modules ``pins`` names, and the metrics registry
+(``metrics_enabled``) with live attribution and health armed; schedule()
+and the C quantum then stamp ``Task.ready_at`` for them.  Each is turned
+off by its knob (``PARSEC_MCA_METRICS_ENABLED=0`` and the others).
+
+The port carries the flat virtual-process map only, and three optional
+planes of the JAX package are not ported (ICI transport, flight
+recorder, recovery): each one's knob is registered with default 0 and
+raises NotImplementedError when set.
 """
 
 from __future__ import annotations
@@ -33,6 +40,16 @@ from parsec_tpu_torch.core import scheduling
 from parsec_tpu_torch.core.task import Task
 from parsec_tpu_torch.core.taskpool import Taskpool, TaskpoolState
 from parsec_tpu_torch.core import termdet as _termdet  # noqa: F401 (registers the termdet components)
+# the telemetry planes: imported here so their knobs (defaults 1) are
+# registered before a Context reads them
+from parsec_tpu_torch.prof import health as _health  # noqa: F401
+from parsec_tpu_torch.prof import journal as _journal
+from parsec_tpu_torch.prof import liveattr as _liveattr  # noqa: F401
+from parsec_tpu_torch.prof import metrics as _metrics
+from parsec_tpu_torch.prof.pins import install_selected
+from parsec_tpu_torch.utils.properties import (PropertySpace,
+                                               install_runtime_properties,
+                                               install_taskpool_properties)
 from parsec_tpu_torch.sched import create as create_scheduler
 from parsec_tpu_torch.utils.mca import components, params
 from parsec_tpu_torch.utils.output import debug_verbose, inform
@@ -68,17 +85,23 @@ params.register("runtime_gc_freeze", 1,
 #: (MCA knob, plane name).  Registered with default 0 here so a run that
 #: turns one on fails loudly instead of silently doing nothing.
 _UNPORTED_PLANES = (
-    ("journal_enabled", "control-plane journal"),
     ("comm_ici_enabled", "ICI multi-device transport"),
-    ("metrics_enabled", "metrics registry"),
     ("flightrec_enabled", "flight recorder"),
     ("recovery_enable", "recovery plane"),
 )
 for _knob, _plane in _UNPORTED_PLANES:
     params.register(_knob, 0, f"{_plane}: not ported yet (must stay 0)")
-params.register("pins", "",
-                "PINS instrumentation modules: not ported yet (must stay "
-                "empty); register callbacks with Context.pins_register")
+
+#: knobs of the JAX package whose readers are not ported: (MCA knob,
+#: what reads it there).  Not registered; a Context refuses to start
+#: while one is set (override or environment), since nothing would read
+#: it
+_UNPORTED_KNOBS = (
+    ("metrics_slo_job_s", "the job SLO (job service, flight recorder)"),
+    ("liveattr_straggler_incident_s",
+     "the straggler's flight-recorder trigger"),
+    ("journal_autopsy_tail", "the hang autopsy's journal section"),
+)
 
 _gc_frozen = False
 
@@ -103,9 +126,11 @@ def _check_unported_planes() -> None:
         if int(params.get(knob, 0)):
             raise NotImplementedError(
                 f"{plane} ({knob}=1) is not ported yet")
-    if str(params.get("pins", "") or "").strip():
-        raise NotImplementedError("PINS modules (pins=...) are not "
-                                  "ported yet")
+    for knob, reader in _UNPORTED_KNOBS:
+        if params.get(knob) is not None:
+            raise NotImplementedError(
+                f"{knob} is set, but its reader, {reader}, is not "
+                f"ported yet")
 
 
 class _FlatVPMap:
@@ -199,6 +224,23 @@ class Context:
         self.comm = None               # no comm layer in the port yet
         self.grapher = None            # DOT grapher (not ported)
         self.ici = None                # ICI transport (not ported)
+        self._causal_tracer = None     # prof/causal.py CausalTracer
+        self.metrics = None            # prof/metrics.py RuntimeMetrics
+        self._flightrec = None         # flight recorder (not ported)
+        # control-plane black box (prof/journal.py): a bounded ring of
+        # protocol decisions, no per-task emits.  A deliberate difference
+        # from the JAX package, which installs a disabled journal at
+        # journal_enabled 0: the port then installs none
+        self.journal = None
+        if int(params.get("journal_enabled", 1)):
+            _journal.install_journal(self)
+        #: schedule() and the C quantum stamp Task.ready_at only when a
+        #: telemetry consumer wants it (causal tracer or metrics
+        #: registry), and devices/cuda.py fires device_dispatch/
+        #: device_done PINS only when the causal tracer listens; both
+        #: maintained by _recompute_ready_stamp on (un)install
+        self._ready_stamp = False
+        self._device_spans = False
         #: transient-task retry budget, cached off the worker hot path
         #: (core/scheduling.task_progress and the C chain probe it)
         self._retry_max = int(params.get("task_retry_max", 0))
@@ -210,6 +252,12 @@ class Context:
         from parsec_tpu_torch.devices import init_devices
         self.device_registry = init_devices(self, device)
         self.devices = self.device_registry.devices
+
+        # properties dictionary: runtime-queryable hierarchical key space
+        # for live tooling (reference: parsec/dictionary.c; see
+        # utils/properties.py)
+        self.properties = PropertySpace()
+        install_runtime_properties(self)
 
         # termination detection: pools default to the MCA-selected module
         # but may name their own via Taskpool.termdet_name
@@ -234,8 +282,28 @@ class Context:
             for es in self.streams]
         for t in self._threads:
             t.start()
+
+        # MCA-selected PINS instrumentation modules (reference: pins_init
+        # + per-thread PINS THREAD_INIT, parsec.c bring-up)
+        self._pins_modules = install_selected(self)
+
+        # telemetry plane: the always-on metrics registry (PAPI-SDE
+        # counterpart grown into a scrapeable registry), with live
+        # attribution and health riding its hooks
+        if int(params.get("metrics_enabled", 1)):
+            _metrics.RuntimeMetrics(rank=self.rank).install(self)
+        self._recompute_ready_stamp()
         debug_verbose(3, "context up: %d streams, scheduler=%s",
                       self.nb_cores, self.scheduler.name)
+
+    def _recompute_ready_stamp(self) -> None:
+        """Telemetry-consumer gates: schedule() stamps Task.ready_at iff
+        someone consumes it, and the device module emits its dispatch/
+        done span events iff the causal tracer listens (the JAX
+        package's flight recorder, the other listener, is not ported)."""
+        self._ready_stamp = (self._causal_tracer is not None
+                             or self.metrics is not None)
+        self._device_spans = self._causal_tracer is not None
 
     # -- PINS registration -------------------------------------------------
     def pins_register(self, event: str, cb: Callable) -> None:
@@ -288,6 +356,7 @@ class Context:
             self.taskpools[tp.taskpool_id] = tp
             tp.attach(self, self.termdet_for(tp))
             self._pending_start.append(tp)
+        install_taskpool_properties(self, tp)
         if start:
             self.start()
 
@@ -449,6 +518,26 @@ class Context:
         stats = self.scheduler.display_stats(None)
         if stats:
             inform("scheduler stats: %s", stats)
+        for mod in self._pins_modules:
+            disp = getattr(mod, "display", None)
+            if disp is not None:
+                inform("pins %s: %s", type(mod).__name__, disp())
+            unins = getattr(mod, "uninstall", None)
+            if unins is not None:   # reference: pins_fini unregisters
+                unins(self)
+        self._pins_modules = []
+        if self.metrics is not None:
+            self.metrics.uninstall(self)
+        jdir = str(params.get("journal_dir", "") or "").strip()
+        if jdir and self.journal is not None:
+            # per-rank black-box bundle for the JAX package's
+            # tools/journal_audit.py.  Without a journal nothing is
+            # dumped at all — a header-only file would let an audit pass
+            # vacuously over zero events
+            try:
+                self.journal.dump(jdir)
+            except OSError as exc:
+                debug_verbose(1, "journal dump failed: %s", exc)
 
     def __enter__(self):
         return self

@@ -11,6 +11,7 @@ entering tasks through the pluggable scheduler and ringing the doorbell.
 from __future__ import annotations
 
 from threading import get_ident
+from time import perf_counter
 from typing import List, Optional
 
 import torch
@@ -43,15 +44,25 @@ def schedule(es, tasks: List[Task], distance: int = 0) -> None:
     ctx = es.context
     sched = ctx.scheduler
     if sched.NATIVE_BATCH:
-        # native ready queue (sched/native.py): READY transition and
-        # the priority-ordered insert ride ONE C crossing for the ring
+        # native ready queue (sched/native.py): READY transition,
+        # ready_at stamping, and the priority-ordered insert all ride
+        # ONE C crossing for the whole ring
         sched.schedule(es, tasks, distance)
         ctx.ring_doorbell(len(tasks))
         return
-    # no Task.ready_at stamping: the JAX package stamps here for its
-    # telemetry planes, which the port does not carry yet
-    for t in tasks:
-        t.status = _READY
+    if ctx._ready_stamp:
+        # one stamp for the batch: the tasks became ready at this same
+        # moment; the causal tracer closes select - ready_at into a
+        # queue-wait span and the metrics registry samples it into the
+        # latency histogram.  Gated (Context._ready_stamp) so a
+        # telemetry-disabled hot path stays free
+        now = perf_counter()
+        for t in tasks:
+            t.status = _READY
+            t.ready_at = now
+    else:
+        for t in tasks:
+            t.status = _READY
     sched.schedule(es, tasks, distance)
     ctx.ring_doorbell(len(tasks))
 

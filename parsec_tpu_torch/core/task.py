@@ -506,14 +506,14 @@ class Task:
     Field contract with its C twin (native/schedext.c ``TaskCore``, built
     by ``TaskClass.native_vt().build_*``): both carry exactly these
     slots, so every layer of the port, devices/cuda.py included, reads
-    either one by attribute.  The JAX package's ``prof``, ``dtd`` and
-    ``mtr_t0`` slots belong to planes the port does not carry
-    (profiling, DTD, metrics) and are dropped from both."""
+    either one by attribute.  The JAX package's ``dtd`` slot belongs to
+    its DTD front-end, which the port does not carry, and is dropped from
+    both."""
 
     __slots__ = ("task_class", "taskpool", "locals", "key", "priority",
                  "status", "data", "input_sources", "pinned_flows",
-                 "chore_mask", "seq", "device", "ready_at", "retries",
-                 "retry_snap", "pool_epoch")
+                 "chore_mask", "seq", "device", "prof", "ready_at",
+                 "mtr_t0", "retries", "retry_snap", "pool_epoch")
 
     def __init__(self, task_class: TaskClass, taskpool, locals_: Dict[str, int]):
         self.task_class = task_class
@@ -538,10 +538,15 @@ class Task:
         self.chore_mask = 0xFFFF
         self.seq = next(_task_seq)
         self.device = None
-        #: stamp of the moment the task became READY; the port never
-        #: sets it (no telemetry plane reads it yet), but TaskCore
-        #: carries the slot and ReadyQueue.push_batch can stamp it
+        #: the task profiler's per-task interval state (prof/pins.py)
+        self.prof = None
+        #: perf_counter stamp of the moment the task became READY, set by
+        #: schedule() (or the C ready queue) when a telemetry consumer
+        #: wants it (Context._ready_stamp): the causal tracer's queue-wait
+        #: span and the metrics registry's sojourn latency read it
         self.ready_at = None
+        #: split-mode metrics: the body interval's start (prof/metrics.py)
+        self.mtr_t0 = None
         #: transient-failure retry bookkeeping (core/scheduling
         #: _maybe_retry; active only when task_retry_max > 0)
         self.retries = 0

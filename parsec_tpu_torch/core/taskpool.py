@@ -91,6 +91,11 @@ class Taskpool:
         #: (reference: parsec_reshape.c promise table)
         from parsec_tpu_torch.data.reshape import ReshapeCache
         self.reshape = ReshapeCache()
+        #: extensible per-pool info slots (reference: the info object
+        #: array hung off parsec_taskpool_t, class/info.h)
+        from parsec_tpu_torch.utils.info import InfoObjectArray, \
+            taskpool_info
+        self.info = InfoObjectArray(taskpool_info, owner=self)
         self._complete_cbs: List[Callable[["Taskpool"], None]] = []
         self._done_event = threading.Event()
         #: pool-wide priority bias added to every task's priority — the

@@ -76,6 +76,12 @@ hands its failing and queued tasks back to the scheduler for their other
 incarnations (the reference's HOOK_RETURN_DISABLE), with a warning.  At 0
 a fault fails the context.
 
+Device spans.  While a causal tracer listens (``Context._device_spans``)
+each task fires ``device_dispatch`` once its launch is enqueued — a held
+task when its chain runs — and ``device_done`` when the completer (or
+``sync``) finalizes it, on success and on a fault alike: host time at
+both ends, the JAX package's meaning, not a kernel timer.
+
 Device memory is a coherency-tracked cache of datum copies with LRU
 eviction, host writeback and byte accounting over ``device_mem_mb``
 (reference: gpu_mem_lru + zone_malloc; PyTorch's caching allocator owns
@@ -647,6 +653,15 @@ class CudaDevice(Device):
             # values precede any later in-place write
             self._release_readers(st.readers)
         self.stats.executed_tasks += n
+        if self.es.context._device_spans:
+            # the device span opens at dispatch (the wave is enqueued on
+            # the launch stream); its device_done fires once the
+            # completer has seen the wave's event complete (_finalize):
+            # host time at both ends, not a kernel timer.  Gated by
+            # Context._recompute_ready_stamp, so it costs nothing when no
+            # tracer listens
+            for st in staged:
+                self.es.pins("device_dispatch", st.task)
         if n > 1:
             # the whole wave ran in this one step, behind one event
             self.stats.fused_launches += 1
@@ -898,12 +913,18 @@ class CudaDevice(Device):
                                   else a for a in leaves]])
         produced: set = set()
         node_outs = []
+        spans = self.es.context._device_spans
         with self._on_stream():
             for hd in claimed:
                 args = [res(a) for a in hd.flat]
                 donate = self._chain_donate and self._may_donate(
                     hd.spec, [hd.staged], [args], uses, produced)
                 outs = hd.spec.call([args], donate)[0]
+                if spans:
+                    # a held task is dispatched when its chain runs, not
+                    # when it was held: its span opens here and closes in
+                    # _finalize, like a plain launch's
+                    self.es.pins("device_dispatch", hd.task)
                 for fl, d in hd.outputs.items():
                     if fl in outs:
                         node_of[id(d)] = outs[fl]
@@ -1233,6 +1254,10 @@ class CudaDevice(Device):
             self.stats.faults += 1
             inf.es.context.record_error(exc, inf.task)
         finally:
+            if inf.es.context._device_spans:
+                # the outputs are known to be on the card (or the failure
+                # surfaced): close the dispatch->done device span
+                inf.es.pins("device_done", inf.task)
             self.load_sub(inf.load)
             for d in inf.pinned:
                 self._unpin(d)

@@ -73,6 +73,11 @@ class Device:
         self._load_lock = threading.Lock()
         self.stats = DeviceStats()
         self.enabled = True
+        #: extensible per-device info slots (reference: class/info.h
+        #: object arrays on device modules)
+        from parsec_tpu_torch.utils.info import InfoObjectArray, \
+            device_info
+        self.info = InfoObjectArray(device_info, owner=self)
 
     # -- load accounting (reference: parsec_device_load/sload) ------------
     def load_add(self, units: float) -> None:

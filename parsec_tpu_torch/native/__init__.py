@@ -2,9 +2,10 @@
 
 The C++ library (core.cpp, bound through ctypes) carries the hot-path
 primitives the reference keeps native — MPMC handle queues, the zone
-allocator, binary trace buffers — and the CPython extension schedext.c
+allocator, binary trace buffers — the CPython extension schedext.c
 carries the scheduler hot path (ready queue, dep countdown, C task
-objects and the ``run_quantum`` worker loop).  Both are compiled at
+objects and the ``run_quantum`` worker loop), and the CPython extension
+pinsext.c the binary tracer's per-event sink.  All are compiled at
 first use with g++ into ``parsec_tpu_torch/_build/`` (never next to the
 sources), to a temp name renamed into place, and rebuilt whenever a
 source is newer than its artifact.
@@ -15,19 +16,21 @@ Consumers:
   core/task, core/taskpool,          on: the default scheduler)
   sched/native
   devices/cuda (device ledger)    <- NativeZoneAllocator
+  prof/profiling (StreamBuffer)   <- pinsext (TraceSink)
 
 NativeDequeue and NativeTraceBuffer are carried whole with core.cpp but
-have no consumer yet: the scheduler's object queues stay the Python
+have no consumer: the scheduler's object queues stay the Python
 ``Dequeue`` (a ctypes crossing per op made the native one ~4x slower
 for Python payloads in the JAX package, which keeps it opt-in), and the
-trace buffer waits for the port of the profiling layer.
+tracer's streams write through pinsext, never the ctypes buffer.
 
 Deliberate differences from the JAX package's loader: no silent
 fallback and no ``native_core`` knob.  There a failed build logs one
-warning and the consumers run their Python twins; here a failed build or
+warning and the consumers run their Python twins (for the tracer: the
+ctypes trace buffer, then plain Python lists); here a failed build or
 load raises ``NativeBuildError`` with the compiler's stderr, and
 ``sched_native=0`` is the one way onto the Python scheduler.  The JAX
-package's pinsext (tracing) and commext (comm framing) are not ported.
+package's commext (comm framing) is not ported.
 """
 
 from __future__ import annotations
@@ -167,6 +170,38 @@ def load_schedext():
     TaskCore/TaskVT, run_quantum); gated by ``sched_native`` at its
     consumers (sched/__init__.py, core/task.py, core/taskpool.py)."""
     return _load_cext("schedext")
+
+
+#: the pinsext module once its clock was checked (load_pinsext)
+_pinsext = None
+
+
+def load_pinsext():
+    """The binary tracer's per-event sink (pinsext.c: TraceSink, one
+    METH_FASTCALL per event with the timestamp taken in C).  Raises
+    NativeBuildError when it does not build or load, and when its clock
+    is not the timeline ``time.perf_counter`` reads: C-stamped and
+    Python-stamped events must merge on one timeline (the JAX package
+    falls back to slower tracer paths in both cases)."""
+    global _pinsext
+    if _pinsext is not None:
+        return _pinsext
+    mod = _load_cext("pinsext")
+    # the sink stamps with CLOCK_MONOTONIC, perf_counter's clock on Linux.
+    # Bracket the C read between two Python reads, a few times: one
+    # unlucky deschedule between two reads must not fail the check
+    import time as _time
+    for _ in range(5):
+        a = _time.perf_counter()
+        b = mod.now()
+        c = _time.perf_counter()
+        if a - 1e-4 <= b <= c + 1e-4:
+            _pinsext = mod
+            return mod
+    raise NativeBuildError(
+        f"pinsext: the sink's clock ({b:.6f}) is not perf_counter's "
+        f"({a:.6f}..{c:.6f}); C- and Python-stamped events would not "
+        "merge on one timeline")
 
 
 def _sign(lib: ctypes.CDLL) -> None:

@@ -4,7 +4,7 @@
  * parsec/mca/sched/* queue disciplines over parsec_list_item rings and
  * the atomic dep countdown of parsec_internal.h:355-366
  * update_deps_with_counter): the per-scheduling-event Python work —
- * status transition, priority-ordered
+ * status transition, Task.ready_at stamping, priority-ordered
  * push/pop, and the dep-counter decrement + ready-transition test —
  * collapses into ONE METH_FASTCALL crossing per event, the pinsext.c
  * pattern (tracer 5.0 -> 1.16 us/task) applied to the scheduler.
@@ -21,7 +21,8 @@
  * differences: ensure_runtime imports the port's modules
  * (parsec_tpu_torch.*), the module and its types carry a name of their
  * own (parsec_tpu_torch_schedext, so both packages' extensions load in
- * one process), and TaskCore has no prof/dtd/mtr_t0 members.
+ * one process), and TaskCore has no dtd member (the DTD front-end is not
+ * ported).
  */
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
@@ -520,11 +521,11 @@ static PyTypeObject DTType = {
 typedef struct {
     PyObject_HEAD
     PyObject *task_class, *taskpool, *locals, *key, *data;
-    /* the port's Task carries no prof (profiling), dtd (DTD) or mtr_t0
-     * (metrics) slot: those planes are not ported, so TaskCore drops
-     * them too and the two stay field-for-field twins */
-    PyObject *input_sources, *pinned_flows, *device;
-    PyObject *ready_at, *retry_snap;
+    /* the port's Task carries no dtd slot (the DTD front-end is not
+     * ported), so TaskCore drops it too and the two stay field-for-field
+     * twins */
+    PyObject *input_sources, *pinned_flows, *device, *prof;
+    PyObject *ready_at, *mtr_t0, *retry_snap;
     PyObject *vt;          /* TaskVT or NULL (reads as None) */
     long long priority, seq, pool_epoch;
     int status, chore_mask, retries;
@@ -602,7 +603,7 @@ static PyObject *s_data_attr, *s_device_attr, *s_complete_write,
     *s_affinity, *s_rank_of, *s_param_names_attr, *s_complete_locals,
     *s_native_deps, *s_vt_attr, *s_native_vt, *s_nb_task_inputs,
     *s_deliver_dep, *s_ring_doorbell, *s_record_error, *s_rank,
-    *s_retry_max, *s_grapher, *s_ici,
+    *s_ready_stamp, *s_retry_max, *s_grapher, *s_ici,
     *s_replay_filter, *s_priority_attr;
 
 /* lazily-bound runtime objects (cached after first use; importing an
@@ -706,7 +707,9 @@ static PyMemberDef tc_members[] = {
     {"input_sources", T_OBJECT, offsetof(TCObject, input_sources), 0, NULL},
     {"pinned_flows", T_OBJECT, offsetof(TCObject, pinned_flows), 0, NULL},
     {"device", T_OBJECT, offsetof(TCObject, device), 0, NULL},
+    {"prof", T_OBJECT, offsetof(TCObject, prof), 0, NULL},
     {"ready_at", T_OBJECT, offsetof(TCObject, ready_at), 0, NULL},
+    {"mtr_t0", T_OBJECT, offsetof(TCObject, mtr_t0), 0, NULL},
     {"retry_snap", T_OBJECT, offsetof(TCObject, retry_snap), 0, NULL},
     {"vt", T_OBJECT, offsetof(TCObject, vt), READONLY, NULL},
     {"priority", T_LONGLONG, offsetof(TCObject, priority), 0, NULL},
@@ -727,7 +730,9 @@ static int tc_traverse(PyObject *self_, visitproc visit, void *arg) {
     Py_VISIT(t->input_sources);
     Py_VISIT(t->pinned_flows);
     Py_VISIT(t->device);
+    Py_VISIT(t->prof);
     Py_VISIT(t->ready_at);
+    Py_VISIT(t->mtr_t0);
     Py_VISIT(t->retry_snap);
     Py_VISIT(t->vt);
     return 0;
@@ -743,7 +748,9 @@ static int tc_clear(PyObject *self_) {
     Py_CLEAR(t->input_sources);
     Py_CLEAR(t->pinned_flows);
     Py_CLEAR(t->device);
+    Py_CLEAR(t->prof);
     Py_CLEAR(t->ready_at);
+    Py_CLEAR(t->mtr_t0);
     Py_CLEAR(t->retry_snap);
     Py_CLEAR(t->vt);
     return 0;
@@ -1188,6 +1195,7 @@ typedef struct {
     int reason_ext;        /* BR_* why FL_EXT is clear */
     long long myrank;      /* ctx.rank for the cached pool */
     int fi_armed;
+    int ready_stamp;       /* ctx._ready_stamp truth, read per quantum */
     /* complete_exec stride gates (__pins_stride__ on the callback,
      * read once per quantum): a callback advertising stride N is
      * SKIPPED unless es.nb_tasks_done % N == 0 — the metrics
@@ -2063,12 +2071,10 @@ static int c_release_walk(quantum_t *qs, RQObject *q, TCObject *t,
     {
         Py_ssize_t nready = PyList_GET_SIZE(ready);
         if (nready > 0) {
-            /* never stamped: the JAX package reads ctx._ready_stamp
-             * per quantum for its telemetry planes, which the port does
-             * not carry yet (push_batch keeps its stamp argument) */
+            double now = qs->ready_stamp ? now_monotonic() : 0.0;
             for (Py_ssize_t i = 0; i < nready; i++) {
                 if (rq_push_one(q, PyList_GET_ITEM(ready, i),
-                                0, 0, 0.0) < 0)
+                                qs->ready_stamp, 0, now) < 0)
                     goto fail;
             }
             if (qs->es_ctx && qs->es_ctx != Py_None) {
@@ -2379,14 +2385,16 @@ static PyObject *mod_run_quantum(PyObject *mod, PyObject *const *args,
         qs.td_acc = Py_None;
         Py_INCREF(Py_None);
     }
-    /* es.context once per quantum: doorbell / record_error hang
-     * off it */
+    /* es.context once per quantum: doorbell / record_error / the
+     * ready-stamp switch all hang off it */
     qs.es_ctx = PyObject_GetAttr(qs.es, s_context);
     if (!qs.es_ctx) {
         PyErr_Clear();
         qs.es_ctx = Py_None;
         Py_INCREF(Py_None);
     }
+    qs.ready_stamp = (qs.es_ctx != Py_None &&
+                      attr_ll(qs.es_ctx, s_ready_stamp, 0) != 0);
     /* borrowed cb lists, refetched per quantum (pins_register mutates
      * the lists in place; new events land within one quantum bound) */
     qs.cb_select = PyDict_GetItemWithError(qs.pins_map, s_select);
@@ -2571,6 +2579,7 @@ PyMODINIT_FUNC PyInit_parsec_tpu_torch_schedext(void) {
     s_native_vt = PyUnicode_InternFromString("native_vt");
     s_nb_task_inputs = PyUnicode_InternFromString("nb_task_inputs");
     s_deliver_dep = PyUnicode_InternFromString("deliver_dep");
+    s_ready_stamp = PyUnicode_InternFromString("_ready_stamp");
     s_ring_doorbell = PyUnicode_InternFromString("ring_doorbell");
     s_record_error = PyUnicode_InternFromString("record_error");
     s_rank = PyUnicode_InternFromString("rank");
@@ -2587,7 +2596,7 @@ PyMODINIT_FUNC PyInit_parsec_tpu_torch_schedext(void) {
         !s_param_names_attr || !s_complete_locals || !s_native_deps ||
         !s_vt_attr || !s_native_vt || !s_nb_task_inputs ||
         !s_deliver_dep || !s_ring_doorbell || !s_record_error ||
-        !s_rank || !s_retry_max || !s_grapher ||
+        !s_rank || !s_ready_stamp || !s_retry_max || !s_grapher ||
         !s_ici || !s_replay_filter || !s_priority_attr)
         return NULL;
     g_one = PyLong_FromLong(1L);

@@ -42,7 +42,7 @@ class NativeSched(Scheduler):
     """One global native priority queue shared by every stream."""
 
     #: core/scheduling.schedule hands the raw ready ring to
-    #: ``schedule()`` untouched — the READY status lands C-side
+    #: ``schedule()`` untouched — status/ready_at land C-side
     NATIVE_BATCH = True
 
     def install(self, context) -> None:
@@ -52,10 +52,10 @@ class NativeSched(Scheduler):
 
     # lint: hot-path (ReadyQueue callback: one call per scheduling event)
     def schedule(self, es, tasks: List[Task], distance: int = 0) -> None:
-        # one crossing: READY + priority-heap insert for the whole
-        # ring, never stamping ready_at (no telemetry consumer in the
-        # port); distance > 0 pins the ring behind everything (fairness)
-        self._q.push_batch(tasks, False, distance > 0)
+        # one crossing: READY + ready_at (when a telemetry consumer
+        # wants it) + priority-heap insert for the whole ring;
+        # distance > 0 pins the ring behind everything (fairness)
+        self._q.push_batch(tasks, self.context._ready_stamp, distance > 0)
 
     # lint: hot-path (ReadyQueue callback: one call per selection)
     def select(self, es) -> Optional[Task]:

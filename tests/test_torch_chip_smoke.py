@@ -198,6 +198,77 @@ def test_host_phase_rehearsal_on_cpu():
     assert set(out["best"]) == {f"{k} sched_native={f}"
                                 for k in ("tasks", "ntasks") for f in (1, 0)}
     assert "cores" in out["cpu"]
+    assert set(out["overhead"]) == {"telemetry", "journal", "tracer"}
+
+
+@pytest.mark.parametrize("kind", ["telemetry", "journal", "tracer"])
+def test_overhead_probe_rehearsal_on_cpu(kind):
+    """Each overhead probe runs its pairs armed and off (the plane's
+    presence and the task count checked inside) and reports the minimum
+    pair ratio and us per task against the JAX package's CPU gate."""
+    chip_smoke = _chip_smoke()
+    res = chip_smoke.overhead_probe(kind, n=300, pairs=2, cores=2)
+    assert len(res["pairs"]) == 2
+    assert res["ratio"] == min(res["pairs"]) >= 0.0
+    assert res["us_per_task"] >= 0.0
+    assert res["gate_us"] == chip_smoke.OVERHEAD_GATES_US[kind]
+    assert res["verdict"] in ("within", "over")
+
+
+def test_span_union():
+    span_union = _chip_smoke().span_union
+    assert span_union([]) == 0.0
+    assert span_union([(0.0, 1.0), (0.5, 2.0), (3.0, 4.0)]) == 3.0
+    assert span_union([(2.0, 3.0), (0.0, 5.0), (1.0, 2.0)]) == 5.0
+
+
+@pytest.mark.parametrize("app", ["gemm", "potrf"])
+def test_traced_pass_and_telemetry_rehearsal_on_cpu(app):
+    """The traced pass (one exec and one dev: span per task, the buckets'
+    sum) and the telemetry line (the registry held to
+    the path's own counts, the traced pass's samples out of the latency
+    histogram) at a tiny size on the CPU-backed device module."""
+    chip_smoke = _chip_smoke()
+    from parsec_tpu_torch.core.context import Context
+    bail0 = chip_smoke.bailouts()
+    with Context(nb_cores=2, device="cpu") as ctx:
+        if app == "gemm":
+            res = chip_smoke.drive_gemm(
+                ctx, 8, 3, 3, 4, passes=1,
+                gen=torch.Generator().manual_seed(5), label="rehearsal",
+                traced=True)
+            ntasks = 36
+        else:
+            res = chip_smoke.drive_potrf(ctx, 16, 4, torch.float32,
+                                         passes=1, label="rehearsal",
+                                         traced=True)
+            ntasks = 20
+        tr = res["trace"]
+        tel = chip_smoke.report_telemetry("rehearsal", ctx, bail0,
+                                          tr["sampled"])
+    assert tr["dev_spans"] == ntasks
+    # the buckets exceed the makespan by the critical path's overlap, to
+    # their 1e-6 s rounding (the 5% check of the sum is the card's)
+    assert abs(sum(tr["buckets_ms"].values()) - tr["makespan_ms"]
+               - tr["overlap_ms"]) <= 1e-2
+    assert 0.0 < tr["inflight_share"] <= 1.0 + 1e-9
+    assert tel["tasks"] == ntasks * 3     # warm, timed, traced
+    assert tel["pushes"] == tel["pops"] == tel["tasks"]
+    assert tel["bailouts"] == {"non_trivial": tel["tasks"]}
+    assert tel["latency_count"] == tel["sampled"] - tr["sampled"]
+
+
+def test_report_telemetry_refuses_a_disarmed_plane():
+    chip_smoke = _chip_smoke()
+    from parsec_tpu_torch.core.context import Context
+    from parsec_tpu_torch.utils.mca import params
+    params.set("metrics_enabled", 0)
+    try:
+        with Context(nb_cores=1, device="cpu") as ctx:
+            with pytest.raises(AssertionError, match="not all armed"):
+                chip_smoke.report_telemetry("rehearsal", ctx, {})
+    finally:
+        params.unset("metrics_enabled")
 
 
 def test_report_scheduler_holds_the_native_default():

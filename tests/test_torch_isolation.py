@@ -1,6 +1,7 @@
 """The port stands alone: importing every ``parsec_tpu_torch`` module
-(and ``chip_smoke.py``) loads neither JAX nor anything of ``parsec_tpu``,
-and no source of the port imports them."""
+(and ``chip_smoke.py``) loads neither JAX nor anything of ``parsec_tpu``
+nor pandas (the card host has none), and no source of the port imports
+them."""
 
 import ast
 import json
@@ -13,7 +14,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "parsec_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "parsec_tpu")
+FORBIDDEN = ("jax", "jaxlib", "parsec_tpu", "pandas")
 
 
 def _sources():
@@ -78,14 +79,18 @@ def test_no_source_imports_jax_or_the_reference(path):
 
 def test_c_sources_import_only_the_port():
     """The port's C extensions bind to the port's Python modules: every
-    module schedext.c imports at run time names ``parsec_tpu_torch``."""
+    module schedext.c imports at run time names ``parsec_tpu_torch``
+    (pinsext.c, the trace sink, imports none)."""
     import re
+    imports = {}
     for src in sorted((PKG / "native").glob("*.c")):
         names = re.findall(r'PyImport_ImportModule\("([^"]+)"\)',
                            src.read_text())
-        assert names, src
+        imports[src.name] = names
         bad = [n for n in names if not n.startswith("parsec_tpu_torch.")]
         assert not bad, f"{src}: {bad}"
+    assert imports["schedext.c"]
+    assert imports["pinsext.c"] == []
 
 
 _BLOCKED_RUN = r"""
@@ -210,3 +215,75 @@ def test_both_packages_extensions_load_in_one_process():
     assert out["seqs"] == [out["port0"] + i for i in range(3)]
     assert out["port_after"] == out["port0"] + 3
     assert out["ref_moved"] == 0
+
+
+_TRACED_RUN = r"""
+import importlib, importlib.abc, json, os, sys, tempfile
+BLOCK = ("jax", "jaxlib", "parsec_tpu", "pandas")
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCK):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+sys.path.insert(0, ROOT)
+for name in MODULES:
+    importlib.import_module(name)
+import torch
+from parsec_tpu_torch import Context
+from parsec_tpu_torch.apps.potrf import potrf_taskpool
+from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
+from parsec_tpu_torch.prof import critpath, profiling
+from parsec_tpu_torch.prof.causal import install_causal_tracer
+from parsec_tpu_torch.prof.pins import install_task_profiler
+
+n, mb = 32, 8
+g = torch.Generator().manual_seed(4)
+a = torch.randn(n, n, generator=g)
+A = TwoDimBlockCyclic(mb, mb, n, n).from_array(a @ a.T + n * torch.eye(n))
+prof = profiling.profiling_init("iso")
+with Context(nb_cores=2, device="cpu") as ctx:
+    armed = [type(ctx.metrics).__name__, ctx.metrics.liveattr is not None,
+             ctx.metrics.health is not None, ctx.journal is not None,
+             ctx._ready_stamp]
+    mods = [install_task_profiler(ctx, prof),
+            install_causal_tracer(ctx, prof)]
+    ctx.add_taskpool(potrf_taskpool(A))
+    ctx.wait(timeout=120)
+    for m in mods:
+        m.uninstall(ctx)
+    samples = ctx.metrics.samples()
+path = profiling.profiling_fini(os.path.join(tempfile.mkdtemp(), "t.ptt"))
+att = critpath.attribution([path])
+print(json.dumps({
+    "armed": armed, "ntasks": att["ntasks"], "overlap": att["overlap"],
+    "sum": sum(att["buckets"].values()), "makespan": att["makespan"],
+    "retired": [s["v"] for s in samples
+                if s["n"] == "parsec_device_tasks_total"],
+    "bad": sorted(m for m in sys.modules
+                  if any(m == b or m.startswith(b + ".") for b in BLOCK))}))
+"""
+
+
+def test_the_telemetry_plane_and_tracer_run_with_pandas_refused():
+    """Every module of the port imports with jax, parsec_tpu and pandas
+    refused by the import system; a potrf run with the telemetry plane at
+    its defaults, the task profiler and the causal tracer armed leaves a
+    trace that critpath attributes without pandas."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PYTHONPATH")}
+    code = (f"ROOT = {str(ROOT)!r}\nMODULES = {_module_names()!r}\n"
+            + _TRACED_RUN)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=180, env=env, cwd=str(PKG))
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["armed"] == ["RuntimeMetrics", True, True, True, True]
+    assert out["ntasks"] == 20                    # nt=4 potrf
+    assert out["retired"] == [20]
+    # the buckets sum to the makespan plus the critical path's overlap
+    # (tests/test_torch_critpath.py::_check_buckets), to their rounding
+    assert abs(out["sum"] - out["makespan"] - out["overlap"]) <= 1e-5
+    assert out["bad"] == []

@@ -165,8 +165,7 @@ def test_device_cpu_param_attaches_the_cpu_backed_module():
         port_params.unset("device")
 
 
-@pytest.mark.parametrize("knob", ["journal_enabled", "comm_ici_enabled",
-                                  "metrics_enabled", "flightrec_enabled",
+@pytest.mark.parametrize("knob", ["comm_ici_enabled", "flightrec_enabled",
                                   "recovery_enable", "device_dispatchers"])
 def test_unported_plane_knob_raises(knob):
     # device_dispatchers: one manager thread per device by design, so any
@@ -177,6 +176,52 @@ def test_unported_plane_knob_raises(knob):
             port_context.Context(nb_cores=1, device="cpu")
     finally:
         port_params.unset(knob)
+
+
+@pytest.mark.parametrize("knob", ["metrics_slo_job_s",
+                                  "liveattr_straggler_incident_s",
+                                  "journal_autopsy_tail"])
+def test_knob_without_a_ported_reader_raises(knob, monkeypatch):
+    """Knobs of the JAX package whose readers are not ported are not
+    registered, and a Context refuses to start while one is set."""
+    assert knob not in port_params._params
+    monkeypatch.setenv("PARSEC_MCA_" + knob.upper(), "5")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        port_context.Context(nb_cores=1, device="cpu")
+
+
+@pytest.mark.parametrize("knob", ["journal_enabled", "metrics_enabled"])
+@pytest.mark.parametrize("value", [1, 0])
+def test_ported_plane_knob_installs_or_leaves_none(knob, value):
+    """The control-plane journal and the metrics registry are ported and
+    on by default: at 1 the knob installs its plane; at 0 it leaves
+    ``ctx.journal`` / ``ctx.metrics`` None, and (metrics) registers no
+    PINS callback and stamps no ready time."""
+    from parsec_tpu_torch.prof.journal import Journal
+    from parsec_tpu_torch.prof.metrics import RuntimeMetrics
+    port_params.set(knob, value)
+    try:
+        with port_context.Context(nb_cores=1, device="cpu") as ctx:
+            plane = ctx.journal if knob == "journal_enabled" \
+                else ctx.metrics
+            cbs = {ev: list(v) for ev, v in ctx._pins.items() if v}
+            stamp = ctx._ready_stamp
+    finally:
+        port_params.unset(knob)
+    if value:
+        assert isinstance(plane, Journal if knob == "journal_enabled"
+                          else RuntimeMetrics)
+    else:
+        assert plane is None
+    if knob == "metrics_enabled":
+        # the registry is the one default PINS subscriber
+        assert bool(cbs) == bool(value)
+        assert stamp == bool(value)
+        if value:
+            assert set(cbs) == {"complete_exec", "task_discard",
+                                "job_done"}
+    else:
+        assert "complete_exec" in cbs   # the metrics registry, still on
 
 
 _RECLAIM = """
