@@ -126,6 +126,9 @@ from parsec_tpu_torch.apps.cuda_kernels import gemm_tile, \
 from parsec_tpu_torch.apps.gemm import gemm_taskpool, total_flops
 from parsec_tpu_torch.apps.potrf_check import backward_error, refine_solve
 from parsec_tpu_torch.apps.qr_check import ls_refine, newest_payload
+# the comm package registers the comm knobs printed below
+from parsec_tpu_torch.comm import run_distributed
+from parsec_tpu_torch.comm import shm as _shm  # noqa: F401
 from parsec_tpu_torch.core.context import Context
 from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
 # registers the device module's knobs, read before any Context exists
@@ -1072,7 +1075,7 @@ def qr_task_counts(nt: int) -> dict:
 
 def drive_qr(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
              passes: int, label: str, ladder_steps: int = 4,
-             require_fusion: bool = False) -> dict:
+             require_fusion: bool = False, keep: dict = None) -> dict:
     """The tiled QR through the runtime at the ``qr_ib`` in force: the
     bench operand regenerated on the device before every pass (outside
     the timed window), one warm pass then ``passes`` timed passes of
@@ -1081,8 +1084,9 @@ def drive_qr(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
     more pass factors the conditioned operand, on which the least-squares
     ladder is held to its limit (the bench operand's ladder is printed: it
     cannot converge, see ``qr_tile_maker``).  ``require_fusion``: at the
-    device module's defaults the timed passes must chain panels.  Returns
-    numbers."""
+    device module's defaults the timed passes must chain panels.  ``keep``
+    receives the conditioned operand's R tiles (the 2-rank path's
+    reference).  Returns numbers."""
     dev = ctx.device_registry.accelerators[0]
     on_card = dev.is_cuda
     n = nt * mb
@@ -1195,6 +1199,9 @@ def drive_qr(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
     if not min(ladder) <= QR_LADDER_TOL:
         raise AssertionError(f"[{label}] LS ladder {ladder} never reached "
                              f"{QR_LADDER_TOL}")
+    if keep is not None:
+        keep.update({(m, k): newest_payload(A, m, k).to(dev.tdev)
+                     for (m, k) in A.local_tiles() if m <= k})
     launches = read_counts()
     fallbacks = qr.qr_guard_fallbacks.value - fallbacks0
     log(f"[{label}] kernel launches on this path: {launches}; K1 single "
@@ -1229,12 +1236,12 @@ def qr_class_times(dev: torch.device, mb: int, ib: int,
             "TSMQR": time_ms(lambda: tsmqr(Q2, C1, C2), reps=3)}
 
 
-def phase_qr(ctx: Context) -> dict:
+def phase_qr(ctx: Context, keep: dict = None) -> dict:
     mb, nt = 6144, 8
     ib = qr.effective_ib(mb)        # the registered qr_ib, 512
     torch.cuda.reset_peak_memory_stats()
     res = drive_qr(ctx, mb, nt, torch.bfloat16, passes=3,
-                   label="QR path mb=6144", require_fusion=True)
+                   label="QR path mb=6144", require_fusion=True, keep=keep)
     log(f"[QR path mb=6144] best pass {res['best_s'] * 1e3:.1f} ms, "
         f"{res['gflops']:.1f} GFLOP/s (geqrf_flops(n, n) / best pass); "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
@@ -1300,7 +1307,8 @@ def potrf_tile_maker(A: TwoDimBlockCyclic, tdev: torch.device):
 
 def drive_potrf(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
                 passes: int, label: str, ir_steps: int = 3,
-                require_fusion: bool = False, traced: bool = False) -> dict:
+                require_fusion: bool = False, traced: bool = False,
+                keep: dict = None) -> dict:
     """The tiled Cholesky through the runtime: the bench operand's lower
     tiles regenerated on the device before every pass (outside the timed
     window), one warm pass then ``passes`` timed passes of insert + wait +
@@ -1308,7 +1316,9 @@ def drive_potrf(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
     Cholesky flag checked on every pass (the flag is read after the timed
     window).  Then, once, the backward error and the refinement ladder of
     the last factor.  ``require_fusion``: at the device module's defaults
-    the passes must fuse waves and chain panels.  Returns numbers."""
+    the passes must fuse waves and chain panels.  ``keep`` receives the
+    last factor's lower tiles (the 2-rank path's reference).  Returns
+    numbers."""
     dev = ctx.device_registry.accelerators[0]
     on_card = dev.is_cuda
     n = nt * mb
@@ -1425,6 +1435,9 @@ def drive_potrf(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
     if traced:
         trace = traced_pass(ctx, lambda: factor("pass traced"), label,
                             ntasks, min(times))
+    if keep is not None:
+        keep.update({(m, k): newest_payload(A, m, k).to(dev.tdev)
+                     for (m, k) in lower})
     return {"launches": launches, "times": times, "gflops": gflops,
             "median_gflops": statistics.median(gflops),
             "executed_flops": executed_flops, "ntasks": ntasks,
@@ -1455,12 +1468,12 @@ def potrf_class_times(dev: torch.device, mb: int,
     return ms
 
 
-def phase_potrf(ctx: Context) -> dict:
+def phase_potrf(ctx: Context, keep: dict = None) -> dict:
     mb, nt = 6144, 16
     label = "potrf path mb=6144"
     torch.cuda.reset_peak_memory_stats()
     res = drive_potrf(ctx, mb, nt, torch.bfloat16, passes=5, label=label,
-                      require_fusion=True, traced=True)
+                      require_fusion=True, traced=True, keep=keep)
     g = res["gflops"]
     med_s = statistics.median(res["times"])
     log(f"[{label}] tiled_potrf_mp_gflops: median {res['median_gflops']:.1f}"
@@ -1854,6 +1867,464 @@ def phase_host(smi: str, rounds: int = 3, **sizes) -> dict:
     return {"cpu": cpu, "best": best, "overhead": overhead}
 
 
+# ---------------------------------------------------------------------------
+# 2-rank paths: two ranks time-sharing this one card over the comm layer
+# ---------------------------------------------------------------------------
+
+DIST_RANKS = 2
+POTRF_DIST_TOL = 1e-2    # relative Frobenius error of an L tile
+QR_DIST_TOL = 2e-2       # |R| tile against the single-rank run, abs and rel
+GEMM_DIST_TOL = 1e-3     # C tile against its plain-version product
+COMM_KEYS = ("act_eager", "act_rdv", "eager_bytes", "rdv_bytes",
+             "bytes_sent", "bytes_recv", "frames_sent", "frames_recv")
+
+
+def _rank_passes(ctx, passes: int, build, regen=None, check=None) -> dict:
+    """One rank's passes of one path: ``regen()`` (outside the timed
+    window), a barrier so both ranks start together, then insert + wait
+    (which includes the gang's quiescence) + synchronize, timed.  Per
+    pass: the wall time, task counts by class (device and CPU
+    incarnations), K1 tiles and their wgmma share, K2 launches and
+    ``check(tp)`` (after the timed window).  The kernel counts go to 0
+    before the first pass; the comm counters, staged-in bytes and device
+    counters are read over all the passes."""
+    dev = ctx.device_registry.accelerators[0]
+    ce = ctx.comm.ce
+    inc = _Incarnations(ctx)
+    reset_counts()
+    inc.take()
+    st0 = ctx.comm.stats()
+    in0 = dev.stats.bytes_in
+    dev0 = device_counts(dev)
+    out = {"passes": []}
+    for p in range(passes + 1):
+        if regen is not None:
+            regen()
+        torch.cuda.synchronize()
+        ce.barrier(timeout=600)
+        launches0 = read_counts()
+        tiles0, wgmma0 = k1_tiles()
+        t0 = time.perf_counter()
+        tp = build()
+        ctx.add_taskpool(tp)
+        ctx.wait()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = inc.take()
+        classes = collections.Counter()
+        for (c, _event), v in counts.items():
+            classes[c] += v
+        launched = {k: v - launches0[k] for k, v in read_counts().items()}
+        out["passes"].append({
+            "s": dt, "classes": dict(classes),
+            "cpu_runs": sum(v for (_c, event), v in counts.items()
+                            if event == "exec_end"),
+            "k1": k1_tiles()[0] - tiles0, "wgmma": k1_tiles()[1] - wgmma0,
+            "k2": launched["gram_tile"],
+            "check": check(tp) if check is not None else None})
+    st = ctx.comm.stats()
+    out["comm"] = {k: st[k] - st0[k] for k in COMM_KEYS}
+    out["transport"] = st["transport"]
+    out["staged_in"] = dev.stats.bytes_in - in0
+    out["launches"] = read_counts()
+    out["device"] = {k: v - dev0[k] for k, v in device_counts(dev).items()}
+    return out
+
+
+def _potrf_rank(ctx, rank: int, nranks: int, mb: int, nt: int,
+                passes: int, refs: dict, trace_dir=None) -> dict:
+    """potrf over a P=2 row grid: the single-rank path's operand (the
+    bench generator indexed over the whole matrix) regenerated before
+    every pass; afterwards every local L tile against the single-rank
+    run's (``refs``: that run's factor, on this card).  With
+    ``trace_dir`` one more pass runs under the task profiler and the
+    causal tracer, and its trace is written there."""
+    dev = ctx.device_registry.accelerators[0]
+    n = nt * mb
+    A = TwoDimBlockCyclic(mb, mb, n, n, nodes=nranks, myrank=rank, P=nranks,
+                          dtype=torch.bfloat16, name="A")
+    orig = potrf_tile_maker(TwoDimBlockCyclic(mb, mb, n, n,
+                                              dtype=torch.bfloat16),
+                            dev.tdev)
+    lower = [(m, k) for (m, k) in A.local_tiles() if m >= k]
+
+    def regen():
+        for (m, k) in lower:
+            A.place_on_device(m, k, dev, orig(m, k))
+
+    def build():
+        return potrf.potrf_taskpool(A)
+
+    out = _rank_passes(ctx, passes, build, regen,
+                       check=lambda tp: tp.cholesky_check.failed())
+    worst, identical = 0.0, True
+    for (m, k) in lower:
+        got = newest_payload(A, m, k).to(dev.tdev)
+        ref = refs[(m, k)]
+        if m == k:
+            got, ref = torch.tril(got), torch.tril(ref)
+        identical = identical and torch.equal(got, ref)
+        g, r = got.double(), ref.double()
+        worst = max(worst, float(torch.linalg.norm(g - r)
+                                 / torch.linalg.norm(r)))
+    out["tiles"] = {"count": len(lower), "worst_rel_fro": worst,
+                    "bit_identical": bool(identical)}
+    if trace_dir is not None:
+        # the clock handshake runs on the comm loop; one accepted pong
+        # round before the header snapshot
+        deadline = time.time() + 15
+        while len(ctx.comm.ce.clock) < nranks - 1 and \
+                time.time() < deadline:
+            time.sleep(0.05)
+        regen()
+        torch.cuda.synchronize()
+        ctx.comm.ce.barrier(timeout=600)
+        prof = Profile(f"potrf-2rank-r{rank}")
+        mods = [install_task_profiler(ctx, prof),
+                install_causal_tracer(ctx, prof)]
+        t0 = time.perf_counter()
+        try:
+            ctx.add_taskpool(potrf.potrf_taskpool(A))
+            ctx.wait()
+            torch.cuda.synchronize()
+        finally:
+            for mod in mods:
+                mod.uninstall(ctx)
+        out["traced_s"] = time.perf_counter() - t0
+        out["trace"] = prof.dump(os.path.join(trace_dir, f"rank{rank}.ptt"))
+    return out
+
+
+def _gemm_rank(ctx, rank: int, nranks: int, mb: int, t: int,
+               passes: int) -> dict:
+    """GEMM over a P=2 row grid, C += A @ B per pass with A and B bf16
+    and C f32: A stays local, B's panels cross (the RA/RB broadcast
+    classes).  Every tile comes from a generator seeded by its index, so
+    each rank rebuilds the plain-version product of its own C tiles."""
+    dev = ctx.device_registry.accelerators[0]
+    mats = {nm: TwoDimBlockCyclic(mb, mb, t * mb, t * mb, nodes=nranks,
+                                  myrank=rank, P=nranks, dtype=dt, name=nm)
+            for nm, dt in (("A", torch.bfloat16), ("B", torch.bfloat16),
+                           ("C", torch.float32))}
+
+    def tile(name, m, n):
+        g = torch.Generator(device=dev.tdev).manual_seed(
+            SEED + 7 + 1000 * ord(name) + m * t + n)
+        return torch.randn((mb, mb), generator=g,
+                           device=dev.tdev).to(mats[name].dtype)
+
+    for nm, M in mats.items():
+        for (m, n) in M.local_tiles():
+            M.place_on_device(m, n, dev, tile(nm, m, n))
+    out = _rank_passes(ctx, passes, lambda: gemm_taskpool(*mats.values()))
+    worst = 0.0
+    C = mats["C"]
+    for (m, n) in C.local_tiles():
+        prod = torch.zeros((mb, mb), device=dev.tdev)
+        for k in range(t):
+            prod = gemm_tile_reference(tile("A", m, k), tile("B", k, n),
+                                       prod, 1.0)
+        ref = tile("C", m, n) + (passes + 1) * prod
+        got = newest_payload(C, m, n).to(dev.tdev)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"rank {rank}: C({m},{n}) is not finite")
+        worst = max(worst, rel_err(got, ref))
+    out["tiles"] = {"count": len(C.local_tiles()), "worst_rel": worst}
+    return out
+
+
+def _qr_rank(ctx, rank: int, nranks: int, mb: int, nt: int, passes: int,
+             refs: dict) -> dict:
+    """Routed QR over a P=2 row grid (RSTORE/CSTORE carry R home) on the
+    single-rank path's conditioned operand, regenerated before every
+    pass; afterwards the local lower tiles must be zero and every local R
+    tile match the single-rank run's in absolute value."""
+    dev = ctx.device_registry.accelerators[0]
+    n = nt * mb
+    A = TwoDimBlockCyclic(mb, mb, n, n, nodes=nranks, myrank=rank, P=nranks,
+                          dtype=torch.bfloat16, name="A")
+    orig = qr_tile_maker(A, dev.tdev, SEED + 4, conditioned=True)
+
+    def regen():
+        for (m, k) in A.local_tiles():
+            A.place_on_device(m, k, dev, orig(m, k))
+
+    out = _rank_passes(ctx, passes, lambda: qr.qr_taskpool(A), regen)
+    nonzero, worst, worst_diff = [], 0.0, 0.0
+    for (m, k) in A.local_tiles():
+        got = newest_payload(A, m, k).to(dev.tdev).float()
+        if m > k:
+            if bool(got.any()):
+                nonzero.append((m, k))
+            continue
+        ref = refs[(m, k)].float()
+        if m == k:
+            got, ref = torch.triu(got), torch.triu(ref)
+        # the allclose excess of |got| against |ref| (rtol = atol = tol)
+        diff = (got.abs() - ref.abs()).abs()
+        worst = max(worst, float((diff - QR_DIST_TOL * ref.abs()).max()))
+        worst_diff = max(worst_diff, float(diff.max()))
+    out["tiles"] = {"count": len(A.local_tiles()), "nonzero_lower": nonzero,
+                    "worst_abs_excess": worst, "worst_abs_diff": worst_diff}
+    return out
+
+
+def dist_rank(ctx, rank: int, nranks: int, plan: dict, refs: dict) -> dict:
+    """One rank of a 2-rank run: the paths ``plan`` names, in order."""
+    dev = ctx.device_registry.accelerators[0]
+    if not dev.is_cuda:
+        raise RuntimeError(f"rank {rank}: not on the card ({dev.name})")
+    out = {}
+    for name, kw in plan.items():
+        torch.cuda.reset_peak_memory_stats()
+        if name == "potrf":
+            out[name] = _potrf_rank(ctx, rank, nranks, refs=refs["potrf"],
+                                    **kw)
+        elif name == "gemm":
+            out[name] = _gemm_rank(ctx, rank, nranks, **kw)
+        else:
+            out[name] = _qr_rank(ctx, rank, nranks, refs=refs["qr"], **kw)
+        out[name]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        gc.collect()
+    return out
+
+
+def _sum_passes(res: list, path: str) -> list:
+    """Per pass, the ranks' counts summed and the slowest rank's time."""
+    out = []
+    for p in range(len(res[0][path]["passes"])):
+        ps = [r[path]["passes"][p] for r in res]
+        classes = collections.Counter()
+        for q in ps:
+            classes.update(q["classes"])
+        out.append({"s": max(q["s"] for q in ps),
+                    "classes": dict(classes),
+                    "cpu_runs": sum(q["cpu_runs"] for q in ps),
+                    "k1": sum(q["k1"] for q in ps),
+                    "wgmma": sum(q["wgmma"] for q in ps),
+                    "k2": sum(q["k2"] for q in ps),
+                    "checks": [q["check"] for q in ps]})
+    return out
+
+
+def report_dist(label: str, res: list, path: str, flops: float,
+                want: dict, want_k1: int, want_k2: int,
+                cpu_classes=()) -> list:
+    """Print one 2-rank path: per rank its passes, comm counters and
+    staged-in bytes; then hold every pass's summed counts to ``want``."""
+    for r, rr in enumerate(res):
+        d = rr[path]
+        times = [f"{q['s'] * 1e3:.1f}" for q in d["passes"]]
+        rates = [f"{flops / q['s'] / 1e9:.1f}" for q in d["passes"]]
+        c = d["comm"]
+        log(f"[{label}] rank {r} ({d['transport']}): pass ms {times} "
+            f"(GFLOP/s of the whole problem over this rank's pass "
+            f"{rates}); activations eager {c['act_eager']} "
+            f"({c['eager_bytes'] / 2**20:.1f} MiB) against rendezvous "
+            f"{c['act_rdv']} ({c['rdv_bytes'] / 2**20:.1f} MiB); sent "
+            f"{c['bytes_sent'] / 2**30:.3f} GiB in {c['frames_sent']} "
+            f"frames, received {c['bytes_recv'] / 2**30:.3f} GiB in "
+            f"{c['frames_recv']} frames; staged in from host "
+            f"{d['staged_in'] / 2**30:.3f} GiB; device "
+            f"faults {d['device']['faults']}; peak device memory "
+            f"{d['peak_gib']:.2f} GiB; launches {d['launches']}")
+        if d["device"]["faults"]:
+            raise AssertionError(f"[{label}] rank {r}: "
+                                 f"{d['device']['faults']} device faults")
+    passes = _sum_passes(res, path)
+    ntasks = sum(want.values())
+    for p, q in enumerate(passes):
+        if q["classes"] != want or q["k1"] != want_k1 or \
+                q["wgmma"] != want_k1 or q["k2"] != want_k2 or \
+                q["cpu_runs"] != sum(want.get(c, 0) for c in cpu_classes):
+            raise AssertionError(
+                f"[{label}] pass {p}: tasks {q['classes']}, K1 tiles "
+                f"{q['k1']} ({q['wgmma']} wgmma), K2 {q['k2']}, CPU "
+                f"incarnations {q['cpu_runs']}; expected {want} "
+                f"({ntasks}), {want_k1} K1 all wgmma, {want_k2} K2")
+    log(f"[{label}] every pass: {ntasks} tasks summed over the ranks "
+        f"{want}, {want_k1} K1 tiles all on wgmma, {want_k2} K2 launches")
+    return passes
+
+
+def _two_ranks(plan: dict, refs: dict, transport: str, trace_dir=None):
+    """One run_distributed of ``plan`` on two ranks of this card over
+    ``transport`` (the children's ``comm_transport``)."""
+    if trace_dir is not None:
+        plan = dict(plan)
+        plan["potrf"] = dict(plan["potrf"], trace_dir=trace_dir)
+    prior = os.environ.get("PARSEC_MCA_COMM_TRANSPORT")
+    os.environ["PARSEC_MCA_COMM_TRANSPORT"] = transport
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()   # the ranks share this card's memory
+        t0 = time.perf_counter()
+        res = run_distributed(dist_rank, DIST_RANKS, args=(plan, refs),
+                              device="cuda", timeout=900)
+    finally:
+        if prior is None:
+            os.environ.pop("PARSEC_MCA_COMM_TRANSPORT", None)
+        else:
+            os.environ["PARSEC_MCA_COMM_TRANSPORT"] = prior
+    log(f"[2-rank {transport}] run of {list(plan)}: "
+        f"{time.perf_counter() - t0:.1f} s with spawn and set-up")
+    return res
+
+
+def phase_distributed(refs: dict, potrf_size=(6144, 16), gemm_size=(2048, 8),
+                      qr_size=(6144, 8)) -> dict:
+    """The 2-rank potrf, GEMM and routed QR paths (comm_transport evloop,
+    comm_frame_native 1: the defaults), then one potrf pass over the shm
+    transport in turns with one over evloop; each size is (mb, tiles a
+    side), the single-rank runs' that made ``refs``.  Both ranks run on
+    this one card, each with its own CUDA context, time-sharing it; tiles
+    cross card -> host -> wire -> host -> card.  These paths time the
+    comm layer's host path and its staging copies, not multi-GPU
+    scaling."""
+    (potrf_mb, potrf_nt), (gemm_mb, gemm_t), (qr_mb, qr_nt) = \
+        potrf_size, gemm_size, qr_size
+    label_p, label_g, label_q = (f"2-rank potrf mb={potrf_mb}",
+                                 f"2-rank GEMM mb={gemm_mb}",
+                                 f"2-rank QR mb={qr_mb}")
+    log(f"[2-rank] {DIST_RANKS} ranks time-sharing one card, P={DIST_RANKS} "
+        f"row grids, comm_transport "
+        f"{params.get('comm_transport')}, comm_frame_native "
+        f"{params.get('comm_frame_native')}; the parent holds the "
+        f"single-rank runs' reference tiles on the card "
+        f"({len(refs['potrf'])} potrf L tiles, {len(refs['qr'])} QR R "
+        f"tiles), shared with the ranks by CUDA IPC")
+    plan = {"potrf": {"mb": potrf_mb, "nt": potrf_nt, "passes": 3},
+            "gemm": {"mb": gemm_mb, "t": gemm_t, "passes": 3},
+            "qr": {"mb": qr_mb, "nt": qr_nt, "passes": 2}}
+    trace_dir = tempfile.mkdtemp(prefix="parsec_2rank_trace_")
+    try:
+        res = _two_ranks(plan, refs, "evloop", trace_dir)
+        att = critpath.attribution([r["potrf"]["trace"] for r in res])
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    out = {}
+
+    # potrf
+    want = potrf_task_counts(potrf_nt)
+    flops = potrf.potrf_flops(potrf_nt * potrf_mb)
+    passes = report_dist(label_p, res, "potrf", flops, want,
+                         want["SYRK"] + want["GEMM"], 0)
+    failed = [q["checks"] for q in passes if any(q["checks"])]
+    if failed:
+        raise AssertionError(f"[{label_p}] a Cholesky flag is set: {failed}")
+    med = statistics.median(q["s"] for q in passes[1:])
+    tiles = [r["potrf"]["tiles"] for r in res]
+    worst = max(t["worst_rel_fro"] for t in tiles)
+    log(f"[{label_p}] Cholesky flag clear on both ranks in every pass; "
+        f"median of {len(passes) - 1} timed passes (slowest rank) "
+        f"{med * 1e3:.1f} ms, {flops / med / 1e9:.1f} GFLOP/s (n^3/3); "
+        f"{sum(t['count'] for t in tiles)} lower tiles against the "
+        f"single-rank run: worst relative Frobenius error {worst:.3e} "
+        f"(limit {POTRF_DIST_TOL:.0e}), bit-identical "
+        f"{all(t['bit_identical'] for t in tiles)}")
+    if not worst <= POTRF_DIST_TOL:
+        raise AssertionError(f"[{label_p}] L tile error {worst}")
+    b = att["buckets"]
+    log(f"[{label_p}] traced pass (slowest rank "
+        f"{max(r['potrf']['traced_s'] for r in res) * 1e3:.1f} ms), merged "
+        f"critical path of {len(att['path'])} tasks "
+        f"({sum(1 for s in att['path'] if s['via'] == 'comm')} entered by a "
+        f"remote edge): exec {b['exec'] * 1e3:.3f} ms, queue "
+        f"{b['queue'] * 1e3:.3f} ms, comm {b['comm'] * 1e3:.3f} ms, idle "
+        f"{b['idle'] * 1e3:.3f} ms against the makespan "
+        f"{att['makespan'] * 1e3:.3f} ms (overlap "
+        f"{att['overlap'] * 1e3:.3f} ms); flows {att['flows']}")
+    if abs(sum(b.values()) - att["makespan"] - att["overlap"]) > \
+            1e-5 * max(1, len(att["path"])):
+        raise AssertionError(f"[{label_p}] buckets {b} do not sum to the "
+                             f"makespan plus the overlap")
+    out["potrf"] = {"pass_ms": med * 1e3, "gflops": flops / med / 1e9,
+                    "worst_rel_fro": worst, "critpath_ms": {
+                        k: v * 1e3 for k, v in b.items()},
+                    "launches": _rank_launches(res, "potrf")}
+
+    # GEMM
+    ntasks = gemm_t ** 3
+    want = {"GEMM": ntasks, "RA": gemm_t * gemm_t, "RB": gemm_t * gemm_t}
+    flops = total_flops(gemm_t * gemm_mb, gemm_t * gemm_mb, gemm_t * gemm_mb)
+    passes = report_dist(label_g, res, "gemm", flops, want, ntasks, 0,
+                         cpu_classes=("RA", "RB"))
+    best = min(q["s"] for q in passes[1:])
+    worst = max(r["gemm"]["tiles"]["worst_rel"] for r in res)
+    log(f"[{label_g}] best of {len(passes) - 1} timed passes (slowest "
+        f"rank) {best * 1e3:.1f} ms, {flops / best / 1e9:.1f} GFLOP/s; C "
+        f"against the plain-version product: rel err {worst:.3e} (limit "
+        f"{GEMM_DIST_TOL:.0e})")
+    if not worst <= GEMM_DIST_TOL:
+        raise AssertionError(f"[{label_g}] C disagrees: {worst}")
+    out["gemm"] = {"pass_ms": best * 1e3, "gflops": flops / best / 1e9,
+                   "worst_rel": worst,
+                   "launches": _rank_launches(res, "gemm")}
+
+    # QR
+    want = qr_task_counts(qr_nt)
+    want["RSTORE"] = qr_nt - 1
+    want["CSTORE"] = (qr_nt - 1) * qr_nt // 2
+    ib = qr.effective_ib(qr_mb)
+    want_k1 = want["UNMQR"] + 3 * want["TSMQR"]
+    want_k2 = 2 * (qr_mb // ib if ib else 1) * want["GEQRT"]
+    flops = qr.geqrf_flops(qr_nt * qr_mb, qr_nt * qr_mb)
+    passes = report_dist(label_q, res, "qr", flops, want, want_k1, want_k2)
+    best = min(q["s"] for q in passes[1:])
+    tiles = [r["qr"]["tiles"] for r in res]
+    nonzero = [t for tt in tiles for t in tt["nonzero_lower"]]
+    worst = max(t["worst_abs_excess"] for t in tiles)
+    log(f"[{label_q}] best of {len(passes) - 1} timed passes (slowest "
+        f"rank) {best * 1e3:.1f} ms, {flops / best / 1e9:.1f} GFLOP/s; "
+        f"lower tiles zero: {not nonzero}; |R| against the single-rank "
+        f"run: largest | |R| - |R_1| | "
+        f"{max(t['worst_abs_diff'] for t in tiles):.3e}, worst excess over "
+        f"{QR_DIST_TOL:.0e} + {QR_DIST_TOL:.0e}|R_1| {worst:.3e} (must be "
+        f"<= 0)")
+    if nonzero or worst > 0:
+        raise AssertionError(f"[{label_q}] lower tiles {nonzero}, R "
+                             f"excess {worst}")
+    out["qr"] = {"pass_ms": best * 1e3, "gflops": flops / best / 1e9,
+                 "launches": _rank_launches(res, "qr")}
+
+    # one potrf pass over shm, in turns with one over evloop
+    shm_dir = "/dev/shm" if os.path.isdir("/dev/shm") else \
+        tempfile.gettempdir()
+    du = shutil.disk_usage(shm_dir)
+    log(f"[2-rank shm] ring directory {shm_dir}: {du.total / 2**20:.0f} "
+        f"MiB, {du.free / 2**20:.0f} MiB free; comm_shm_ring_mb "
+        f"{params.get('comm_shm_ring_mb')} per directed pair")
+    one = {"potrf": dict(plan["potrf"], passes=1)}
+    turns = {}
+    for transport in ("shm", "evloop"):
+        rr = _two_ranks(one, refs, transport)
+        label = f"{label_p} {transport} turn"
+        want = potrf_task_counts(potrf_nt)
+        ps = report_dist(label, rr, "potrf", potrf.potrf_flops(
+            potrf_nt * potrf_mb), want, want["SYRK"] + want["GEMM"], 0)
+        if any(any(q["checks"]) for q in ps):
+            raise AssertionError(f"[{label}] a Cholesky flag is set")
+        worst = max(r["potrf"]["tiles"]["worst_rel_fro"] for r in rr)
+        if not worst <= POTRF_DIST_TOL:
+            raise AssertionError(f"[{label}] L tile error {worst}")
+        if any(r["potrf"]["transport"] != transport for r in rr):
+            raise AssertionError(f"[{label}] ran on "
+                                 f"{[r['potrf']['transport'] for r in rr]}")
+        turns[transport] = ps[-1]["s"] * 1e3
+    log(f"[2-rank potrf] timed pass shm {turns['shm']:.1f} ms against "
+        f"evloop {turns['evloop']:.1f} ms (in turns, slowest rank)")
+    out["potrf"]["turns_ms"] = turns
+    return out
+
+
+def _rank_launches(res: list, path: str) -> dict:
+    """A path's kernel launches, summed over the ranks."""
+    out = collections.Counter()
+    for r in res:
+        out.update(r[path]["launches"])
+    return dict(out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1890,6 +2361,9 @@ def main() -> int:
     host = phase_host(smi)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    # the single-rank potrf and QR runs' final tiles, held on the card
+    # for the 2-rank paths' checks
+    refs = {"potrf": {}, "qr": {}}
     per_path = {
         "GEMM mb=12288": in_context(lambda ctx: phase_gemm(ctx, gen),
                                     "GEMM path mb=12288"),
@@ -1901,8 +2375,18 @@ def main() -> int:
         "GEMM mb=2048 ladder": in_context(
             lambda ctx: phase_small_tiles(ctx, gen), "mb=2048 ladder",
             sched_native=0),
-        "QR mb=6144": in_context(phase_qr, "QR path mb=6144"),
-        "potrf mb=6144": in_context(phase_potrf, "potrf path mb=6144")}
+        "QR mb=6144": in_context(lambda ctx: phase_qr(ctx, refs["qr"]),
+                                 "QR path mb=6144"),
+        "potrf mb=6144": in_context(
+            lambda ctx: phase_potrf(ctx, refs["potrf"]),
+            "potrf path mb=6144")}
+    dist = phase_distributed(refs)
+    del refs
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_path.update({"2-rank potrf mb=6144": dist["potrf"],
+                     "2-rank GEMM mb=2048": dist["gemm"],
+                     "2-rank QR mb=6144": dist["qr"]})
     nat, lad = per_path["GEMM mb=2048"], per_path["GEMM mb=2048 ladder"]
     log(f"[mb=2048] {nat['scheduler']['name']} against "
         f"{lad['scheduler']['name']}: best pass {nat['pass_ms']:.1f} ms "
@@ -1912,9 +2396,10 @@ def main() -> int:
 
     for path_name, res in per_path.items():
         log(f"launches on path {path_name}: {res['launches']}")
-    # the kernels line counts the main path at the defaults: the ladder
-    # rerun of mb=2048 is an A/B of the scheduler, and its launches are
-    # printed above but left out of the sum
+    # the kernels line counts the main path at the defaults, the 2-rank
+    # paths' launches summed over their ranks: the ladder rerun of
+    # mb=2048 is an A/B of the scheduler, and the 2-rank potrf's shm and
+    # evloop turns an A/B of the transport; their launches are left out
     main_paths = [r for p, r in per_path.items()
                   if p != "GEMM mb=2048 ladder"]
     for kname, entry in entries.items():

@@ -47,7 +47,10 @@ On the device module at its defaults, SYRK and GEMM write their tile in
 place when it is donated, and a wave of them is one grouped K1 launch;
 POTRF(k) is chain-held and runs in the step of its TRSM wave
 (``fuse_chain``), and TRSM follows the diagonal tile's device
-(``coaffinity``), as in the reference.  Single rank; the reference's
+(``coaffinity``), as in the reference.  Across ranks nothing changes:
+every task runs where the collection's ``rank_of`` places its tile, and
+the remote-dep protocol carries the cross-rank edges; the chain fusion
+of the device module is off there.  The reference's
 ``recovery_collections`` are not set (recovery is not ported).
 """
 

@@ -70,8 +70,10 @@ GEQRT(k) and the TSQRT(*,k) column are chain-held and run in the step of
 the wave that consumes them (``fuse_chain``), with TSQRT on the diagonal
 tile's device (``coaffinity``), as in the reference.
 
-Single rank only: the routed store classes of the reference exist for
-multi-rank runs, which the port's Context does not carry yet.
+Across ranks (``A.nodes > 1``) the final R tiles are routed home
+through the store classes ``RSTORE``/``CSTORE``, as in the reference
+(``qr_taskpool``): two more task classes, NT - 1 and (NT - 1) NT / 2
+tasks, each a copy of its tile.
 """
 
 from __future__ import annotations
@@ -401,9 +403,16 @@ def _cpu_tsmqr(Q, C1, C2):
     return {"C1": (C1n - Z).to(C1.dtype), "C2": (C2n - V @ Z).to(C2.dtype)}
 
 
+def _store(X):
+    """The routed stores' body (device and CPU alike): the tile passes
+    through to its home ``-> DATA`` write-back, in storage of its own (as
+    the reference's jitted identity returns a fresh buffer)."""
+    return X.clone()
+
+
 def qr_taskpool(A: TiledMatrix, device: str = "cuda") -> ParameterizedTaskpool:
     """Factor A in place: R in the upper triangle (Q is applied, not
-    stored).  Requires a square tile grid evenly dividing A, on one rank.
+    stored).  Requires a square tile grid evenly dividing A.
 
     ``device``: "cuda"/"gpu" gives every task class its device body ahead
     of the CPU body (float64 torch ops); anything else leaves the CPU
@@ -412,16 +421,22 @@ def qr_taskpool(A: TiledMatrix, device: str = "cuda") -> ParameterizedTaskpool:
         raise ValueError("qr driver needs a square tile grid")
     if A.lm % A.mb or A.ln % A.nb:
         raise ValueError("qr tiles must divide the matrix evenly")
-    if A.nodes > 1:
-        raise NotImplementedError(
-            "multi-rank QR (the routed RSTORE/CSTORE classes) is not "
-            "ported yet")
     check_f32_matmul("the QR panel construction")
     NT = A.mt
     mb = A.mb
     use_device = device in ("cuda", "gpu")
     # inner blocking resolves ONCE per build
     ib = effective_ib(mb)
+    # Owner-computes discipline for the final R tiles: the LAST TSQRT of
+    # column k (and the last TSMQR of each row-k tile) runs where
+    # A(NT-1, k) lives, but its R output belongs home at A(k, *).  On
+    # one rank the write-back is local; across ranks it is routed
+    # through a store task pinned to the home tile, so the payload rides
+    # a normal dataflow edge (remote-dep protocol) instead of a
+    # cross-rank direct write (reference counterpart: remote output
+    # deps land via the ACTIVATE/GET protocol, remote_dep_mpi.c, never
+    # by writing another rank's memory).
+    routed = A.nodes > 1
 
     def bodies(tb, kernel, cpu_fn):
         if use_device:
@@ -478,8 +493,10 @@ def qr_taskpool(A: TiledMatrix, device: str = "cuda") -> ParameterizedTaskpool:
                  when=lambda m, k: m > k + 1),
               OUT(TASK("TSQRT", "T", lambda m, k: dict(m=m + 1, k=k)),
                   when=lambda m, NT=NT: m < NT - 1),
-              OUT(DATA(lambda k, A=A: A(k, k)),
-                  when=lambda m, NT=NT: m == NT - 1)) \
+              (OUT(TASK("RSTORE", "X", lambda k: dict(k=k)),
+                   when=lambda m, NT=NT: m == NT - 1) if routed else
+               OUT(DATA(lambda k, A=A: A(k, k)),
+                   when=lambda m, NT=NT: m == NT - 1))) \
         .flow("B", "RW",
               IN(DATA(lambda m, k, A=A: A(m, k)), when=lambda k: k == 0),
               IN(TASK("TSMQR", "C2", lambda m, k: dict(m=m, n=k, k=k - 1)),
@@ -510,8 +527,10 @@ def qr_taskpool(A: TiledMatrix, device: str = "cuda") -> ParameterizedTaskpool:
               OUT(TASK("TSMQR", "C1", lambda m, n, k: dict(m=m + 1, n=n,
                                                            k=k)),
                   when=lambda m, NT=NT: m < NT - 1),
-              OUT(DATA(lambda k, n, A=A: A(k, n)),
-                  when=lambda m, NT=NT: m == NT - 1)) \
+              (OUT(TASK("CSTORE", "X", lambda k, n: dict(k=k, n=n)),
+                   when=lambda m, NT=NT: m == NT - 1) if routed else
+               OUT(DATA(lambda k, n, A=A: A(k, n)),
+                   when=lambda m, NT=NT: m == NT - 1))) \
         .flow("C2", "RW",
               IN(DATA(lambda m, n, A=A: A(m, n)), when=lambda k: k == 0),
               IN(TASK("TSMQR", "C2", lambda m, n, k: dict(m=m, n=n,
@@ -528,13 +547,31 @@ def qr_taskpool(A: TiledMatrix, device: str = "cuda") -> ParameterizedTaskpool:
                   when=lambda m, n, k: m > k + 1 and n > k + 1))
     bodies(tb, _mk_tsmqr(), _cpu_tsmqr)
 
+    if routed:
+        tb = p.task("RSTORE", k=Range(0, NT - 2)) \
+            .affinity(lambda k, A=A: A(k, k)) \
+            .flow("X", "RW",
+                  IN(TASK("TSQRT", "T", lambda k, NT=NT: dict(m=NT - 1,
+                                                              k=k))),
+                  OUT(DATA(lambda k, A=A: A(k, k))))
+        bodies(tb, _store, _store)
+        tb = p.task("CSTORE", k=Range(0, NT - 2),
+                    n=Range(lambda k: k + 1, NT - 1)) \
+            .affinity(lambda k, n, A=A: A(k, n)) \
+            .flow("X", "RW",
+                  IN(TASK("TSMQR", "C1",
+                          lambda k, n, NT=NT: dict(m=NT - 1, n=n, k=k))),
+                  OUT(DATA(lambda k, n, A=A: A(k, n))))
+        bodies(tb, _store, _store)
+
     tp = p.build()
     for name, tc in tp.task_classes.items():
-        # executed-flop weights for device load balancing
+        # executed-flop weights for device load balancing (stores move
+        # a tile, no flops)
         tc.properties["flops"] = {"GEQRT": 2.0 * mb ** 3,
                                   "UNMQR": 2.0 * mb ** 3,
                                   "TSQRT": 6.0 * mb ** 3,
-                                  "TSMQR": 10.0 * mb ** 3}[name]
+                                  "TSMQR": 10.0 * mb ** 3}.get(name, 1.0)
     # cross-panel chain fusion (devices/cuda.py): the GEQRT(k) ->
     # TSQRT(k+1,k) -> ... -> TSQRT(NT-1,k) column is the serial spine of the
     # DAG — each link's only missing input is its predecessor's T — so the

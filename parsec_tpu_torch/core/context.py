@@ -25,6 +25,12 @@ the PINS modules ``pins`` names, and the metrics registry
 and the C quantum then stamp ``Task.ready_at`` for them.  Each is turned
 off by its knob (``PARSEC_MCA_METRICS_ENABLED=0`` and the others).
 
+Distributed runs: ``rank``/``nranks`` name this process's place in the
+gang, and a comm engine attaches as ``ctx.comm`` (comm/remote_dep.py
+RemoteDepEngine; comm/launch.py run_distributed wires one per rank).
+Remote successors then ride the remote-dep protocol, and ``wait`` adds
+the gang's global quiescence to local completion.
+
 The port carries the flat virtual-process map only, and three optional
 planes of the JAX package are not ported (ICI transport, flight
 recorder, recovery): each one's knob is registered with default 0 and
@@ -74,6 +80,18 @@ params.register("termdet_batch", 64,
                 "decrements accumulate on the worker and flush to the "
                 "locked counter every N tasks and at every idle moment.  "
                 "1 = a lock round-trip per task")
+params.register("comm_inline_poll", 1,
+                "idle workers briefly re-poll the ready queue (GIL-"
+                "yield spin) before blocking on the doorbell when a "
+                "comm engine is attached — an activation landing in "
+                "the window is picked up at GIL-handoff latency "
+                "instead of a condvar wakeup.  0 = always block "
+                "immediately; 1 = auto (spin only when the host has a "
+                "spare core — on 1 core the spin steals the GIL from "
+                "the comm loop it waits on); 2 = force on")
+params.register("doorbell_coalesce_us", 150,
+                "the worker-inlined poll window in microseconds (see "
+                "comm_inline_poll)")
 params.register("runtime_gc_freeze", 1,
                 "freeze the already-imported object graph out of cyclic "
                 "GC's full-collection scans just before the first Context "
@@ -205,9 +223,6 @@ class Context:
                  argv: Optional[List[str]] = None,
                  device: Optional[str] = None):
         _check_unported_planes()
-        if nranks != 1:
-            raise NotImplementedError(
-                "multi-rank contexts (the comm layer) are not ported yet")
         self.rank = rank
         self.nranks = nranks
         self.nb_cores = nb_cores if nb_cores is not None \
@@ -221,7 +236,9 @@ class Context:
         self.taskpools: dict = {}
         self._errors: List[tuple] = []        # guarded-by: _lock, _cond
         self._pins = {}
-        self.comm = None               # no comm layer in the port yet
+        #: comm/remote_dep.py RemoteDepEngine of a distributed run
+        #: (attached by its constructor), else None
+        self.comm = None
         self.grapher = None            # DOT grapher (not ported)
         self.ici = None                # ICI transport (not ported)
         self._causal_tracer = None     # prof/causal.py CausalTracer
@@ -247,6 +264,7 @@ class Context:
         self._termdet_batch = max(1, int(params.get("termdet_batch", 64)))
         self._db_waiters = 0          # GIL-atomic int (plain reads)
         self._db_suppressed = 0       # doorbells coalesced away (stats)
+        self._recompute_db_spin()
 
         # device layer (reference: parsec_mca_device_init, parsec.c:823)
         from parsec_tpu_torch.devices import init_devices
@@ -305,6 +323,24 @@ class Context:
                              or self.metrics is not None)
         self._device_spans = self._causal_tracer is not None
 
+    def _recompute_db_spin(self) -> None:
+        """Arm (or re-arm) the inlined comm-poll window from the
+        CURRENT core affinity.  The spin needs a spare core: on a
+        1-core host a polling worker steals the GIL/CPU from the very
+        comm loop whose delivery it is waiting for; auto mode (1) arms
+        it only with a spare core, 2 forces.  Called from ``__init__``
+        and again when a comm engine attaches (comm/remote_dep.py);
+        workers pick the window up on their next idle pass."""
+        import os as _os
+        try:
+            ncores = len(_os.sched_getaffinity(0))
+        except (AttributeError, OSError):
+            ncores = _os.cpu_count() or 1
+        ip = int(params.get("comm_inline_poll", 1))
+        self._db_spin_s = (
+            max(0, int(params.get("doorbell_coalesce_us", 150))) * 1e-6
+            if ip == 2 or (ip == 1 and ncores > 1) else 0.0)
+
     # -- PINS registration -------------------------------------------------
     def pins_register(self, event: str, cb: Callable) -> None:
         self._pins.setdefault(event, []).append(cb)
@@ -353,10 +389,15 @@ class Context:
         """reference: parsec_context_add_taskpool (scheduling.c:678)."""
         with self._lock:
             self._active_taskpools += 1
+            # register BEFORE attach: a comm message arriving in between
+            # must find the pool in this table
             self.taskpools[tp.taskpool_id] = tp
             tp.attach(self, self.termdet_for(tp))
             self._pending_start.append(tp)
         install_taskpool_properties(self, tp)
+        if self.comm is not None:
+            # activations may have raced this registration
+            self.comm.retry_delayed()
         if start:
             self.start()
 
@@ -384,6 +425,9 @@ class Context:
             if ready:
                 scheduling.schedule(self.streams[0], ready)
             tp.ready()
+            if self.comm is not None:
+                # activations delayed while this pool counted its tasks
+                self.comm.retry_delayed()
 
     def _taskpool_terminated(self, tp: Taskpool) -> None:
         with self._cond:
@@ -399,10 +443,18 @@ class Context:
     def wait(self, timeout: Optional[float] = None) -> None:
         """Block until all enqueued taskpools complete
         (reference: parsec_context_wait:776), then synchronize every
-        device's launch stream.  Past the ``runtime_autopsy_s`` soft
+        device's launch stream; on a distributed run, then wait for the
+        gang's global quiescence.  Past the ``runtime_autopsy_s`` soft
         deadline a one-shot hang autopsy is logged."""
         import time as _time
         self.start()
+        if self.comm is not None:
+            # dynamic pools hold a runtime action until the pool-scoped
+            # quiescence round proves every rank drained (see
+            # DynamicTaskpool.attach); resolve before waiting on them.
+            # timeout=None means wait indefinitely, like the completion
+            # wait below
+            self.comm.resolve_dynamic_holds(timeout)
         start = _time.monotonic()
         autopsy_s = float(params.get("runtime_autopsy_s", 45.0))
         autopsy_at = start + autopsy_s if autopsy_s > 0 else None
@@ -434,6 +486,14 @@ class Context:
         # device-side failures surface here
         self.sync_devices(timeout=timeout)
         self._raise_first_error()
+        if self.comm is not None:
+            # distributed: local completion is not global completion —
+            # peers may still pull our data (reference: ranks keep
+            # progressing comm until termdet quiesces the whole run).
+            # The JAX package then re-waits when its recovery plane
+            # re-armed a pool, and retires the completed pools; the port
+            # has no recovery plane
+            self.comm.wait_quiescence()
 
     def sync_devices(self, timeout: Optional[float] = None) -> None:
         """Quiesce device pipelines; raises late device failures."""
@@ -443,10 +503,18 @@ class Context:
                 dsync(timeout=timeout)
 
     def _raise_first_error(self) -> None:
-        """Surface the first recorded context error."""
+        """Surface the first recorded context error.  Structured
+        failures (PeerFailedError, TaskRetryExhausted) raise AS
+        THEMSELVES when no task is attributable; everything else keeps
+        the RuntimeError wrapper."""
         if not self._errors:
             return
+        from parsec_tpu_torch.core.errors import (PeerFailedError,
+                                                  TaskRetryExhausted)
         exc, task = self._errors[0]
+        if task is None and isinstance(exc, (PeerFailedError,
+                                             TaskRetryExhausted)):
+            raise exc
         raise RuntimeError(f"task {task} failed") from exc
 
     def record_error(self, exc: Exception, task: Task) -> None:
@@ -471,9 +539,27 @@ class Context:
             self._errors.append((exc, task))
             self._cond.notify_all()
 
+    def record_pool_error(self, tp, exc: Exception) -> None:
+        """Route a pool-scoped failure with no specific task (a dead
+        peer, a rendezvous timeout) through the pool's error sink,
+        falling back to the context-wide error list exactly like
+        record_error."""
+        sink = getattr(tp, "error_sink", None) if tp is not None else None
+        if sink is not None:
+            try:
+                sink(exc, None)
+                return
+            except Exception as sink_exc:
+                debug_verbose(1, "error_sink failed: %s", sink_exc)
+        with self._cond:
+            self._errors.append((exc, None))
+            self._cond.notify_all()
+
     def hang_autopsy(self) -> str:
         """One diagnosable snapshot of what can wedge a run: per-pool
-        termdet counters and device pipeline depths."""
+        termdet counters, comm protocol state (termdet balance, parked
+        activations, in-flight rendezvous, per-peer queue depths and
+        last-frame ages) and device pipeline depths."""
         lines = ["=== parsec hang autopsy (rank %d) ===" % self.rank]
         with self._lock:
             lines.append(f"active taskpools: {self._active_taskpools}; "
@@ -482,11 +568,18 @@ class Context:
         for tp in pools:
             if getattr(tp, "completed", False):
                 continue
+            try:
+                peers = sorted(tp.peer_ranks) or "-"
+            except RuntimeError:
+                # comm threads resize the set lock-free; the autopsy
+                # must never raise out of Context.wait
+                peers = "~resizing~"
             lines.append(
                 f"  pool {tp.taskpool_id} {tp.name!r}: state="
                 f"{getattr(tp, 'state', '?')} nb_tasks={tp.nb_tasks} "
                 f"pending_actions={tp.nb_pending_actions} "
-                f"cancelled={tp.cancelled}")
+                f"cancelled={tp.cancelled} "
+                f"peer_ranks={peers}")
         done = sum(es.nb_tasks_done for es in self.streams)
         lines.append(f"workers: {len(self.streams)} streams, "
                      f"{done} tasks done")
@@ -495,16 +588,24 @@ class Context:
             infl = len(getattr(d, "_inflight", ()) or ())
             lines.append(f"  device {d.name}: pending={pend} "
                          f"inflight={infl}")
+        if self.comm is not None:
+            try:
+                lines.append("comm: " + repr(self.comm.debug_state()))
+            except Exception as exc:   # the autopsy must never raise
+                lines.append(f"comm: <debug_state failed: {exc}>")
         return "\n".join(lines)
 
-    # -- remote deps (no comm layer in the port yet) ----------------------
+    # -- remote deps (filled in by the comm layer) ------------------------
     def remote_dep_activate(self, es, task, flow, dep, succ_tc, succ_locals,
                             copy) -> None:
-        from parsec_tpu_torch.utils.output import show_help
-        raise RuntimeError(
-            f"{task}: successor {succ_tc.name}{succ_locals} lives on "
-            f"rank {succ_tc.rank_of(succ_locals)}.\n"
-            + show_help("no-comm-engine", warn=False))
+        if self.comm is None:
+            from parsec_tpu_torch.utils.output import show_help
+            raise RuntimeError(
+                f"{task}: successor {succ_tc.name}{succ_locals} lives on "
+                f"rank {succ_tc.rank_of(succ_locals)}.\n"
+                + show_help("no-comm-engine", warn=False))
+        self.comm.remote_dep_activate(es, task, flow, dep, succ_tc,
+                                      succ_locals, copy)
 
     # -- shutdown ----------------------------------------------------------
     def fini(self) -> None:

@@ -359,6 +359,10 @@ def release_deps(es, task: Task) -> List[Task]:
     ready: List[Task] = []
     consumers = 0
     entry = None
+    #: arena-backed copies whose only consumers are remote: nothing local
+    #: creates a repo entry for them, so they are returned to the freelist
+    #: once flush_activations has snapshotted the payload
+    remote_only_arena: List[DataCopy] = []
 
     # only flows with output deps can deliver anything (class-level
     # partition, core/task.py): a CTL-only or sink flow skips the whole
@@ -397,6 +401,9 @@ def release_deps(es, task: Task) -> List[Task]:
             # Null outputs: data is discarded (arena copies will be
             # released by the repo retirement below, or were views)
         total = len(local_deliveries) + remote_count
+        if remote_count and not local_deliveries and copy is not None \
+                and copy.arena is not None:
+            remote_only_arena.append(copy)
         if copy is None and total > 0 and flow.access != 0:
             # a data (non-CTL) flow handing None downstream: legal — the
             # successor's input binds NULL — but almost always a graph
@@ -446,6 +453,21 @@ def release_deps(es, task: Task) -> List[Task]:
     if dynamic is not None:
         ready.extend(dynamic(es, task))
 
+    # ship buffered remote activations as one message per flow down the
+    # bcast tree (reference: parsec_remote_dep_activate after
+    # iterate_successors filled the rank bitmask).  This is also the send
+    # snapshot: each outgoing payload is copied home here, before the
+    # local successors in ``ready`` are scheduled, so no in-place
+    # successor can have written the tile yet (comm/remote_dep.py)
+    if tp.context is not None and tp.context.comm is not None:
+        tp.context.comm.flush_activations(es, task)
+        # flush snapshotted every outgoing payload synchronously: arena
+        # temporaries with no local consumer can go home now — unless an
+        # earlier producer's repo entry still holds the chained buffer
+        for copy in remote_only_arena:
+            if copy.data is not None:
+                copy.data.detach_copy(copy.device)
+            copy.arena.release_unheld(copy)
     return ready
 
 

@@ -10,6 +10,7 @@ entering tasks through the pluggable scheduler and ringing the doorbell.
 
 from __future__ import annotations
 
+import time
 from threading import get_ident
 from time import perf_counter
 from typing import List, Optional
@@ -347,6 +348,23 @@ def _td_flush(es) -> None:
             tp, -ent[1], epoch=ent[0])
 
 
+def _spin_poll(probe, window_s: float,
+               _perf=time.perf_counter, _sleep=time.sleep):
+    """Worker-inlined poll: briefly re-poll the ready queue, yielding
+    the GIL each round so the comm loop can park its deliveries —
+    an activation landing inside the window is picked up at
+    GIL-handoff latency instead of a condvar wakeup (the shm
+    doorbell's waiting-flag discipline, generalized to the worker
+    doorbell)."""
+    end = _perf() + window_s
+    while _perf() < end:
+        t = probe()
+        if t is not None:
+            return t
+        _sleep(0)   # lint: allow-blocking (GIL yield, not a wait)
+    return None
+
+
 def worker_loop(es) -> None:
     """Steady-state worker (reference: __parsec_context_wait hot loop).
 
@@ -401,12 +419,22 @@ def worker_loop(es) -> None:
                 _td_flush(es)
                 done_since = 0
             misses += 1
-            # exponential backoff on miss (reference:
-            # scheduling.c:596-635); the probe re-checks the queue
-            # under the doorbell lock so a push racing the
-            # waiting-flag cannot be lost
-            task = ctx.doorbell_wait(
-                min(0.0002 * (1 << min(misses, 8)), 0.05), probe)
+            # re-read per idle moment, not cached at loop start: a comm
+            # engine attaching after workers spin up re-probes the core
+            # count and flips this on — the running workers must see it
+            spin_s = ctx._db_spin_s
+            if misses <= 2 and spin_s > 0 and ctx.comm is not None:
+                # worker-inlined comm poll (comm_inline_poll): cover
+                # the just-went-idle window before paying a condvar
+                # round-trip — the rtt wakeup-latency lever
+                task = _spin_poll(probe, spin_s)
+            if task is None:
+                # exponential backoff on miss (reference:
+                # scheduling.c:596-635); the probe re-checks the queue
+                # under the doorbell lock so a push racing the
+                # waiting-flag cannot be lost
+                task = ctx.doorbell_wait(
+                    min(0.0002 * (1 << min(misses, 8)), 0.05), probe)
             if task is None:
                 continue
         misses = 0

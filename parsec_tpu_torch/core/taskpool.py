@@ -113,6 +113,10 @@ class Taskpool:
         #: here instead of poisoning the whole context
         #: (``sink(exc, task)``; see Context.record_error)
         self.error_sink: Optional[Callable] = None
+        #: ranks this pool exchanged traffic with (filled by the comm
+        #: layer) — peer-death containment fails exactly the pools whose
+        #: dataflow touches the dead rank (RemoteDepEngine._on_peer_dead)
+        self.peer_ranks: set = set()
         #: generation stamp every task carries (Task.pool_epoch) and the
         #: termdet's batched decrements are checked against; the port has
         #: no recovery plane, so it stays 0
@@ -275,6 +279,23 @@ class DynamicTaskpool(ParameterizedTaskpool):
     output guards at runtime."""
 
     dynamic = True
+
+    def attach(self, context, termdet) -> None:
+        super().attach(context, termdet)
+        if context is not None and getattr(context, "comm", None) \
+                is not None:
+            # Distributed dynamic pools must NOT terminate on a local
+            # zero count: a rank whose tasks all arrive by remote
+            # discovery would fire termination before the first
+            # activation lands, and a rank that transiently drains to
+            # zero while a discovery message is in flight would
+            # terminate early.  The pool takes a permanent runtime-action
+            # hold, released only when the comm layer's pool-scoped Safra
+            # round proves every rank drained with no discovery in
+            # flight (RemoteDepEngine.resolve_dynamic_holds).
+            self._dyn_hold = True
+            termdet.taskpool_addto_runtime_actions(self, 1)
+            context.comm.register_dynamic_hold(self)
 
     def startup(self) -> List[Task]:
         myrank = self.context.rank if self.context else 0

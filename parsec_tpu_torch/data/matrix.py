@@ -5,8 +5,9 @@ Rebuild of the reference's matrix data distributions
 two_dim_rectangle_cyclic.{c,h}, grid_2Dcyclic.c): a logical LM x LN
 matrix cut into MB x NB tiles, distributed over a process grid.
 ``TwoDimBlockCyclic`` is the ScaLAPACK PxQ block-cyclic layout (with kp/kq
-repetition factors).  The symmetric, band, tabular, k-cyclic-view and
-vector layouts of the JAX package are not ported yet.
+repetition factors) and ``VectorTwoDimCyclic`` the 1D cyclic vector of
+tiles.  The symmetric, band, tabular and k-cyclic-view layouts of the
+JAX package are not ported yet.
 
 Tiles are CPU tensors of the collection's torch dtype (``torch.bfloat16``
 or ``torch.float32``), materialized lazily on first access.  numpy has no
@@ -245,3 +246,51 @@ class TwoDimBlockCyclic(TiledMatrix):
 
     def vpid_of(self, m: int, n: int = 0) -> int:
         return 0
+
+
+class VectorTwoDimCyclic(TiledMatrix):
+    """1D cyclic vector of tiles (reference: vector_two_dim_cyclic.c).
+
+    Payloads are 1D; from_array/to_array work on 1D arrays of length lm.
+    """
+
+    def __init__(self, mb: int, lm: int, nodes: int = 1, myrank: int = 0,
+                 dtype: Any = torch.float32, name: str = "V"):
+        super().__init__(mb, 1, lm, 1, dtype=dtype, nodes=nodes,
+                         myrank=myrank, name=name)
+
+    def rank_of(self, m: int, n: int = 0) -> int:
+        return m % self.nodes
+
+    def tile_shape(self, m: int, n: int = 0) -> Tuple[int, ...]:
+        """Vector payloads are 1D."""
+        return (min(self.mb, self.lm - m * self.mb),)
+
+    def from_array(self, a: Any) -> "VectorTwoDimCyclic":
+        a = to_host(a)
+        if tuple(a.shape) != (self.lm,):
+            raise ValueError(f"expected ({self.lm},), got {tuple(a.shape)}")
+        if a.dtype != self.dtype:
+            a = a.to(self.dtype)
+        with self._lock:
+            if self._tiles:
+                raise ValueError("from_array must precede tile access")
+            self._backing = a
+        return self
+
+    def to_array(self) -> torch.Tensor:
+        if self.nodes != 1:
+            raise ValueError("to_array is single-rank only")
+        if self._backing is not None:
+            self._sync_backing()
+            return self._backing
+        out = torch.zeros(self.lm, dtype=self.dtype)
+        for (m, _n), d in list(self._tiles.items()):
+            c = d.pull_to_host()
+            tm = min(self.mb, self.lm - m * self.mb)
+            out[m * self.mb:m * self.mb + tm] = to_host(c.payload)[:tm]
+        return out
+
+    def _tile_view(self, m: int, n: int = 0) -> torch.Tensor:
+        tm = min(self.mb, self.lm - m * self.mb)
+        return self._backing[m * self.mb:m * self.mb + tm]

@@ -4,11 +4,12 @@ The C++ library (core.cpp, bound through ctypes) carries the hot-path
 primitives the reference keeps native — MPMC handle queues, the zone
 allocator, binary trace buffers — the CPython extension schedext.c
 carries the scheduler hot path (ready queue, dep countdown, C task
-objects and the ``run_quantum`` worker loop), and the CPython extension
-pinsext.c the binary tracer's per-event sink.  All are compiled at
-first use with g++ into ``parsec_tpu_torch/_build/`` (never next to the
-sources), to a temp name renamed into place, and rebuilt whenever a
-source is newer than its artifact.
+objects and the ``run_quantum`` worker loop), the CPython extension
+pinsext.c the binary tracer's per-event sink, and the CPython
+extension commext.c the comm layer's frame parser and frame assembly.
+All are compiled at first use with g++ into ``parsec_tpu_torch/_build/``
+(never next to the sources), to a temp name renamed into place, and
+rebuilt whenever a source is newer than its artifact.
 
 Consumers:
 
@@ -17,6 +18,8 @@ Consumers:
   sched/native
   devices/cuda (device ledger)    <- NativeZoneAllocator
   prof/profiling (StreamBuffer)   <- pinsext (TraceSink)
+  comm/frames, comm/engine        <- commext (FrameParser, frame_parts;
+                                     ``comm_frame_native``, default on)
 
 NativeDequeue and NativeTraceBuffer are carried whole with core.cpp but
 have no consumer: the scheduler's object queues stay the Python
@@ -28,9 +31,9 @@ Deliberate differences from the JAX package's loader: no silent
 fallback and no ``native_core`` knob.  There a failed build logs one
 warning and the consumers run their Python twins (for the tracer: the
 ctypes trace buffer, then plain Python lists); here a failed build or
-load raises ``NativeBuildError`` with the compiler's stderr, and
-``sched_native=0`` is the one way onto the Python scheduler.  The JAX
-package's commext (comm framing) is not ported.
+load raises ``NativeBuildError`` with the compiler's stderr,
+``sched_native=0`` is the one way onto the Python scheduler, and
+``comm_frame_native=0`` the one way onto the Python frame parser.
 """
 
 from __future__ import annotations
@@ -170,6 +173,15 @@ def load_schedext():
     TaskCore/TaskVT, run_quantum); gated by ``sched_native`` at its
     consumers (sched/__init__.py, core/task.py, core/taskpool.py)."""
     return _load_cext("schedext")
+
+
+def load_commext():
+    """The comm layer's native framing (commext.c: FrameParser,
+    frame_parts); gated by ``comm_frame_native`` at its consumers
+    (comm/frames.py, comm/engine.py).  Raises NativeBuildError when it
+    does not build or load (the JAX package falls back to its Python
+    parser then)."""
+    return _load_cext("commext")
 
 
 #: the pinsext module once its clock was checked (load_pinsext)

@@ -5,9 +5,9 @@ reference: SURVEY.md §2.11/§5.1 — parsec/profiling.c binary trace +
 dictionary, mca/pins/ callback framework, papi_sde.c live gauges,
 tools/profiling readers.  The port carries the JAX package's modules the
 Context runs at its defaults (journal, metrics with live attribution and
-health, the PINS modules ``pins`` selects) and its single-rank trace
-stack (profiling with the pinsext sink, reader, causal tracer, critical
-path).  The DOT grapher, the flight recorder and the gauge aggregator are
+health, the PINS modules ``pins`` selects) and its trace stack
+(profiling with the pinsext sink, reader, causal tracer with its comm
+events, cross-rank critical path).  The DOT grapher, the flight recorder and the gauge aggregator are
 not ported.
 """
 

@@ -30,10 +30,9 @@ CLI::
 
 Deliberate difference from the JAX package: it walks the pandas-free
 reader's row dicts (prof/reader.py) where the JAX package walks
-DataFrames; every step computes the same values.  The port runs on one
-rank (its comm layer is not ported), so its traces carry no comm events
-and no clock table yet; the cross-rank merge and flow matching stay, for
-traces that do.
+DataFrames; every step computes the same values.  A distributed run's
+traces carry the comm layer's events and clock table (prof/causal.py),
+which the cross-rank merge and flow matching read.
 """
 
 from __future__ import annotations

@@ -38,11 +38,12 @@ metrics registry (prof/metrics.py):
 
 In the port: the journal is installed on every Context at
 ``journal_enabled`` 1, as in the JAX package, and dumped at
-``Context.fini`` under ``journal_dir``.  Every emit site of the JAX
-package lives in its comm, recovery and service layers, none of which is
-ported, so the single-rank port emits only the health plane's
-``health_transition``; the cross-rank pull (``cluster_journals`` on a
-multi-rank context) raises.  One deliberate difference: at
+``Context.fini`` under ``journal_dir``.  The emit sites of the JAX
+package live in its comm, recovery and service layers; the port carries
+the comm layer's (barrier rounds, peer deaths) and the health plane's
+``health_transition``, and ``cluster_journals`` pulls the peers'
+snapshots over the comm engine's TAG_METRICS lane.  One deliberate
+difference: at
 ``journal_enabled`` 0 the port installs no journal at all
 (``ctx.journal`` is None) where the JAX package installs a disabled one.
 
@@ -341,12 +342,15 @@ def cluster_journals(context, timeout: float = 2.0) -> Dict[int, dict]:
     """This rank's snapshot plus every live peer's, pulled over the
     TAG_METRICS control lane (the job-port ``{"op": "journal"}``
     surface and the autopsy tail both read this).  Degrades to the
-    local view, never fails — except on a multi-rank context, which
-    raises: the port has no comm layer to pull over."""
-    if context.nranks > 1:
-        raise NotImplementedError(
-            "cluster_journals: the cross-rank journal pull rides the comm "
-            "layer, which is not ported yet")
+    local view, never fails."""
     j = getattr(context, "journal", None)
     local = j.snapshot() if j is not None else {}
-    return {context.rank: local}
+    per_rank = {context.rank: local}
+    comm = getattr(context, "comm", None)
+    ce = getattr(comm, "ce", None) if comm is not None else None
+    if ce is not None and context.nranks > 1:
+        try:
+            per_rank.update(ce.gather_journals(timeout=timeout))
+        except Exception:
+            pass
+    return per_rank

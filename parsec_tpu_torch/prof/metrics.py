@@ -25,9 +25,11 @@ counters; this module grows them into a telemetry PLANE:
 
 In the port: installed by default on every Context (``metrics_enabled``),
 with live attribution and health armed, as in the JAX package; read with
-``ctx.metrics.samples()`` (or ``render_text`` of them).  The comm and
-service collectors return nothing while ``ctx.comm`` and the service are
-None, which they are on the single-rank port.
+``ctx.metrics.samples()`` (or ``render_text`` of them), and across the
+ranks of a distributed run with ``cluster_exposition``, which pulls the
+peers' samples over the comm engine's TAG_METRICS lane.  The comm
+collectors return nothing while ``ctx.comm`` is None (a single-rank
+run); the job service is not ported, so its collectors return nothing.
 
 In the JAX package: installed by default on every Context; scraped
 through the JobServer's ``{"op": "metrics"}`` request or a plain HTTP

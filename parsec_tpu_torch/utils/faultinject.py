@@ -29,8 +29,9 @@ Field forms: ``p=<prob>``, ``n=<count>`` (fire at most n times),
 Deliberately narrower than the JAX package's plan: its comm directives
 (``drop_frame``, ``dup_frame``, ``delay_frame``, ``delay_recv``,
 ``trunc_frame``, ``kill_rank``) and the rank-scoped ``degrade`` act on
-the comm transport and the health plane, which the port does not carry
-yet; a plan naming one raises instead of arming a hook nothing calls.
+the comm transport's fault hooks and the health plane; the port's comm
+layer leaves those hooks out (they come with the recovery plane), so a
+plan naming one raises instead of arming a hook nothing calls.
 
 Determinism: one ``random.Random(seed + 7)`` per process, so a plan
 replays the same decision stream modulo thread interleaving — the seeds

@@ -163,8 +163,9 @@ def debug_verbose(level: int, msg: str, *args, stream: int = 0) -> None:
 _help_topics = {
     "no-comm-engine": (
         "A task has successors on other ranks but no comm engine is\n"
-        "attached to this context.  The port has no comm layer yet:\n"
-        "distributed taskpools are not ported."),
+        "attached to this context.  Wire a SocketCE + RemoteDepEngine\n"
+        "(see parsec_tpu_torch.comm.launch.run_distributed) before adding\n"
+        "distributed taskpools."),
     "device-oom": (
         "The device memory budget ({budget} MiB) cannot hold a {nbytes}-byte\n"
         "tile while every resident copy is pinned.  Raise --mca\n"

@@ -3,9 +3,9 @@ the pandas-free reader): twins of the single-rank tests of
 tests/test_critpath.py, traced runs of the QR slice with chain fusion on
 and of the potrf slice, and parity with the JAX package's pipeline.
 
-The clock-offset estimator lives in the JAX package's comm engine and
-the two-rank merged traces need the comm layer: both wait for M6.  The
-DTD lane events wait for the DTD front-end.
+The two-rank merged trace runs over the port's comm layer (its comm
+events and clock table, the clock-offset estimator of the comm engine).
+The DTD lane events wait for the DTD front-end.
 
 Parity: the same trace files through both packages' ``attribution``
 (the JAX package's on pandas DataFrames) give the same critical path and
@@ -378,3 +378,43 @@ def test_critpath_cli_runs_as_a_module(tmp_path):
                        capture_output=True, text=True, timeout=120, env=env)
     assert r.returncode == 0, r.stderr
     assert json.loads(r.stdout) == critpath.attribution([path])
+
+
+# -- 2-rank loopback: the merged trace --------------------------------------
+
+def test_two_rank_potrf_merged_trace(tmp_path):
+    """A 2-rank potrf whose merged trace (a) matches a recv to every
+    cross-rank activation send, (b) has clock offsets in the peer's
+    header, (c) binds cross-rank deliveries to consumer tasks and puts
+    a comm step on the critical path, with buckets summing to the
+    makespan plus the path's overlap; the JAX package's attribution of
+    the same files agrees."""
+    import torch_comm_workers as W
+    from parsec_tpu.prof import critpath as jax_critpath
+    from parsec_tpu_torch.comm.engine import TAG_ACTIVATE
+    paths = W.run_port(W.traced_potrf, 2, args=(str(tmp_path),),
+                       timeout=240)
+    rows, metas = critpath.merge_traces(paths)
+    assert json.loads(metas[1]["info"]["clock_offsets"]).keys() == {"0"}
+    act = {tuple(r["info"]["corr"]) for r in rows
+           if r["name"] == "comm_send" and r["info"].get("tag") ==
+           TAG_ACTIVATE}
+    assert act, "no cross-rank activations traced"
+    recv = {tuple(r["info"]["corr"]) for r in rows
+            if r["name"] == "comm_recv"}
+    assert act <= recv
+    delivered = {tuple(r["info"]["corr"]) for r in rows
+                 if r["name"] == "dep_deliver"
+                 and r["info"].get("corr") is not None}
+    assert delivered & act
+    att = critpath.attribution(paths)
+    assert att["makespan"] > 0
+    assert any(s["via"] == "comm" for s in att["path"])
+    total = sum(att["buckets"].values())
+    assert abs(total - (att["makespan"] + att["overlap"])) <= \
+        1e-5 * max(1.0, len(att["path"])), att
+    ref = jax_critpath.attribution(paths)
+    assert [(s["task"], s["rank"], s["via"]) for s in ref["path"]] == \
+        [(s["task"], s["rank"], s["via"]) for s in att["path"]]
+    for k, v in ref["buckets"].items():
+        assert att["buckets"][k] == pytest.approx(v, abs=1e-5)

@@ -392,6 +392,48 @@ def test_potrf_on_the_card_matches_the_cpu_run(card, panel):
     assert err <= (1e-4 if panel == "float32" else 2e-2)
 
 
+@pytest.mark.cuda
+def test_two_rank_potrf_on_the_card_matches_one_rank(card):
+    """Two ranks (spawned, each its own CUDA context on this card) run
+    potrf at mb=256, nt=4 in bf16 over the comm layer: every lower tile
+    within 2e-2 of the single-rank run on the card, the per-class task
+    counts summed over the ranks equal to the single-rank run's, the K1
+    tiles (SYRK and GEMM: 10) all launched, and the remote tiles staged
+    in from the host."""
+    import torch_comm_workers as W
+    from parsec_tpu_torch.comm.launch import run_distributed
+    nt, mb = 4, 256
+    torch.cuda.empty_cache()
+    res = run_distributed(W.dist_potrf, 2,
+                          args=("port", nt, mb, 2, "bf16"),
+                          device="cuda", timeout=600)
+    k1_0 = _k1_tiles()
+    a = W.spd(nt * mb)
+    mats = from_reference_arrays({"A": a}, Layout(mb, mb, "bfloat16"))
+    with Context(nb_cores=2, device="cuda") as ctx:
+        tp = potrf.potrf_taskpool(mats["A"])
+        ctx.add_taskpool(tp)
+        ctx.wait(timeout=300)
+    assert not tp.cholesky_check.failed()
+    ref = to_reference_arrays(mats)["A"]
+    assert _k1_tiles() - k1_0 == 10
+    got = W.merged(res, "tiles")
+    for key, tile in got.items():
+        m, k = map(int, key.split(","))
+        r = ref[m * mb:(m + 1) * mb, k * mb:(k + 1) * mb]
+        g, r = (np.tril(x) if m == k else x for x in (tile, r))
+        assert np.abs(g - r).max() / max(1.0, np.abs(r).max()) <= 2e-2, key
+    assert len(got) == nt * (nt + 1) // 2
+    done = {}
+    for r in res:
+        assert not r["failed"] and r["staged_in"] > 0
+        for c, v in r["done"].items():
+            done[c] = done.get(c, 0) + v
+    assert done == {"POTRF": nt - 1, "POTRFL": 1, "TRSM": 6, "SYRK": 6,
+                    "GEMM": 4}
+    assert sum(r["k1_tiles"] for r in res) == 10
+
+
 def _operands(card, m, k, n, dtype, trans_b, seed, offset=0):
     """A (with ``offset`` elements before it in its storage), B and C of
     one call: B as (n, k) with ``trans_b``, C in the operands' type with

@@ -1,7 +1,8 @@
 """The port stands alone: importing every ``parsec_tpu_torch`` module
 (and ``chip_smoke.py``) loads neither JAX nor anything of ``parsec_tpu``
-nor pandas (the card host has none), and no source of the port imports
-them."""
+nor pandas nor ml_dtypes (the card host has none), no source of the port
+imports them, and the ranks of a distributed run load none of them
+either."""
 
 import ast
 import json
@@ -14,7 +15,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "parsec_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "parsec_tpu", "pandas")
+FORBIDDEN = ("jax", "jaxlib", "parsec_tpu", "pandas", "ml_dtypes")
 
 
 def _sources():
@@ -54,6 +55,9 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert not bad, bad
     assert "parsec_tpu_torch.devices.cuda" in loaded
     assert "chip_smoke" in loaded
+    comm = {"parsec_tpu_torch.comm." + m for m in
+            ("engine", "frames", "launch", "remote_dep", "shm")}
+    assert comm <= set(loaded)
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -91,6 +95,21 @@ def test_c_sources_import_only_the_port():
         assert not bad, f"{src}: {bad}"
     assert imports["schedext.c"]
     assert imports["pinsext.c"] == []
+    assert imports["commext.c"] == []
+
+
+def _rank_modules(ctx, rank, nranks):
+    """The forbidden modules a rank of a distributed run has loaded."""
+    import sys as _sys
+    return sorted(m for m in _sys.modules if _forbidden(m))
+
+
+def test_the_ranks_of_a_distributed_run_load_no_jax():
+    """A spawned rank imports the port's comm layer, Context and device
+    module and nothing of JAX, the JAX package or ml_dtypes."""
+    from parsec_tpu_torch.comm.launch import run_distributed
+    assert run_distributed(_rank_modules, 2, device="cpu",
+                           timeout=120) == [[], []]
 
 
 _BLOCKED_RUN = r"""

@@ -2,10 +2,10 @@
 single-rank tests of tests/test_journal.py, and the journal on the
 port's Context at its defaults.
 
-The recovery, comm and service cases of the JAX package's file (the
-job-port pull, the two-rank pull, the flight-recorder bundle, the
-autopsy tail, the retirement handshake, the recovery catalog) wait for
-those layers; the auditor's corpus tests exercise tools/, not the
+The recovery and service cases of the JAX package's file (the job-port
+pull, the flight-recorder bundle, the autopsy tail, the retirement
+handshake, the recovery catalog) wait for those layers; the two-rank
+pull over the comm layer's control lane is twinned; the auditor's corpus tests exercise tools/, not the
 journal.  The port's dump is read back by the JAX package's own auditor
 loader where the twin needs a reader, so both agree on the file format.
 """
@@ -250,8 +250,10 @@ def test_health_transitions_land_in_the_context_journal():
 
 
 def test_cluster_journals_local_view_and_multi_rank_refusal():
-    """One rank: the local snapshot.  Several ranks: the pull would ride
-    the comm layer, which is not ported, so it raises."""
+    """One rank: the local snapshot.  Several ranks with no comm engine
+    attached: the pull has nothing to ride, so it degrades to the local
+    view (it refused, with NotImplementedError, while the port had no
+    comm layer; the pull itself is the two-rank test below)."""
     from parsec_tpu_torch.core.context import Context
     with Context(nb_cores=1, device="cpu") as ctx:
         ctx.journal.emit("retired", pool=3)
@@ -260,6 +262,16 @@ def test_cluster_journals_local_view_and_multi_rank_refusal():
         assert [e["e"] for e in per_rank[0]["events"]] == ["retired"]
 
     class _TwoRanks:
-        rank, nranks, journal = 0, 2, Journal(rank=0)
-    with pytest.raises(NotImplementedError, match="comm"):
-        cluster_journals(_TwoRanks())
+        rank, nranks, journal, comm = 0, 2, Journal(rank=0), None
+    assert list(cluster_journals(_TwoRanks())) == [0]
+
+
+def test_two_rank_journal_pull_over_control_lane():
+    """Rank 0 pulls rank 1's journal over TAG_METRICS: the peer's
+    barrier rounds crossed the wire, in both packages."""
+    import torch_comm_workers as W
+    j, p = W.run_both(W.journal_pull, 2, timeout=180)
+    for res in (p, j):
+        assert res[0]["ranks"] == [0, 1]
+        assert "barrier" in res[0]["peer_kinds"], res
+    assert p[0]["peer_kinds"] == j[0]["peer_kinds"]

@@ -4,8 +4,10 @@ registry on the same DAGs, the native quantum's sampling-stride gate,
 and the GEMM, QR and potrf slices with the plane armed and off.
 
 The scrape surfaces of the JAX package (the job server's framed op and
-HTTP GET, tools/metrics_client.py) and its two-rank TAG_METRICS
-aggregation wait for the service and comm layers.
+HTTP GET, tools/metrics_client.py) wait for the service layer; the
+two-rank TAG_METRICS aggregation runs through ``cluster_exposition``
+(the job-duration histogram of the JAX package's case needs the job
+service and is left out).
 
 Parity (the same DAG on seeded inputs, each package's C path): the same
 metric names — less ``parsec_sched_native_fallbacks_total`` and
@@ -446,3 +448,28 @@ def test_slice_is_bit_identical_with_the_plane_armed_and_off(app):
     assert torch.equal(armed, off)
     assert bool(torch.isfinite(armed).all())
     assert dev_tasks and dev_tasks[0] > 0
+
+
+# ---------------------------------------------------------------------------
+# cross-rank: the TAG_METRICS aggregation
+# ---------------------------------------------------------------------------
+
+def test_two_rank_scrape_aggregates_over_tag_metrics():
+    """One scrape on rank 0 sees the mesh: comm counters summed across
+    both ranks via TAG_METRICS, gauges labeled per rank, and the clock
+    probes' frame-RTT histogram — in both packages."""
+    import torch_comm_workers as W
+    j, p = W.run_both(W.scrape, 2, timeout=180)
+    for res in (p, j):
+        assert res[0]["ranks"] == [0, 1]
+        text = res[0]["text"]
+        m = re.search(r"parsec_comm_frames_sent_total (\d+)", text)
+        assert m is not None
+        total = int(m.group(1))
+        assert total >= res[0]["frames"] + 1, (total, res)
+        assert total >= res[1]["frames"] + 1, (total, res)
+        assert re.search(r'parsec_pending_tasks\{rank="1"\}', text)
+        m = re.search(r"parsec_comm_frame_rtt_seconds_count (\d+)", text)
+        assert m is not None and int(m.group(1)) >= 1, text[:2000]
+    names = lambda t: set(re.findall(r"^# TYPE (\S+)", t, re.M))  # noqa
+    assert names(p[0]["text"]) - names(j[0]["text"]) == set()

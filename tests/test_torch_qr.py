@@ -434,8 +434,19 @@ def test_qr_taskpool_refuses_tf32():
 
 
 def test_qr_taskpool_refuses_multi_rank_and_ragged_grids():
-    with pytest.raises(NotImplementedError):
-        qr.qr_taskpool(TwoDimBlockCyclic(8, 8, 16, 16, nodes=2, P=2))
+    """A ragged grid is refused.  A multi-rank grid was refused until the
+    port carried the comm layer; now it builds with the routed store
+    classes (RSTORE/CSTORE, as the JAX package's), which one rank
+    leaves out."""
+    NT = 3
+    routed = qr.qr_taskpool(TwoDimBlockCyclic(8, 8, 8 * NT, 8 * NT,
+                                              nodes=2, P=2))
+    ref = jax_qr.qr_taskpool(JaxMatrix(8, 8, 8 * NT, 8 * NT, nodes=2, P=2),
+                           device="cpu")
+    assert set(routed.task_classes) == set(ref.task_classes) == \
+        {"GEQRT", "UNMQR", "TSQRT", "TSMQR", "RSTORE", "CSTORE"}
+    assert "RSTORE" not in qr.qr_taskpool(
+        TwoDimBlockCyclic(8, 8, 8 * NT, 8 * NT)).task_classes
     with pytest.raises(ValueError):
         qr.qr_taskpool(TwoDimBlockCyclic(8, 8, 16, 24))
 
