@@ -41,7 +41,18 @@ no result line):
               passes (median, best and band of GFLOP/s), task, launch
               and Cholesky-flag checks on every pass, then the backward
               error and the iterative-refinement ladder once.
-8. host     — the runtime alone on the host's CPU (named with its core
+8. front-ends — the GEMM through DTD ``insert_task`` at the bench
+              geometry (36 inserts a pass; one warm, three timed; C
+              within 1e-3 of the plain product), then at mb=2048 (512
+              inserts a pass) in turns with the PTG front-end on the same
+              seeded operands, then as a JDF text (``JDF_GEMM``, bodies
+              K1 and its plain version) in turns with the PTG front-end:
+              per front the best pass, host CPU and submit us per task,
+              the submitting thread's CPU us per task (DTD: discovery),
+              estimated idle share, mean wave width, DTD window stalls,
+              and C bit for bit against the PTG's; the DTD run's C tiles
+              are kept for the 2-rank check;
+9. host     — the runtime alone on the host's CPU (named with its core
               count): the twins of the JAX package's ``tasks`` probe
               (20000 empty tasks, 4 streams) and ``ntasks`` probe (500
               RW chains x 24, results checked), each at ``sched_native``
@@ -52,7 +63,14 @@ no result line):
               telemetry plane (``metrics_enabled`` + ``liveattr_enable``),
               the journal (``journal_enabled``) and the tracer (task
               profiler + causal tracer), each printed as its minimum pair
-              ratio and us per task beside the JAX package's CPU gate.
+              ratio and us per task beside the JAX package's CPU gate;
+10. 2-rank  — two ranks spawned on the one card (P=2 row grids): potrf,
+              the PTG GEMM, the GEMM through DTD (every rank inserts every
+              task, AFFINITY on C; the other rank's B tiles arrive as
+              version-0 payloads over TAG_DTD; C after the flush home bit
+              for bit against the single-rank DTD run, no DTD pull or
+              backlogged frame left) and routed QR, then potrf over shm
+              in turns with evloop.
 
 Telemetry.  Every path runs with the planes the reference installs at its
 defaults: the metrics registry with live attribution and health, the
@@ -73,8 +91,11 @@ traced pass counts in the kernels line.
 Every path runs on the native scheduler (``parsec_tpu_torch/native``:
 the C ready queue, dep countdown and ``run_quantum``) unless the MCA
 environment sets ``sched_native`` 0; at the default each path asserts it
-and prints the ready queue's pushes, pops and maximum depth and the C
-chain's bailouts by reason.  The small-tiles path runs once more on the
+and prints the ready queue's pushes, pops and maximum depth, the C
+chain's bailouts by reason and the probe pops beside them (tasks a
+worker took past ``run_quantum``); on a path whose every task ran on the
+card, bailouts plus probe pops equal the tasks.  The small-tiles path
+runs once more on the
 Python ladder (``sched_native`` 0), right after its native run, and both
 best passes and estimated idle shares are printed.
 
@@ -123,7 +144,8 @@ from parsec_tpu_torch.apps import cuda_kernels, potrf, qr
 from parsec_tpu_torch.apps.cuda_kernels import gemm_tile, \
     gemm_tile_grouped, gemm_tile_grouped_reference, gemm_tile_reference, \
     gram_tile, gram_tile_reference
-from parsec_tpu_torch.apps.gemm import gemm_taskpool, total_flops
+from parsec_tpu_torch.apps.gemm import _tile_kernel, gemm_dtd_insert, \
+    gemm_taskpool, total_flops
 from parsec_tpu_torch.apps.potrf_check import backward_error, refine_solve
 from parsec_tpu_torch.apps.qr_check import ls_refine, newest_payload
 # the comm package registers the comm knobs printed below
@@ -133,7 +155,9 @@ from parsec_tpu_torch.core.context import Context
 from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
 # registers the device module's knobs, read before any Context exists
 from parsec_tpu_torch.devices import cuda as _cuda  # noqa: F401
+from parsec_tpu_torch.dsl.dtd import DTDTaskpool
 from parsec_tpu_torch.dsl.ptg import DATA, IN, OUT, PTG, Range, TASK
+from parsec_tpu_torch.dsl.ptg.jdf import jdf_taskpool
 from parsec_tpu_torch.native import load_schedext
 from parsec_tpu_torch.prof import critpath
 from parsec_tpu_torch.prof.causal import install_causal_tracer
@@ -796,28 +820,145 @@ def traced_pass(ctx: Context, run_pass, label: str, ntasks: int,
             "inflight_share": inflight, "sampled": sampled}
 
 
+#: the tiled GEMM of apps/gemm.py written as a JDF text: one task class,
+#: C(m, n) chained over k, K1 as its device body (bound at build time)
+JDF_GEMM = r"""
+extern "C" %{
+/* C += A B, tile by tile: the k chain of C(m, n) */
+%}
+
+descA  [ type = "parsec_tiled_matrix_t*" ]
+descB  [ type = "parsec_tiled_matrix_t*" ]
+descC  [ type = "parsec_tiled_matrix_t*" ]
+
+GEMM(m, n, k)
+
+m = 0 .. descC->mt - 1
+n = 0 .. descC->nt - 1
+k = 0 .. descA->nt - 1
+
+: descC( m, n )
+
+READ Ai <- descA( m, k )
+READ Bi <- descB( k, n )
+RW   Ci <- (k == 0) ? descC( m, n ) : Ci GEMM( m, n, k-1 )
+        -> (k < descA->nt - 1) ? Ci GEMM( m, n, k+1 ) : descC( m, n )
+
+BODY [ type = CUDA ]
+{
+    gemm_tile(Ai, Bi, Ci, 1.0);
+}
+END
+"""
+
+#: the front-ends a GEMM pass can be submitted through
+FRONTS = ("ptg", "dtd", "jdf")
+
+
+def gemm_pass(ctx: Context, front: str, A, B, C) -> dict:
+    """One C += A @ B pass through ``front``: the PTG API, DTD
+    ``insert_task`` (a pool of its own, waited) or the JDF text; returns
+    its wall time, the host time until the front-end handed the pass over
+    (PTG and JDF: built and added; DTD: every task inserted), the calling
+    thread's CPU time over that hand-over (DTD: discovery at insert time,
+    without the waits for the GIL the wall time holds) and the
+    process's CPU time over the pass (every thread's, spinning workers
+    included)."""
+    t0, cpu0 = time.perf_counter(), time.process_time()
+    tcpu0 = time.thread_time()
+    stalls = 0
+    if front == "ptg":
+        ctx.add_taskpool(gemm_taskpool(A, B, C))
+    elif front == "dtd":
+        tp = DTDTaskpool("gemm")
+        ctx.add_taskpool(tp)
+        gemm_dtd_insert(tp, A, B, C)
+    elif front == "jdf":
+        ctx.add_taskpool(jdf_taskpool(
+            JDF_GEMM, name="gemm_jdf",
+            data={"descA": A, "descB": B, "descC": C},
+            bodies={"GEMM": (_tile_kernel(1.0),
+                             lambda Ai, Bi, Ci:
+                             gemm_tile_reference(Ai, Bi, Ci, 1.0))}))
+    else:
+        raise ValueError(f"front {front!r} not in {FRONTS}")
+    submit = time.perf_counter() - t0
+    submit_cpu = time.thread_time() - tcpu0
+    if front == "dtd":
+        tp.wait()
+        stalls = tp.window_stalls
+        # one class for every insert (the body is one closure), so the
+        # device module can fuse the pool's waves
+        if len(tp.task_classes) != 1:
+            raise AssertionError(f"DTD GEMM pass made "
+                                 f"{len(tp.task_classes)} task classes")
+    ctx.wait()
+    return {"s": time.perf_counter() - t0, "submit_s": submit,
+            "submit_cpu_s": submit_cpu,
+            "cpu_s": time.process_time() - cpu0, "stalls": stalls}
+
+
+def clock_step_us(clock=time.thread_time, spin_s: float = 0.05) -> float:
+    """The least step seen in ``clock`` while this thread spins for
+    ``spin_s`` of wall time, in us: the resolution the CPU-time readings
+    really have (a kernel that counts CPU time in scheduler ticks steps
+    by milliseconds whatever ``time.get_clock_info`` says)."""
+    step, last = float("inf"), clock()
+    end = time.perf_counter() + spin_s
+    while time.perf_counter() < end:
+        now = clock()
+        if now != last:
+            step, last = min(step, now - last), now
+    return step * 1e6
+
+
+def seeded_tile(name: str, m: int, n: int, mb: int, t: int,
+                dtype: torch.dtype, tdev: torch.device) -> torch.Tensor:
+    """Tile (m, n) of operand ``name`` from a generator seeded by its
+    index: any rank, and any run, rebuilds it bit for bit."""
+    g = torch.Generator(device=tdev).manual_seed(
+        SEED + 7 + 1000 * ord(name) + m * t + n)
+    return torch.randn((mb, mb), generator=g, device=tdev).to(dtype)
+
+
 def drive_gemm(ctx: Context, mb: int, mt: int, nt: int, kt: int,
                passes: int, gen: torch.Generator, label: str,
-               traced: bool = False) -> dict:
+               traced: bool = False, fronts=("ptg",),
+               seeded: bool = False, keep: dict = None) -> dict:
     """The tiled GEMM through the runtime: tiles born on the device, one
-    warm pass then ``passes`` timed passes of insert + wait; checks C,
-    kernel launches, executed tasks and incarnations.  Returns numbers."""
+    warm pass then ``passes`` timed passes of insert + wait through each
+    of ``fronts`` in turns (each on a C of its own, from the same C0, A
+    and B); checks C, kernel launches, executed tasks and incarnations
+    per pass, and with several fronts every C bit for bit against the
+    first front's.  ``seeded`` draws the tiles from ``seeded_tile``
+    instead of ``gen``; ``keep`` receives the last front's final C tiles
+    (on the card).  Returns numbers: the first front's at the top level,
+    each front's under ``fronts``."""
     dev = ctx.device_registry.accelerators[0]
     on_card = dev.is_cuda
     A = TwoDimBlockCyclic(mb, mb, mt * mb, kt * mb, dtype=torch.bfloat16,
                           name="A")
     B = TwoDimBlockCyclic(mb, mb, kt * mb, nt * mb, dtype=torch.bfloat16,
                           name="B")
-    C = TwoDimBlockCyclic(mb, mb, mt * mb, nt * mb, dtype=torch.float32,
-                          name="C")
+    Cs = {f: TwoDimBlockCyclic(mb, mb, mt * mb, nt * mb,
+                               dtype=torch.float32, name=f"C_{f}")
+          for f in fronts}
     t0 = time.perf_counter()
-    for M in (A, B, C):
+    c0 = {}
+    for M in (A, B, Cs[fronts[0]]):
         for (m, n) in M.local_tiles():
-            tile = torch.randn(M.tile_shape(m, n), generator=gen,
-                               device=dev.tdev).to(M.dtype)
-            M.place_on_device(m, n, dev, tile)
-    c0 = {mn: C.data_of(*mn).copy_on(dev.space).payload.clone()
-          for mn in C.local_tiles()}
+            if seeded:
+                tile = seeded_tile(M.name[0], m, n, mb, max(mt, nt, kt),
+                                   M.dtype, dev.tdev)
+            else:
+                tile = torch.randn(M.tile_shape(m, n), generator=gen,
+                                   device=dev.tdev).to(M.dtype)
+            if M.name.startswith("C"):
+                c0[(m, n)] = tile
+                for C in Cs.values():
+                    C.place_on_device(m, n, dev, tile.clone())
+            else:
+                M.place_on_device(m, n, dev, tile)
     if on_card:
         torch.cuda.synchronize()
     log(f"[{label}] tiles born on {dev.name}: "
@@ -829,39 +970,48 @@ def drive_gemm(ctx: Context, mb: int, mt: int, nt: int, kt: int,
     reset_counts()
     inc.take()
     dev0 = device_counts(dev)
+    per = {f: {"passes": [], "device": dict.fromkeys(DEVICE_STATS, 0)}
+           for f in fronts}
     if on_card:
         torch.cuda.reset_peak_memory_stats()
         read_clock(label, "before the passes")
-    times = []
     for p in range(passes + 1):
-        tiles0, wgmma0 = k1_tiles()
-        executed0 = dev.stats.executed_tasks
-        t0 = time.perf_counter()
-        ctx.add_taskpool(gemm_taskpool(A, B, C))
-        ctx.wait()
-        dt = time.perf_counter() - t0
-        launched = k1_tiles()[0] - tiles0
-        wgmma = k1_tiles()[1] - wgmma0
-        executed = dev.stats.executed_tasks - executed0
-        counts = inc.take()
-        device_runs = counts.get(("GEMM", "exec_async"), 0)
-        cpu_runs = counts.get(("GEMM", "exec_end"), 0)
-        if executed != ntasks or device_runs != ntasks or cpu_runs != 0:
-            raise AssertionError(
-                f"[{label}] pass {p}: executed_tasks {executed}, device "
-                f"incarnations {device_runs}, CPU incarnations {cpu_runs}; "
-                f"expected {ntasks}, {ntasks}, 0")
-        if on_card and (launched != ntasks or wgmma != ntasks):
-            raise AssertionError(f"[{label}] pass {p}: gemm_tile computed "
-                                 f"{launched} tiles, {wgmma} on the wgmma "
-                                 f"route, expected {ntasks} and {ntasks}")
-        kind = "warm" if p == 0 else "timed"
-        log(f"[{label}] pass {p} ({kind}): {dt * 1e3:.1f} ms, "
-            f"{flops / dt / 1e9:.1f} GFLOP/s, {launched} K1 tiles "
-            f"({wgmma} wgmma), {executed} device tasks, {cpu_runs} CPU "
-            f"incarnations")
-        if p:
-            times.append(dt)
+        for front in fronts:
+            tiles0, wgmma0 = k1_tiles()
+            executed0 = dev.stats.executed_tasks
+            d0 = device_counts(dev)
+            run = gemm_pass(ctx, front, A, B, Cs[front])
+            for k, v in device_counts(dev).items():
+                per[front]["device"][k] += v - d0[k]
+            launched = k1_tiles()[0] - tiles0
+            wgmma = k1_tiles()[1] - wgmma0
+            executed = dev.stats.executed_tasks - executed0
+            counts = inc.take()
+            device_runs = counts.get(("GEMM", "exec_async"), 0)
+            cpu_runs = sum(v for (_c, event), v in counts.items()
+                           if event == "exec_end")
+            if executed != ntasks or device_runs != ntasks or cpu_runs:
+                raise AssertionError(
+                    f"[{label}] {front} pass {p}: executed_tasks "
+                    f"{executed}, device incarnations {device_runs}, CPU "
+                    f"incarnations {cpu_runs}; expected {ntasks}, "
+                    f"{ntasks}, 0")
+            if on_card and (launched != ntasks or wgmma != ntasks):
+                raise AssertionError(
+                    f"[{label}] {front} pass {p}: gemm_tile computed "
+                    f"{launched} tiles, {wgmma} on the wgmma route, "
+                    f"expected {ntasks} and {ntasks}")
+            kind = "warm" if p == 0 else "timed"
+            dt = run["s"]
+            log(f"[{label}] {front} pass {p} ({kind}): {dt * 1e3:.1f} ms, "
+                f"{flops / dt / 1e9:.1f} GFLOP/s, {launched} K1 tiles "
+                f"({wgmma} wgmma), {executed} device tasks, {cpu_runs} CPU "
+                f"incarnations; submitted in {run['submit_s'] * 1e3:.1f} "
+                f"ms, host CPU {run['cpu_s'] * 1e6 / ntasks:.1f} us/task"
+                + (f", window stalls {run['stalls']}"
+                   if front == "dtd" else ""))
+            if p:
+                per[front]["passes"].append(run)
     if on_card:
         read_clock(label, "after the last timed pass")
     launches = read_counts()
@@ -872,32 +1022,62 @@ def drive_gemm(ctx: Context, mb: int, mt: int, nt: int, kt: int,
            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
            if on_card else ""))
     device = report_device(label, dev, dev0)
-    # C = C0 + (passes + 1) * A @ B, against the plain version tile by tile
+    # C = C0 + (passes + 1) * A @ B, against the plain version tile by
+    # tile (the first front); every other front's C bit for bit
+    first = Cs[fronts[0]]
     worst = 0.0
-    for (m, n) in C.local_tiles():
+    identical = {f: True for f in fronts[1:]}
+    for (m, n) in first.local_tiles():
         prod = torch.zeros_like(c0[(m, n)])
         for k in range(kt):
             a = A.data_of(m, k).copy_on(dev.space).payload
             b = B.data_of(k, n).copy_on(dev.space).payload
             prod = gemm_tile_reference(a, b, prod, 1.0)
         ref = c0[(m, n)] + (passes + 1) * prod
-        got = C.data_of(m, n).copy_on(dev.space).payload
+        got = newest_payload(first, m, n).to(dev.tdev)
         if not torch.isfinite(got).all():
             raise AssertionError(f"[{label}] C({m},{n}) is not finite")
         worst = max(worst, rel_err(got, ref))
-    log(f"[{label}] C vs tile-by-tile plain product: rel err {worst:.3e} "
-        f"(tol 1e-3)")
+        for f in identical:
+            other = newest_payload(Cs[f], m, n).to(dev.tdev)
+            identical[f] = identical[f] and torch.equal(other, got)
+        if keep is not None:
+            keep[(m, n)] = newest_payload(Cs[fronts[-1]], m, n).to(
+                dev.tdev).clone()
+    log(f"[{label}] {fronts[0]} C vs tile-by-tile plain product: rel err "
+        f"{worst:.3e} (tol 1e-3)"
+        + "".join(f"; {f} C bit-identical to the {fronts[0]} C: {ok}"
+                  for f, ok in identical.items()))
     if worst > 1e-3:
         raise AssertionError(f"[{label}] C disagrees: {worst}")
-    best = min(times)
+    if not all(identical.values()):
+        raise AssertionError(f"[{label}] C differs between front-ends: "
+                             f"{identical}")
+    out_fronts = {}
+    for f, r in per.items():
+        best = min(q["s"] for q in r["passes"])
+        d = r["device"]
+        out_fronts[f] = {
+            "best_s": best, "gflops": flops / best / 1e9,
+            "host_us_per_task": min(q["cpu_s"] for q in r["passes"])
+            * 1e6 / ntasks,
+            "submit_us_per_task": min(q["submit_s"] for q in r["passes"])
+            * 1e6 / ntasks,
+            # mean over the timed passes: the thread clock may step
+            # coarsely (clock_step_us), and a sum holds more of its steps
+            "submit_cpu_us_per_task": sum(q["submit_cpu_s"]
+                                          for q in r["passes"])
+            * 1e6 / (ntasks * len(r["passes"])),
+            "window_stalls": sum(q["stalls"] for q in r["passes"]),
+            "mean_wave_width": d["fused_tasks"] / d["fused_launches"]
+            if d["fused_launches"] else 1.0,
+            "donated_tasks": d["donated_tasks"]}
+    best = out_fronts[fronts[0]]["best_s"]
     trace = None
     if traced:
         def one_pass() -> float:
             executed0 = dev.stats.executed_tasks
-            t0 = time.perf_counter()
-            ctx.add_taskpool(gemm_taskpool(A, B, C))
-            ctx.wait()
-            dt = time.perf_counter() - t0
+            dt = gemm_pass(ctx, fronts[0], A, B, first)["s"]
             if dev.stats.executed_tasks - executed0 != ntasks:
                 raise AssertionError(f"[{label}] traced pass: executed "
                                      f"{dev.stats.executed_tasks - executed0}"
@@ -906,7 +1086,7 @@ def drive_gemm(ctx: Context, mb: int, mt: int, nt: int, kt: int,
         trace = traced_pass(ctx, one_pass, label, ntasks, best)
     return {"launches": launches, "best_s": best,
             "gflops": flops / best / 1e9, "ntasks": ntasks,
-            "device": device, "trace": trace}
+            "device": device, "trace": trace, "fronts": out_fronts}
 
 
 def path_summary(res: dict, pass_s: float) -> dict:
@@ -921,19 +1101,27 @@ def path_summary(res: dict, pass_s: float) -> dict:
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
+def tile_kernel_ms(gen: torch.Generator, mb: int) -> float:
+    """K1's device time on one mb^3 tile (CUDA events, single launches)."""
+    A = torch.randn((mb, mb), generator=gen, device="cuda").bfloat16()
+    B = torch.randn((mb, mb), generator=gen, device="cuda").bfloat16()
+    C = torch.randn((mb, mb), generator=gen, device="cuda")
+    return time_ms(lambda: gemm_tile(A, B, C, 1.0), reps=20)
+
+
+def idle_share(ntasks: int, k_ms: float, pass_s: float) -> float:
+    """The card's idle share over a pass, estimated: the kernel time of
+    one tile times the tiles of the pass, against the pass's wall time."""
+    return max(0.0, 1.0 - ntasks * k_ms * 1e-3 / pass_s)
+
+
 def phase_small_tiles(ctx: Context, gen: torch.Generator,
                       traced: bool = False) -> dict:
     mb, t = 2048, 8
     res = drive_gemm(ctx, mb, t, t, t, passes=3, gen=gen, label="mb=2048",
                      traced=traced)
-    # idle share, estimated: kernel time of one tile (CUDA events, a single
-    # launch) times the tiles of a pass, against the pass's wall time
-    A = torch.randn((mb, mb), generator=gen, device="cuda").bfloat16()
-    B = torch.randn((mb, mb), generator=gen, device="cuda").bfloat16()
-    C = torch.randn((mb, mb), generator=gen, device="cuda")
-    k_ms = time_ms(lambda: gemm_tile(A, B, C, 1.0), reps=20)
-    busy = res["ntasks"] * k_ms * 1e-3 / res["best_s"]
-    idle = max(0.0, 1.0 - busy)
+    k_ms = tile_kernel_ms(gen, mb)
+    idle = idle_share(res["ntasks"], k_ms, res["best_s"])
     log(f"[mb=2048] sched_native {params.get('sched_native')}: best pass "
         f"{res['best_s'] * 1e3:.1f} ms, {res['gflops']:.1f} GFLOP/s; kernel "
         f"{k_ms * 1e3:.1f} us/tile; estimated device idle share {idle:.3f}")
@@ -1512,6 +1700,59 @@ def phase_gemm(ctx: Context, gen: torch.Generator) -> dict:
     return path_summary(res, res["best_s"])
 
 
+def phase_dtd_gemm(ctx: Context, gen: torch.Generator) -> dict:
+    """The bench geometry through DTD ``insert_task`` (36 inserts a
+    pass, K1 the device body)."""
+    label = "DTD GEMM mb=12288"
+    res = drive_gemm(ctx, 12288, 3, 3, 4, passes=3, gen=gen, label=label,
+                     fronts=("dtd",))
+    r = res["fronts"]["dtd"]
+    log(f"[{label}] best pass {r['best_s'] * 1e3:.1f} ms, "
+        f"{r['gflops']:.1f} GFLOP/s; host CPU {r['host_us_per_task']:.1f} "
+        f"us/task, inserted in {r['submit_us_per_task']:.1f} us/task "
+        f"({r['submit_cpu_us_per_task']:.1f} us/task of the inserting "
+        f"thread's CPU, mean of the timed passes; thread clock step "
+        f"{clock_step_us():.1f} us); window stalls {r['window_stalls']}")
+    summary = path_summary(res, r["best_s"])
+    summary["fronts"] = res["fronts"]
+    return summary
+
+
+def phase_front_small(ctx: Context, gen: torch.Generator, front: str,
+                      label: str, keep: dict = None) -> dict:
+    """The mb=2048 GEMM (512 tasks a pass, seeded operands) through
+    ``front`` in turns with the PTG API on the same operands: both
+    best passes, host us per task and estimated idle shares, the mean
+    wave widths, and C bit for bit against the PTG's."""
+    mb, t = 2048, 8
+    res = drive_gemm(ctx, mb, t, t, t, passes=3, gen=gen, label=label,
+                     fronts=("ptg", front), seeded=True, keep=keep)
+    k_ms = tile_kernel_ms(gen, mb)
+    for f, r in res["fronts"].items():
+        r["idle_share"] = idle_share(res["ntasks"], k_ms, r["best_s"])
+    p, d = res["fronts"]["ptg"], res["fronts"][front]
+    log(f"[{label}] {front} against ptg (in turns): best pass "
+        f"{d['best_s'] * 1e3:.1f} ms against {p['best_s'] * 1e3:.1f} ms; "
+        f"host CPU {d['host_us_per_task']:.1f} against "
+        f"{p['host_us_per_task']:.1f} us/task (submitted in "
+        f"{d['submit_us_per_task']:.1f} against "
+        f"{p['submit_us_per_task']:.1f} us/task; the submitting thread's "
+        f"CPU {d['submit_cpu_us_per_task']:.2f} against "
+        f"{p['submit_cpu_us_per_task']:.2f} us/task, mean of the timed "
+        f"passes, thread clock step {clock_step_us():.1f} us); estimated "
+        f"idle share "
+        f"{d['idle_share']:.3f} against {p['idle_share']:.3f} (kernel "
+        f"{k_ms * 1e3:.1f} us/tile); mean wave width "
+        f"{d['mean_wave_width']:.2f} against {p['mean_wave_width']:.2f}; "
+        f"donated tasks {d['donated_tasks']} against {p['donated_tasks']}"
+        + (f"; window stalls {d['window_stalls']}" if front == "dtd"
+           else ""))
+    summary = path_summary(res, d["best_s"])
+    summary["fronts"] = res["fronts"]
+    summary["idle_share"] = d["idle_share"]
+    return summary
+
+
 def bailouts() -> dict:
     """The C chain's cumulative bailouts by reason (tasks it handed back
     to Python)."""
@@ -1523,20 +1764,29 @@ def bailout_delta(before: dict) -> dict:
             if v != before.get(k, 0)}
 
 
+def probe_pops(ctx: Context) -> int:
+    """Tasks the context's native workers popped past ``run_quantum`` (the
+    doorbell's probe, the comm spin poll): no bailout counts them."""
+    return sum(es.probe_pops for es in ctx.streams)
+
+
 def report_scheduler(label: str, ctx: Context, bail0: dict) -> dict:
-    """The scheduler a path ran on, its native ready-queue counters and
-    the C chain's bailouts by reason over the path.  With ``sched_native``
-    on (the default) the path must have run on the native scheduler."""
+    """The scheduler a path ran on, its native ready-queue counters, the
+    C chain's bailouts by reason over the path and the probe pops beside
+    them.  With ``sched_native`` on (the default) the path must have run
+    on the native scheduler."""
     name = ctx.scheduler.name
     queue = ctx.scheduler.stats() if name == "native" else None
     bail = bailout_delta(bail0)
+    probed = probe_pops(ctx)
     log(f"[{label}] scheduler {name} (sched_native "
         f"{params.get('sched_native')}): ready queue {queue}; C chain "
-        f"bailouts by reason {bail}")
+        f"bailouts by reason {bail}; probe pops {probed}")
     if int(params.get("sched_native")) and name != "native":
         raise AssertionError(f"[{label}] ran on {name}, not the native "
                              f"scheduler")
-    return {"name": name, "queue": queue, "bailouts": bail}
+    return {"name": name, "queue": queue, "bailouts": bail,
+            "probe_pops": probed}
 
 
 def report_telemetry(label: str, ctx: Context, bail0: dict,
@@ -1554,6 +1804,9 @@ def report_telemetry(label: str, ctx: Context, bail0: dict,
       E streams (the workers plus the device module's completer stream);
     - the latency histogram's count is S less the completions sampled in
       a traced pass, whose ready stamps the causal tracer consumed;
+    - on a path whose every task ran on the card, each task reached
+      Python either as a C chain bailout or as a probe pop: bailouts plus
+      probe pops equal the tasks, exactly;
     - the health score lies in [0, 1] and the ready stamp is on.
     Prints the straggler count and the journal's event count."""
     m = ctx.metrics
@@ -1604,7 +1857,8 @@ def report_telemetry(label: str, ctx: Context, bail0: dict,
     health = value("parsec_rank_health")
     events = len(ctx.journal)
     log(f"[telemetry {label}] native pushes {pushes}, pops {pops}, "
-        f"bailouts {bail} (the scheduler line's); {n} tasks completed "
+        f"bailouts {bail} (the scheduler line's) and {probe_pops(ctx)} "
+        f"probe pops; {n} tasks completed "
         f"({executed} on the card) over {len(streams)} streams; liveattr "
         f"sampled {sampled} completions (sum of ceil(n_s/{stride}) over "
         f"the streams: {want}; bound [{lo:.2f}, {hi:.2f}]), per-class "
@@ -1618,6 +1872,10 @@ def report_telemetry(label: str, ctx: Context, bail0: dict,
     if executed and executed != n:
         raise AssertionError(f"[telemetry {label}] {executed} card tasks "
                              f"but {n} completions")
+    probed = probe_pops(ctx)
+    if native and executed and sum(bail.values()) + probed != n:
+        raise AssertionError(f"[telemetry {label}] bailouts {bail} plus "
+                             f"{probed} probe pops, but {n} card tasks")
     if hist != sampled - traced_sampled:
         raise AssertionError(f"[telemetry {label}] latency histogram "
                              f"count {hist}, expected "
@@ -1625,8 +1883,8 @@ def report_telemetry(label: str, ctx: Context, bail0: dict,
     if health is None or not 0.0 <= health <= 1.0 or strag < 0:
         raise AssertionError(f"[telemetry {label}] health {health}, "
                              f"stragglers {strag}")
-    return {"pushes": pushes, "pops": pops, "bailouts": bail, "tasks": n,
-            "sampled": sampled, "latency_count": hist, "done": done,
+    return {"pushes": pushes, "pops": pops, "bailouts": bail,
+            "probe_pops": probed, "tasks": n, "sampled": sampled, "latency_count": hist, "done": done,
             "stragglers": strag, "health": health, "journal_events": events}
 
 
@@ -1879,16 +2137,21 @@ COMM_KEYS = ("act_eager", "act_rdv", "eager_bytes", "rdv_bytes",
              "bytes_sent", "bytes_recv", "frames_sent", "frames_recv")
 
 
-def _rank_passes(ctx, passes: int, build, regen=None, check=None) -> dict:
+def _rank_passes(ctx, passes: int, build, regen=None, check=None,
+                 insert=None) -> dict:
     """One rank's passes of one path: ``regen()`` (outside the timed
     window), a barrier so both ranks start together, then insert + wait
-    (which includes the gang's quiescence) + synchronize, timed.  Per
+    (which includes the gang's quiescence) + synchronize, timed; a DTD
+    pool (``insert`` given) is filled by ``insert(tp)`` once added and
+    waited (its flush home included) before the context.  Per
     pass: the wall time, task counts by class (device and CPU
     incarnations), K1 tiles and their wgmma share, K2 launches and
     ``check(tp)`` (after the timed window).  The kernel counts go to 0
     before the first pass; the comm counters, staged-in bytes and device
     counters are read over all the passes."""
     dev = ctx.device_registry.accelerators[0]
+    # the CPU rehearsal (tests/test_torch_chip_smoke.py) has no stream
+    sync = torch.cuda.synchronize if dev.is_cuda else (lambda: None)
     ce = ctx.comm.ce
     inc = _Incarnations(ctx)
     reset_counts()
@@ -1900,15 +2163,18 @@ def _rank_passes(ctx, passes: int, build, regen=None, check=None) -> dict:
     for p in range(passes + 1):
         if regen is not None:
             regen()
-        torch.cuda.synchronize()
+        sync()
         ce.barrier(timeout=600)
         launches0 = read_counts()
         tiles0, wgmma0 = k1_tiles()
         t0 = time.perf_counter()
         tp = build()
         ctx.add_taskpool(tp)
+        if insert is not None:
+            insert(tp)
+            tp.wait()
         ctx.wait()
-        torch.cuda.synchronize()
+        sync()
         dt = time.perf_counter() - t0
         counts = inc.take()
         classes = collections.Counter()
@@ -2008,10 +2274,7 @@ def _gemm_rank(ctx, rank: int, nranks: int, mb: int, t: int,
                            ("C", torch.float32))}
 
     def tile(name, m, n):
-        g = torch.Generator(device=dev.tdev).manual_seed(
-            SEED + 7 + 1000 * ord(name) + m * t + n)
-        return torch.randn((mb, mb), generator=g,
-                           device=dev.tdev).to(mats[name].dtype)
+        return seeded_tile(name, m, n, mb, t, mats[name].dtype, dev.tdev)
 
     for nm, M in mats.items():
         for (m, n) in M.local_tiles():
@@ -2030,6 +2293,43 @@ def _gemm_rank(ctx, rank: int, nranks: int, mb: int, t: int,
             raise AssertionError(f"rank {rank}: C({m},{n}) is not finite")
         worst = max(worst, rel_err(got, ref))
     out["tiles"] = {"count": len(C.local_tiles()), "worst_rel": worst}
+    return out
+
+
+def _dtd_gemm_rank(ctx, rank: int, nranks: int, mb: int, t: int,
+                   passes: int, refs: dict) -> dict:
+    """The GEMM through DTD over a P=2 row grid: every rank inserts every
+    task, each runs where C(m, n) lives (AFFINITY), A stays local and the
+    other rank's B tiles arrive as version-0 payloads over TAG_DTD (by
+    rendezvous: a tile is far over the eager limit).  Afterwards (the
+    flush home included) every local C tile must equal the single-rank
+    DTD run's (``refs``, the same seeded operands and passes) bit for
+    bit, and no DTD pull or backlogged frame may remain."""
+    dev = ctx.device_registry.accelerators[0]
+    mats = {nm: TwoDimBlockCyclic(mb, mb, t * mb, t * mb, nodes=nranks,
+                                  myrank=rank, P=nranks, dtype=dt, name=nm)
+            for nm, dt in (("A", torch.bfloat16), ("B", torch.bfloat16),
+                           ("C", torch.float32))}
+    for nm, M in mats.items():
+        for (m, n) in M.local_tiles():
+            M.place_on_device(m, n, dev, seeded_tile(nm, m, n, mb, t,
+                                                     M.dtype, dev.tdev))
+    stalls = []
+
+    def insert(tp):
+        gemm_dtd_insert(tp, *mats.values())
+        stalls.append(tp.window_stalls)
+
+    out = _rank_passes(ctx, passes, lambda: DTDTaskpool("gemm"),
+                       insert=insert)
+    C = mats["C"]
+    identical = all(torch.equal(newest_payload(C, m, n).to(dev.tdev),
+                                refs[(m, n)]) for (m, n) in C.local_tiles())
+    out["tiles"] = {"count": len(C.local_tiles()),
+                    "bit_identical": bool(identical)}
+    out["dtd_lanes"] = {"refs_pending": ctx.comm.dtd_refs_pending,
+                        "backlog": ctx.comm.debug_state()["dtd_backlog"]}
+    out["window_stalls"] = sum(stalls)
     return out
 
 
@@ -2082,6 +2382,9 @@ def dist_rank(ctx, rank: int, nranks: int, plan: dict, refs: dict) -> dict:
                                     **kw)
         elif name == "gemm":
             out[name] = _gemm_rank(ctx, rank, nranks, **kw)
+        elif name == "dtd_gemm":
+            out[name] = _dtd_gemm_rank(ctx, rank, nranks,
+                                       refs=refs["dtd_gemm"], **kw)
         else:
             out[name] = _qr_rank(ctx, rank, nranks, refs=refs["qr"], **kw)
         out[name]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -2192,9 +2495,11 @@ def phase_distributed(refs: dict, potrf_size=(6144, 16), gemm_size=(2048, 8),
         f"{params.get('comm_frame_native')}; the parent holds the "
         f"single-rank runs' reference tiles on the card "
         f"({len(refs['potrf'])} potrf L tiles, {len(refs['qr'])} QR R "
-        f"tiles), shared with the ranks by CUDA IPC")
+        f"tiles, {len(refs['dtd_gemm'])} DTD GEMM C tiles), shared with "
+        f"the ranks by CUDA IPC")
     plan = {"potrf": {"mb": potrf_mb, "nt": potrf_nt, "passes": 3},
             "gemm": {"mb": gemm_mb, "t": gemm_t, "passes": 3},
+            "dtd_gemm": {"mb": gemm_mb, "t": gemm_t, "passes": 3},
             "qr": {"mb": qr_mb, "nt": qr_nt, "passes": 2}}
     trace_dir = tempfile.mkdtemp(prefix="parsec_2rank_trace_")
     try:
@@ -2260,6 +2565,34 @@ def phase_distributed(refs: dict, potrf_size=(6144, 16), gemm_size=(2048, 8),
     out["gemm"] = {"pass_ms": best * 1e3, "gflops": flops / best / 1e9,
                    "worst_rel": worst,
                    "launches": _rank_launches(res, "gemm")}
+
+    # the same GEMM through DTD: the other rank's B tiles cross as
+    # version-0 payloads, pulled once per pass by a _dtd_recv task each
+    label_d = f"2-rank DTD GEMM mb={gemm_mb}"
+    pulled = DIST_RANKS * gemm_t * gemm_t // 2
+    want = {"GEMM": ntasks, "_dtd_recv": pulled}
+    passes = report_dist(label_d, res, "dtd_gemm", flops, want, ntasks, 0,
+                         cpu_classes=("_dtd_recv",))
+    best = min(q["s"] for q in passes[1:])
+    tiles = [r["dtd_gemm"]["tiles"] for r in res]
+    lanes = [r["dtd_gemm"]["dtd_lanes"] for r in res]
+    sent = sum(r["dtd_gemm"]["comm"]["bytes_sent"] for r in res)
+    log(f"[{label_d}] best of {len(passes) - 1} timed passes (slowest "
+        f"rank) {best * 1e3:.1f} ms, {flops / best / 1e9:.1f} GFLOP/s; "
+        f"{pulled} B tiles pulled a pass over the ranks, "
+        f"{sent / (len(passes) * 2**30):.3f} GiB sent a pass; C against "
+        f"the single-rank DTD run: bit-identical "
+        f"{all(t['bit_identical'] for t in tiles)} "
+        f"({sum(t['count'] for t in tiles)} tiles); DTD lanes at the end "
+        f"{lanes}; window stalls "
+        f"{[r['dtd_gemm']['window_stalls'] for r in res]}")
+    if not all(t["bit_identical"] for t in tiles) or \
+            any(ln["refs_pending"] or ln["backlog"] for ln in lanes):
+        raise AssertionError(f"[{label_d}] C differs from the single-rank "
+                             f"run's ({tiles}) or DTD lanes left {lanes}")
+    out["dtd_gemm"] = {"pass_ms": best * 1e3, "gflops": flops / best / 1e9,
+                       "bytes_per_pass": sent / len(passes),
+                       "launches": _rank_launches(res, "dtd_gemm")}
 
     # QR
     want = qr_task_counts(qr_nt)
@@ -2363,7 +2696,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     # the single-rank potrf and QR runs' final tiles, held on the card
     # for the 2-rank paths' checks
-    refs = {"potrf": {}, "qr": {}}
+    refs = {"potrf": {}, "qr": {}, "dtd_gemm": {}}
     per_path = {
         "GEMM mb=12288": in_context(lambda ctx: phase_gemm(ctx, gen),
                                     "GEMM path mb=12288"),
@@ -2375,6 +2708,17 @@ def main() -> int:
         "GEMM mb=2048 ladder": in_context(
             lambda ctx: phase_small_tiles(ctx, gen), "mb=2048 ladder",
             sched_native=0),
+        "DTD GEMM mb=12288": in_context(lambda ctx: phase_dtd_gemm(ctx, gen),
+                                        "DTD GEMM mb=12288"),
+        "DTD GEMM mb=2048": in_context(
+            lambda ctx: phase_front_small(ctx, gen, "dtd",
+                                          "DTD GEMM mb=2048",
+                                          keep=refs["dtd_gemm"]),
+            "DTD GEMM mb=2048"),
+        "JDF GEMM mb=2048": in_context(
+            lambda ctx: phase_front_small(ctx, gen, "jdf",
+                                          "JDF GEMM mb=2048"),
+            "JDF GEMM mb=2048"),
         "QR mb=6144": in_context(lambda ctx: phase_qr(ctx, refs["qr"]),
                                  "QR path mb=6144"),
         "potrf mb=6144": in_context(
@@ -2386,6 +2730,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     per_path.update({"2-rank potrf mb=6144": dist["potrf"],
                      "2-rank GEMM mb=2048": dist["gemm"],
+                     "2-rank DTD GEMM mb=2048": dist["dtd_gemm"],
                      "2-rank QR mb=6144": dist["qr"]})
     nat, lad = per_path["GEMM mb=2048"], per_path["GEMM mb=2048 ladder"]
     log(f"[mb=2048] {nat['scheduler']['name']} against "

@@ -148,3 +148,33 @@ def _scale_kernel(beta: float):
 def total_flops(m: int, n: int, k: int) -> float:
     """Useful FLOPs of C[m,n] = A[m,k]@B[k,n] (2*M*N*K)."""
     return 2.0 * m * n * k
+
+
+def gemm_dtd_insert(tp, A: TiledMatrix, B: TiledMatrix,
+                    C: TiledMatrix) -> int:
+    """Insert C += A@B into the DTD pool ``tp``, one ``insert_task``
+    per (m, n, k) with k innermost (the reference's DTD GEMM harness,
+    tests/dsl/dtd/dtd_test_simple_gemm.c), and return the number of
+    inserts.  Last-writer inference chains each C tile over k exactly as
+    the PTG's GEMM flows do, and the body is the same function: ``gemm_tile``
+    (K1) as the device body, whose ``.grouped`` form fuses a wave and whose
+    ``donate`` writes C in place; the CPU body is that function on CPU
+    tensors, where the kernel wrapper takes its plain version.  The task
+    runs where C(m, n) lives (AFFINITY: owner computes), so every rank of
+    a distributed pool inserts every task and executes its own."""
+    from parsec_tpu_torch.dsl.dtd import AFFINITY, INOUT, INPUT
+    if A.nt != B.mt or A.mt != C.mt or B.nt != C.nt:
+        raise ValueError(
+            f"tile grids do not agree: A {A.mt}x{A.nt}, B {B.mt}x{B.nt}, "
+            f"C {C.mt}x{C.nt}")
+    kernel = _tile_kernel(1.0)
+    kernel.__name__ = "GEMM"      # the DTD class takes its body's name
+    n = 0
+    for m in range(C.mt):
+        for j in range(C.nt):
+            for k in range(A.nt):
+                tp.insert_task(kernel, (A(m, k), INPUT), (B(k, j), INPUT),
+                               (C(m, j), INOUT), (C(m, j), AFFINITY),
+                               priority=A.nt - k, device="cuda")
+                n += 1
+    return n

@@ -288,6 +288,7 @@ class CommEngine:
         #: guarded-by: _reg_lock)
         self._regions: Dict[int, Any] = {}
         self._region_seq = 0                        # guarded-by: _reg_lock
+        self._once_regions: Dict[int, float] = {}   # guarded-by: _reg_lock
         self._reg_lock = threading.Lock()
         #: completion callbacks of outstanding one-sided ops
         #: (guarded-by: _reg_lock)
@@ -946,21 +947,43 @@ class CommEngine:
     # -- registered memory + one-sided put/get (reference: ce.mem_register
     # / ce.put:793 / ce.get:896 of parsec_mpi_funnelled.c — emulated over
     # two-sided AM exactly like the reference's MPI module) --------------
-    def mem_register(self, array) -> int:
+    def mem_register(self, array, once: bool = False) -> int:
         """Expose a writable host tensor to one-sided access (the JAX
         package's regions are numpy arrays); returns the region handle
-        peers name in put/get.  The JAX package's serve-once regions
-        (``once``, ``purge_once_regions``) serve its distributed DTD
-        and come with it."""
+        peers name in put/get.  ``once`` auto-unregisters after the first
+        successful GET (rendezvous payloads: exactly one consumer pulls,
+        then the region is gone)."""
         with self._reg_lock:
             self._region_seq += 1
             rid = self._region_seq
             self._regions[rid] = array
+            if once:
+                self._once_regions[rid] = time.monotonic()
         return rid
 
     def mem_unregister(self, rid: int) -> None:
         with self._reg_lock:
             self._regions.pop(rid, None)
+            self._once_regions.pop(rid, None)
+
+    def purge_once_regions(self, ttl: float) -> int:
+        """Drop serve-once regions nobody pulled within ``ttl`` seconds
+        (a consumer that died or errored out must not strand the
+        producer's payload snapshot forever); returns the count purged.
+        Driven by the comm-progress purge alongside the rendezvous
+        handle GC."""
+        now = time.monotonic()
+        purged = 0
+        with self._reg_lock:
+            for rid, born in list(self._once_regions.items()):
+                if now - born > ttl:
+                    del self._once_regions[rid]
+                    self._regions.pop(rid, None)
+                    purged += 1
+        if purged:
+            warning("rank %d: dropped %d unclaimed serve-once region(s) "
+                    "after %.0fs", self.rank, purged, ttl)
+        return purged
 
     def _register_onesided(self) -> None:
         """Wire the put/get emulation tags (called by subclasses once
@@ -1027,6 +1050,9 @@ class CommEngine:
         with self._reg_lock:
             target = self._regions.get(msg["rid"])
             packed = self.pack(target) if target is not None else None
+            if packed is not None and msg["rid"] in self._once_regions:
+                del self._once_regions[msg["rid"]]
+                del self._regions[msg["rid"]]
         if packed is None:
             warning("rank %d: GET of unknown region %s", self.rank,
                     msg["rid"])

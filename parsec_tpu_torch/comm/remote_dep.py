@@ -36,11 +36,17 @@ differences:
   host tile;
 * left out with the planes that call them: the recovery plane's
   reconcile, incarnation fences and pool restarts (``recovery_reconcile``,
-  ``forget_pool``, ``note_peer_epoch``, ...), the flight recorder's trace
-  sink, and the distributed-DTD lanes (``TAG_DTD``; DTD is not ported).
-  The pool-generation (``pe``) checks and the ``_lineage`` /
+  ``forget_pool``, ``note_peer_epoch``, ...) and the flight recorder's
+  trace sink.  The pool-generation (``pe``) checks and the ``_lineage`` /
   ``_replay_filter`` branches stay, inert: the port's pools carry
-  ``run_epoch`` 0 and both attributes as None.
+  ``run_epoch`` 0 and both attributes as None.  The distributed-DTD lanes
+  (``TAG_DTD``: ``dtd_send``, ``_dtd_cb``, the backlog of frames that
+  beat their pool, the rendezvous-pull count in the quiescence checks)
+  serve dsl/dtd/insert.py.  Their per-pool forgetting (the per-pool
+  pull count and the purge in ``forget_pool``) and their generation
+  fences (a torn generation's frame dropped, a later one's re-parked)
+  belong to the recovery plane and go with it: a DTD frame is delivered
+  to its pool, or parked until the pool registers.
 """
 
 from __future__ import annotations
@@ -55,7 +61,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from parsec_tpu_torch.comm.engine import (CommEngine, TAG_ACTIVATE,
-                                          TAG_BATCH, TAG_GET_REP,
+                                          TAG_BATCH, TAG_DTD, TAG_GET_REP,
                                           TAG_GET_REQ, TAG_TERMDET,
                                           TAG_UTRIG)
 from parsec_tpu_torch.core import scheduling
@@ -274,19 +280,29 @@ class RemoteDepEngine:
             ce.tag_register(TAG_ACTIVATE, self._activate_cb)
             ce.tag_register(TAG_GET_REQ, self._get_req_cb)
             ce.tag_register(TAG_GET_REP, self._get_rep_cb)
+            ce.tag_register(TAG_DTD, self._dtd_cb)
         else:
             ce.tag_register(TAG_ACTIVATE, self._enq_cb("activate"))
             ce.tag_register(TAG_GET_REQ, self._enq_cb("get_req"))
             ce.tag_register(TAG_GET_REP, self._enq_cb("get_rep"))
+            ce.tag_register(TAG_DTD, self._enq_cb("dtd"))
         ce.tag_register(TAG_TERMDET, self._termdet_cb)
         ce.tag_register(TAG_BATCH, self._batch_cb)
         ce.tag_register(TAG_UTRIG, self._utrig_cb)
         #: pending GET completions: handle -> (tp_id, deliveries)
         self._pending_gets: Dict[Tuple[int, int], dict] = {}
+        #: DTD messages that raced their pool's registration on this rank
+        #: (guarded-by: _dlock)
+        self._dtd_backlog: Dict[int, List] = {}
+        #: outstanding DTD rendezvous pulls (Safra-visible in-flight work:
+        #: the one-sided GET itself rides uncounted CE messages;
+        #: guarded-by: _term_lock)
+        self.dtd_refs_pending = 0
         self._recv_handlers = {
             "activate": self._activate_cb,
             "get_req": self._get_req_cb,
             "get_rep": self._get_rep_cb,
+            "dtd": self._dtd_cb,
         }
         #: cross-task flush window, cached at init (run-scoped knob)
         self._flush_window = float(params.get("comm_flush_window_ms", 0.0))
@@ -441,6 +457,8 @@ class RemoteDepEngine:
         for h in stale:
             warning("rank %d: dropping unclaimed rendezvous handle %d "
                     "after %.0fs", self.rank, h, ttl)
+        # the DTD's serve-once regions share the same abandonment GC
+        self.ce.purge_once_regions(ttl)
 
     def _progress_loop(self) -> None:
         next_purge = time.monotonic() + 5.0
@@ -634,9 +652,12 @@ class RemoteDepEngine:
                 "balance": self._app_sent - self._app_recv,
                 "color_black": self._color_black,
                 "dyn_holds": len(self._dyn_holds),
+                "dtd_refs_pending": self.dtd_refs_pending,
             }
         with self._dlock:
             out["delayed_activations"] = len(self._delayed)
+            out["dtd_backlog"] = sum(len(v)
+                                     for v in self._dtd_backlog.values())
         out["pending_gets"] = {
             f"{root}:{h}": {"attempts": p.get("attempts", 0),
                             "age_s": round(now - p.get("sent_at", now), 2)}
@@ -1187,6 +1208,71 @@ class RemoteDepEngine:
         self._deliver(pend["tp"], pend["deliveries"], arr,
                       corr=pend.get("corr"))
 
+    # ------------------------------------------------------------------
+    # distributed DTD traffic (reference: the DTD two-sided protocol —
+    # remote deps tracked by (tile, rank) with delayed release,
+    # remote_dep_mpi.c:519, insert_function.c:3014-3163)
+    # ------------------------------------------------------------------
+    def dtd_send(self, dst: int, msg: dict) -> None:
+        """Counted application send for the DTD layer (Safra-visible).
+        Raises PeerFailedError when ``dst`` is dead — callers on worker
+        threads route it into the pool via record_error."""
+        tp = self.context.taskpools.get(msg.get("tp"))
+        if tp is not None:
+            tp.peer_ranks.add(dst)
+        self._send_app(TAG_DTD, dst, msg)
+
+    def dtd_ref_done(self) -> None:
+        """One rendezvous pull completed (locked: the counter is shared
+        between the progress thread and socket recv threads)."""
+        with self._term_lock:
+            self.dtd_refs_pending -= 1
+
+    # lint: on-loop (AM handler)
+    def _dtd_cb(self, src: int, msg: dict) -> None:
+        self._trace_recv(TAG_DTD, src, msg)
+        # For rendezvous refs the pending-pull count must become visible
+        # ATOMICALLY with the message credit: crediting first opens a
+        # window where the Safra token sees an even balance and empty
+        # queues while the pull hasn't been registered yet.  A duplicate
+        # is credited (its send was counted too) but must NOT register a
+        # second pull — the leaked pending count would hang termination.
+        # (The JAX package also drops a dead incarnation's frames here,
+        # before the credit, and a torn generation's after it: recovery-
+        # plane fences the port does not carry.)
+        dup = self._is_dup(msg)
+        tp = self.context.taskpools.get(msg.get("tp")) \
+            if isinstance(msg, dict) else None
+        with self._term_lock:
+            self._color_black = True
+            self._app_recv += 1
+            if not dup and isinstance(msg, dict) and "ref" in msg:
+                self.dtd_refs_pending += 1
+        if dup:
+            return
+        if tp is not None:
+            tp.peer_ranks.add(src)
+        incoming = getattr(tp, "_dtd_incoming", None)
+        if incoming is not None:
+            incoming(src, msg)
+            return
+        with self._dlock:   # pool not registered here yet: backlog
+            self._dtd_backlog.setdefault(msg["tp"], []).append((src, msg))
+        # re-check: the pool may have registered — and drained an empty
+        # backlog — between the lookup above and the append (the drain
+        # pops under _dlock, so a second drain cannot double-deliver)
+        tp = self.context.taskpools.get(msg["tp"])
+        if tp is not None \
+                and getattr(tp, "_dtd_incoming", None) is not None:
+            self.dtd_drain_backlog(tp)
+
+    def dtd_drain_backlog(self, tp) -> None:
+        """Deliver DTD messages that arrived before ``tp`` registered."""
+        with self._dlock:
+            backlog = self._dtd_backlog.pop(tp.taskpool_id, [])
+        for src, msg in backlog:
+            tp._dtd_incoming(src, msg)
+
     def _deliver(self, tp, deliveries, array: Optional[torch.Tensor],
                  corr=None) -> None:
         """Release the incoming deps locally (reference:
@@ -1253,9 +1339,10 @@ class RemoteDepEngine:
         balance alone does not capture."""
         ctx = self.context
         with self._dlock:
-            if self._delayed:
+            if self._delayed or self._dtd_backlog:
                 return False
-        if self._pending_gets or not self._cmdq.empty():
+        if self._pending_gets or self.dtd_refs_pending or \
+                not self._cmdq.empty():
             return False
         if self._flushbox:
             self._drain_flush_window(force=True)
@@ -1404,9 +1491,10 @@ class RemoteDepEngine:
         in flight)."""
         ctx = self.context
         with self._dlock:
-            if self._delayed:
+            if self._delayed or self._dtd_backlog:
                 return False
-        if self._pending_gets or not self._cmdq.empty():
+        if self._pending_gets or self.dtd_refs_pending or \
+                not self._cmdq.empty():
             return False
         if self._flushbox:
             self._drain_flush_window(force=True)

@@ -181,6 +181,13 @@ class ExecutionStream:
         #: thread mutates it, off-thread completers take the locked path
         self._td_acc = None
         self._td_tid = 0
+        #: tasks this worker took off the native ready queue outside
+        #: ``run_quantum`` (the doorbell's probe under its lock, the comm
+        #: spin poll): they never reach the C chain, so no bailout counts
+        #: them, and with the C chain's bailouts they account for every
+        #: task a native worker handed to Python (single writer: the
+        #: owning worker)
+        self.probe_pops = 0
         #: the context's event->callbacks dict, aliased so the per-task
         #: dispatch reads one attribute (pins_register mutates the dict
         #: in place; the binding itself never changes)

@@ -437,6 +437,8 @@ def worker_loop(es) -> None:
                     min(0.0002 * (1 << min(misses, 8)), 0.05), probe)
             if task is None:
                 continue
+            if quantum is not None:
+                es.probe_pops += 1     # popped past the C chain
         misses = 0
         # select fires exactly once per task: the C quantum already
         # fired it for tasks IT hands back; doorbell tasks and the whole

@@ -506,14 +506,14 @@ class Task:
     Field contract with its C twin (native/schedext.c ``TaskCore``, built
     by ``TaskClass.native_vt().build_*``): both carry exactly these
     slots, so every layer of the port, devices/cuda.py included, reads
-    either one by attribute.  The JAX package's ``dtd`` slot belongs to
-    its DTD front-end, which the port does not carry, and is dropped from
-    both."""
+    either one by attribute (``dtd`` included: the DTD front-end,
+    dsl/dtd/insert.py, hangs its dep bookkeeping there)."""
 
     __slots__ = ("task_class", "taskpool", "locals", "key", "priority",
                  "status", "data", "input_sources", "pinned_flows",
-                 "chore_mask", "seq", "device", "prof", "ready_at",
-                 "mtr_t0", "retries", "retry_snap", "pool_epoch")
+                 "chore_mask", "seq", "device", "prof", "dtd",
+                 "ready_at", "mtr_t0", "retries", "retry_snap",
+                 "pool_epoch")
 
     def __init__(self, task_class: TaskClass, taskpool, locals_: Dict[str, int]):
         self.task_class = task_class
@@ -540,6 +540,7 @@ class Task:
         self.device = None
         #: the task profiler's per-task interval state (prof/pins.py)
         self.prof = None
+        self.dtd = None     # DTD dep-bookkeeping state, if dynamically inserted
         #: perf_counter stamp of the moment the task became READY, set by
         #: schedule() (or the C ready queue) when a telemetry consumer
         #: wants it (Context._ready_stamp): the causal tracer's queue-wait

@@ -5,9 +5,10 @@ Rebuild of the reference's matrix data distributions
 two_dim_rectangle_cyclic.{c,h}, grid_2Dcyclic.c): a logical LM x LN
 matrix cut into MB x NB tiles, distributed over a process grid.
 ``TwoDimBlockCyclic`` is the ScaLAPACK PxQ block-cyclic layout (with kp/kq
-repetition factors) and ``VectorTwoDimCyclic`` the 1D cyclic vector of
-tiles.  The symmetric, band, tabular and k-cyclic-view layouts of the
-JAX package are not ported yet.
+repetition factors), ``KCyclicView`` its k-cyclic reordered view (the
+textual JDF front-end's kcyclic corpus reads it) and ``VectorTwoDimCyclic``
+the 1D cyclic vector of tiles.  The symmetric, band and tabular layouts of
+the JAX package are not ported yet.
 
 Tiles are CPU tensors of the collection's torch dtype (``torch.bfloat16``
 or ``torch.float32``), materialized lazily on first access.  numpy has no
@@ -246,6 +247,72 @@ class TwoDimBlockCyclic(TiledMatrix):
 
     def vpid_of(self, m: int, n: int = 0) -> int:
         return 0
+
+
+class KCyclicView(DataCollection):
+    """Pseudo k-cyclic reordered VIEW of a plain block-cyclic matrix:
+    shares the origin's storage, permutes the ACCESS ORDER (reference:
+    parsec_matrix_block_cyclic_kview + kview_compute_m/n,
+    two_dim_rectangle_cyclic.c:425-463).  This is not a copy and not the
+    same order as a physically k-cyclic distribution — tile (m, n) of the
+    view resolves to tile (pm(m), pn(n)) of the origin."""
+
+    def __init__(self, origin: TwoDimBlockCyclic, kp: int, kq: int,
+                 name: Optional[str] = None):
+        if origin.grid.kp != 1 or origin.grid.kq != 1:
+            # reference asserts krows == kcols == 1 on the origin
+            raise ValueError("kview origin must be plain cyclic (kp=kq=1)")
+        super().__init__(nodes=origin.nodes, myrank=origin.myrank,
+                         name=name or (origin.name + "_kview"))
+        self.origin = origin
+        self.kp, self.kq = kp, kq
+        # mirror the geometry so JDF globals (dA->super.mt) read through
+        self.mb, self.nb = origin.mb, origin.nb
+        self.lm, self.ln = origin.lm, origin.ln
+        self.mt, self.nt = origin.mt, origin.nt
+        self.dtype = origin.dtype
+
+    def _pm(self, m: int) -> int:
+        """kview_compute_m (two_dim_rectangle_cyclic.c:441-451)."""
+        p, ps, mt = self.origin.grid.P, self.kp, self.mt
+        while True:
+            m = m - m % (p * ps) + (m % ps) * p + (m // ps) % p
+            if m < mt:
+                return m
+
+    def _pn(self, n: int) -> int:
+        """kview_compute_n (two_dim_rectangle_cyclic.c:453-463)."""
+        q, qs, nt = self.origin.grid.Q, self.kq, self.nt
+        while True:
+            n = n - n % (q * qs) + (n % qs) * q + (n // qs) % q
+            if n < nt:
+                return n
+
+    def data_key(self, m: int, n: int = 0):
+        return self.origin.data_key(self._pm(m), self._pn(n))
+
+    def rank_of(self, m: int, n: int = 0) -> int:
+        return self.origin.rank_of(self._pm(m), self._pn(n))
+
+    def vpid_of(self, m: int, n: int = 0) -> int:
+        return self.origin.vpid_of(self._pm(m), self._pn(n))
+
+    def data_of(self, m: int, n: int = 0) -> Data:
+        return self.origin.data_of(self._pm(m), self._pn(n))
+
+    def tile_exists(self, m: int, n: int = 0) -> bool:
+        return self.origin.tile_exists(self._pm(m), self._pn(n))
+
+    def key_to_indices(self, key):
+        # keys are origin keys (shared storage); the inverse permutation
+        # is not needed to address them
+        return self.origin.key_to_indices(key)
+
+
+def block_cyclic_kview(origin: TwoDimBlockCyclic, kp: int, kq: int,
+                       name: Optional[str] = None) -> KCyclicView:
+    """parsec_matrix_block_cyclic_kview equivalent."""
+    return KCyclicView(origin, kp, kq, name=name)
 
 
 class VectorTwoDimCyclic(TiledMatrix):

@@ -21,8 +21,7 @@
  * differences: ensure_runtime imports the port's modules
  * (parsec_tpu_torch.*), the module and its types carry a name of their
  * own (parsec_tpu_torch_schedext, so both packages' extensions load in
- * one process), and TaskCore has no dtd member (the DTD front-end is not
- * ported).
+ * one process).
  */
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
@@ -521,10 +520,7 @@ static PyTypeObject DTType = {
 typedef struct {
     PyObject_HEAD
     PyObject *task_class, *taskpool, *locals, *key, *data;
-    /* the port's Task carries no dtd slot (the DTD front-end is not
-     * ported), so TaskCore drops it too and the two stay field-for-field
-     * twins */
-    PyObject *input_sources, *pinned_flows, *device, *prof;
+    PyObject *input_sources, *pinned_flows, *device, *prof, *dtd;
     PyObject *ready_at, *mtr_t0, *retry_snap;
     PyObject *vt;          /* TaskVT or NULL (reads as None) */
     long long priority, seq, pool_epoch;
@@ -708,6 +704,7 @@ static PyMemberDef tc_members[] = {
     {"pinned_flows", T_OBJECT, offsetof(TCObject, pinned_flows), 0, NULL},
     {"device", T_OBJECT, offsetof(TCObject, device), 0, NULL},
     {"prof", T_OBJECT, offsetof(TCObject, prof), 0, NULL},
+    {"dtd", T_OBJECT, offsetof(TCObject, dtd), 0, NULL},
     {"ready_at", T_OBJECT, offsetof(TCObject, ready_at), 0, NULL},
     {"mtr_t0", T_OBJECT, offsetof(TCObject, mtr_t0), 0, NULL},
     {"retry_snap", T_OBJECT, offsetof(TCObject, retry_snap), 0, NULL},
@@ -731,6 +728,7 @@ static int tc_traverse(PyObject *self_, visitproc visit, void *arg) {
     Py_VISIT(t->pinned_flows);
     Py_VISIT(t->device);
     Py_VISIT(t->prof);
+    Py_VISIT(t->dtd);
     Py_VISIT(t->ready_at);
     Py_VISIT(t->mtr_t0);
     Py_VISIT(t->retry_snap);
@@ -749,6 +747,7 @@ static int tc_clear(PyObject *self_) {
     Py_CLEAR(t->pinned_flows);
     Py_CLEAR(t->device);
     Py_CLEAR(t->prof);
+    Py_CLEAR(t->dtd);
     Py_CLEAR(t->ready_at);
     Py_CLEAR(t->mtr_t0);
     Py_CLEAR(t->retry_snap);

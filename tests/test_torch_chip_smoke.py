@@ -254,8 +254,76 @@ def test_traced_pass_and_telemetry_rehearsal_on_cpu(app):
     assert 0.0 < tr["inflight_share"] <= 1.0 + 1e-9
     assert tel["tasks"] == ntasks * 3     # warm, timed, traced
     assert tel["pushes"] == tel["pops"] == tel["tasks"]
-    assert tel["bailouts"] == {"non_trivial": tel["tasks"]}
+    # every task reached Python as a C chain bailout (a device class:
+    # non_trivial) or as a probe pop, exactly
+    assert set(tel["bailouts"]) <= {"non_trivial"}
+    assert sum(tel["bailouts"].values()) + tel["probe_pops"] \
+        == tel["tasks"]
     assert tel["latency_count"] == tel["sampled"] - tr["sampled"]
+
+
+@pytest.mark.parametrize("fronts", [("dtd",), ("ptg", "dtd"),
+                                    ("ptg", "jdf")],
+                         ids=["dtd", "dtd-ptg", "jdf-ptg"])
+def test_front_end_paths_rehearsal_on_cpu(fronts):
+    """``drive_gemm`` of the DTD and JDF GEMM paths at a tiny size: every
+    front's passes checked (tasks, incarnations), C against the plain
+    product and bit for bit between front-ends, the per-front numbers,
+    the scheduler line and the telemetry line with bailouts plus probe
+    pops equal to the tasks."""
+    chip_smoke = _chip_smoke()
+    from parsec_tpu_torch.core.context import Context
+    bail0 = chip_smoke.bailouts()
+    keep = {}
+    with Context(nb_cores=2, device="cpu") as ctx:
+        res = chip_smoke.drive_gemm(
+            ctx, 16, 3, 3, 4, passes=1,
+            gen=torch.Generator().manual_seed(7), label="rehearsal",
+            fronts=fronts, seeded=len(fronts) > 1, keep=keep)
+        sched = chip_smoke.report_scheduler("rehearsal", ctx, bail0)
+        tel = chip_smoke.report_telemetry("rehearsal", ctx, bail0)
+    assert res["launches"] == NO_LAUNCHES
+    assert set(res["fronts"]) == set(fronts) and len(keep) == 9
+    assert tel["tasks"] == 36 * 2 * len(fronts)     # warm + timed
+    assert set(sched["bailouts"]) <= {"non_trivial"}
+    assert sum(tel["bailouts"].values()) + tel["probe_pops"] \
+        == tel["tasks"]
+    for f, r in res["fronts"].items():
+        assert r["best_s"] > 0 and r["host_us_per_task"] > 0
+        assert 0 <= r["submit_cpu_us_per_task"] < float("inf")
+        assert r["mean_wave_width"] >= 1.0 and r["window_stalls"] == 0
+
+
+def test_two_rank_dtd_gemm_rehearsal_on_cpu():
+    """The 2-rank DTD GEMM rank function at a tiny size on two CPU ranks:
+    C bit-identical to the single-rank DTD run on the same seeded
+    operands, the other rank's B tiles pulled once a pass, no DTD pull or
+    backlogged frame left."""
+    import torch_comm_workers as W
+    from parsec_tpu_torch.comm.launch import run_distributed
+    from parsec_tpu_torch.core.context import Context
+    chip_smoke = _chip_smoke()
+    mb, t = 16, 4
+    keep = {}
+    with Context(nb_cores=2, device="cpu") as ctx:
+        chip_smoke.drive_gemm(ctx, mb, t, t, t, passes=1, gen=None,
+                              label="rehearsal", fronts=("dtd",),
+                              seeded=True, keep=keep)
+    res = run_distributed(W.chip_dtd_gemm, 2,
+                          args=("port", mb, t, 1, keep), device="cpu",
+                          timeout=180)
+    assert all(r["tiles"]["bit_identical"] for r in res)
+    assert sum(r["tiles"]["count"] for r in res) == t * t
+    assert all(r["dtd_lanes"] == {"refs_pending": 0, "backlog": 0}
+               for r in res)
+    for p in range(2):
+        classes = {}
+        for r in res:
+            for c, v in r["passes"][p]["classes"].items():
+                classes[c] = classes.get(c, 0) + v
+        assert classes == {"GEMM": t ** 3, "_dtd_recv": t * t}
+    # each rank pulled its t*t/2 remote B tiles a pass, by rendezvous
+    assert all(r["comm"]["frames_recv"] > 0 for r in res)
 
 
 def test_report_telemetry_refuses_a_disarmed_plane():

@@ -5,7 +5,7 @@ and of the potrf slice, and parity with the JAX package's pipeline.
 
 The two-rank merged trace runs over the port's comm layer (its comm
 events and clock table, the clock-offset estimator of the comm engine).
-The DTD lane events wait for the DTD front-end.
+The DTD front-end's region lanes leave their ``dtd_lane`` events.
 
 Parity: the same trace files through both packages' ``attribution``
 (the JAX package's on pandas DataFrames) give the same critical path and
@@ -218,6 +218,38 @@ def test_causal_spans_single_rank(tmp_path):
         r["rank"] = 0
     path_, _att = _check_buckets(rows)
     assert len(path_) == nt
+
+
+def test_dtd_lane_events_traced(tmp_path):
+    """DTD region-lane operations leave dtd_lane events: per-lane writes,
+    reads, and lane ids are all in the trace, write versions in
+    insertion order."""
+    from parsec_tpu_torch.dsl.dtd import DTDTaskpool, INOUT, INPUT, Region
+    A = TwoDimBlockCyclic(4, 4, 4, 4).from_array(torch.zeros(4, 4))
+    prof = Profile("dtd")
+    top = Region("top", slices=(slice(0, 2),))
+    bot = Region("bot", slices=(slice(2, 4),))
+    with Context(nb_cores=2, device="cpu") as ctx:
+        tr = install_causal_tracer(ctx, prof)
+        tp = DTDTaskpool("lanes")
+        ctx.add_taskpool(tp)
+        ctx.start()
+        t = tp.tile_of(A, 0, 0)
+        for _ in range(3):
+            tp.insert_task(lambda T: T + 1.0, (t, INOUT | top))
+            tp.insert_task(lambda T: T + 2.0, (t, INOUT | bot))
+        tp.insert_task(lambda T: None, (t, INPUT))
+        tp.wait()
+        tr.uninstall(ctx)
+    _meta, rows = read_trace(prof.dump(str(tmp_path / "d.ptt")))
+    lanes = [r["info"] for r in rows if r["name"] == "dtd_lane"]
+    assert lanes
+    ops = {i["op"] for i in lanes}
+    assert "write" in ops and "read" in ops
+    assert {"top", "bot"} <= {i["lane"] for i in lanes}
+    top_vers = [i["ver"] for i in lanes
+                if i["op"] == "write" and i["lane"] == "top"]
+    assert top_vers == sorted(top_vers) and len(top_vers) == 3
 
 
 def _check_buckets(rows):

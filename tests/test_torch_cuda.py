@@ -119,6 +119,49 @@ def test_gemm_under_memory_budget_on_the_card(card, panel):
 
 
 @pytest.mark.cuda
+def test_dtd_gemm_on_the_card_matches_ptg_bit_for_bit(card):
+    """The tiled GEMM through DTD insert_task on the card at 2048^3 tiles
+    (bf16 A and B, f32 C; 2 x 2 x 2 tiles): every task on K1's wgmma
+    route, C bit-identical to the PTG GEMM's on the same tiles (the same
+    K1 chain over k) and within 1e-3 of the plain product."""
+    from parsec_tpu_torch.apps.gemm import gemm_dtd_insert
+    from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
+    from parsec_tpu_torch.dsl.dtd import DTDTaskpool
+    mb, t = 2048, 2
+    g = torch.Generator(device=card).manual_seed(41)
+    full = {k: torch.randn((t * mb, t * mb), generator=g, device=card)
+            for k in "ABC"}
+    out = {}
+    for front in ("dtd", "ptg"):
+        mats = {k: TwoDimBlockCyclic(mb, mb, t * mb, t * mb, dtype=dt,
+                                     name=k).from_array(
+                                         full[k].to(dt).cpu())
+                for k, dt in (("A", torch.bfloat16), ("B", torch.bfloat16),
+                              ("C", torch.float32))}
+        before = cuda_kernels.gemm_tile_route_launches["wgmma"].value + \
+            cuda_kernels.gemm_tile_grouped_members.value
+        with Context(nb_cores=2) as ctx:
+            if front == "dtd":
+                tp = DTDTaskpool("gemm")
+                ctx.add_taskpool(tp)
+                assert gemm_dtd_insert(tp, *mats.values()) == t ** 3
+                tp.wait(timeout=300)
+            else:
+                ctx.add_taskpool(gemm_taskpool(*mats.values()))
+            ctx.wait(timeout=300)
+            assert ctx.device_registry.accelerators[0].stats.faults == 0
+        wgmma = cuda_kernels.gemm_tile_route_launches["wgmma"].value + \
+            cuda_kernels.gemm_tile_grouped_members.value - before
+        assert wgmma == t ** 3
+        out[front] = mats["C"].to_array()
+    assert torch.equal(out["dtd"], out["ptg"])
+    a, b = (full[k].to(torch.bfloat16).float().cpu() for k in "AB")
+    want = gemm_tile_reference(a, b, full["C"].cpu(), 1.0)
+    err = ((out["dtd"] - want).abs().max() / want.abs().max()).item()
+    assert err <= 1e-3
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(6144, 512), (100, 36), (1000, 36),
                                    (513, 257), (12288, 512), (0, 40),
                                    (7, 1)])

@@ -295,10 +295,9 @@ def test_taskcore_and_task_carry_the_same_fields():
                type(getattr(se.TaskCore, n)).__name__ == "member_descriptor"}
     assert members - {"vt"} == set(Task.__slots__)
     # the telemetry planes' slots are carried (task profiler, metrics
-    # split mode, the ready stamp); the DTD front-end's is not
-    for carried in ("prof", "mtr_t0", "ready_at"):
+    # split mode, the ready stamp) and the DTD front-end's
+    for carried in ("prof", "mtr_t0", "ready_at", "dtd"):
         assert carried in members
-    assert "dtd" not in members
 
 
 def test_nontrivial_class_has_no_trivial_vtable():

@@ -669,6 +669,728 @@ def traced_potrf(ctx, rank, nranks, pkg, outdir):
     return prof.dump(os.path.join(outdir, f"rank{rank}.ptt"))
 
 
+# -- distributed DTD (twins of tests/test_dtd_distributed.py) -----------------
+#
+# Each case runs SPMD on every rank of one run; ``dtd_suite`` runs several
+# cases one after the other in one context (a barrier between them), so a
+# handful of spawns covers every case.  Bodies are written once for both
+# packages: numpy in, numpy or a tile payload out.
+
+def _dtd_pool(ctx, pkg, name="dtd"):
+    tp = _mod(pkg, "dsl.dtd").DTDTaskpool(name)
+    ctx.add_taskpool(tp)
+    ctx.start()
+    return tp
+
+
+def _dev(pkg):
+    """Each package's device incarnation name."""
+    return "tpu" if pkg == "jax" else "cuda"
+
+
+def _val(M, m):
+    return get(M.data_of(m).pull_to_host().payload).tolist()
+
+
+def _filled(pkg, nranks, rank, mb, lm, name, value):
+    V = _vec(pkg, nranks, rank, mb, lm, name=name)
+    for m, _ in V.local_tiles():
+        put(V.data_of(m).copy_on(0).payload,
+            np.full(mb, value(m) if callable(value) else value, np.float32))
+    return V
+
+
+def dtd_chain(ctx, rank, nranks, pkg, steps=13):
+    d = _mod(pkg, "dsl.dtd")
+    V = _filled(pkg, nranks, rank, 4, 4, "V", 0.0)
+    tp = _dtd_pool(ctx, pkg)
+    t = tp.tile_of(V, 0)
+    for i in range(steps):
+        tp.insert_task(lambda T: T + 1.0, (t, d.INOUT),
+                       (i % nranks, d.AFFINITY))
+    tp.wait(timeout=60)
+    ctx.wait(timeout=60)
+    return {"V0": _val(V, 0)} if rank == 0 else {}
+
+
+def dtd_war(ctx, rank, nranks, pkg):
+    d = _mod(pkg, "dsl.dtd")
+    V = _filled(pkg, nranks, rank, 4, 4 * nranks, "V", 7.0)
+    R = _filled(pkg, nranks, rank, 4, 4 * nranks, "R", -1.0)
+    tp = _dtd_pool(ctx, pkg)
+    src = tp.tile_of(V, 0)
+    for r in range(nranks):
+        tp.insert_task(lambda s, out: np.asarray(s).copy(),
+                       (src, d.INPUT), (tp.tile_of(R, r), d.OUTPUT))
+    tp.insert_task(lambda T: T * 0.0 + 100.0, (src, d.INOUT),
+                   (nranks - 1, d.AFFINITY))
+    tp.wait(timeout=60)
+    ctx.wait(timeout=60)
+    out = {"R": _val(R, rank)}
+    if rank == 0:
+        out["V0"] = _val(V, 0)
+    return out
+
+
+def dtd_broadcast(ctx, rank, nranks, pkg):
+    d = _mod(pkg, "dsl.dtd")
+    V = _filled(pkg, nranks, rank, 8, 8 * nranks, "V", 0.0)
+    R = _filled(pkg, nranks, rank, 8, 8 * nranks, "R", 0.0)
+    tp = _dtd_pool(ctx, pkg)
+    root = tp.tile_of(V, 0)
+    tp.insert_task(lambda T: np.asarray(T) + np.arange(8, dtype=np.float32),
+                   (root, d.INOUT))
+    for r in range(nranks):
+        tp.insert_task(lambda s, out: np.asarray(s) * 2.0,
+                       (root, d.INPUT), (tp.tile_of(R, r), d.OUTPUT))
+    tp.wait(timeout=60)
+    ctx.wait(timeout=60)
+    return {"R": _val(R, rank)}
+
+
+def dtd_reduce(ctx, rank, nranks, pkg):
+    d = _mod(pkg, "dsl.dtd")
+    V = _filled(pkg, nranks, rank, 4, 4 * nranks, "V", lambda m: m + 1.0)
+    acc = _filled(pkg, nranks, rank, 4, 4, "acc", 0.0)
+    tp = _dtd_pool(ctx, pkg)
+    out = tp.tile_of(acc, 0)
+    for m in range(nranks):
+        tp.insert_task(lambda a, x: np.asarray(a) + np.asarray(x),
+                       (out, d.INOUT), (tp.tile_of(V, m), d.INPUT))
+    tp.wait(timeout=60)
+    ctx.wait(timeout=60)
+    return {"acc": _val(acc, 0)} if rank == 0 else {}
+
+
+def dtd_allreduce(ctx, rank, nranks, pkg):
+    d = _mod(pkg, "dsl.dtd")
+    V = _filled(pkg, nranks, rank, 4, 4 * nranks, "V", lambda m: m + 1.0)
+    S = _filled(pkg, nranks, rank, 4, 4 * nranks, "S", 0.0)
+    tp = _dtd_pool(ctx, pkg)
+    root = tp.tile_of(S, 0)
+    for m in range(nranks):
+        tp.insert_task(lambda a, x: np.asarray(a) + np.asarray(x),
+                       (root, d.INOUT), (tp.tile_of(V, m), d.INPUT))
+    for r in range(1, nranks):
+        tp.insert_task(lambda s, out: np.asarray(s).copy(),
+                       (root, d.INPUT), (tp.tile_of(S, r), d.OUTPUT))
+    tp.wait(timeout=60)
+    ctx.wait(timeout=60)
+    return {"S": _val(S, rank)}
+
+
+def dtd_affinity(ctx, rank, nranks, pkg):
+    d = _mod(pkg, "dsl.dtd")
+    V = _filled(pkg, nranks, rank, 4, 4 * nranks, "V", 0.0)
+    tp = _dtd_pool(ctx, pkg)
+    ran_here = []
+    local = []
+    for m in range(nranks):
+        t = tp.insert_task(lambda T: (ran_here.append(1), T + 1.0)[1],
+                           (tp.tile_of(V, m), d.INOUT), (0, d.AFFINITY))
+        local.append(t is not None)
+    tp.wait(timeout=60)
+    ctx.wait(timeout=60)
+    return {"local": local, "ran": len(ran_here), "V": _val(V, rank)}
+
+
+def dtd_device_chain(ctx, rank, nranks, pkg, steps=8):
+    d = _mod(pkg, "dsl.dtd")
+    V = _filled(pkg, nranks, rank, 8, 8, "V", 1.0)
+    tp = _dtd_pool(ctx, pkg, "dev-chain")
+    t = tp.tile_of(V, 0)
+
+    def bump(T):
+        return T * 2.0
+
+    for i in range(steps):
+        tp.insert_task(bump, (t, d.INOUT), (i % nranks, d.AFFINITY),
+                       device=_dev(pkg))
+    tp.wait(timeout=120)
+    ctx.wait(timeout=120)
+    return {"V0": _val(V, 0)} if rank == 0 else {}
+
+
+def _slow_read(s, out):
+    time.sleep(1.0)               # a later version's payload lands mid-body
+    return np.asarray(s).copy()
+
+
+def dtd_skip_reader(ctx, rank, nranks, pkg):
+    """The recv of a LATER remote version waits for a pending local reader
+    of an older one, through the skipped surrogate's WAW chain."""
+    d = _mod(pkg, "dsl.dtd")
+    V = _filled(pkg, nranks, rank, 4, 4, "V", 0.0)
+    R = _filled(pkg, nranks, rank, 4, 8 * nranks, "R", -1.0)
+    tp = _dtd_pool(ctx, pkg, "skip-war")
+    t = tp.tile_of(V, 0)
+    res1 = tp.tile_of(R, 1)
+    res2 = tp.tile_of(R, nranks + 1)
+    inc = (lambda T: T + 1.0)
+    tp.insert_task(inc, (t, d.INOUT), (0, d.AFFINITY))
+    tp.insert_task(_slow_read, (t, d.INPUT), (res1, d.OUTPUT),
+                   (1, d.AFFINITY))
+    tp.insert_task(inc, (t, d.INOUT), (0, d.AFFINITY))
+    tp.insert_task(inc, (t, d.INOUT), (0, d.AFFINITY))
+    tp.insert_task(lambda s, out: np.asarray(s).copy(),
+                   (t, d.INPUT), (res2, d.OUTPUT), (1, d.AFFINITY))
+    tp.wait(timeout=120)
+    ctx.wait(timeout=120)
+    if rank == 1:
+        return {"R1": _val(R, 1), "R2": _val(R, nranks + 1)}
+    return {"V0": _val(V, 0)} if rank == 0 else {}
+
+
+def dtd_skip_writer(ctx, rank, nranks, pkg):
+    """A LOCAL writer after a skipped remote version waits for the
+    pending reader of the older version."""
+    d = _mod(pkg, "dsl.dtd")
+    V = _filled(pkg, nranks, rank, 4, 4, "V", 0.0)
+    R = _filled(pkg, nranks, rank, 4, 4 * nranks, "R", -1.0)
+    tp = _dtd_pool(ctx, pkg, "skip-waw")
+    t = tp.tile_of(V, 0)
+    res = tp.tile_of(R, 1)
+    inc = (lambda T: T + 1.0)
+    tp.insert_task(inc, (t, d.INOUT), (0, d.AFFINITY))
+    tp.insert_task(_slow_read, (t, d.INPUT), (res, d.OUTPUT),
+                   (1, d.AFFINITY))
+    tp.insert_task(inc, (t, d.INOUT), (0, d.AFFINITY))
+    tp.insert_task(lambda T: np.full((4,), 50.0, np.float32),
+                   (t, d.OUTPUT), (1, d.AFFINITY))
+    tp.wait(timeout=120)
+    ctx.wait(timeout=120)
+    if rank == 1:
+        return {"R1": _val(R, 1)}
+    return {"V0": _val(V, 0)} if rank == 0 else {}
+
+
+def dtd_rdv(ctx, rank, nranks, pkg, steps=6):
+    d = _mod(pkg, "dsl.dtd")
+    params = _mod(pkg, "utils.mca").params
+    params.set("comm_eager_limit", 64)    # every tile over the limit
+    try:
+        V = _filled(pkg, nranks, rank, 256, 256, "V", 0.0)
+        tp = _dtd_pool(ctx, pkg, "rdv")
+        t = tp.tile_of(V, 0)
+        for i in range(steps):
+            tp.insert_task(lambda T: T + 1.0, (t, d.INOUT),
+                           (i % nranks, d.AFFINITY))
+        tp.wait(timeout=120)
+        ctx.wait(timeout=120)
+        # the serve-once regions drain as the last GETs are served — a
+        # peer's pull may complete a beat after our quiescence returns
+        deadline = time.monotonic() + 15
+        while ctx.comm.ce._regions and time.monotonic() < deadline:
+            time.sleep(0.02)
+        out = {"regions": len(ctx.comm.ce._regions),
+               "refs_pending": ctx.comm.dtd_refs_pending}
+        if rank == 0:
+            out["V0"] = _val(V, 0)
+        return out
+    finally:
+        params.unset("comm_eager_limit")
+
+
+def _lanes(d, n, k):
+    """n Region lanes of k elements each, with their byte extents."""
+    return [d.Region(f"q{i}", slices=(slice(k * i, k * i + k),))
+            for i in range(n)]
+
+
+def _bump(lo, hi, by):
+    def body(T):
+        out = np.asarray(T).copy()
+        out[lo:hi] += by
+        return out
+    return body
+
+
+def dtd_region_disjoint(ctx, rank, nranks, pkg, steps=5):
+    d = _mod(pkg, "dsl.dtd")
+    V = _filled(pkg, nranks, rank, 8, 8, "V", 0.0)
+    R = _filled(pkg, nranks, rank, 8, 8 * nranks, "R", -1.0)
+    tp = _dtd_pool(ctx, pkg)
+    t = tp.tile_of(V, 0)
+    lo, hi = _lanes(d, 2, 4)
+    for _ in range(steps):
+        tp.insert_task(_bump(0, 4, 1.0), (t, d.INOUT | lo), (0, d.AFFINITY))
+        tp.insert_task(_bump(4, 8, 2.0), (t, d.INOUT | hi),
+                       (nranks - 1, d.AFFINITY))
+    for r in range(nranks):
+        tp.insert_task(lambda s, out: np.asarray(s).copy(),
+                       (t, d.INPUT), (tp.tile_of(R, r), d.OUTPUT))
+    tp.wait(timeout=120)
+    ctx.wait(timeout=120)
+    return {"R": _val(R, rank)}
+
+
+def dtd_region_barrier(ctx, rank, nranks, pkg):
+    d = _mod(pkg, "dsl.dtd")
+    V = _filled(pkg, nranks, rank, 8, 8, "V", 0.0)
+    tp = _dtd_pool(ctx, pkg)
+    t = tp.tile_of(V, 0)
+    lo, hi = _lanes(d, 2, 4)
+    tp.insert_task(_bump(0, 4, 1.0), (t, d.INOUT | lo), (0, d.AFFINITY))
+    tp.insert_task(_bump(4, 8, 2.0), (t, d.INOUT | hi),
+                   (nranks - 1, d.AFFINITY))
+    tp.insert_task(lambda T: T * 2.0, (t, d.INOUT), (nranks - 1, d.AFFINITY))
+    tp.insert_task(_bump(0, 4, 10.0), (t, d.INOUT | lo), (0, d.AFFINITY))
+    tp.wait(timeout=120)
+    ctx.wait(timeout=120)
+    return {"V0": _val(V, 0)} if rank == 0 else {}
+
+
+def dtd_region_three(ctx, rank, nranks, pkg):
+    d = _mod(pkg, "dsl.dtd")
+    V = _filled(pkg, nranks, rank, 8, 8, "V", 0.0)
+    R = _filled(pkg, nranks, rank, 8, 8 * nranks, "R", -1.0)
+    tp = _dtd_pool(ctx, pkg)
+    t = tp.tile_of(V, 0)
+    lo, hi = _lanes(d, 2, 4)
+    tp.insert_task(_bump(0, 4, 3.0), (t, d.INOUT | lo), (1, d.AFFINITY))
+    tp.insert_task(_bump(4, 8, 4.0), (t, d.INOUT | hi), (2, d.AFFINITY))
+    tp.insert_task(lambda s, o: np.asarray(s).copy(),
+                   (t, d.INPUT), (tp.tile_of(R, 0), d.OUTPUT),
+                   (0, d.AFFINITY))
+    tp.wait(timeout=120)
+    ctx.wait(timeout=120)
+    return {"R0": _val(R, 0)} if rank == 0 else {}
+
+
+def dtd_region_output_read(ctx, rank, nranks, pkg):
+    d = _mod(pkg, "dsl.dtd")
+    V = _filled(pkg, nranks, rank, 8, 8, "V", 7.0)
+    R = _filled(pkg, nranks, rank, 8, 8 * nranks, "R", -1.0)
+    tp = _dtd_pool(ctx, pkg)
+    t = tp.tile_of(V, 0)
+    lo = _lanes(d, 1, 4)[0]
+
+    def write_lo(T):
+        out = np.asarray(T).copy()
+        out[0:4] = 9.0
+        return out
+    tp.insert_task(write_lo, (t, d.OUTPUT | lo), (1, d.AFFINITY))
+    tp.insert_task(lambda s, o: np.asarray(s).copy(),
+                   (t, d.INPUT), (tp.tile_of(R, 1), d.OUTPUT),
+                   (1, d.AFFINITY))
+    tp.wait(timeout=120)
+    ctx.wait(timeout=120)
+    return {"R1": _val(R, 1)} if rank == 1 else {}
+
+
+def dtd_region_quarters(ctx, rank, nranks, pkg):
+    d = _mod(pkg, "dsl.dtd")
+    V = _filled(pkg, nranks, rank, 16, 16, "V", 0.0)
+    R = _filled(pkg, nranks, rank, 16, 16 * nranks, "R", -1.0)
+    tp = _dtd_pool(ctx, pkg)
+    t = tp.tile_of(V, 0)
+    quarters = _lanes(d, 4, 4)
+    for _ in range(3):
+        for i, q in enumerate(quarters):
+            tp.insert_task(_bump(4 * i, 4 * i + 4, i + 1.0),
+                           (t, d.INOUT | q), (i, d.AFFINITY))
+    for r in range(nranks):
+        tp.insert_task(lambda s, o: np.asarray(s).copy(),
+                       (t, d.INPUT), (tp.tile_of(R, r), d.OUTPUT))
+    tp.wait(timeout=180)
+    ctx.wait(timeout=180)
+    return {"R": _val(R, rank)}
+
+
+def dtd_ordering_only(ctx, rank, nranks, pkg):
+    d = _mod(pkg, "dsl.dtd")
+    V = _filled(pkg, nranks, rank, 4, 4, "V", 0.0)
+    R = _filled(pkg, nranks, rank, 4, 4 * nranks, "R", -1.0)
+    tp = _dtd_pool(ctx, pkg)
+    t = tp.tile_of(V, 0)
+    x = d.Region("x")                    # NO slices: ordering-only
+    for i in range(6):
+        tp.insert_task(lambda T: T * 2.0 + 1.0, (t, d.INOUT | x),
+                       (i % nranks, d.AFFINITY))
+    for r in range(nranks):
+        tp.insert_task(lambda s, out: np.asarray(s).copy(),
+                       (t, d.INPUT), (tp.tile_of(R, r), d.OUTPUT))
+    tp.wait(timeout=120)
+    ctx.wait(timeout=120)
+    return {"R": _val(R, rank)}
+
+
+def dtd_lane_write_back(ctx, rank, nranks, pkg):
+    """Rank 0 writes the low lane of its tile (slowly, so the version-0
+    pull rank 1 takes does not carry it); rank 1's high-lane writer reads
+    the tile, waits while the low lane's payload lands in place, and
+    returns the whole tile; rank 1 then reads the whole tile.  Both
+    lanes' writes must be there: a lane writer's whole-tile write-back
+    must not undo the other lane's landed bytes."""
+    d = _mod(pkg, "dsl.dtd")
+    V = _filled(pkg, nranks, rank, 8, 8, "V", 0.0)
+    R = _filled(pkg, nranks, rank, 8, 8 * nranks, "R", -1.0)
+    tp = _dtd_pool(ctx, pkg)
+    t = tp.tile_of(V, 0)
+    lo, hi = _lanes(d, 2, 4)
+
+    def slow_lo(T):
+        time.sleep(0.2)
+        return _bump(0, 4, 1.0)(T)
+
+    def slow_hi(T):
+        out = np.asarray(T).copy()
+        time.sleep(0.8)            # the low lane's payload lands here
+        out[4:8] += 2.0
+        return out
+
+    tp.insert_task(slow_lo, (t, d.INOUT | lo), (0, d.AFFINITY))
+    tp.insert_task(slow_hi, (t, d.INOUT | hi), (1, d.AFFINITY))
+    tp.insert_task(lambda s, o: np.asarray(s).copy(),
+                   (t, d.INPUT), (tp.tile_of(R, 1), d.OUTPUT),
+                   (1, d.AFFINITY))
+    tp.wait(timeout=120)
+    ctx.wait(timeout=120)
+    return {"R1": _val(R, 1)} if rank == 1 else {}
+
+
+def dtd_suite(ctx, rank, nranks, pkg, names):
+    """Run the named DTD cases in turn in this rank's context; per case:
+    its values, the tasks it executed per class, its Safra message
+    counts, its pools' termdet counters and the DTD lanes' leftovers."""
+    done = counter(ctx)
+    out = {}
+    before, td0 = dict(done), termdet(ctx)
+    for name in names:
+        npools = len(ctx.taskpools)
+        vals = globals()[name](ctx, rank, nranks, pkg)
+        # the case ended in global quiescence: read its counters, then
+        # hold every rank until all have read theirs (a peer's next case
+        # must not send into this one's window: its first frames would
+        # wait in this rank's DTD backlog until the next pool registers)
+        td, now = termdet(ctx), dict(done)
+        lanes = (ctx.comm.dtd_refs_pending,
+                 sum(len(v) for v in ctx.comm._dtd_backlog.values()))
+        ctx.comm.ce.barrier(timeout=60)
+        pools = [tp for tid, tp in sorted(ctx.taskpools.items())][npools:]
+        out[name] = {
+            "vals": vals,
+            "done": {k: v - before.get(k, 0) for k, v in now.items()
+                     if v != before.get(k, 0)},
+            "termdet": {k: td[k] - td0[k] for k in td},
+            "pools": [(tp.nb_tasks, tp.nb_pending_actions) for tp in pools],
+            "lanes": lanes,
+        }
+        before, td0 = now, td
+    return out
+
+
+def dtd_snapshot(ctx, rank, nranks, pkg, mb):
+    """P (rank 0, device body) writes T = 1 and R (rank 1) reads it.  The
+    comm loop of rank 0 is held until P's release has returned, and right
+    then the host buffer the payload was pulled into is written in place
+    (+1000) — what the next pull of a newer version, or an in-place
+    writer, would do — so the DTD frame (or the rendezvous pull) leaves
+    only after that write.  R must see P's bytes: ``_wire_msg`` froze
+    them at encode time."""
+    import threading
+    d = _mod(pkg, "dsl.dtd")
+    V = _filled(pkg, nranks, rank, mb, mb * nranks, "V", 0.0)
+    seen, wrote = {}, {}
+    tp = _dtd_pool(ctx, pkg, "snap")
+    t = tp.tile_of(V, 0)
+    if rank == 0:
+        gate = threading.Event()
+        ctx.comm.ce.post(gate.wait, 30)       # frames wait behind this
+        release = tp.dynamic_release
+
+        def release_then_write(es, task):
+            ready = release(es, task)
+            if task.task_class.name == "produce":
+                V.data_of(0).copy_on(0).payload.add_(1000.0)
+                wrote["after_release"] = True
+                gate.set()
+            return ready
+        tp.dynamic_release = release_then_write
+
+    def produce(T):
+        time.sleep(0.5)        # R's insert finds P pending: P's release
+        return T + 1.0         # encodes the payload
+
+    tp.insert_task(produce, (t, d.INOUT), (0, d.AFFINITY), device="cuda")
+    tp.insert_task(lambda X: seen.update(val=float(get(X)[0])),
+                   (t, d.INPUT), (1, d.AFFINITY))
+    tp.wait(timeout=60)
+    ctx.wait(timeout=60)
+    return {"seen": seen.get("val"), "wrote": wrote.get("after_release")}
+
+
+# -- textual JDF across ranks (twins of tests/test_jdf_hard_corpus.py) --------
+#
+# The JDF corpus the JAX package's tests read from the reference tree is
+# not part of this repository, so the twins carry their JDF text inline
+# and run that same text through both packages' front-ends.
+
+#: k-cyclic views: FILL_A/FILL_CA stamp (M, N, owner) into A and its
+#: k-cyclic twin CA, READ_VA reads A through the kview after the permuted
+#: FILL_A wrote it home (CTL ordering over the permutation pm/pn and its
+#: inverse qm/qn), COMPARE checks all three on A's owner.
+KCYCLIC_JDF = r"""
+extern "C" %{
+/* k-cyclic distributions and k-cyclic views of a block-cyclic matrix */
+#include "parsec/data_dist/matrix/two_dim_rectangle_cyclic.h"
+%}
+
+dA   [ type = "parsec_tiled_matrix_t*" ]
+dVA  [ type = "parsec_tiled_matrix_t*" ]
+dCA  [ type = "parsec_tiled_matrix_t*" ]
+MT   [ type = "int" hidden = on default = "dA->super.mt-1" ]
+NT   [ type = "int" hidden = on default = "dA->super.nt-1" ]
+
+FILL_A(M, N)
+  M = 0 .. MT
+  N = 0 .. NT
+: dA( M, N )
+RW  A <- dA( M, N )
+      -> A COMPARE( M, N )
+      -> dA( M, N )
+CTL C -> C READ_VA( qm(M), qn(N) )
+BODY
+{
+    /* A[0..2] = (M, N, rank_of(M, N)) */
+}
+END
+
+FILL_CA(M, N)
+  M = 0 .. MT
+  N = 0 .. NT
+: dCA( M, N )
+RW  CA <- dCA( M, N )
+       -> CA COMPARE( M, N )
+BODY
+{
+}
+END
+
+READ_VA(M, N)
+  M = 0 .. MT
+  N = 0 .. NT
+: dVA( M, N )
+CTL C  <- C FILL_A( pm(M), pn(N) )
+READ VA <- dVA( M, N )
+        -> VA COMPARE( M, N )
+BODY
+{
+}
+END
+
+COMPARE(M, N)
+  M = 0 .. MT
+  N = 0 .. NT
+: dA( M, N )
+READ A  <- A FILL_A( M, N )
+READ CA <- CA FILL_CA( M, N )
+READ VA <- VA READ_VA( M, N )
+BODY
+{
+}
+END
+"""
+
+
+def jdf_kcyclic(ctx, rank, nranks, pkg):
+    mat = _mod(pkg, "data.matrix")
+    jdf = _mod(pkg, "dsl.ptg.jdf")
+    n, mb = 12, 3
+    dt = np.int32 if pkg == "jax" else _torch_dtype("int32")
+    dA = mat.TwoDimBlockCyclic(mb=mb, nb=mb, lm=n, ln=n, nodes=nranks,
+                               myrank=rank, P=2, dtype=dt, name="dA")
+    dCA = mat.TwoDimBlockCyclic(mb=mb, nb=mb, lm=n, ln=n, nodes=nranks,
+                                myrank=rank, P=2, kp=2, kq=2, dtype=dt,
+                                name="dCA")
+    dVA = mat.block_cyclic_kview(dA, 2, 2, name="dVA")
+    qm = {dVA._pm(m): m for m in range(dA.mt)}
+    qn = {dVA._pn(j): j for j in range(dA.nt)}
+    errors = []
+
+    def fill_a(A, M, N):
+        A.reshape(-1)[0:3] = _as_payload(A, [M, N, dA.rank_of(M, N)])
+
+    def fill_ca(CA, M, N):
+        CA.reshape(-1)[0:3] = _as_payload(CA, [M, N, dCA.rank_of(M, N)])
+
+    def compare(A, CA, VA, M, N):
+        a, ca, va = (get(x).reshape(-1) for x in (A, CA, VA))
+        if a[0] != ca[0] or a[1] != ca[1]:
+            errors.append(("kcyclic", M, N))
+        if va[2] != dA.rank_of(int(va[0]), int(va[1])):
+            errors.append(("view", M, N))
+
+    done = counter(ctx)
+    tp = jdf.jdf_taskpool(KCYCLIC_JDF, name="kcyclic",
+                          globals={"pm": dVA._pm, "pn": dVA._pn,
+                                   "qm": qm.__getitem__,
+                                   "qn": qn.__getitem__},
+                          data={"dA": dA, "dVA": dVA, "dCA": dCA},
+                          bodies={"FILL_A": fill_a, "FILL_CA": fill_ca,
+                                  "READ_VA": lambda VA: None,
+                                  "COMPARE": compare})
+    hidden = (tp.globals["MT"], tp.globals["NT"])
+    ctx.add_taskpool(tp)
+    ctx.wait(timeout=120)
+    return {"errors": errors, "hidden": hidden, "done": dict(done),
+            "termdet": termdet(ctx),
+            "pool": (tp.nb_tasks, tp.nb_pending_actions)}
+
+
+def _torch_dtype(name):
+    import torch
+    return getattr(torch, name)
+
+
+def _as_payload(like, values):
+    """``values`` as the payload type of ``like`` (numpy or a tensor)."""
+    if isinstance(like, np.ndarray):
+        return np.asarray(values, like.dtype)
+    import torch
+    return torch.tensor(values, dtype=like.dtype)
+
+
+#: dynamic task discovery: the declared space (n = 0..31, l = 0..2^n-1)
+#: is astronomically larger than what runs — PROJECT(0, 0) is seeded by a
+#: startup function, and each task spawns its children only while its
+#: body leaves ``larger_than_thresh`` set (this_task->locals in C).
+PROJECT_DYN_JDF = r"""
+extern "C" %{
+/* Haar-tree projection with runtime pruning (dynamic termination) */
+%}
+
+%option dynamic = ON
+
+treeA     [ type = "parsec_data_collection_t*" ]
+fakeDesc  [ type = "parsec_data_collection_t*" ]
+NP        [ type = "int" ]
+thresh    [ type = "double" ]
+verbose   [ type = "int" ]
+alpha     [ type = "double" ]
+
+PROJECT(n, l) [ make_key_fn = project_dyn_make_key
+                startup_fn = my_project_dyn_startup ]
+  n = 0 .. 31
+  l = 0 .. %{ return (1 << n) - 1; %}
+  larger_than_thresh = 1
+
+: treeA( n, l )
+
+CTL RL <- (n > 0 && l % 2 == 0) ? RL PROJECT( n-1, l/2 )
+       <- (n > 0 && l % 2 == 1) ? RR PROJECT( n-1, l/2 )
+       -> larger_than_thresh ? RL PROJECT( n+1, 2*l )
+CTL RR -> larger_than_thresh ? RL PROJECT( n+1, 2*l+1 )
+RW  NODE <- NEW
+         -> treeA( n, l )
+
+BODY
+{
+    /* project f on the (n, l) box; prune when the detail is small */
+}
+END
+"""
+
+
+def tree_dist(pkg, nodes=1, myrank=0, name="treeA"):
+    """Minimal tree collection (the reference's test-local fixture
+    tests/apps/haar_tree/tree_dist.c): (n, l) keys, data created on
+    demand, in either package."""
+    DataCollection = _mod(pkg, "data.collection").DataCollection
+    new_data = _mod(pkg, "data.data").new_data
+
+    class TreeDist(DataCollection):
+        def __init__(self):
+            super().__init__(nodes=nodes, myrank=myrank, name=name)
+            self._lock = threading.Lock()
+            self.tiles = {}
+
+        def data_key(self, n, l=0):
+            return (n, l)
+
+        def key_to_indices(self, key):
+            return tuple(key)
+
+        def rank_of(self, n, l=0):
+            return 0 if self.nodes == 1 else (n * 31 + l) % self.nodes
+
+        def data_of(self, n, l=0):
+            with self._lock:
+                d = self.tiles.get((n, l))
+                if d is None:
+                    zeros = np.zeros(2) if pkg == "jax" else \
+                        __import__("torch").zeros(2, dtype=_torch_dtype(
+                            "float64"))
+                    d = new_data(zeros, key=(self.name, n, l),
+                                 collection=self)
+                    self.tiles[(n, l)] = d
+                return d
+    return TreeDist()
+
+
+def project_dyn(ctx, rank, nranks, pkg):
+    """The project_dyn JDF: on one rank, or seeded only on rank 0 of
+    several so every task elsewhere arrives by remote discovery (the
+    pool-scoped quiescence hold of the distributed dynamic termdet)."""
+    import math
+    jdf = _mod(pkg, "dsl.ptg.jdf")
+    tree = tree_dist(pkg, nodes=nranks, myrank=rank)
+    ALPHA, THRESH, NMIN = 1.0, 0.02, 4
+    executed, pruned = [], []
+
+    def key_to_x(n, l):
+        return -10.0 + (20.0 * 2.0 ** -n) * (0.5 + l)
+
+    def f(x):
+        return math.exp(-(x / ALPHA) * (x / ALPHA))
+
+    def project(task, n, l, NODE):
+        executed.append((n, l))
+        sl = f(key_to_x(n + 1, 2 * l))
+        sr = f(key_to_x(n + 1, 2 * l + 1))
+        d = 0.5 * (sl - sr)
+        if n >= NMIN and abs(d) * 2.0 ** (-0.5 * n) <= THRESH:
+            task.locals["larger_than_thresh"] = 0
+            pruned.append((n, l))
+        else:
+            NODE[:] = _as_payload(NODE, [0.5 * (sl + sr), d])
+
+    arena = (np.float64 if pkg == "jax" else _torch_dtype("float64"))
+    done = counter(ctx)
+    tp = jdf.jdf_taskpool(
+        PROJECT_DYN_JDF, name="project_dyn",
+        globals={"NP": nranks, "fakeDesc": tree, "thresh": THRESH,
+                 "verbose": 0, "alpha": ALPHA},
+        data={"treeA": tree}, bodies={"PROJECT": project},
+        arenas={"default": ((2,), arena)},
+        funcs={"project_dyn_make_key": lambda n, l: (n << 32) | l,
+               "my_project_dyn_startup":
+               lambda globals_, r: [dict(n=0, l=0)] if r == 0 else []})
+    dynamic = type(tp).__name__
+    ctx.add_taskpool(tp)
+    ctx.wait(timeout=120)
+    root = None
+    if (0, 0) in tree.tiles and tree.rank_of(0, 0) == rank:
+        root = get(tree.tiles[(0, 0)].pull_to_host().payload).tolist()
+    return {"executed": sorted(executed), "pruned": sorted(pruned),
+            "root": root, "pool_class": dynamic, "done": dict(done),
+            "termdet": termdet(ctx) if nranks > 1 else None,
+            "pool": (tp.nb_tasks, tp.nb_pending_actions)}
+
+
+# -- chip_smoke.py's 2-rank DTD GEMM, rehearsed on the CPU ------------------
+
+def chip_dtd_gemm(ctx, rank, nranks, pkg, mb, t, passes, refs):
+    """One rank of chip_smoke.py's 2-rank DTD GEMM path at a tiny size
+    (the port only: the script drives the port)."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    return chip_smoke._dtd_gemm_rank(ctx, rank, nranks, mb, t, passes,
+                                     refs)
+
+
 # -- the parent side ---------------------------------------------------------
 
 def run_port(fn, nranks, args=(), **kw):
