@@ -71,6 +71,26 @@ no result line):
               for bit against the single-rank DTD run, no DTD pull or
               backlogged frame left) and routed QR, then potrf over shm
               in turns with evloop.
+11. serving — the resident job service (``parsec_tpu_torch.service``):
+              four GEMM jobs (n=8192, nb=2048, f32: K1 on its ``fma``
+              route), two potrf jobs (n=8192, nb=2048, f32) and four
+              stencil jobs (n=2^23, nb=2^20, 64 steps, one fused at 16)
+              submitted together at mixed priorities to a warm
+              ``JobService`` (4 streams, 4 active jobs), each result held
+              to its own check on the card (GEMM C within 1e-3 of the
+              plain product, potrf max|LL' - A| / max|A| within 1e-4, the
+              stencil within 1e-5 of the float64 reference), jobs/s and
+              the p50/p99 of admission -> completion, each app's job wall
+              times, the per-job retired counts against each pool's tasks
+              and ``parsec_jobs_done_total``; then one job of each app
+              over the JobServer's framed-JSON wire (a bad-magic frame
+              refused, the metrics and journal ops); then the
+              ServingFabric: the JAX package's fabric bench (48 chain
+              jobs of 8 host tasks), a GEMM job leasing the card beside
+              two shared ones that wait for its release, a quoted second
+              submit, and the journal audited clean (F1-F3) by the
+              port's ``tools.journal_audit``.  K1 at 2048^3 f32 is timed
+              in the kernels phase against ``torch.addmm`` with TF32 off.
 
 Telemetry.  Every path runs with the planes the reference installs at its
 defaults: the metrics registry with live attribution and health, the
@@ -129,6 +149,7 @@ import json
 import os
 import resource
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -164,6 +185,10 @@ from parsec_tpu_torch.prof.causal import install_causal_tracer
 from parsec_tpu_torch.prof.pins import install_task_profiler
 from parsec_tpu_torch.prof.profiling import Profile
 from parsec_tpu_torch.prof.reader import intervals
+from parsec_tpu_torch.service import JobService
+from parsec_tpu_torch.service.fabric import ServingFabric
+from parsec_tpu_torch.service.server import APPS, JobServer, request
+from parsec_tpu_torch.tools import journal_audit
 from parsec_tpu_torch.utils.mca import params
 
 SEED = 20261016
@@ -356,12 +381,13 @@ def _library_addmm(A, B, C, alpha, trans_b=False):
         "torch.addmm(out_dtype=float32)"
 
 
-def k1_bound(A, B, C, bf16_peak: float, mem_rate: float):
-    """Least time of one K1 call: 2mnk flop at the bf16 tensor-core peak
-    against A and B read once, C read and O written once."""
+def k1_bound(A, B, C, peak: float, mem_rate: float):
+    """Least time of one K1 call: 2mnk flop at the operands' peak (bf16
+    tensor cores, or f32 outside them) against A and B read once, C read
+    and O written once."""
     m, k = A.shape
     n = C.shape[1]
-    t_ops = 2.0 * m * n * k / bf16_peak * 1e3
+    t_ops = 2.0 * m * n * k / peak * 1e3
     t_bytes = (A.numel() * A.element_size() + B.numel() * B.element_size()
                + 2 * C.numel() * C.element_size()) / mem_rate * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -387,7 +413,13 @@ def time_k1(A, B, C, alpha, trans_b, per_pass, peaks) -> dict:
     m, k = A.shape
     n = C.shape[1]
     reps = 5 if m >= 12288 else 20
-    bound, by = k1_bound(A, B, C, peaks[0], peaks[2])
+    f32 = A.dtype == torch.float32
+    # f32 operands: the f32 peak outside the tensor cores, and the library
+    # call with TF32 off (a full f32 product, as the port's)
+    if f32 and torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the f32 yardstick would not be "
+                             "a full f32 product")
+    bound, by = k1_bound(A, B, C, peaks[1] if f32 else peaks[0], peaks[2])
     plain_ms = time_ms(
         lambda: gemm_tile_reference(A, B, C, alpha, trans_b), reps=3)
     fns = {"kernel": lambda: gemm_tile(A, B, C, alpha, trans_b)}
@@ -400,14 +432,16 @@ def time_k1(A, B, C, alpha, trans_b, per_pass, peaks) -> dict:
     ms, lib_ms = t["kernel"], t.get("library")
     what = f"A @ B^T, {str(C.dtype)[6:]} C" if trans_b else \
         f"A @ B, {str(C.dtype)[6:]} C"
-    log(f"gemm_tile at {m}x{k}x{n} bf16 ({what}): kernel {ms:.4f} ms "
+    log(f"gemm_tile at {m}x{k}x{n} {str(A.dtype)[6:]} ({what}): kernel "
+        f"{ms:.4f} ms "
         f"({2.0 * m * n * k / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} "
         f"ms, library_ms {lib_ms} ({lib_name}), bound {bound:.4f} ms ({by}),"
         f" share of bound {bound / ms:.3f}, kernel / library "
         f"{ms / lib_ms if lib_ms else float('nan'):.3f}, launches per pass "
         f"{per_pass}")
     return {"shape": [m, k, n], "trans_b": trans_b,
-            "c_dtype": str(C.dtype)[6:], "ms": ms, "plain_ms": plain_ms,
+            "dtype": str(A.dtype)[6:], "c_dtype": str(C.dtype)[6:],
+            "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
             "share_of_bound": bound / ms, "launches_per_pass": per_pass}
 
@@ -441,7 +475,10 @@ def phase_kernels(dev: torch.device, peaks) -> dict:
               None),
              ("ragged", 1000, 513, 777, f32, -1.0, False, False, "fma",
               None),
-             ("f32", 2048, 2048, 2048, f32, 0.5, False, False, "fma", None),
+             # the served GEMM jobs' tiles (f32 operands: the fma route);
+             # alpha 1 as gemm_taskpool gives it
+             ("f32", 2048, 2048, 2048, f32, 1.0, False, False, "fma",
+              {"serving GEMM job n=8192": 64}),
              ("ragged", 1000, 520, 778, bf16, -1.0, False, True, "wgmma",
               None),
              ("ragged", 1000, 513, 777, bf16, -1.0, False, True, "wmma",
@@ -2126,6 +2163,307 @@ def phase_host(smi: str, rounds: int = 3, **sizes) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# serving: the resident job service, its wire and the fabric
+# ---------------------------------------------------------------------------
+
+#: per-job result limits: a GEMM job's C against its plain product
+#: (relative to the largest |entry|), the JAX package's potrf test
+#: tolerance on max|LL' - A| / max|A|, and a stencil job's vector against
+#: the float64 serial reference (max abs)
+GEMM_JOB_TOL = 1e-3
+POTRF_JOB_TOL = 1e-4
+STENCIL_JOB_TOL = 1e-5
+
+#: the served jobs at the card sizes: GEMM and potrf at n=8192, nb=2048
+#: (64 GEMM tasks, f32: 1.10e12 flop a job), the stencil at the JAX
+#: package's bench geometry (mb=2^20, 8 tiles, 64 steps; fused at 16)
+SERVING_SIZES = {"gemm": (8192, 2048), "potrf": (8192, 2048),
+                 "stencil": (1 << 23, 1 << 20, 64), "fuse": 16,
+                 "fabric_gemm": (4096, 2048), "fabric_jobs": 48,
+                 "fabric_nt": 8}
+
+
+def _pcts(lats: list) -> tuple:
+    """(p50, p99) as the JAX package's fabric bench takes them."""
+    lats = sorted(lats)
+    return lats[len(lats) // 2], lats[min(len(lats) - 1,
+                                          int(len(lats) * 0.99))]
+
+
+def serving_tasks(app: str, p: dict) -> int:
+    """The tasks one served job enumerates: GEMM (n/nb)^3 steps plus the
+    (n/nb)^2 beta-scaling tasks (the catalog's beta is 0), potrf its five
+    classes, the stencil NT INIT tasks plus NT per (fused) sweep block."""
+    if app == "gemm":
+        t = p["n"] // p["nb"]
+        return t ** 3 + t ** 2
+    if app == "potrf":
+        return sum(potrf_task_counts(p["n"] // p["nb"]).values())
+    nt = p["n"] // p["nb"]
+    return nt * (1 + -(-p["steps"] // p.get("fuse", 1)))
+
+
+def check_job(app: str, res: dict, label: str) -> float:
+    """Hold a served job's own check to its limit; returns the error."""
+    err, tol = {"gemm": (res.get("rel_err"), GEMM_JOB_TOL),
+                "potrf": (res.get("residual"), POTRF_JOB_TOL),
+                "stencil": (res.get("max_err"), STENCIL_JOB_TOL)}[app]
+    if err is None or not err <= tol:
+        raise AssertionError(f"[{label}] {app} job result {res}: error "
+                             f"{err} against {tol}")
+    return err
+
+
+def _chain_job(i: int, nt: int):
+    """The JAX package's fabric bench job (``bench.py::run_fabric_bench``):
+    an nt-deep chain of host tasks over its own 1x1-tile collection."""
+    def factory():
+        A = TwoDimBlockCyclic(mb=4, nb=4, lm=4, ln=4)
+        A.data_of(0, 0).copy_on(0).payload[:] = 0.0
+        p = PTG(f"fj{i}", NT=nt)
+        p.task("S", k=Range(0, nt - 1)) \
+            .affinity(lambda k, A=A: A(0, 0)) \
+            .flow("T", "RW",
+                  IN(DATA(lambda A=A: A(0, 0)), when=lambda k: k == 0),
+                  IN(TASK("S", "T", lambda k: dict(k=k - 1)),
+                     when=lambda k: k > 0),
+                  OUT(TASK("S", "T", lambda k, NT=nt: dict(k=k + 1)),
+                      when=lambda k, NT=nt: k < NT - 1),
+                  OUT(DATA(lambda A=A: A(0, 0)),
+                      when=lambda k, NT=nt: k == NT - 1)) \
+            .body(lambda T: T + 1.0)
+        return p.build()
+    return factory
+
+
+def _jobs_done(ctx) -> float:
+    return sum(s["v"] for s in ctx.metrics.samples()
+               if s["n"] == "parsec_jobs_done_total"
+               and s["l"].get("status") == "done")
+
+
+def serving_in_process(svc, sizes: dict, label: str) -> dict:
+    """Four GEMM, two potrf and four stencil jobs (one fused) submitted
+    together at mixed priorities to a warm JobService; every result held
+    to its check, jobs/s and the admission -> completion percentiles,
+    each app's job wall times and the per-job retired counts."""
+    n, nb = sizes["gemm"]
+    pn, pnb = sizes["potrf"]
+    sn, snb, steps = sizes["stencil"]
+    plan = [("gemm", {"n": n, "nb": nb, "seed": 11 + i}, prio)
+            for i, prio in enumerate((0, 5, 1, 3))]
+    plan += [("potrf", {"n": pn, "nb": pnb, "seed": 21 + i}, prio)
+             for i, prio in enumerate((4, 2))]
+    plan += [("stencil", {"n": sn, "nb": snb, "steps": steps,
+                          "seed": 31 + i,
+                          "fuse": sizes["fuse"] if i == 3 else 1}, prio)
+             for i, prio in enumerate((1, 0, 2, 6))]
+    done0 = _jobs_done(svc.context)
+    t0 = time.perf_counter()
+    jobs = [(app, p, svc.submit(APPS[app](dict(p, device="cuda")),
+                                priority=prio, name=app, client=label))
+            for app, p, prio in plan]
+    results = [(app, p, job, job.result(timeout=600.0))
+               for app, p, job in jobs]
+    span = time.perf_counter() - t0
+    lats = [job.finished_at - job.submitted_at for _a, _p, job in jobs]
+    p50, p99 = _pcts(lats)
+    walls = collections.defaultdict(list)
+    errs = collections.defaultdict(list)
+    counts = []
+    for app, p, job, res in results:
+        errs[app].append(check_job(app, res, label))
+        walls[app].append(job.finished_at - job.started_at)
+        retired = svc.gauges.job_task_counts(job.job_id)["tasks_retired"]
+        counts.append((job.job_id, app, retired, serving_tasks(app, p)))
+        if retired != serving_tasks(app, p):
+            raise AssertionError(f"[{label}] job {job.job_id} ({app}) "
+                                 f"retired {retired} tasks, its pool has "
+                                 f"{serving_tasks(app, p)}")
+    deadline = time.monotonic() + 10.0
+    while _jobs_done(svc.context) - done0 < len(jobs) \
+            and time.monotonic() < deadline:
+        time.sleep(0.01)
+    done = _jobs_done(svc.context) - done0
+    if done != len(jobs):
+        raise AssertionError(f"[{label}] parsec_jobs_done_total counted "
+                             f"{done} of {len(jobs)} jobs")
+    out = {"jobs": len(jobs), "seconds": span,
+           "jobs_per_s": len(jobs) / span, "p50_s": p50, "p99_s": p99,
+           "wall_s": {a: w for a, w in walls.items()},
+           "max_err": {a: max(e) for a, e in errs.items()},
+           "retired_vs_tasks": counts, "jobs_done_total": done}
+    log(f"[{label}] {len(jobs)} jobs (4 GEMM n={n} nb={nb} f32, 2 potrf "
+        f"n={pn} nb={pnb} f32, 4 stencil n={sn} nb={snb} steps={steps}, "
+        f"one at fuse {sizes['fuse']}) in {span:.3f} s: "
+        f"{out['jobs_per_s']:.3f} jobs/s, admission -> completion p50 "
+        f"{p50:.3f} s p99 {p99:.3f} s")
+    for app in walls:
+        log(f"[{label}] {app} job wall s "
+            f"{[round(w, 4) for w in walls[app]]}, worst error "
+            f"{out['max_err'][app]:.3e}")
+    log(f"[{label}] retired / tasks by job "
+        f"{[(j, a, r, t) for j, a, r, t in counts]}; "
+        f"parsec_jobs_done_total +{done:.0f}")
+    return out
+
+
+def serving_wire(svc, sizes: dict, label: str) -> dict:
+    """One job of each app through ``request()`` on a JobServer over the
+    same service: submit, status and the waiting result op; a bad-magic
+    frame refused; the metrics scrape with the job families; the journal
+    op with the jobs' lifecycle."""
+    server = JobServer(svc, host="127.0.0.1", port=0)
+    h, port = server.host, server.port
+    try:
+        n, nb = sizes["gemm"]
+        pn, pnb = sizes["potrf"]
+        sn, snb, steps = sizes["stencil"]
+        reqs = [("gemm", {"n": n, "nb": nb, "seed": 41}),
+                ("potrf", {"n": pn, "nb": pnb, "seed": 42}),
+                ("stencil", {"n": sn, "nb": snb, "steps": steps,
+                             "seed": 43})]
+        subs = []
+        for app, p in reqs:
+            r = request(h, port, {"op": "submit", "app": app,
+                                  "params": dict(p, device="cuda"),
+                                  "client": label})
+            if not r.get("ok"):
+                raise AssertionError(f"[{label}] submit {app}: {r}")
+            subs.append((app, r["job"]))
+        errs = {}
+        for app, jid in subs:
+            res = request(h, port, {"op": "result", "job": jid,
+                                    "timeout": 600.0})
+            st = request(h, port, {"op": "status", "job": jid})
+            if not (res.get("ok") and res["status"] == "DONE"
+                    and st.get("ok") and st["info"]["status"] == "DONE"):
+                raise AssertionError(f"[{label}] {app} job {jid}: result "
+                                     f"{res}, status {st}")
+            errs[app] = check_job(app, res["result"], label)
+        with socket.create_connection((h, port), timeout=10.0) as s:
+            s.sendall(b"BAD?" + b"\0" * 16)
+            s.settimeout(10.0)
+            try:
+                refused = s.recv(64) == b""
+            except ConnectionResetError:
+                refused = True
+        text = request(h, port, {"op": "metrics"})["text"]
+        families = all(f in text for f in (
+            'parsec_jobs_done_total{status="done"}',
+            "parsec_job_duration_seconds_count", "parsec_job_tasks_total",
+            "parsec_jobs_slo_breached_total"))
+        jr = request(h, port, {"op": "journal"})
+        kinds = collections.Counter(
+            e["e"] for e in jr["ranks"]["0"]["events"]
+            if e["e"].startswith("job_"))
+        journal_ok = jr.get("ok") and all(
+            kinds[k] >= len(subs) for k in ("job_admit", "job_start",
+                                            "job_done"))
+    finally:
+        server.close()
+    if not (refused and families and journal_ok):
+        raise AssertionError(f"[{label}] bad magic refused {refused}, "
+                             f"job families in the scrape {families}, "
+                             f"journal {dict(kinds)}")
+    log(f"[{label}] {len(subs)} jobs over the framed-JSON wire: errors "
+        f"{ {a: f'{e:.3e}' for a, e in errs.items()} }; bad magic "
+        f"refused; scrape carries the job families; journal job events "
+        f"{dict(kinds)}")
+    return {"jobs": len(subs), "max_err": errs,
+            "journal_job_events": dict(kinds)}
+
+
+def serving_fabric(device: str, sizes: dict, label: str) -> dict:
+    """The JAX package's fabric bench (``bench.py::run_fabric_bench``:
+    four warm chain jobs, then a stream of chain jobs, jobs/s and p50/p99
+    admission -> completion), one GEMM job leasing ``devices=1`` beside
+    two shared ones (which wait for the lease), a second submit of a
+    profiled app that gets a quote, and the journal audited (F1-F3)."""
+    nj, nt = sizes["fabric_jobs"], sizes["fabric_nt"]
+    n, nb = sizes["fabric_gemm"]
+    with ServingFabric(device=device, nb_cores=4, max_active=8,
+                       max_pending=nj + 8) as fab:
+        warm = [fab.submit(_chain_job(-1 - i, nt), app="fabwarm")
+                for i in range(4)]
+        for j in warm:
+            if not j.wait(timeout=60.0):
+                raise AssertionError(f"[{label}] {j} never finished")
+        t0 = time.perf_counter()
+        jobs = [fab.submit(_chain_job(i, nt), app="fabbench")
+                for i in range(nj)]
+        for j in jobs:
+            if not j.wait(timeout=120.0) or j.status().name != "DONE":
+                raise AssertionError(f"[{label}] {j} did not finish")
+        dt = time.perf_counter() - t0
+        p50, p99 = _pcts([j.finished_at - j.submitted_at for j in jobs])
+        gp = {"n": n, "nb": nb, "device": "cuda"}
+        excl = fab.submit(APPS["gemm"](dict(gp, seed=51)), devices=1,
+                          app="gemm", name="gemm-lease")
+        shared = [fab.submit(APPS["gemm"](dict(gp, seed=52 + i)),
+                             app="gemm", name=f"gemm-shared{i}")
+                  for i in range(2)]
+        errs = [check_job("gemm", j.result(timeout=600.0), label)
+                for j in [excl] + shared]
+        lease = [e["devices"] for e in fab.context.journal.tail(4096)
+                 if e.get("e") == "fabric_place"
+                 and e.get("job") == excl.job_id]
+        waited = all(j.started_at >= excl.finished_at for j in shared)
+        again = fab.submit(APPS["gemm"](dict(gp, seed=55)), app="gemm",
+                           name="gemm-quoted")
+        errs.append(check_job("gemm", again.result(timeout=600.0), label))
+        bundle = {0: [fab.context.journal.snapshot()]}
+        stats = fab.stats()["fabric"]
+    violations = journal_audit.audit(bundle)
+    if lease != [fab.context.accelerator_spaces()[:1]] or not waited \
+            or again.quote_eta is None or violations:
+        raise AssertionError(
+            f"[{label}] lease {lease}, shared jobs waited {waited}, quote "
+            f"{again.quote_eta}, audit {violations[:3]}")
+    out = {"jobs": nj, "nt": nt, "jobs_per_s": nj / dt, "p50_s": p50,
+           "p99_s": p99, "gemm_max_err": max(errs),
+           "quote_eta_s": again.quote_eta, "verdict": again.verdict,
+           "measured_s": again.finished_at - again.started_at,
+           "audit": "clean", "preemptions": stats["preemptions"]}
+    log(f"[{label}] {nj} chain jobs nt={nt}: {out['jobs_per_s']:.1f} "
+        f"jobs/s, admission -> completion p50 {p50 * 1e3:.2f} ms p99 "
+        f"{p99 * 1e3:.2f} ms; GEMM n={n} leased {lease[0]}, the two shared "
+        f"GEMM jobs started after its release; second gemm submit quoted "
+        f"{again.quote_eta:.4f} s ({again.verdict}), ran "
+        f"{out['measured_s']:.4f} s; journal audit F1-F3 clean")
+    return out
+
+
+def phase_serving(device: str = "cuda", sizes: dict = None) -> dict:
+    """The resident job service on the card, through the entry points a
+    user calls: the in-process mix on a warm ``JobService``, one job of
+    each app over the JobServer's wire, then the ServingFabric.  Every
+    GEMM and potrf job launches K1 on its f32 ``fma`` route; the K1
+    launches of the three parts are this path's (counts set to 0 just
+    before, read just after)."""
+    sizes = dict(SERVING_SIZES, **(sizes or {}))
+    label = "serving"
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with JobService(device=device, nb_cores=4, max_active=4) as svc:
+        inproc = serving_in_process(svc, sizes, f"{label} in-process")
+        wire = serving_wire(svc, sizes, f"{label} wire")
+    fabric = serving_fabric(device, sizes, f"{label} fabric")
+    launches, routes = read_counts(), read_routes()
+    fma = routes["fma"]
+    log(f"[{label}] K1 launches {launches['gemm_tile']} by route {routes} "
+        f"(fma {fma}), grouped {launches['gemm_tile_grouped']}")
+    if device == "cuda" and fma <= 0:
+        raise AssertionError(f"[{label}] no K1 launch took the fma route")
+    gc.collect()
+    return {"launches": launches, "routes": routes, "in_process": inproc,
+            "wire": wire, "fabric": fabric,
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                         if device == "cuda" else None)}
+
+
+# ---------------------------------------------------------------------------
 # 2-rank paths: two ranks time-sharing this one card over the comm layer
 # ---------------------------------------------------------------------------
 
@@ -2732,6 +3070,10 @@ def main() -> int:
                      "2-rank GEMM mb=2048": dist["gemm"],
                      "2-rank DTD GEMM mb=2048": dist["dtd_gemm"],
                      "2-rank QR mb=6144": dist["qr"]})
+    # the resident job service, run after every other path
+    per_path["serving"] = phase_serving()
+    gc.collect()
+    torch.cuda.empty_cache()
     nat, lad = per_path["GEMM mb=2048"], per_path["GEMM mb=2048 ladder"]
     log(f"[mb=2048] {nat['scheduler']['name']} against "
         f"{lad['scheduler']['name']}: best pass {nat['pass_ms']:.1f} ms "

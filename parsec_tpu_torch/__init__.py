@@ -8,14 +8,18 @@ for Hopper, and tiles are staged into device memory by the CUDA device
 module.  It imports nothing of ``parsec_tpu`` and never imports JAX; the
 module layout mirrors ``parsec_tpu`` so each counterpart is easy to find.
 
-Ported so far (the tiled-GEMM main path and the tiled QR):
+Ported so far (the GEMM, QR and Cholesky slices, the native core, the
+telemetry plane, the distributed runtime, DTD/JDF and the job service):
   ``utils``/``containers`` — config registry, logging, concurrent containers
   ``data``                 — Data/DataCopy coherency, arenas, repos, tiled
                              matrices, the carry from the JAX package's arrays
   ``core`` + ``sched``     — taskpools, dep engine, termdet, schedulers
   ``devices``              — device registry and the CUDA device module
   ``dsl.ptg``              — the PTG front-end
-  ``apps``                 — the tiled GEMM and QR and their Hopper kernels
+  ``apps``                 — the tiled GEMM, QR, Cholesky and stencil, and
+                             the Hopper kernels
+  ``service``              — the resident job service, its server and
+                             the serving fabric
 """
 
 __version__ = "0.1.0"

@@ -115,7 +115,6 @@ for _knob, _plane in _UNPORTED_PLANES:
 #: while one is set (override or environment), since nothing would read
 #: it
 _UNPORTED_KNOBS = (
-    ("metrics_slo_job_s", "the job SLO (job service, flight recorder)"),
     ("liveattr_straggler_incident_s",
      "the straggler's flight-recorder trigger"),
     ("journal_autopsy_tail", "the hang autopsy's journal section"),

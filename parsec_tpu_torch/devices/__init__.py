@@ -15,7 +15,8 @@ from parsec_tpu_torch.utils.output import debug_verbose
 params.register("device", "cuda",
                 "where device bodies run: 'cuda' attaches every visible "
                 "CUDA device and fails without one; 'cpu' attaches one "
-                "CPU-backed instance of the same device module (tests)")
+                "CPU-backed instance of the same device module and "
+                "'cpu:N' attaches N of them (tests)")
 
 
 def init_devices(context, device: Optional[str] = None) -> DeviceRegistry:
@@ -26,17 +27,23 @@ def init_devices(context, device: Optional[str] = None) -> DeviceRegistry:
     module per visible CUDA device and raises RuntimeError when there is
     none — nothing carries on on the CPU because CUDA is missing; "cpu"
     attaches one CPU-backed module, whose streams and events are no-ops
-    and whose kernels resolve to their plain versions."""
+    and whose kernels resolve to their plain versions, and "cpu:N"
+    attaches N of them (N memory spaces over the one host memory: the
+    counterpart of the JAX package's tests' 8-device CPU mesh, which the
+    serving fabric carves)."""
     import torch
     from parsec_tpu_torch.devices.cuda import CudaDevice
     kind = str(device if device is not None
                else params.get("device", "cuda")).lower()
     reg = DeviceRegistry(context)
-    if kind == "cpu":
-        reg.attach(CudaDevice(torch.device("cpu")))
+    if kind == "cpu" or kind.startswith("cpu:"):
+        n = _cpu_count(kind)
+        for i in range(n):
+            reg.attach(CudaDevice(torch.device("cpu"), index=i))
         return reg
     if kind not in ("cuda", "gpu"):
-        raise ValueError(f"device must be 'cuda' or 'cpu', not {kind!r}")
+        raise ValueError(
+            f"device must be 'cuda', 'cpu' or 'cpu:N', not {kind!r}")
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if n == 0:
         raise RuntimeError(
@@ -47,6 +54,19 @@ def init_devices(context, device: Optional[str] = None) -> DeviceRegistry:
     debug_verbose(3, "attached %d CUDA devices (%s)", n,
                   torch.cuda.get_device_name(0))
     return reg
+
+
+def _cpu_count(kind: str) -> int:
+    """N of "cpu:N" (1 for "cpu"); anything else raises."""
+    if kind == "cpu":
+        return 1
+    try:
+        n = int(kind[4:])
+    except ValueError:
+        n = 0
+    if n < 1:
+        raise ValueError(f"device {kind!r}: 'cpu:N' needs N >= 1")
+    return n
 
 
 __all__ = ["Device", "DeviceRegistry", "DeviceStats", "init_devices"]

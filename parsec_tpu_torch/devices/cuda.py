@@ -357,7 +357,8 @@ class CudaDevice(Device):
 
     kind = "cuda"
 
-    def __init__(self, tdev: torch.device, weight: float = 1.0):
+    def __init__(self, tdev: torch.device, weight: float = 1.0,
+                 index: int = 0):
         if int(params.get("device_dispatchers", 1)) != 1:
             raise NotImplementedError(
                 f"device_dispatchers={params.get('device_dispatchers')} is "
@@ -365,8 +366,11 @@ class CudaDevice(Device):
                 "one stream")
         self.tdev = tdev
         self.is_cuda = tdev.type == "cuda"
+        # several CPU-backed instances share torch.device("cpu"): each is
+        # told its index, and everything per device (space, LRU, memory
+        # ledger, copies' owners) keys on the module, never on tdev
         super().__init__(f"cuda:{tdev.index}" if self.is_cuda
-                         else "cuda-on-cpu:0")
+                         else f"cuda-on-cpu:{index}")
         self.weight = weight
         if self.is_cuda:
             #: the launch stream (see the module docstring: one stream)

@@ -29,12 +29,12 @@ with live attribution and health armed, as in the JAX package; read with
 ranks of a distributed run with ``cluster_exposition``, which pulls the
 peers' samples over the comm engine's TAG_METRICS lane.  The comm
 collectors return nothing while ``ctx.comm`` is None (a single-rank
-run); the job service is not ported, so its collectors return nothing.
-
-In the JAX package: installed by default on every Context; scraped
-through the JobServer's ``{"op": "metrics"}`` request or a plain HTTP
-``GET /metrics`` on the same port (service/server.py), or the
-``tools/metrics_client.py`` CLI.
+run), and the job-service collector while no JobService is attached.
+Scraped through the JobServer's ``{"op": "metrics"}`` request or a
+plain HTTP ``GET /metrics`` on the same port (service/server.py), as in
+the JAX package.  A job over ``metrics_slo_job_s`` counts in
+``parsec_jobs_slo_breached_total``; the flight-recorder incident the JAX
+package also fires then is not ported (nor is the recorder).
 """
 
 from __future__ import annotations
@@ -74,6 +74,11 @@ params.register("metrics_ring", 256,
                 "per-histogram quantile reservoir size: the most recent "
                 "N observations kept in a ring for q50/q99 estimates "
                 "(bucket counts are exact regardless)")
+params.register("metrics_slo_job_s", 0.0,
+                "job admission->completion SLO in seconds: a finished "
+                "job over budget counts in jobs_slo_breached_total (the "
+                "JAX package also triggers a flight-recorder incident "
+                "dump; the port has no recorder yet).  0 disables")
 
 #: log2 histogram bucket bounds: 2^-20 s (~1 us) .. 2^6 s (64 s).
 #: Fixed at module scope so every rank's buckets merge positionally.
@@ -376,10 +381,8 @@ class RuntimeMetrics:
         self.job_queue = Histogram()
         self.comm_frame_rtt = Histogram()
         self._jobs_done = Family(Counter, ("status",), 16)
-        # no job SLO (the JAX package's metrics_slo_job_s, its
-        # parsec_jobs_slo_breached_total and the incident dump it
-        # triggers): it comes with the job service and the flight
-        # recorder, so no knob here can silently do nothing
+        self._slo = float(params.get("metrics_slo_job_s", 0.0))
+        self._slo_breached = Counter()
         self._collectors: List[Callable[[], List[dict]]] = []
         #: online attribution engine (prof/liveattr.py) riding THESE
         #: hooks — it registers no PINS callbacks of its own
@@ -562,8 +565,7 @@ class RuntimeMetrics:
         self._discarded.inc()
 
     # -- job lifecycle (service/service.py _emit; jobs_submitted derives
-    # from the service collector, so only job_done is hooked).  The port
-    # has no job service yet, so nothing fires job_done here -----------
+    # from the service collector, so only job_done is hooked) ------------
     def _job_done(self, es, event, job) -> None:
         # fired EXACTLY ONCE per job (JobService._emit_done's one-shot
         # seam): a recovery restart re-terminating a completed pool is
@@ -582,6 +584,12 @@ class RuntimeMetrics:
                 total_s = max(run_s, time.monotonic() - sub)
                 self.job_queue.observe(max(0.0, total_s - run_s))
                 self.job_duration.observe(total_s)
+                if self._slo > 0 and total_s > self._slo:
+                    # the JAX package also fires the flight recorder's
+                    # incident dump here (a no-op there while the
+                    # recorder is unarmed); the port has no recorder,
+                    # so the incident waits with it
+                    self._slo_breached.inc()
         except Exception:   # telemetry must never fail a job callback
             pass
 
@@ -621,6 +629,8 @@ class RuntimeMetrics:
             histogram_sample("parsec_job_queue_seconds", self.job_queue),
             histogram_sample("parsec_comm_frame_rtt_seconds",
                              self.comm_frame_rtt),
+            counter_sample("parsec_jobs_slo_breached_total",
+                           self._slo_breached.value),
         ]
         for labels, c in self._jobs_done.items():
             out.append(counter_sample("parsec_jobs_done_total", c.value,

@@ -1,7 +1,8 @@
 """``chip_smoke.py`` off the card: it must refuse to run without a CUDA
-device, and refuse to run outside the repository; its ``drive_gemm`` and
-``drive_qr`` are rehearsed here at a tiny size on the port's CPU-backed device
-module."""
+device, and refuse to run outside the repository; its drivers
+(``drive_gemm``, ``drive_qr``, ``drive_potrf``, the front-end, host, traced
+and 2-rank phases, and ``phase_serving``'s checks) are rehearsed here at a
+tiny size on the port's CPU-backed device module."""
 
 import pathlib
 import shutil
@@ -362,3 +363,58 @@ def test_report_scheduler_holds_the_native_default():
                 "rehearsal", ctx, bail0)["queue"] is None
     finally:
         params.unset("sched_native")
+
+
+SERVING_SMALL = {"gemm": (64, 16), "potrf": (64, 16),
+                 "stencil": (256, 32, 8), "fuse": 4, "fabric_gemm": (64, 32),
+                 "fabric_jobs": 8, "fabric_nt": 4}
+
+
+def test_serving_phase_rehearsal_on_cpu():
+    """The serving path's checks on the CPU-backed device module at a
+    small size: every job's result within its limit, the per-job
+    retired counts equal to the pools' tasks, jobs_done counted, the
+    wire's replies, the fabric's lease, quote and clean audit, and the
+    latency fields; CPU tensors launch no kernel."""
+    chip_smoke = _chip_smoke()
+    res = chip_smoke.phase_serving("cpu", SERVING_SMALL)
+    assert res["launches"] == NO_LAUNCHES
+    inproc = res["in_process"]
+    assert inproc["jobs"] == 10 and inproc["jobs_done_total"] == 10
+    assert all(r == t for _j, _a, r, t in inproc["retired_vs_tasks"])
+    assert sorted(len(w) for w in inproc["wall_s"].values()) == [2, 4, 4]
+    assert 0 < inproc["p50_s"] <= inproc["p99_s"] <= inproc["seconds"]
+    assert inproc["jobs_per_s"] > 0
+    assert res["wire"]["jobs"] == 3
+    fab = res["fabric"]
+    assert fab["audit"] == "clean" and fab["quote_eta_s"] is not None
+    assert 0 < fab["p50_s"] <= fab["p99_s"] and fab["jobs_per_s"] > 0
+
+
+@pytest.mark.parametrize("app,params", [
+    ("gemm", {"n": 64, "nb": 16}), ("gemm", {"n": 8192, "nb": 2048}),
+    ("potrf", {"n": 64, "nb": 16}), ("potrf", {"n": 8192, "nb": 2048}),
+    ("stencil", {"n": 256, "nb": 32, "steps": 8}),
+    ("stencil", {"n": 1 << 23, "nb": 1 << 20, "steps": 64, "fuse": 16})])
+def test_serving_task_counts_match_the_pools(app, params):
+    """The per-job task counts the serving path holds the gauges to
+    agree with the pools' own enumeration (liveattr.class_totals), at
+    the card sizes too."""
+    chip_smoke = _chip_smoke()
+    from parsec_tpu_torch.apps.gemm import gemm_taskpool
+    from parsec_tpu_torch.apps.potrf import potrf_taskpool
+    from parsec_tpu_torch.apps.stencil import stencil_taskpool
+    from parsec_tpu_torch.data.matrix import (TwoDimBlockCyclic,
+                                              VectorTwoDimCyclic)
+    from parsec_tpu_torch.prof.liveattr import class_totals
+    n, nb = params["n"], params["nb"]
+    if app == "stencil":
+        tp = stencil_taskpool(VectorTwoDimCyclic(mb=nb, lm=n),
+                              params["steps"], fuse=params.get("fuse", 1))
+    else:
+        mats = [TwoDimBlockCyclic(mb=nb, nb=nb, lm=n, ln=n)
+                for _ in range(3)]
+        tp = gemm_taskpool(*mats, beta=0.0) if app == "gemm" else \
+            potrf_taskpool(mats[0])
+    assert sum(class_totals(tp).values()) == \
+        chip_smoke.serving_tasks(app, params)

@@ -22,6 +22,9 @@ between launches on the card; the tiled QR and the tiled Cholesky run on
 the card against the same runs on the CPU-backed device module.  K1's
 tiles are counted as single launches plus grouped members: the device
 module fuses waves at its defaults.
+
+A JobService on the card serves one job of each catalog app (GEMM,
+potrf, stencil); f32 operands send K1 to its fma route.
 """
 
 import numpy as np
@@ -586,3 +589,45 @@ def test_gemm_tile_out_must_not_overlap_an_operand(card):
         gemm_tile(a, b, c, -1.0, True, out=a)
     with pytest.raises(ValueError):
         gemm_tile(a, b, c, -1.0, True, out=b)
+
+
+@pytest.mark.cuda
+def test_gemm_tile_fma_route_at_the_served_shape(card):
+    """The served GEMM jobs' tiles: f32 operands at 2048^3 take the fma
+    route, within 1e-5 of the plain version."""
+    g = torch.Generator(device=card).manual_seed(17)
+    A = torch.randn((2048, 2048), generator=g, device=card)
+    B = torch.randn((2048, 2048), generator=g, device=card)
+    C = torch.randn((2048, 2048), generator=g, device=card)
+    fma0 = cuda_kernels.gemm_tile_route_launches["fma"].value
+    got = gemm_tile(A, B, C, 1.0)
+    torch.cuda.synchronize()
+    assert cuda_kernels.gemm_tile_route_launches["fma"].value == fma0 + 1
+    ref = gemm_tile_reference(A, B, C, 1.0)
+    err = ((got - ref).abs().max() / ref.abs().max().clamp(min=1.0)).item()
+    assert err <= 1e-5
+
+
+@pytest.mark.cuda
+def test_job_service_serves_each_app_on_the_card(card):
+    """A JobService on the card serves one job of each catalog app, each
+    held to its own check (GEMM 1e-3 of the plain product, potrf within
+    the JAX package's test tolerance 1e-4, stencil 1e-5 of the float64
+    reference), and the GEMM and potrf jobs launch K1 on the fma route."""
+    from parsec_tpu_torch.service import JobService
+    from parsec_tpu_torch.service.server import APPS
+    fma0 = cuda_kernels.gemm_tile_route_launches["fma"].value
+    with JobService(nb_cores=4, max_active=3) as svc:
+        assert all(d.is_cuda for d in
+                   svc.context.device_registry.accelerators)
+        jobs = {app: svc.submit(APPS[app](p), name=app) for app, p in (
+            ("gemm", {"n": 1024, "nb": 256, "seed": 1}),
+            ("potrf", {"n": 1024, "nb": 256, "seed": 2}),
+            ("stencil", {"n": 1 << 16, "nb": 1 << 13, "steps": 12,
+                         "fuse": 4, "seed": 3}))}
+        res = {app: j.result(timeout=300.0) for app, j in jobs.items()}
+    assert res["gemm"]["rel_err"] <= 1e-3
+    assert res["potrf"]["residual"] < 1e-4
+    assert res["stencil"]["max_err"] <= 1e-5
+    # 64 GEMM tiles plus the potrf's 10 SYRK/GEMM updates, all f32
+    assert cuda_kernels.gemm_tile_route_launches["fma"].value - fma0 == 74

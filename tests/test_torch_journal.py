@@ -2,10 +2,10 @@
 single-rank tests of tests/test_journal.py, and the journal on the
 port's Context at its defaults.
 
-The recovery and service cases of the JAX package's file (the job-port
-pull, the flight-recorder bundle, the autopsy tail, the retirement
-handshake, the recovery catalog) wait for those layers; the two-rank
-pull over the comm layer's control lane is twinned; the auditor's corpus tests exercise tools/, not the
+The job-port pull is twinned on both packages; the recovery cases of
+the JAX package's file (the flight-recorder bundle, the autopsy tail,
+the retirement handshake, the recovery catalog) wait for those layers;
+the two-rank pull over the comm layer's control lane is twinned; the auditor's corpus tests exercise tools/, not the
 journal.  The port's dump is read back by the JAX package's own auditor
 loader where the twin needs a reader, so both agree on the file format.
 """
@@ -275,3 +275,46 @@ def test_two_rank_journal_pull_over_control_lane():
         assert res[0]["ranks"] == [0, 1]
         assert "barrier" in res[0]["peer_kinds"], res
     assert p[0]["peer_kinds"] == j[0]["peer_kinds"]
+
+
+def test_journal_op_on_job_server():
+    """The framed ``{"op": "journal"}`` pull returns this rank's snapshot
+    with the job lifecycle on the record, as the JAX package's does on
+    the same job."""
+    import parsec_tpu.core.context as jax_context
+    import parsec_tpu.dsl.ptg as jax_ptg
+    import parsec_tpu.service.server as jax_server
+    import parsec_tpu.service.service as jax_service
+    import parsec_tpu_torch.core.context as port_context
+    import parsec_tpu_torch.service.server as port_server
+    import parsec_tpu_torch.service.service as port_service
+
+    def jax_pool():
+        p = jax_ptg.PTG("jpool", N=8)
+        p.task("T", i=jax_ptg.Range(0, 7)).body(lambda: None)
+        return p.build()
+
+    got = {}
+    for side, ctxmod, srv, svcmod, pool, kw in (
+            ("jax", jax_context, jax_server, jax_service, jax_pool, {}),
+            ("port", port_context, port_server, port_service,
+             lambda: _n_pool(8), {"device": "cpu"})):
+        with ctxmod.Context(nb_cores=2, **kw) as ctx:
+            svc = svcmod.JobService(context=ctx)
+            server = srv.JobServer(svc, port=0)
+            try:
+                job = svc.submit(pool, name="boxed")
+                assert job.wait(timeout=30)
+                reply = srv.request(server.host, server.port,
+                                    {"op": "journal"})
+            finally:
+                server.close()
+                svc.shutdown(timeout=10.0)
+        snap = reply["ranks"]["0"]
+        jobs = [(e["e"], e["job"], e.get("status"))
+                for e in snap["events"] if e["e"].startswith("job_")]
+        got[side] = (reply["ok"], sorted(reply["ranks"]), jobs)
+    assert got["port"] == got["jax"]
+    assert got["port"] == (True, ["0"], [("job_admit", 1, None),
+                                         ("job_start", 1, None),
+                                         ("job_done", 1, "done")])

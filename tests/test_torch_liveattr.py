@@ -2,9 +2,10 @@
 single-rank tests of tests/test_liveattr.py, and parity with the JAX
 package's engine.
 
-The status surfaces (the job server's op and HTTP GET, tools/live_view,
-the ETA of a running job) wait for the service layer; the online/offline
-agreement on the traced rtt leg waits for the comm layer.  The straggler
+The job server's status op and HTTP GET are twinned on both packages;
+tools/live_view and the ETA of a running job are left out; the
+online/offline agreement on the traced rtt leg waits for the comm
+layer.  The straggler
 and split-mode checks of the JAX package run a delayed task on a live
 Context and read wall time; their twins here feed the engine synthetic
 observations (tasks with a ``ready_at`` set in the past), so no
@@ -449,3 +450,79 @@ def test_synthetic_straggler_matches_the_jax_package():
     assert g.thr_lat == r.thr_lat == pytest.approx(8 * 10e-3)
     assert [(a["cls"], a["kind"]) for a in got.anomalies()] == \
         [(a["cls"], a["kind"]) for a in ref.anomalies()] == [("S", "exec")]
+
+
+# ---------------------------------------------------------------------------
+# the job server's status surfaces (the status-op half of the JAX
+# package's test_status_op_and_http_surface), on both packages
+# ---------------------------------------------------------------------------
+
+def _http_get(host, port, path):
+    import socket
+    with socket.create_connection((host, port), timeout=10) as s:
+        s.settimeout(10)
+        s.sendall(f"GET {path} HTTP/1.0\r\n\r\n".encode())
+        buf = b""
+        while True:
+            c = s.recv(65536)
+            if not c:
+                break
+            buf += c
+    head, _, body = buf.partition(b"\r\n\r\n")
+    return head, body
+
+
+def test_status_op_and_http_surface():
+    """The job-less ``{"op": "status"}`` document (per-job progress, the
+    attribution split telescoping to the elapsed time, no stragglers,
+    the service section), the per-job status op and ``GET /status`` and
+    ``GET /metrics``: the same observations on both packages."""
+    import json
+    import parsec_tpu.dsl.ptg as jax_ptg
+    import parsec_tpu.service.server as jax_server
+    import parsec_tpu.service.service as jax_service
+    import parsec_tpu_torch.service.server as port_server
+    import parsec_tpu_torch.service.service as port_service
+    from parsec_tpu.utils.mca import params as jax_params
+    got = {}
+    for side, srv, svcmod, prm, ptg, kw in (
+            ("jax", jax_server, jax_service, jax_params, jax_ptg, {}),
+            ("port", port_server, port_service, params, None,
+             {"device": "cpu"})):
+        prm.set("metrics_sample", 1)
+        try:
+            svc = svcmod.JobService(nb_cores=2, **kw)
+            server = srv.JobServer(svc, port=0)
+            try:
+                job = svc.submit(lambda ptg=ptg: (_flat_pool(
+                    150, name="job-pool", ptg=ptg), lambda: {"ok": 1}),
+                    name="flat")
+                assert job.wait(timeout=60)
+                st = srv.request(server.host, server.port, {"op": "status"})
+                info = srv.request(server.host, server.port,
+                                   {"op": "status", "job": job.job_id})
+                head, body = _http_get(server.host, server.port, "/status")
+                mhead, mbody = _http_get(server.host, server.port,
+                                         "/metrics")
+            finally:
+                server.close()
+                svc.shutdown(timeout=15)
+        finally:
+            prm.unset("metrics_sample")
+        doc = st["status"]
+        (j,) = doc["jobs"]
+        att = j["attribution"]
+        cls = j["progress"]["classes"]["W"]
+        got[side] = (
+            st["ok"], doc["ranks"], j["job"] == job.job_id, j["status"],
+            j["progress"]["done"], (cls["done"], cls["pending"]),
+            att["exec"] + att["queue"] + att["comm"] + att["idle"]
+            == pytest.approx(att["elapsed"], rel=1e-3),
+            j["stragglers"], doc["service"]["running"],
+            info["ok"], info["info"]["status"],
+            b"200 OK" in head and b"application/json" in head,
+            json.loads(body)["jobs"][0]["progress"]["done"],
+            b"200 OK" in mhead, b"parsec_tasks_retired_total" in mbody)
+    assert got["port"] == got["jax"]
+    assert got["port"] == (True, [0], True, "DONE", 150, (150, 0), True,
+                           [], 0, True, "DONE", True, 150, True, True)

@@ -3,20 +3,22 @@ single-rank tests of tests/test_metrics.py, parity with the JAX package's
 registry on the same DAGs, the native quantum's sampling-stride gate,
 and the GEMM, QR and potrf slices with the plane armed and off.
 
-The scrape surfaces of the JAX package (the job server's framed op and
-HTTP GET, tools/metrics_client.py) wait for the service layer; the
-two-rank TAG_METRICS aggregation runs through ``cluster_exposition``
-(the job-duration histogram of the JAX package's case needs the job
-service and is left out).
+The job server's scrape surfaces (the framed op and HTTP GET) run on
+both packages; tools/metrics_client.py is the JAX package's and has no
+twin.  The two-rank TAG_METRICS aggregation runs through
+``cluster_exposition`` (the job-duration histogram of the JAX package's
+case is checked over the job server instead).  The job SLO counter
+counts; the flight-recorder incident the JAX package also fires on a
+breach is not ported.
 
 Parity (the same DAG on seeded inputs, each package's C path): the same
-metric names — less ``parsec_sched_native_fallbacks_total`` and
-``parsec_jobs_slo_breached_total``, which the port leaves out on purpose
-(it has no silent fallback to count, and no job SLO before the job
-service) — the same label names, and equal histogram counts at a given
+metric names — less ``parsec_sched_native_fallbacks_total``, which the
+port leaves out on purpose (it has no silent fallback to count) — the
+same label names, and equal histogram counts at a given
 ``metrics_sample``."""
 
 import re
+import time
 
 import numpy as np
 import pytest
@@ -338,10 +340,8 @@ def test_sample_names_and_label_sets_match_the_jax_package():
     ref, _ = _scrape("jax", _chain_and_fan)
     got, _ = _scrape("port", _chain_and_fan)
     ref_shape = _shape(ref)
-    # the deliberate differences: no fallback counter and no job SLO
-    # counter in the port
-    left_out = {"parsec_sched_native_fallbacks_total",
-                "parsec_jobs_slo_breached_total"}
+    # the deliberate difference: no fallback counter in the port
+    left_out = {"parsec_sched_native_fallbacks_total"}
     for name in left_out:
         assert name in ref_shape
         del ref_shape[name]
@@ -473,3 +473,119 @@ def test_two_rank_scrape_aggregates_over_tag_metrics():
         assert m is not None and int(m.group(1)) >= 1, text[:2000]
     names = lambda t: set(re.findall(r"^# TYPE (\S+)", t, re.M))  # noqa
     assert names(p[0]["text"]) - names(j[0]["text"]) == set()
+
+
+# ---------------------------------------------------------------------------
+# the job server's scrape surfaces and the job SLO, on both packages
+# ---------------------------------------------------------------------------
+
+def _serve(side, **kw):
+    """A JobService + JobServer pair of one package, on the CPU."""
+    if side == "jax":
+        from parsec_tpu.service.server import request, serve
+        return serve(port=0, nb_cores=2, **kw), request, jax_params
+    from parsec_tpu_torch.service.server import request, serve
+    return serve(port=0, nb_cores=2, device="cpu", **kw), request, params
+
+
+def _job_lines(text, job_id):
+    """The scrape lines a served job must produce."""
+    counts = [int(m.group(1)) for m in re.finditer(
+        r'parsec_job_duration_seconds_bucket\{le="[^"]+"\} (\d+)', text)]
+    return ("parsec_tasks_retired_total" in text,
+            'parsec_jobs_done_total{status="done"} 1' in text,
+            bool(re.search(r"parsec_job_duration_seconds_count 1\b", text)),
+            counts == sorted(counts) and counts[-1] == 1,
+            bool(re.search(r'parsec_job_tasks_total\{job="%d",'
+                           r'kind="retired"\} 8\b' % job_id, text)))
+
+
+def test_scrape_over_job_server_framed():
+    """The framed ``{"op": "metrics"}`` scrape carries the task and job
+    families — one completed job in the job histogram, its 8 retired
+    tasks in the per-job counters — on both packages."""
+    got = {}
+    for side in ("jax", "port"):
+        (service, server), request, prm = _serve(side)
+        ptg = jax_ptg if side == "jax" else port_ptg
+        prm.set("metrics_sample", 1)
+        try:
+            job = service.submit(lambda: _n_pool(8, "job-pool", ptg),
+                                 name="scrapee")
+            assert job.wait(timeout=30)
+            reply = request(server.host, server.port, {"op": "metrics"})
+        finally:
+            prm.unset("metrics_sample")
+            server.close()
+            service.shutdown(timeout=10.0)
+        got[side] = (reply["ok"], reply["ranks"],
+                     _job_lines(reply["text"], job.job_id))
+    assert got["port"] == got["jax"] == (True, [0], (True,) * 5)
+
+
+def test_scrape_over_http_get():
+    """A plain HTTP ``GET /metrics`` on the same port answers the text
+    exposition, and a wrong path 404s, on both packages."""
+    import socket
+    got = {}
+    for side in ("jax", "port"):
+        (service, server), _request, _prm = _serve(side)
+        try:
+            with socket.create_connection((server.host, server.port),
+                                          timeout=10.0) as s:
+                s.sendall(b"GET /metrics HTTP/1.0\r\nHost: x\r\n\r\n")
+                data = b""
+                while True:
+                    chunk = s.recv(4096)
+                    if not chunk:
+                        break
+                    data += chunk
+            head, body = data.split(b"\r\n\r\n", 1)
+            with socket.create_connection((server.host, server.port),
+                                          timeout=10.0) as s:
+                s.sendall(b"GET /nope HTTP/1.0\r\n\r\n")
+                nope = s.recv(4096)
+        finally:
+            server.close()
+            service.shutdown(timeout=10.0)
+        got[side] = (head.startswith(b"HTTP/1.0 200 OK"),
+                     b"text/plain" in head,
+                     b"parsec_tasks_retired_total" in body,
+                     nope.startswith(b"HTTP/1.0 404"))
+    assert got["port"] == got["jax"] == (True,) * 4
+
+
+def test_job_slo_breach_counts():
+    """The counter half of the JAX package's
+    ``test_job_slo_breach_counts_and_triggers_incident``: with
+    ``metrics_slo_job_s`` below any job's duration every job counts in
+    ``parsec_jobs_slo_breached_total``, and a Context accepts the knob.
+    The incident half waits with the flight recorder, which the port
+    does not carry."""
+    from parsec_tpu_torch.service.service import JobService
+    params.set("metrics_slo_job_s", 1e-9)   # every job breaches
+    try:
+        with JobService(nb_cores=2, device="cpu") as svc:
+            jobs = [svc.submit(lambda: _n_pool(8, "slo"), name="slo")
+                    for _ in range(3)]
+            assert all(j.wait(timeout=30) for j in jobs)
+            m = svc.context.metrics
+            # wait() returns at the DONE transition; the job_done PINS
+            # emission follows on the finishing thread a moment later
+            deadline = time.monotonic() + 10
+            while m._slo_breached.value < 3 \
+                    and time.monotonic() < deadline:
+                time.sleep(0.01)
+            text = render_text(m.samples())
+    finally:
+        params.unset("metrics_slo_job_s")
+    assert re.search(r"parsec_jobs_slo_breached_total 3\b", text)
+
+
+def test_job_slo_off_by_default_counts_nothing():
+    from parsec_tpu_torch.service.service import JobService
+    with JobService(nb_cores=2, device="cpu") as svc:
+        job = svc.submit(lambda: _n_pool(8, "noslo"), name="noslo")
+        assert job.wait(timeout=30)
+        text = render_text(svc.context.metrics.samples())
+    assert re.search(r"parsec_jobs_slo_breached_total 0\b", text)

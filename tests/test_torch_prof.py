@@ -3,8 +3,9 @@ prof/gauges.py, prof/reader.py, utils/properties.py, utils/info.py and
 the pinsext trace sink): twins of the single-rank tests of
 tests/test_prof.py, and parity with the JAX package's tracer.
 
-Left for later layers: the DOT grapher (not ported), the DTD front-end,
-the gauge aggregator, and the tools/ trace CLIs.  The JAX package's test
+The gauge aggregator's twins run each script through both packages'
+aggregators.  Left for later layers: the DOT grapher (not ported), the
+DTD front-end and the tools/ trace CLIs.  The JAX package's test
 of its Python event path has no twin: the port has no such tier, and a
 pinsext that does not build raises (tested here) instead.
 
@@ -499,3 +500,128 @@ def test_trace_event_counts_and_intervals_match_the_jax_package(tmp_path):
     assert len(ivs) == starts
     assert all(i["duration"] >= 0 for i in ivs)
     assert meta["info"] == {"rank": "0", "nranks": "1"} == ref_meta["info"]
+
+
+# -- live gauge aggregator (prof/aggregator.py): twins of test_prof.py's
+# -- four aggregator cases, each script run through both packages --------
+
+def _aggregators():
+    import parsec_tpu.prof.aggregator as jax_agg
+    import parsec_tpu_torch.prof.aggregator as port_agg
+    return {"jax": jax_agg, "port": port_agg}
+
+
+def _agg_until(pred, timeout=10.0):
+    import time
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.01)
+    return True
+
+
+def test_aggregator_ingest_and_totals():
+    """Latest table, totals, history and the rendered table agree with
+    the JAX package's on the same ingests (the age column aside)."""
+    got = {}
+    for side, mod in _aggregators().items():
+        agg = mod.Aggregator(port=0)
+        try:
+            agg.ingest(0, {"tasks_retired": 10, "pending_tasks": 2}, t=1.0)
+            agg.ingest(1, {"tasks_retired": 5, "pending_tasks": 1}, t=1.0)
+            agg.ingest(0, {"tasks_retired": 12, "pending_tasks": 0}, t=2.0)
+            t = agg.table()
+            rows = {r: {k: v for k, v in g.items() if k != "_age_s"}
+                    for r, g in t.items()}
+            for g in t.values():
+                g["_age_s"] = 0.0
+            got[side] = (rows, agg.totals(),
+                         agg.history(0, "tasks_retired"),
+                         mod.render_table(t, agg.totals()))
+        finally:
+            agg.close()
+    assert got["port"] == got["jax"]
+    rows, totals, hist, text = got["port"]
+    assert rows[0]["tasks_retired"] == 12 and rows[1]["tasks_retired"] == 5
+    assert totals["tasks_retired"] == 17
+    assert [v for _ts, v in hist] == [10, 12]
+    assert "rank" in text and "17" in text
+
+
+def test_gauge_publisher_streams_over_tcp():
+    """A publisher streams a rank's snapshots over TCP; either package's
+    publisher feeds either package's aggregator (one wire format)."""
+    class FakeGauges:
+        def __init__(self):
+            self.n = 0
+
+        def snapshot(self):
+            self.n += 1
+            return {"tasks_retired": self.n}
+
+    mods = _aggregators()
+    for pub_side, agg_side in (("port", "port"), ("port", "jax"),
+                               ("jax", "port")):
+        agg = mods[agg_side].Aggregator(port=0)
+        pub = mods[pub_side].GaugePublisher(FakeGauges(), rank=3,
+                                            host="127.0.0.1",
+                                            port=agg.port, interval=0.05)
+        try:
+            assert _agg_until(lambda: agg.table().get(3, {}).get(
+                "tasks_retired", 0) >= 2), (pub_side, agg_side)
+        finally:
+            pub.close()
+            agg.close()
+
+
+def test_aggregator_live_with_runtime_gauges():
+    """A real Context's Gauges publish through TCP while a pool runs; the
+    aggregator's final totals see every retirement, as in the JAX
+    package."""
+    import parsec_tpu.core.context as jax_ctx
+    import parsec_tpu.data.matrix as jax_mat
+    import parsec_tpu.dsl.ptg as jax_ptg
+    import parsec_tpu.prof.gauges as jax_gauges
+    nt = 30
+    totals = {}
+    for side, mod in _aggregators().items():
+        agg = mod.Aggregator(port=0)
+        try:
+            if side == "jax":
+                ctx = jax_ctx.Context(nb_cores=2)
+                A = jax_mat.TwoDimBlockCyclic(mb=4, nb=4, lm=4, ln=4)
+                tp = _chain_pool(A, nt, ptg=jax_ptg)
+                g = jax_gauges.install_gauges(ctx)
+            else:
+                ctx = Context(nb_cores=2, device="cpu")
+                tp = _chain_pool(_zero_tile(), nt)
+                g = install_gauges(ctx)
+            with ctx:
+                pub = mod.GaugePublisher(g, rank=0, host="127.0.0.1",
+                                         port=agg.port, interval=0.02)
+                ctx.add_taskpool(tp)
+                ctx.wait()
+                pub.close()          # final flush carries the end state
+            assert _agg_until(
+                lambda: agg.totals().get("tasks_retired", 0) >= nt)
+            totals[side] = agg.totals()["tasks_retired"]
+        finally:
+            agg.close()
+    assert totals["port"] == totals["jax"] == nt
+
+
+def test_aggregator_nonnumeric_ingest_and_clean_close():
+    """String/null gauges are dropped at ingest, rendering never raises,
+    and close() joins the accept thread."""
+    got = {}
+    for side, mod in _aggregators().items():
+        agg = mod.Aggregator(port=0)
+        try:
+            agg.ingest(0, {"ok": 3, "bad": "oops", "worse": None, "f": 1.5})
+            row = {k: v for k, v in agg.table()[0].items() if k != "_age_s"}
+            mod.render_table(agg.table(), agg.totals())
+        finally:
+            agg.close()
+        got[side] = (row, agg._thread.is_alive())
+    assert got["port"] == got["jax"] == ({"ok": 3.0, "f": 1.5}, False)

@@ -178,8 +178,7 @@ def test_unported_plane_knob_raises(knob):
         port_params.unset(knob)
 
 
-@pytest.mark.parametrize("knob", ["metrics_slo_job_s",
-                                  "liveattr_straggler_incident_s",
+@pytest.mark.parametrize("knob", ["liveattr_straggler_incident_s",
                                   "journal_autopsy_tail"])
 def test_knob_without_a_ported_reader_raises(knob, monkeypatch):
     """Knobs of the JAX package whose readers are not ported are not
