@@ -14,8 +14,12 @@ no result line):
               variant at 6144^3 and on each route at ragged shapes), and
               time kernel, plain version and one library call at every
               shape the paths give it (K1: 12288^3, 6144^3 for QR and for
-              potrf, 2048^3); K2 twice on one input must agree bit for
-              bit.  K1's grouped launch (the device module's fused waves:
+              potrf, 2048^3, and f32 2048^3 with B as (k, n) and as (n, k)
+              for the served GEMM and potrf jobs); K1's fma route at the
+              edges of its tiles and float4 rows (ragged M, N and K, K < 4,
+              N % 4 != 0, A misaligned: the scalar variant), each also
+              bit-identical repeated and in place; K2 twice on one input
+              must agree bit for bit.  K1's grouped launch (the device module's fused waves:
               8 members at each path's shape, and ragged) must give the
               bits of single launches and agree with the plain version,
               and its in-place form (``out=C``, donation) the bits of the
@@ -90,7 +94,8 @@ no result line):
               two shared ones that wait for its release, a quoted second
               submit, and the journal audited clean (F1-F3) by the
               port's ``tools.journal_audit``.  K1 at 2048^3 f32 is timed
-              in the kernels phase against ``torch.addmm`` with TF32 off.
+              in the kernels phase against ``torch.addmm`` with TF32 off,
+              with B as (k, n) (GEMM jobs) and as (n, k) (potrf jobs).
 
 Telemetry.  Every path runs with the planes the reference installs at its
 defaults: the metrics registry with live attribution and health, the
@@ -479,6 +484,10 @@ def phase_kernels(dev: torch.device, peaks) -> dict:
              # alpha 1 as gemm_taskpool gives it
              ("f32", 2048, 2048, 2048, f32, 1.0, False, False, "fma",
               {"serving GEMM job n=8192": 64}),
+             # the served potrf jobs' SYRK/GEMM tiles: B as (n, k), alpha
+             # -1, as potrf_taskpool gives them in f32
+             ("f32", 2048, 2048, 2048, f32, -1.0, False, True, "fma",
+              {"serving potrf job n=8192": 10}),
              ("ragged", 1000, 520, 778, bf16, -1.0, False, True, "wgmma",
               None),
              ("ragged", 1000, 513, 777, bf16, -1.0, False, True, "wmma",
@@ -526,8 +535,59 @@ def phase_kernels(dev: torch.device, peaks) -> dict:
                      "library_ms": t["library_ms"]}
         del A, B, C
         torch.cuda.empty_cache()
+    check_fma_edges(dev, g)
     entry["shapes"] = shapes
     return entry
+
+
+#: K1's fma route at the edges of its design (128 x 128 tiles, K slabs of
+#: 8, float4 rows): (m, k, n, alpha, elements before A in its storage);
+#: each runs with B as (k, n) and as (n, k).  The vector variant takes
+#: K % 4 == N % 4 == 0 on 16-byte aligned bases, any other call the scalar
+#: one.
+FMA_EDGES = [(1000, 520, 776, -1.0, 0),    # M, N off the 128 grid: vector
+             (130, 12, 260, 1.0, 0),       # K not a multiple of 8
+             (77, 3, 95, 2.0, 0),          # K < 4, N % 4 != 0: scalar
+             (1000, 513, 777, -1.0, 0),    # K % 4 and N % 4 != 0: scalar
+             (256, 256, 258, 0.5, 0),      # N % 4 != 0: scalar
+             (256, 256, 256, -1.0, 1)]     # A misaligned by one float
+
+
+def check_fma_edges(dev: torch.device, g: torch.Generator) -> None:
+    """Hold K1's fma route at every edge of FMA_EDGES, in both layouts,
+    against its plain version (TOL[float32]), on the fma route; a second
+    call and the in-place call (``out=C``) must give the first call's
+    bits.  These launches check, they are not timed."""
+    for m, k, n, alpha, offset in FMA_EDGES:
+        for trans_b in (False, True):
+            flat = torch.randn(m * k + offset, generator=g, device=dev)
+            A = flat[offset:].view(m, k)
+            B = torch.randn((n, k) if trans_b else (k, n), generator=g,
+                            device=dev)
+            C = torch.randn((m, n), generator=g, device=dev)
+            routes0 = read_routes()
+            got = gemm_tile(A, B, C, alpha, trans_b)
+            again = gemm_tile(A, B, C, alpha, trans_b)
+            C2 = C.clone()
+            gemm_tile(A, B, C2, alpha, trans_b, out=C2)
+            torch.cuda.synchronize()
+            took = {r: v - routes0[r] for r, v in read_routes().items()
+                    if v != routes0[r]}
+            err = rel_err(got, gemm_tile_reference(A, B, C, alpha, trans_b))
+            same = torch.equal(got, again)
+            in_place = torch.equal(C2, got)
+            ok = err <= TOL[torch.float32] and took == {"fma": 3} and \
+                same and in_place
+            log(f"kernel vs plain fma edge {m}x{k}x{n} float32 "
+                f"({'B^T' if trans_b else 'B'}) alpha={alpha} A offset "
+                f"{offset}: route {took}, rel err {err:.3e} (tol "
+                f"{TOL[torch.float32]:.0e}), repeat bit-identical {same}, "
+                f"in place bit-identical {in_place} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"gemm_tile's fma route fails at "
+                                     f"{m}x{k}x{n} trans_b={trans_b} A "
+                                     f"offset {offset}")
 
 
 def _library_grouped(As, Bs, Cs, alpha, trans_b):

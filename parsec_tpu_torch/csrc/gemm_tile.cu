@@ -24,10 +24,10 @@
 // of columns in its rows of its block's rows of one cluster tile, and each
 // (member, cluster tile) is walked by exactly one cluster; the wmma
 // epilogue's lane owns element e of its warp's 16 x 16 fragment; an fma
-// thread owns its 4 x 4 outputs.  C and O carry no __restrict__ and C is
-// read through L2 (ld.global.cg), never the read-only path, so an O that is
-// C is well defined, and the result is bit-identical to the out-of-place
-// call's.
+// thread owns its 16 x 8 outputs (4 x 2 blocks of 4 x 4).  C and O carry
+// no __restrict__ and C is read through L2 (ld.global.cg), never the
+// read-only path, so an O that is C is well defined, and the result is
+// bit-identical to the out-of-place call's.
 //
 // Grouped (the wave fusion of the device module): one persistent wgmma
 // launch over n <= kMaxGroup equal-shape calls, each with its own A, B, C
@@ -83,8 +83,43 @@
 // element with the edge masked; a B given as (N, K) is staged N-major and
 // read as column-major fragments.
 //
-// fma (f32): plain f32 FMA, never TF32, to keep the reference's f32
-// semantics; a B given as (N, K) is staged like A.
+// fma (f32): plain fmaf in f32, never TF32 nor tensor cores, to keep the
+// reference's f32 semantics (the served GEMM and potrf jobs' tiles).
+//   * Bound: f32 FMA issue, 67 TFLOP/s on an H100 SXM; at the jobs'
+//     2048^3 that is 0.256 ms against 0.020 ms of traffic.  An FMA warp
+//     instruction issues each clock on each of an SM's four schedulers,
+//     while shared memory serves one 128-byte wavefront a clock: a thread
+//     tile of 8 x 8 (4 float4 fragment loads per 64 FMAs) leaves the two
+//     at par, and with a barrier every 8-deep slab such a kernel ran at
+//     0.57 of the bound on the H100 (1980 MHz, not throttled).
+//   * So a thread computes 16 x 8 outputs, as 4 x 2 sub-tiles of 4 x 4
+//     (rows 32 apart, columns 64 apart): 6 float4 fragment loads per 128
+//     FMAs.  128 threads (8 x 16) cover a 128 x 128 block tile; a warp
+//     spans 4 x 8 threads, so a fragment load has 4 or 8 distinct
+//     16-byte addresses.  __launch_bounds__(128, 2): two blocks an SM, so
+//     the 256 tiles of a 2048^3 call fit the card's 264 slots in one wave.
+//   * Slabs 16 deep in a ring of 3 stages in dynamic shared memory
+//     (49.5 KB a block): while slab k is computed, slab k + 1 (fetched an
+//     iteration earlier) is stored into the next stage and slab k + 2 is
+//     fetched, so no store waits on a load in flight; one barrier a slab.
+//     A, and B given as (N, K), are K-contiguous rows fetched as float4s
+//     into registers and stored k-major; B given as (K, N) is k-major
+//     already and goes to its stage by 16-byte cp.async.  The slabs' rows
+//     are 528 bytes apart and the upper 8 k-rows of a slab have their
+//     8-column groups swapped in pairs (an XOR swizzle that keeps float4s
+//     whole), so a warp's transposed stores hit 32 distinct banks.
+//   * Epilogue O = fmaf(alpha, acc, C) in float4s, masked by row and by
+//     column quad.  Each output sums K in one fixed order, so calls are
+//     bit-identical.
+//   * Vector and scalar variants of one kernel, picked on the host: the
+//     vector one needs K % 4 == 0, N % 4 == 0 and 16-byte aligned A, B, C
+//     and O (every global access 16 bytes); any other call loads and
+//     stores element by element, masked, through the same tiles and ring.
+//   * What it leaves: operands through registers rather than a deeper
+//     cp.async ring (4-byte asynchronous copies that transpose into shared
+//     memory were slower), no warp specialisation, one tile a block (its
+//     epilogue does not overlap a next main loop), no split-K for calls
+//     with fewer tiles than the card has slots.
 //
 // The K loop runs inside a block in every route: it takes the place of the
 // TPU program's sequential K grid axis and its scratch accumulator, since
@@ -697,89 +732,240 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// f32 x f32 -> f32 on plain FMA (no TF32)
+// f32 x f32 -> f32 on plain FMA (no TF32): a SIMT GEMM for the FP32 pipes
 // ---------------------------------------------------------------------------
 
-constexpr int kFB = 64;   // block tile (rows and cols)
-constexpr int kFK = 16;   // K step
-constexpr int kFT = 4;    // outputs per thread along each dimension
+constexpr int kFB = 128;          // block tile (rows and cols)
+constexpr int kFK = 16;           // K per slab
+constexpr int kFTM = 16;          // outputs a thread: 16 rows by 8 columns,
+constexpr int kFTN = 8;           // as 4 x 2 sub-tiles of 4 x 4
+constexpr int kFRowStep = kFB / (kFTM / 4);   // sub-tile rows 32 apart
+constexpr int kFColStep = kFB / (kFTN / 4);   // sub-tile columns 64 apart
+constexpr int kFThreads = (kFB / kFTM) * (kFB / kFTN);   // 8 x 16 = 128
+constexpr int kFBlocksPerSM = 2;
+constexpr int kFStages = 3;
+// 16-byte loads a thread makes of each operand's slab
+constexpr int kFLoads = kFB * kFK / 4 / kFThreads;
+// shared row pitch of the k-major slabs (528 bytes): float4 fragments stay
+// aligned, and with the swizzle below a warp's transposed stores (8 rows
+// by 4 k-quads) fall in 32 distinct banks
+constexpr int kFLd = kFB + 4;
+constexpr int kFStage = 2 * kFK * kFLd;       // floats: A's slab, then B's
+constexpr int kFSmem = kFStages * kFStage * 4;   // 50688 bytes, dynamic
 
-// the kFB x kFK slab of a row-major (R, K) matrix from row r0, column k0,
-// stored k-major into S, the edge masked to zero
-__device__ __forceinline__ void load_f32_slab(float (*S)[kFB + 4],
-                                              const float* __restrict__ X,
-                                              int R, int K, int r0, int k0,
-                                              int tid) {
-#pragma unroll
-  for (int i = 0; i < (kFB * kFK) / 256; ++i) {
-    const int e = tid + i * 256;
-    const int r = e / kFK;
-    const int c = e % kFK;
-    const int gr = r0 + r;
-    const int gc = k0 + c;
-    S[c][r] = (gr < R && gc < K) ? X[static_cast<size_t>(gr) * K + gc] : 0.0f;
-  }
+// where column c of k-row k of a slab lies: the upper half of the slab's
+// k-rows has its 8-column groups swapped in pairs, so that k-rows k and
+// k + 8 (whose pitch puts them on the same banks) take different banks;
+// quads stay whole, so float4 fragments stay aligned
+__device__ __forceinline__ int fswz(int k, int c) { return c ^ (k & 8); }
+
+// 16 bytes from global to shared memory, past the registers and L1; zeros
+// where `full` is false (then nothing is read)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
 }
 
-template <bool TransB>
-__global__ void __launch_bounds__(256)
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// until at most N of this thread's committed copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four consecutive elements of row `row` of a row-major (R, Cn) matrix
+// from column `col`, zero past the edge: one float4 load (Vec: Cn % 4 ==
+// 0 and a 16-byte aligned base, so the four lie all inside or all
+// outside), or four masked scalar loads
+template <bool Vec>
+__device__ __forceinline__ float4 fetch4(const float* __restrict__ X, int R,
+                                         int Cn, int row, int col) {
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float* p = X + static_cast<size_t>(row) * Cn + col;
+  if constexpr (Vec) {
+    if (row < R && col < Cn) v = __ldg(reinterpret_cast<const float4*>(p));
+  } else if (row < R) {
+    if (col < Cn) v.x = __ldg(p);
+    if (col + 1 < Cn) v.y = __ldg(p + 1);
+    if (col + 2 < Cn) v.z = __ldg(p + 2);
+    if (col + 3 < Cn) v.w = __ldg(p + 3);
+  }
+  return v;
+}
+
+// k-quad c of row r of an (R, K) operand into its k-major slab S
+__device__ __forceinline__ void stash_kmajor(float* S, float4 v, int r,
+                                             int c) {
+  S[c * kFLd + fswz(c, r)] = v.x;
+  S[(c + 1) * kFLd + fswz(c + 1, r)] = v.y;
+  S[(c + 2) * kFLd + fswz(c + 2, r)] = v.z;
+  S[(c + 3) * kFLd + fswz(c + 3, r)] = v.w;
+}
+
+// Block (bx, by) computes O's 128 x 128 tile at (128 by, 128 bx).  Thread
+// (ty, tx) owns rows 32 s + 4 ty + {0..3} (s < 4) and columns
+// 64 h + 4 tx + {0..3} (h < 2): a warp spans 4 ty by 8 tx, so each
+// fragment load of a k-step is one float4 with 4 or 8 distinct addresses a
+// warp.  Slab kt is computed from stage kt % 3 while slab kt + 1, fetched
+// one iteration earlier, is stored into the next stage and slab kt + 2 is
+// fetched: A (and B with TransB) into registers, B as (K, N) (vector
+// variant) by cp.async straight into its stage.  One barrier a slab.  Vec
+// is the vector variant (every global access 16 bytes), chosen on the
+// host; the scalar variant loads and stores element by element.
+template <bool TransB, bool Vec>
+__global__ void __launch_bounds__(kFThreads, kFBlocksPerSM)
     gemm_tile_f32_kernel(const float* __restrict__ A,
-                         const float* __restrict__ B,
-                         const float* C, float* O, int M, int N, int K,
-                         float alpha) {
-  __shared__ float As[kFK][kFB + 4];  // A slab, stored k-major
-  __shared__ float Bs[kFK][kFB + 4];
+                         const float* __restrict__ B, const float* C,
+                         float* O, int M, int N, int K, float alpha) {
+  constexpr bool kAsyncB = Vec && !TransB;
+  extern __shared__ __align__(16) float fsmem[];
   const int tid = threadIdx.x;
-  const int tx = tid % (kFB / kFT);
-  const int ty = tid / (kFB / kFT);
   const int m0 = blockIdx.y * kFB;
   const int n0 = blockIdx.x * kFB;
-  float acc[kFT][kFT];
-#pragma unroll
-  for (int i = 0; i < kFT; ++i)
-#pragma unroll
-    for (int j = 0; j < kFT; ++j) acc[i][j] = 0.0f;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int ty = (warp / 2) * 4 + lane / 8;
+  const int tx = (warp % 2) * 8 + lane % 8;
 
-  for (int k0 = 0; k0 < K; k0 += kFK) {
-    load_f32_slab(As, A, M, K, m0, k0, tid);
-    if constexpr (TransB) {
-      load_f32_slab(Bs, B, N, K, n0, k0, tid);   // B (N, K): staged as A
-    } else {
+  float acc[kFTM][kFTN];
 #pragma unroll
-      for (int i = 0; i < (kFK * kFB) / 256; ++i) {
-        const int e = tid + i * 256;
-        const int r = e / kFB;
-        const int c = e % kFB;
-        const int gr = k0 + r;
-        const int gc = n0 + c;
-        Bs[r][c] = (gr < K && gc < N) ? B[static_cast<size_t>(gr) * N + gc]
-                                      : 0.0f;
+  for (int i = 0; i < kFTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kFTN; ++j) acc[i][j] = 0.0f;
+
+  // load e = tid + p kFThreads of a slab: row e / 4, k-quad e % 4 of an
+  // (R, K) operand (A; B with TransB); k-row e / 32, column quad e % 32 of
+  // B as (K, N)
+  float4 pa[kFLoads], pb[kFLoads];
+  // slab k0: into registers, or (kAsyncB) B by cp.async into stage st
+  auto fetch = [&](int k0, int st) {
+#pragma unroll
+    for (int p = 0; p < kFLoads; ++p) {
+      const int e = tid + p * kFThreads;
+      pa[p] = fetch4<Vec>(A, M, K, m0 + e / 4, k0 + (e % 4) * 4);
+    }
+#pragma unroll
+    for (int p = 0; p < kFLoads; ++p) {
+      const int e = tid + p * kFThreads;
+      if constexpr (TransB) {
+        pb[p] = fetch4<Vec>(B, N, K, n0 + e / 4, k0 + (e % 4) * 4);
+      } else if constexpr (kAsyncB) {
+        const int r = e / 32;
+        const int c = (e % 32) * 4;
+        const bool in = k0 + r < K && n0 + c < N;
+        cp_async16(fsmem + st * kFStage + (kFK + r) * kFLd + fswz(r, c),
+                   in ? B + static_cast<size_t>(k0 + r) * N + n0 + c : B,
+                   in);
+      } else {
+        pb[p] = fetch4<false>(B, K, N, k0 + e / 32, n0 + (e % 32) * 4);
       }
     }
-    __syncthreads();
+  };
+  // the registers into stage st
+  auto stash = [&](int st) {
+    float* As = fsmem + st * kFStage;
+    float* Bs = As + kFK * kFLd;
+#pragma unroll
+    for (int p = 0; p < kFLoads; ++p) {
+      const int e = tid + p * kFThreads;
+      stash_kmajor(As, pa[p], e / 4, (e % 4) * 4);
+    }
+#pragma unroll
+    for (int p = 0; p < kFLoads; ++p) {
+      const int e = tid + p * kFThreads;
+      if constexpr (TransB) {
+        stash_kmajor(Bs, pb[p], e / 4, (e % 4) * 4);
+      } else if constexpr (!kAsyncB) {
+        const int r = e / 32;
+        const int c = (e % 32) * 4;
+        *reinterpret_cast<float4*>(Bs + r * kFLd + fswz(r, c)) = pb[p];
+      }
+    }
+  };
+  auto compute = [&](int st) {
+    const float* As = fsmem + st * kFStage;
+    const float* Bs = As + kFK * kFLd;
 #pragma unroll
     for (int kk = 0; kk < kFK; ++kk) {
-      float a[kFT], b[kFT];
+      float a[kFTM], b[kFTN];
 #pragma unroll
-      for (int i = 0; i < kFT; ++i) a[i] = As[kk][ty * kFT + i];
+      for (int s = 0; s < kFTM / 4; ++s) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            As + kk * kFLd + fswz(kk, s * kFRowStep + 4 * ty));
+        a[4 * s] = v.x;
+        a[4 * s + 1] = v.y;
+        a[4 * s + 2] = v.z;
+        a[4 * s + 3] = v.w;
+      }
 #pragma unroll
-      for (int j = 0; j < kFT; ++j) b[j] = Bs[kk][tx * kFT + j];
+      for (int h = 0; h < kFTN / 4; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            Bs + kk * kFLd + fswz(kk, h * kFColStep + 4 * tx));
+        b[4 * h] = v.x;
+        b[4 * h + 1] = v.y;
+        b[4 * h + 2] = v.z;
+        b[4 * h + 3] = v.w;
+      }
 #pragma unroll
-      for (int i = 0; i < kFT; ++i)
+      for (int i = 0; i < kFTM; ++i)
 #pragma unroll
-        for (int j = 0; j < kFT; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < kFTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
-    __syncthreads();
+  };
+
+  const int nk = (K + kFK - 1) / kFK;
+  if (nk > 0) fetch(0, 0);
+  cp_async_commit();
+  if (nk > 0) stash(0);
+  if (nk > 1) fetch(kFK, 1);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  int cur = 0;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int next = cur == kFStages - 1 ? 0 : cur + 1;
+    const int after = next == kFStages - 1 ? 0 : next + 1;
+    // stage `next` was last read two iterations ago and stage `after` one
+    // ago, each before a barrier since
+    if (kt + 1 < nk) stash(next);
+    if (kt + 2 < nk) fetch((kt + 2) * kFK, after);
+    cp_async_commit();
+    compute(cur);
+    cp_async_wait<1>();  // slab kt + 1's copies have landed
+    __syncthreads();     // one barrier a slab
+    cur = next;
   }
+
+  // O = C + alpha * acc, C read through L2 (O may be C: each element is
+  // loaded and then stored by this thread alone)
 #pragma unroll
-  for (int i = 0; i < kFT; ++i) {
+  for (int i = 0; i < kFTM; ++i) {
+    const int row = m0 + (i / 4) * kFRowStep + 4 * ty + i % 4;
+    if (row >= M) continue;
 #pragma unroll
-    for (int j = 0; j < kFT; ++j) {
-      const int gr = m0 + ty * kFT + i;
-      const int gc = n0 + tx * kFT + j;
-      if (gr < M && gc < N) {
-        const size_t idx = static_cast<size_t>(gr) * N + gc;
-        O[idx] = fmaf(alpha, acc[i][j], C[idx]);
+    for (int h = 0; h < kFTN / 4; ++h) {
+      const int col = n0 + h * kFColStep + 4 * tx;
+      const size_t idx = static_cast<size_t>(row) * N + col;
+      const int j0 = 4 * h;
+      if constexpr (Vec) {
+        if (col < N) {
+          const float4 c = __ldcg(reinterpret_cast<const float4*>(C + idx));
+          *reinterpret_cast<float4*>(O + idx) = make_float4(
+              fmaf(alpha, acc[i][j0], c.x), fmaf(alpha, acc[i][j0 + 1], c.y),
+              fmaf(alpha, acc[i][j0 + 2], c.z),
+              fmaf(alpha, acc[i][j0 + 3], c.w));
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (col + j < N)
+            O[idx + j] = fmaf(alpha, acc[i][j0 + j], __ldcg(C + idx + j));
       }
     }
   }
@@ -928,6 +1114,28 @@ int wgmma_launch(const void* const* A, const void* const* B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// once per device and variant: lift the fma kernel's dynamic shared-memory
+// limit above 48 KB; then one launch over the 128 x 128 tiles
+template <bool TransB, bool Vec>
+int fma_launch(const float* A, const float* B, const float* C, float* O,
+               int M, int N, int K, float alpha, int device,
+               cudaStream_t stream) {
+  static std::once_flag once[kMaxDevices];
+  static cudaError_t err[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  std::call_once(once[device], [device] {
+    err[device] = cudaFuncSetAttribute(
+        gemm_tile_f32_kernel<TransB, Vec>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kFSmem);
+  });
+  if (err[device] != cudaSuccess) return static_cast<int>(err[device]);
+  const dim3 grid((N + kFB - 1) / kFB, (M + kFB - 1) / kFB);
+  gemm_tile_f32_kernel<TransB, Vec><<<grid, kFThreads, kFSmem, stream>>>(
+      A, B, C, O, M, N, K, alpha);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // the wgmma route: (trans_b, c_bf16) = (0, 0), B (K, N) and an f32 C, or
@@ -994,7 +1202,9 @@ extern "C" int parsec_gemm_tile_bf16(const void* A, const void* B,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the fma route (f32): trans_b either way, c_bf16 = 0
+// the fma route (f32): trans_b either way, c_bf16 = 0.  The vector variant
+// takes every call whose rows are whole float4s on 16-byte aligned bases;
+// any other call runs the scalar variant of the same kernel.
 extern "C" int parsec_gemm_tile_f32(const void* A, const void* B,
                                     const void* C, void* O, int M, int N,
                                     int K, float alpha, int trans_b,
@@ -1003,17 +1213,18 @@ extern "C" int parsec_gemm_tile_f32(const void* A, const void* B,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (c_bf16) return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0 || N <= 0) return 0;
-  const dim3 grid((N + kFB - 1) / kFB, (M + kFB - 1) / kFB);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* a = static_cast<const float*>(A);
   const float* b = static_cast<const float*>(B);
   const float* c = static_cast<const float*>(C);
   float* o = static_cast<float*>(O);
+  // A's rows and B's are K or N long, C's and O's N
+  const bool vec = K % 4 == 0 && N % 4 == 0 && aligned16(A) &&
+                   aligned16(B) && aligned16(C) && aligned16(O);
   if (trans_b)
-    gemm_tile_f32_kernel<true><<<grid, 256, 0, s>>>(a, b, c, o, M, N, K,
-                                                    alpha);
-  else
-    gemm_tile_f32_kernel<false><<<grid, 256, 0, s>>>(a, b, c, o, M, N, K,
-                                                     alpha);
-  return static_cast<int>(cudaGetLastError());
+    return vec ? fma_launch<true, true>(a, b, c, o, M, N, K, alpha, device, s)
+               : fma_launch<true, false>(a, b, c, o, M, N, K, alpha, device,
+                                         s);
+  return vec ? fma_launch<false, true>(a, b, c, o, M, N, K, alpha, device, s)
+             : fma_launch<false, false>(a, b, c, o, M, N, K, alpha, device, s);
 }

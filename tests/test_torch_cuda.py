@@ -362,9 +362,10 @@ def _err(got, ref):
     ((1000, 513, 778), torch.bfloat16, 0, "wmma"),    # k % 8 != 0
     ((256, 256, 264), torch.bfloat16, 2, "wmma"),     # A misaligned
     ((1000, 513, 777), torch.float32, 0, "fma"),
-    ((256, 256, 256), torch.float32, 0, "fma")],
+    ((256, 256, 256), torch.float32, 0, "fma"),
+    ((2048, 2048, 2048), torch.float32, 0, "fma")],   # served potrf jobs
     ids=["aligned", "ragged", "k8", "wide-k", "tall-n", "n6", "n-odd",
-         "k-odd", "a-misaligned", "f32-ragged", "f32"])
+         "k-odd", "a-misaligned", "f32-ragged", "f32", "f32-2048"])
 def test_gemm_tile_trans_b_on_every_route(card, shape, dtype, offset, route):
     """``C - A @ B^T`` with B given as (n, k) and C in the operands' type
     (bf16: read and written in bf16), against its plain version, on the
@@ -561,8 +562,10 @@ def test_gemm_tile_grouped_with_a_member_off_the_wgmma_route(card):
     ((1000, 513, 777), torch.bfloat16, False, 0, "wmma"),
     ((256, 256, 264), torch.bfloat16, True, 1, "wmma"),
     ((1000, 513, 777), torch.float32, False, 0, "fma"),
-    ((1000, 513, 777), torch.float32, True, 0, "fma")],
-    ids=["wgmma", "wgmma-trans", "wmma", "wmma-trans", "fma", "fma-trans"])
+    ((1000, 513, 777), torch.float32, True, 0, "fma"),
+    ((2048, 2048, 2048), torch.float32, False, 0, "fma")],
+    ids=["wgmma", "wgmma-trans", "wmma", "wmma-trans", "fma", "fma-trans",
+         "fma-2048"])
 def test_gemm_tile_in_place_is_bit_identical(card, shape, dtype, trans_b,
                                              offset, route):
     """``out=C`` writes O into C's storage, allocates nothing and gives
@@ -606,6 +609,39 @@ def test_gemm_tile_fma_route_at_the_served_shape(card):
     ref = gemm_tile_reference(A, B, C, 1.0)
     err = ((got - ref).abs().max() / ref.abs().max().clamp(min=1.0)).item()
     assert err <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True], ids=["B", "B^T"])
+@pytest.mark.parametrize("shape,alpha,offset", [
+    ((1000, 520, 776), -1.0, 0),   # M, N off the 128 x 128 tiles: vector
+    ((130, 12, 260), 1.0, 0),      # K not a multiple of the 8-deep slab
+    ((64, 0, 64), 1.0, 0),         # K = 0: O = C
+    ((77, 3, 95), 2.0, 0),         # K < 4 and N % 4 != 0: scalar
+    ((1000, 513, 777), -1.0, 0),   # K % 4 != 0: scalar
+    ((256, 256, 258), 0.5, 0),     # N % 4 != 0: scalar
+    ((256, 256, 256), -1.0, 1),    # A misaligned by one float: scalar
+    ((5, 4, 4), 1.0, 0)],          # one thread's sub-tile
+    ids=["ragged", "k12", "k0", "k3", "k-odd", "n-odd", "a-misaligned",
+         "tiny"])
+def test_gemm_tile_fma_route_vector_and_scalar(card, shape, alpha, offset,
+                                               trans_b):
+    """K1's fma route at the edges of its 128 x 128 tiles, 8-deep slabs
+    and float4 rows, in both layouts: within 1e-5 of the plain version,
+    on the fma route, bit-identical when repeated and in place."""
+    m, k, n = shape
+    a, b, c = _operands(card, m, k, n, torch.float32, trans_b, 41, offset)
+    before = {r: v.value for r, v in
+              cuda_kernels.gemm_tile_route_launches.items()}
+    got = gemm_tile(a, b, c, alpha, trans_b)
+    again = gemm_tile(a, b, c, alpha, trans_b)
+    c2 = c.clone()
+    gemm_tile(a, b, c2, alpha, trans_b, out=c2)
+    torch.cuda.synchronize()
+    assert _route_moved(before) == ["fma"]
+    assert _err(got, gemm_tile_reference(a, b, c, alpha, trans_b)) <= 1e-5
+    assert torch.equal(got, again)
+    assert torch.equal(c2, got)
 
 
 @pytest.mark.cuda
