@@ -45,7 +45,22 @@ no result line):
               passes (median, best and band of GFLOP/s), task, launch
               and Cholesky-flag checks on every pass, then the backward
               error and the iterative-refinement ladder once.
-8. front-ends — the GEMM through DTD ``insert_task`` at the bench
+8. the remaining apps — ring attention at N = 32768 tokens, d = 128, one
+              head, P = 8 parties (Tq = Tkv = 4096), f32 with TF32 off,
+              non-causal then causal, each in a Context of its own: Q, K,
+              V from the seed on the card, one warm pass and three timed
+              (best, TFLOP/s of the executed visits, visits by class:
+              64, or 28 past, 8 diagonal, 28 skipped), every output row
+              within rtol 2e-4, atol 2e-5 of a float64 dense reference
+              computed on the card in blocks of 4096 rows, one visit of
+              each class timed alone; a recursive potrf: one 8192^2 f32
+              tile factored inside a FACT body by an inner potrf over
+              2048 subtiles on the card (20 inner tasks, 10 K1 launches
+              on the fma route a pass), max|LL' - A| / max|A| < 1e-4 in
+              float64 and CHECK reading the committed factor; the
+              permute wave over P = 8 parties of (4096, 4096) f32, every
+              W(q) exactly ``expected_wave_result``;
+9. front-ends — the GEMM through DTD ``insert_task`` at the bench
               geometry (36 inserts a pass; one warm, three timed; C
               within 1e-3 of the plain product), then at mb=2048 (512
               inserts a pass) in turns with the PTG front-end on the same
@@ -56,7 +71,7 @@ no result line):
               estimated idle share, mean wave width, DTD window stalls,
               and C bit for bit against the PTG's; the DTD run's C tiles
               are kept for the 2-rank check;
-9. host     — the runtime alone on the host's CPU (named with its core
+10. host    — the runtime alone on the host's CPU (named with its core
               count): the twins of the JAX package's ``tasks`` probe
               (20000 empty tasks, 4 streams) and ``ntasks`` probe (500
               RW chains x 24, results checked), each at ``sched_native``
@@ -68,14 +83,16 @@ no result line):
               the journal (``journal_enabled``) and the tracer (task
               profiler + causal tracer), each printed as its minimum pair
               ratio and us per task beside the JAX package's CPU gate;
-10. 2-rank  — two ranks spawned on the one card (P=2 row grids): potrf,
+11. 2-rank  — two ranks spawned on the one card (P=2 row grids): potrf,
               the PTG GEMM, the GEMM through DTD (every rank inserts every
               task, AFFINITY on C; the other rank's B tiles arrive as
               version-0 payloads over TAG_DTD; C after the flush home bit
               for bit against the single-rank DTD run, no DTD pull or
-              backlogged frame left) and routed QR, then potrf over shm
-              in turns with evloop.
-11. serving — the resident job service (``parsec_tpu_torch.service``):
+              backlogged frame left) and routed QR, the JAX package's
+              pingpong probes on host bodies (8 B x 400 hops round trip,
+              8 MiB x 32 hops bandwidth: host numbers), then potrf over
+              shm in turns with evloop.
+12. serving — the resident job service (``parsec_tpu_torch.service``):
               four GEMM jobs (n=8192, nb=2048, f32: K1 on its ``fma``
               route), two potrf jobs (n=8192, nb=2048, f32) and four
               stencil jobs (n=2^23, nb=2^20, 64 steps, one fused at 16)
@@ -151,6 +168,7 @@ from __future__ import annotations
 import collections
 import gc
 import json
+import math
 import os
 import resource
 import shutil
@@ -166,7 +184,8 @@ import numpy as np
 import torch
 
 import parsec_tpu_torch
-from parsec_tpu_torch.apps import cuda_kernels, potrf, qr
+from parsec_tpu_torch.apps import (cuda_kernels, potrf, qr, ring_attention,
+                                   wave)
 from parsec_tpu_torch.apps.cuda_kernels import gemm_tile, \
     gemm_tile_grouped, gemm_tile_grouped_reference, gemm_tile_reference, \
     gram_tile, gram_tile_reference
@@ -178,7 +197,9 @@ from parsec_tpu_torch.apps.qr_check import ls_refine, newest_payload
 from parsec_tpu_torch.comm import run_distributed
 from parsec_tpu_torch.comm import shm as _shm  # noqa: F401
 from parsec_tpu_torch.core.context import Context
+from parsec_tpu_torch.core.recursive import recursive_call
 from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
+from parsec_tpu_torch.data.subtile import SubtileMatrix
 # registers the device module's knobs, read before any Context exists
 from parsec_tpu_torch.devices import cuda as _cuda  # noqa: F401
 from parsec_tpu_torch.dsl.dtd import DTDTaskpool
@@ -1789,6 +1810,384 @@ def phase_potrf(ctx: Context, keep: dict = None) -> dict:
     return summary
 
 
+# -- the remaining apps: ring attention, a recursive potrf, the wave ---------
+
+#: ring attention's limits: the JAX package's test tolerance
+#: (tests/test_apps_ring.py) against a float64 dense reference
+ATTN_RTOL, ATTN_ATOL = 2e-4, 2e-5
+#: query rows per block of the float64 dense reference
+ATTN_REF_ROWS = 4096
+#: the recursive potrf's limit, the served potrf job's check:
+#: max|LL' - A| / max|A|, here in float64
+RECURSIVE_POTRF_TOL = 1e-4
+
+
+def attn_visit_ms(tdev: torch.device, T: int, d: int,
+                  gen: torch.Generator) -> dict:
+    """Device time of one visit of each class at the path's shapes (CUDA
+    events, mean of 3 calls after a warm one), outside any path run:
+    unmasked, the diagonal block's masked visit, the skipped visit."""
+    acc = ring_attention.pack_query(torch.randn((T, d), generator=gen,
+                                                device=tdev))
+    blk = torch.randn((2 * T, d), generator=gen, device=tdev)
+    causal = ring_attention._combine_torch_causal(T, T)
+    return {"unmasked": time_ms(
+        lambda: ring_attention._combine_torch(acc, blk), reps=3),
+        "diagonal": time_ms(lambda: causal(acc, blk, 1), reps=3),
+        "skipped": time_ms(lambda: causal(acc, blk, 0), reps=3)}
+
+
+def drive_ring_attention(ctx: Context, P: int, T: int, d: int,
+                         causal: bool, passes: int, gen: torch.Generator,
+                         label: str) -> dict:
+    """Ring attention through the runtime: Q, K and V of N = P*T tokens
+    drawn from ``gen`` on the device, the packed KV blocks born there
+    once and the accumulators re-packed before every pass (outside the
+    timed window); one warm pass then ``passes`` timed passes of insert +
+    wait + synchronize, each holding its tasks and their visit classes
+    (the causal ring's ``vc``) to the ring's arithmetic.  Then every
+    output row against the float64 dense reference, computed on the
+    device ``ATTN_REF_ROWS`` query rows at a time."""
+    dev = ctx.device_registry.accelerators[0]
+    on_card = dev.is_cuda
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    tdev = dev.tdev
+    # what the card holds before this path (the 2-rank paths' reference
+    # tiles, kept since the potrf and QR paths): the path's own peak is
+    # read above it
+    held = torch.cuda.memory_allocated() / 2**30 if on_card else 0.0
+    N = P * T
+    Q, K, V = (torch.randn((N, d), generator=gen, device=tdev)
+               for _ in range(3))
+    KV = TwoDimBlockCyclic(2 * T, d, 2 * N, d, name="KV")
+    ACC = TwoDimBlockCyclic(T, 2 * d + 2, N, 2 * d + 2, name="ACC")
+    for q in range(P):
+        rows = slice(q * T, (q + 1) * T)
+        KV.place_on_device(q, 0, dev, ring_attention.pack_kv(K[rows],
+                                                             V[rows]))
+    vc = ring_attention._causal_visit_class(P) if causal else None
+    want = collections.Counter(vc(q, t) if causal else None
+                               for q in range(P) for t in range(P))
+    executed_visits = P * P - want.get(0, 0)
+    # an executed visit: the two T x T x d products (q k^T, p v)
+    flops = executed_visits * 4.0 * T * T * d
+    visits = collections.Counter()
+    lock = threading.Lock()
+
+    def seen(es, event, task):
+        with lock:
+            visits[task.locals.get("vc")] += 1
+    ctx.pins_register("complete_exec", seen)
+    inc = _Incarnations(ctx)
+
+    def run_pass(what: str) -> float:
+        for q in range(P):
+            ACC.place_on_device(q, 0, dev, ring_attention.pack_query(
+                Q[q * T:(q + 1) * T]))
+        sync()
+        launches0 = read_counts()
+        executed0 = dev.stats.executed_tasks
+        visits.clear()
+        t0 = time.perf_counter()
+        ctx.add_taskpool(ring_attention.ring_attention_taskpool(
+            KV, ACC, device="cuda", causal=causal))
+        ctx.wait()
+        sync()
+        dt = time.perf_counter() - t0
+        executed = dev.stats.executed_tasks - executed0
+        counts = inc.take()
+        launched = {k: v - launches0[k] for k, v in read_counts().items()}
+        if executed != P * P or visits != want or \
+                counts.get(("R", "exec_async"), 0) != P * P or \
+                counts.get(("R", "exec_end"), 0) or any(launched.values()):
+            raise AssertionError(
+                f"[{label}] {what}: {executed} device tasks, visits by "
+                f"class {dict(visits)}, incarnations {counts}, launches "
+                f"{launched}; expected {P * P} device tasks, {dict(want)}, "
+                f"no kernel of csrc/")
+        log(f"[{label}] {what}: {dt * 1e3:.1f} ms, "
+            f"{flops / dt / 1e12:.2f} TFLOP/s executed, visits by class "
+            f"{dict(visits)}")
+        return dt
+
+    log(f"[{label}] N={N} tokens, d={d}, P={P} parties (Tq = Tkv = {T}), "
+        f"f32, {'causal' if causal else 'non-causal'}; KV blocks "
+        f"({2 * T}, {d}) and accumulators ({T}, {2 * d + 2}): "
+        f"{(2 * N * d + N * (2 * d + 2)) * 4 / 2**20:.1f} MiB in all; a "
+        f"visit's score and probability blocks {T * T * 4 / 2**20:.0f} MiB "
+        f"each; {executed_visits} executed visits, {flops:.4e} flop a pass "
+        f"(4 N^2 d = {4.0 * N * N * d:.4e}); allow_tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+    reset_counts()
+    inc.take()
+    dev0 = device_counts(dev)
+    if on_card:
+        read_clock(label, "before the passes")
+    times = [run_pass(f"pass {p} ({'timed' if p else 'warm'})")
+             for p in range(passes + 1)][1:]
+    if on_card:
+        read_clock(label, "after the last timed pass")
+    peak = torch.cuda.max_memory_allocated() / 2**30 - held \
+        if on_card else 0.0
+    launches = read_counts()
+    device = report_device(label, dev, dev0)
+
+    t0 = time.perf_counter()
+    ref = ring_attention.dense_reference(Q.double(), K.double(), V.double(),
+                                         causal=causal, rows=ATTN_REF_ROWS)
+    worst_abs, worst_excess = 0.0, -math.inf
+    for q in range(P):
+        got = ring_attention.unpack_output(
+            newest_payload(ACC, q, 0), d).double()
+        want_rows = ref[q * T:(q + 1) * T]
+        err = (got - want_rows).abs()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"[{label}] party {q}: non-finite output")
+        worst_abs = max(worst_abs, float(err.max()))
+        worst_excess = max(worst_excess, float(
+            (err - (ATTN_ATOL + ATTN_RTOL * want_rows.abs())).max()))
+    best = min(times)
+    log(f"[{label}] best of {len(times)} timed passes {best * 1e3:.1f} ms, "
+        f"{flops / best / 1e12:.2f} TFLOP/s executed; peak device memory "
+        f"over the passes {peak:.2f} GiB above the {held:.2f} GiB held "
+        f"when the path began; output against the float64 dense "
+        f"reference (rows of {ATTN_REF_ROWS}, "
+        f"{time.perf_counter() - t0:.1f} s): max abs err {worst_abs:.3e}, "
+        f"worst excess over {ATTN_ATOL:.0e} + {ATTN_RTOL:.0e}|ref| "
+        f"{worst_excess:.3e} (must be <= 0)")
+    if worst_excess > 0:
+        raise AssertionError(f"[{label}] output outside rtol {ATTN_RTOL}, "
+                             f"atol {ATTN_ATOL}: {worst_excess}")
+    return {"launches": launches, "times": times, "best_s": best,
+            "tflops": flops / best / 1e12, "visits": dict(want),
+            "max_abs_err": worst_abs, "own_peak_gib": peak, "device": device}
+
+
+def phase_ring_attention(ctx: Context, gen: torch.Generator,
+                         causal: bool) -> dict:
+    P, T, d = 8, 4096, 128
+    label = f"ring attention{' causal' if causal else ''} N={P * T}"
+    res = drive_ring_attention(ctx, P, T, d, causal, passes=3, gen=gen,
+                               label=label)
+    ms = attn_visit_ms(torch.device("cuda", 0), T, d, gen)
+    v = res["visits"]
+    per = {None: "unmasked", 2: "unmasked", 1: "diagonal", 0: "skipped"}
+    busy = sum(ms[per[c]] * k for c, k in v.items()) * 1e-3
+    idle = max(0.0, 1.0 - busy / res["best_s"])
+    log(f"[{label}] device ms per visit: "
+        + ", ".join(f"{k} {x:.3f}" for k, x in ms.items())
+        + f"; the pass's {sum(v.values())} visits {busy * 1e3:.1f} ms "
+        f"against the best pass {res['best_s'] * 1e3:.1f} ms: estimated "
+        f"device idle share {idle:.3f}")
+    summary = path_summary(res, res["best_s"])
+    summary.update({"tflops": res["tflops"], "idle_share": idle,
+                    "visit_ms": ms, "max_abs_err": res["max_abs_err"],
+                    "own_peak_gib": res["own_peak_gib"]})
+    return summary
+
+
+def recursive_fact_pool(A: TwoDimBlockCyclic, inner_mb: int,
+                        seen: list, inner: list):
+    """FACT(A(0, 0)) factors the tile by an inner tiled-Cholesky pool on
+    the device module over its ``inner_mb`` subtiles (the recursive
+    device); CHECK, FACT's successor, records the diagonal and last row
+    of the tile it reads into ``seen``.  ``inner`` receives the inner
+    pools (their Cholesky flags)."""
+    def body(T, es, task):
+        sub = SubtileMatrix(task.data["T"].data, mb=inner_mb, nb=inner_mb)
+        tp = potrf.potrf_taskpool(sub, device="cuda")
+        inner.append(tp)
+        return recursive_call(es, task, tp, callback=lambda _t: sub.commit())
+
+    p = PTG("recursive_potrf")
+    p.task("FACT") \
+        .affinity(lambda A=A: A(0, 0)) \
+        .flow("T", "RW",
+              IN(DATA(lambda A=A: A(0, 0))),
+              OUT(TASK("CHECK", "T", lambda: dict())),
+              OUT(DATA(lambda A=A: A(0, 0)))) \
+        .body(body)
+    p.task("CHECK") \
+        .affinity(lambda A=A: A(0, 0)) \
+        .flow("T", "READ", IN(TASK("FACT", "T", lambda: dict()))) \
+        .body(lambda T: seen.append((T.diagonal().clone(), T[-1].clone())))
+    return p.build()
+
+
+def drive_recursive_potrf(ctx: Context, n: int, inner_mb: int, passes: int,
+                          gen: torch.Generator, label: str) -> dict:
+    """One n x n f32 tile factored by ``recursive_fact_pool``: the SPD
+    operand b b' + n I (b from ``gen``, formed on the device as the served
+    potrf job forms it) copied into the host tile before every pass
+    (outside the timed window), one warm pass then ``passes`` timed
+    passes; per pass the inner pool's tasks on the device, K1's launches
+    by route and the Cholesky flags.  Then the factor against the operand
+    in float64 (``RECURSIVE_POTRF_TOL``), and CHECK's reading against the
+    committed factor."""
+    dev = ctx.device_registry.accelerators[0]
+    on_card = dev.is_cuda
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    b = torch.randn((n, n), generator=gen, device=dev.tdev)
+    spd = b @ b.T + n * torch.eye(n, device=dev.tdev)
+    del b
+    A = TwoDimBlockCyclic(n, n, n, n, name="A").from_array(
+        torch.empty((n, n)))
+    nt = n // inner_mb
+    want = potrf_task_counts(nt)
+    want_k1 = want["SYRK"] + want["GEMM"]
+    inc = _Incarnations(ctx)
+    seen = []
+
+    def run_pass(what: str) -> float:
+        inner = []
+        seen.clear()
+        A.data_of(0, 0).overwrite_host(spd)
+        sync()
+        launches0, routes0 = read_counts(), read_routes()
+        executed0 = dev.stats.executed_tasks
+        t0 = time.perf_counter()
+        ctx.add_taskpool(recursive_fact_pool(A, inner_mb, seen, inner))
+        ctx.wait()
+        sync()
+        dt = time.perf_counter() - t0
+        executed = dev.stats.executed_tasks - executed0
+        counts = inc.take()
+        launched = {k: v - launches0[k] for k, v in read_counts().items()}
+        routes = {k: v - routes0[k] for k, v in read_routes().items()}
+        device_runs = {c: counts.get((c, "exec_async"), 0) for c in want}
+        # FACT's body hands the task to its inner pool (ASYNC); CHECK's
+        # runs inline
+        outer = {"FACT": counts.get(("FACT", "exec_async"), 0),
+                 "CHECK": counts.get(("CHECK", "exec_end"), 0)}
+        if executed != sum(want.values()) or device_runs != want or \
+                outer != {"FACT": 1, "CHECK": 1} or len(seen) != 1:
+            raise AssertionError(
+                f"[{label}] {what}: {executed} device tasks {device_runs}, "
+                f"outer tasks {outer}, CHECK ran {len(seen)} times; "
+                f"expected {want}, FACT and CHECK once")
+        if on_card and (routes.get("fma") != want_k1 or
+                        launched["gemm_tile"] != want_k1 or
+                        launched["gram_tile"] or
+                        launched["gemm_tile_grouped"]):
+            raise AssertionError(f"[{label}] {what}: launches {launched}, "
+                                 f"K1 by route {routes}; expected "
+                                 f"{want_k1} K1 on fma")
+        if inner[0].cholesky_check.failed():
+            raise AssertionError(f"[{label}] {what}: a Cholesky factor "
+                                 f"failed")
+        log(f"[{label}] {what}: {dt * 1e3:.1f} ms, "
+            f"{potrf.potrf_flops(n) / dt / 1e9:.1f} GFLOP/s (n^3/3), inner "
+            f"tasks {device_runs}, K1 by route {routes}, Cholesky flag "
+            f"clear")
+        return dt
+
+    log(f"[{label}] one {n} x {n} f32 tile ({n * n * 4 / 2**20:.0f} MiB), "
+        f"factored by an inner potrf over {inner_mb} subtiles (nt={nt}: "
+        f"{sum(want.values())} inner tasks {want}) from FACT's body; CHECK "
+        f"reads the committed tile")
+    reset_counts()
+    inc.take()
+    dev0 = device_counts(dev)
+    if on_card:
+        read_clock(label, "before the passes")
+    times = [run_pass(f"pass {p} ({'timed' if p else 'warm'})")
+             for p in range(passes + 1)][1:]
+    if on_card:
+        read_clock(label, "after the last timed pass")
+    launches = read_counts()
+    routes = read_routes()
+    device = report_device(label, dev, dev0)
+    L = torch.tril(A.to_array()).to(dev.tdev, torch.float64)
+    ref = spd.double()
+    err = float((L @ L.T - ref).abs().max() / ref.abs().max())
+    diag, last = seen[0]     # CHECK's reading in the last pass
+    check_saw_factor = bool(torch.equal(diag.to(dev.tdev, torch.float64),
+                                        L.diagonal())
+                            and torch.equal(last.to(dev.tdev,
+                                                    torch.float64), L[-1]))
+    log(f"[{label}] best of {len(times)} timed passes "
+        f"{min(times) * 1e3:.1f} ms; max|LL' - A|/max|A| in float64 "
+        f"{err:.3e} (limit {RECURSIVE_POTRF_TOL:.0e}); CHECK read the "
+        f"committed factor (its diagonal and last row bit for bit): "
+        f"{check_saw_factor}; K1 launches {launches['gemm_tile']} by route "
+        f"{routes}")
+    if not err <= RECURSIVE_POTRF_TOL or not check_saw_factor:
+        raise AssertionError(f"[{label}] residual {err}, CHECK saw the "
+                             f"factor {check_saw_factor}")
+    return {"launches": launches, "times": times, "best_s": min(times),
+            "residual": err, "k1_fma": routes.get("fma", 0),
+            "cpu_tasks": 2 * (passes + 1), "device": device}
+
+
+def phase_recursive_potrf(ctx: Context, gen: torch.Generator) -> dict:
+    res = drive_recursive_potrf(ctx, 8192, 2048, passes=3, gen=gen,
+                                label="recursive potrf n=8192")
+    summary = path_summary(res, res["best_s"])
+    summary.update({"residual": res["residual"], "k1_fma": res["k1_fma"],
+                    "cpu_tasks": res["cpu_tasks"]})
+    return summary
+
+
+def drive_wave(ctx: Context, P: int, n: int, passes: int,
+               label: str) -> dict:
+    """The permute wave over P parties of n x n f32 tiles born on the
+    device (V(q) := q, W(q) := 0, ``fill_wave_inputs``' values) before
+    every pass, outside the timed window; one warm pass then ``passes``
+    timed ones.  Every W(q) must equal ``expected_wave_result`` exactly."""
+    dev = ctx.device_registry.accelerators[0]
+    on_card = dev.is_cuda
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    V = TwoDimBlockCyclic(n, n, P * n, n, name="V")
+    W = TwoDimBlockCyclic(n, n, P * n, n, name="W")
+    inc = _Incarnations(ctx)
+    want = {("P", "exec_async"): P, ("C", "exec_async"): P,
+            ("GATE", "exec_end"): 1}
+
+    def run_pass(what: str) -> float:
+        for q in range(P):
+            V.place_on_device(q, 0, dev, torch.full(
+                (n, n), float(q), device=dev.tdev))
+            W.place_on_device(q, 0, dev, torch.zeros((n, n),
+                                                     device=dev.tdev))
+        sync()
+        t0 = time.perf_counter()
+        ctx.add_taskpool(wave.permute_wave_taskpool(V, W, device="cuda"))
+        ctx.wait()
+        sync()
+        dt = time.perf_counter() - t0
+        counts = inc.take()
+        wrong = [q for q in range(P) if not bool(torch.all(
+            newest_payload(W, q, 0) == wave.expected_wave_result(P, q)))]
+        if counts != want or wrong:
+            raise AssertionError(f"[{label}] {what}: incarnations {counts}"
+                                 f" (expected {want}); W wrong at {wrong}")
+        log(f"[{label}] {what}: {dt * 1e3:.2f} ms, every W(q) = 2 ((q - 1) "
+            f"mod {P})")
+        return dt
+
+    log(f"[{label}] P={P} parties of ({n}, {n}) f32 "
+        f"({n * n * 4 / 2**20:.0f} MiB a tile): {2 * P + 1} tasks a pass")
+    reset_counts()
+    inc.take()
+    dev0 = device_counts(dev)
+    times = [run_pass(f"pass {p} ({'timed' if p else 'warm'})")
+             for p in range(passes + 1)][1:]
+    launches = read_counts()
+    device = report_device(label, dev, dev0)
+    log(f"[{label}] best of {len(times)} timed passes "
+        f"{min(times) * 1e3:.2f} ms; mean wave width "
+        f"{device['mean_wave_width']:.2f}")
+    return {"launches": launches, "times": times, "best_s": min(times),
+            "cpu_tasks": passes + 1, "device": device}
+
+
+def phase_wave(ctx: Context) -> dict:
+    res = drive_wave(ctx, 8, 4096, passes=3, label="permute wave P=8")
+    summary = path_summary(res, res["best_s"])
+    summary["cpu_tasks"] = res["cpu_tasks"]
+    return summary
+
+
 def phase_gemm(ctx: Context, gen: torch.Generator) -> dict:
     res = drive_gemm(ctx, 12288, 3, 3, 4, passes=3, gen=gen,
                      label="GEMM path mb=12288")
@@ -1887,7 +2286,7 @@ def report_scheduler(label: str, ctx: Context, bail0: dict) -> dict:
 
 
 def report_telemetry(label: str, ctx: Context, bail0: dict,
-                     traced_sampled: int = 0) -> dict:
+                     traced_sampled: int = 0, cpu_tasks: int = 0) -> dict:
     """The metrics registry's scrape after a path, held to what the path
     counted itself:
 
@@ -1901,9 +2300,11 @@ def report_telemetry(label: str, ctx: Context, bail0: dict,
       E streams (the workers plus the device module's completer stream);
     - the latency histogram's count is S less the completions sampled in
       a traced pass, whose ready stamps the causal tracer consumed;
-    - on a path whose every task ran on the card, each task reached
-      Python either as a C chain bailout or as a probe pop: bailouts plus
-      probe pops equal the tasks, exactly;
+    - the card's tasks plus the path's ``cpu_tasks`` (its tasks with a
+      CPU body only) are the completions; on a path whose every task ran
+      on the card, each task reached Python either as a C chain bailout
+      or as a probe pop: bailouts plus probe pops equal the tasks,
+      exactly;
     - the health score lies in [0, 1] and the ready stamp is on.
     Prints the straggler count and the journal's event count."""
     m = ctx.metrics
@@ -1966,11 +2367,13 @@ def report_telemetry(label: str, ctx: Context, bail0: dict,
     if sampled != want or not lo <= sampled <= hi:
         raise AssertionError(f"[telemetry {label}] liveattr sampled "
                              f"{sampled}, expected {want} in [{lo}, {hi}]")
-    if executed and executed != n:
+    if executed and executed + cpu_tasks != n:
         raise AssertionError(f"[telemetry {label}] {executed} card tasks "
-                             f"but {n} completions")
+                             f"and {cpu_tasks} CPU tasks but {n} "
+                             f"completions")
     probed = probe_pops(ctx)
-    if native and executed and sum(bail.values()) + probed != n:
+    if native and executed and not cpu_tasks and \
+            sum(bail.values()) + probed != n:
         raise AssertionError(f"[telemetry {label}] bailouts {bail} plus "
                              f"{probed} probe pops, but {n} card tasks")
     if hist != sampled - traced_sampled:
@@ -2001,7 +2404,8 @@ def in_context(phase, label: str, sched_native=None) -> dict:
             trace = summary.get("trace")
             summary["telemetry"] = report_telemetry(
                 label, ctx, bail0,
-                trace["sampled"] if trace is not None else 0)
+                trace["sampled"] if trace is not None else 0,
+                summary.get("cpu_tasks", 0))
     finally:
         if sched_native is not None:
             params.unset("sched_native")
@@ -2767,6 +3171,43 @@ def _qr_rank(ctx, rank: int, nranks: int, mb: int, nt: int, passes: int,
     return out
 
 
+def _pingpong_rank(ctx, rank: int, nranks: int, rtt: tuple,
+                   bw: tuple) -> dict:
+    """The JAX package's pingpong probes (bench.py ``run_rtt_bench`` and
+    ``run_bw_bench``) on host bodies: a datum bounced between the ranks
+    through dataflow edges, ``rtt`` = (bytes, hops) for the round trip
+    and ``bw`` = (bytes, hops) for the edge bandwidth, each after a warm
+    run of 8 hops and a barrier.  The bandwidth leg pins its protocol as
+    the bench does: eager up to twice its payload, adaptation off."""
+    from parsec_tpu_torch.apps.pingpong import run_pingpong
+    ce = ctx.comm.ce
+    reset_counts()
+    out = {}
+    eager = ctx.comm.eager
+    for leg, (nbytes, hops) in (("rtt", rtt), ("bw", bw)):
+        pinned = leg == "bw"
+        if pinned:
+            ctx.comm.eager = 2 * nbytes
+            params.set("comm_adaptive_eager", 0)
+        try:
+            run_pingpong(ctx, nbytes, 8)
+            ce.barrier(timeout=600)
+            st0 = ctx.comm.stats()
+            per_hop, mbps = run_pingpong(ctx, nbytes, hops)
+            st = ctx.comm.stats()
+        finally:
+            if pinned:
+                ctx.comm.eager = eager
+                params.unset("comm_adaptive_eager")
+        out[leg] = {"bytes": nbytes, "hops": hops, "s_per_hop": per_hop,
+                    "mb_per_s": mbps,
+                    "comm": {k: st[k] - st0[k] for k in COMM_KEYS}}
+        ce.barrier(timeout=600)
+    out["transport"] = ctx.comm.stats()["transport"]
+    out["launches"] = read_counts()
+    return out
+
+
 def dist_rank(ctx, rank: int, nranks: int, plan: dict, refs: dict) -> dict:
     """One rank of a 2-rank run: the paths ``plan`` names, in order."""
     dev = ctx.device_registry.accelerators[0]
@@ -2783,6 +3224,8 @@ def dist_rank(ctx, rank: int, nranks: int, plan: dict, refs: dict) -> dict:
         elif name == "dtd_gemm":
             out[name] = _dtd_gemm_rank(ctx, rank, nranks,
                                        refs=refs["dtd_gemm"], **kw)
+        elif name == "pingpong":
+            out[name] = _pingpong_rank(ctx, rank, nranks, **kw)
         else:
             out[name] = _qr_rank(ctx, rank, nranks, refs=refs["qr"], **kw)
         out[name]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -2848,6 +3291,37 @@ def report_dist(label: str, res: list, path: str, flops: float,
     return passes
 
 
+def report_pingpong(res: list) -> dict:
+    """Print the 2-rank pingpong legs: per rank the seconds per hop and
+    MB/s (host bodies over the comm engine: host numbers, no device
+    work) and its eager and rendezvous activations; every leg must have
+    moved its payload (one activation a hop, summed over the ranks)."""
+    out = {"launches": _rank_launches(res, "pingpong")}
+    for leg in ("rtt", "bw"):
+        for r, rr in enumerate(res):
+            d = rr["pingpong"][leg]
+            c = d["comm"]
+            log(f"[2-rank pingpong {leg}] rank {r} "
+                f"({rr['pingpong']['transport']}, host bodies: a host "
+                f"number): {d['bytes']} B x {d['hops']} hops, "
+                f"{d['s_per_hop'] * 1e6:.1f} us/hop, {d['mb_per_s']:.1f} "
+                f"MB/s; activations eager {c['act_eager']} against "
+                f"rendezvous {c['act_rdv']}")
+        legs = [rr["pingpong"][leg] for rr in res]
+        sent = sum(d["comm"]["act_eager"] + d["comm"]["act_rdv"]
+                   for d in legs)
+        if sent < legs[0]["hops"] - 1:
+            raise AssertionError(f"[2-rank pingpong {leg}] {sent} "
+                                 f"activations for {legs[0]['hops']} hops")
+        out[leg] = {"us_per_hop": max(d["s_per_hop"] for d in legs) * 1e6,
+                    "mb_per_s": min(d["mb_per_s"] for d in legs),
+                    "bytes": legs[0]["bytes"], "hops": legs[0]["hops"]}
+    if any(out["launches"].values()):
+        raise AssertionError(f"[2-rank pingpong] kernels launched: "
+                             f"{out['launches']}")
+    return out
+
+
 def _two_ranks(plan: dict, refs: dict, transport: str, trace_dir=None):
     """One run_distributed of ``plan`` on two ranks of this card over
     ``transport`` (the children's ``comm_transport``)."""
@@ -2873,7 +3347,8 @@ def _two_ranks(plan: dict, refs: dict, transport: str, trace_dir=None):
 
 
 def phase_distributed(refs: dict, potrf_size=(6144, 16), gemm_size=(2048, 8),
-                      qr_size=(6144, 8)) -> dict:
+                      qr_size=(6144, 8),
+                      pingpong_size=((8, 400), (8 << 20, 32))) -> dict:
     """The 2-rank potrf, GEMM and routed QR paths (comm_transport evloop,
     comm_frame_native 1: the defaults), then one potrf pass over the shm
     transport in turns with one over evloop; each size is (mb, tiles a
@@ -2898,7 +3373,8 @@ def phase_distributed(refs: dict, potrf_size=(6144, 16), gemm_size=(2048, 8),
     plan = {"potrf": {"mb": potrf_mb, "nt": potrf_nt, "passes": 3},
             "gemm": {"mb": gemm_mb, "t": gemm_t, "passes": 3},
             "dtd_gemm": {"mb": gemm_mb, "t": gemm_t, "passes": 3},
-            "qr": {"mb": qr_mb, "nt": qr_nt, "passes": 2}}
+            "qr": {"mb": qr_mb, "nt": qr_nt, "passes": 2},
+            "pingpong": dict(zip(("rtt", "bw"), pingpong_size))}
     trace_dir = tempfile.mkdtemp(prefix="parsec_2rank_trace_")
     try:
         res = _two_ranks(plan, refs, "evloop", trace_dir)
@@ -3018,6 +3494,9 @@ def phase_distributed(refs: dict, potrf_size=(6144, 16), gemm_size=(2048, 8),
     out["qr"] = {"pass_ms": best * 1e3, "gflops": flops / best / 1e9,
                  "launches": _rank_launches(res, "qr")}
 
+    # pingpong: host bodies, host numbers
+    out["pingpong"] = report_pingpong(res)
+
     # one potrf pass over shm, in turns with one over evloop
     shm_dir = "/dev/shm" if os.path.isdir("/dev/shm") else \
         tempfile.gettempdir()
@@ -3121,7 +3600,17 @@ def main() -> int:
                                  "QR path mb=6144"),
         "potrf mb=6144": in_context(
             lambda ctx: phase_potrf(ctx, refs["potrf"]),
-            "potrf path mb=6144")}
+            "potrf path mb=6144"),
+        "ring attention N=32768": in_context(
+            lambda ctx: phase_ring_attention(ctx, gen, causal=False),
+            "ring attention N=32768"),
+        "ring attention causal N=32768": in_context(
+            lambda ctx: phase_ring_attention(ctx, gen, causal=True),
+            "ring attention causal N=32768"),
+        "recursive potrf n=8192": in_context(
+            lambda ctx: phase_recursive_potrf(ctx, gen),
+            "recursive potrf n=8192"),
+        "permute wave P=8": in_context(phase_wave, "permute wave P=8")}
     dist = phase_distributed(refs)
     del refs
     gc.collect()
@@ -3129,7 +3618,8 @@ def main() -> int:
     per_path.update({"2-rank potrf mb=6144": dist["potrf"],
                      "2-rank GEMM mb=2048": dist["gemm"],
                      "2-rank DTD GEMM mb=2048": dist["dtd_gemm"],
-                     "2-rank QR mb=6144": dist["qr"]})
+                     "2-rank QR mb=6144": dist["qr"],
+                     "2-rank pingpong": dist["pingpong"]})
     # the resident job service, run after every other path
     per_path["serving"] = phase_serving()
     gc.collect()

@@ -4,8 +4,9 @@ The analog of the reference's tests/apps and of DPLASMA's tiled drivers
 (reference: tests/dsl/dtd/dtd_test_simple_gemm.c, tests/apps/stencil/,
 BASELINE.md north-star configs): each app builds a parameterized taskpool
 over tiled-matrix collections with CUDA incarnations and CPU bodies.
-The tiled GEMM and the tiled QR (with its least-squares check) are
-ported so far.
+Every app of the JAX package is ported: the tiled GEMM, QR and Cholesky
+(with their checks), the stencil, the ring and ring attention, the
+permute wave, the trees, redistribution and pingpong.
 """
 
 from parsec_tpu_torch.apps.gemm import gemm_taskpool  # noqa: F401

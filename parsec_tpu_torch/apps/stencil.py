@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from parsec_tpu_torch.apps.bodies import bind_bodies
 from parsec_tpu_torch.core.taskpool import ParameterizedTaskpool
 from parsec_tpu_torch.data.matrix import TiledMatrix
 from parsec_tpu_torch.dsl.ptg.api import DATA, IN, OUT, PTG, Range, TASK
@@ -45,18 +46,6 @@ def _fused(L, C, R, ns):
         u = (e[:-2] + e[2:] + u) / 3.0
     mb = C.shape[0]
     return u[mb:2 * mb]
-
-
-def _bind(tb, fn, device: str) -> None:
-    """The device body for "cuda"/"gpu" ahead of the CPU body (the same
-    torch function: on the CPU it runs on host tensors)."""
-    if device in ("tpu", "xla"):
-        raise ValueError(
-            f"device={device!r} names the JAX package's XLA module; the "
-            "port's device bodies are 'cuda' (or 'gpu')")
-    if device in ("cuda", "gpu"):
-        tb.body(fn, device=device)
-    tb.body(fn)
 
 
 def stencil_taskpool(V: TiledMatrix, steps: int,
@@ -125,7 +114,7 @@ def stencil_taskpool(V: TiledMatrix, steps: int,
                   when=lambda t, T=steps: t < T - 1),
               OUT(DATA(lambda i, V=V: V(i)),
                   when=lambda t, T=steps: t == T - 1))
-    _bind(tb, _step, device)
+    bind_bodies(tb, _step, device)
     return p.build()
 
 
@@ -182,7 +171,7 @@ def _stencil_taskpool_fused(V: TiledMatrix, steps: int, device: str,
                   when=lambda b, NB=NB: b < NB - 1),
               OUT(DATA(lambda i, V=V: V(i)),
                   when=lambda b, NB=NB: b == NB - 1))
-    _bind(tb, _fused, device)
+    bind_bodies(tb, _fused, device)
     return p.build()
 
 

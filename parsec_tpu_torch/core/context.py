@@ -31,20 +31,24 @@ RemoteDepEngine; comm/launch.py run_distributed wires one per rank).
 Remote successors then ride the remote-dep protocol, and ``wait`` adds
 the gang's global quiescence to local completion.
 
-The port carries the flat virtual-process map only, and three optional
-planes of the JAX package are not ported (ICI transport, flight
+Streams map onto virtual processes by ``vpmap`` (core/vpmap.py) and bind
+to cores under ``runtime_bind_threads``, as in the JAX package.  Three
+optional planes of the JAX package are not ported (ICI transport, flight
 recorder, recovery): each one's knob is registered with default 0 and
 raises NotImplementedError when set.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Any, Callable, List, Optional
 
 from parsec_tpu_torch.core import scheduling
 from parsec_tpu_torch.core.task import Task
 from parsec_tpu_torch.core.taskpool import Taskpool, TaskpoolState
+# registers vpmap and runtime_bind_threads, read below
+from parsec_tpu_torch.core.vpmap import VPMap, bind_current_thread
 from parsec_tpu_torch.core import termdet as _termdet  # noqa: F401 (registers the termdet components)
 # the telemetry planes: imported here so their knobs (defaults 1) are
 # registered before a Context reads them
@@ -148,19 +152,6 @@ def _check_unported_planes() -> None:
             raise NotImplementedError(
                 f"{knob} is set, but its reader, {reader}, is not "
                 f"ported yet")
-
-
-class _FlatVPMap:
-    """The flat virtual-process map: every stream in VP 0, no binding
-    (reference: vpmap_init_from_flat)."""
-
-    nb_vps = 1
-
-    def vp_of(self, th_id: int) -> int:
-        return 0
-
-    def core_of(self, th_id: int) -> Optional[int]:
-        return None
 
 
 class ExecutionStream:
@@ -291,17 +282,33 @@ class Context:
         self._termdet = td_cls()
         self._termdets = {sel_name: self._termdet}
 
+        # VP map: streams -> virtual processes (+ optional core binding)
+        # (reference: vpmap_init_* + thread binding, parsec.c:543-583,:861).
+        # Built before the scheduler installs: lhq reads it at install
+        # (the JAX package builds it after, so its lhq never sees it)
+        self.vpmap = VPMap.from_mca(self.nb_cores, rank=self.rank)
         self.scheduler = create_scheduler(
             scheduler or (params.get("sched", "") or None))
         self.scheduler.install(self)
 
-        self.vpmap = _FlatVPMap()
-        self.streams = [ExecutionStream(self, i, vp_id=0)
+        self.streams = [ExecutionStream(self, i,
+                                        vp_id=self.vpmap.vp_of(i))
                         for i in range(self.nb_cores)]
         for es in self.streams:
             self.scheduler.flow_init(es)
+        bind = bool(int(params.get("runtime_bind_threads", 0)))
+
+        def run_worker(es):
+            if bind:
+                core = self.vpmap.core_of(es.th_id)
+                if core is None:   # flat/parameter maps carry no cores:
+                    # the documented round-robin placement
+                    core = es.th_id % (os.cpu_count() or 1)
+                bind_current_thread(core)
+            scheduling.worker_loop(es)
+
         self._threads = [
-            threading.Thread(target=scheduling.worker_loop, args=(es,),
+            threading.Thread(target=run_worker, args=(es,),
                              name=f"parsec-worker-{es.th_id}", daemon=True)
             for es in self.streams]
         for t in self._threads:
@@ -337,11 +344,10 @@ class Context:
         it only with a spare core, 2 forces.  Called from ``__init__``
         and again when a comm engine attaches (comm/remote_dep.py);
         workers pick the window up on their next idle pass."""
-        import os as _os
         try:
-            ncores = len(_os.sched_getaffinity(0))
+            ncores = len(os.sched_getaffinity(0))
         except (AttributeError, OSError):
-            ncores = _os.cpu_count() or 1
+            ncores = os.cpu_count() or 1
         ip = int(params.get("comm_inline_poll", 1))
         self._db_spin_s = (
             max(0, int(params.get("doorbell_coalesce_us", 150))) * 1e-6

@@ -6,9 +6,10 @@ two_dim_rectangle_cyclic.{c,h}, grid_2Dcyclic.c): a logical LM x LN
 matrix cut into MB x NB tiles, distributed over a process grid.
 ``TwoDimBlockCyclic`` is the ScaLAPACK PxQ block-cyclic layout (with kp/kq
 repetition factors), ``KCyclicView`` its k-cyclic reordered view (the
-textual JDF front-end's kcyclic corpus reads it) and ``VectorTwoDimCyclic``
-the 1D cyclic vector of tiles.  The symmetric, band and tabular layouts of
-the JAX package are not ported yet.
+textual JDF front-end's kcyclic corpus reads it), ``SymTwoDimBlockCyclic``
+and ``BandTwoDimBlockCyclic`` store one triangle or a band of it,
+``TwoDimTabular`` maps tiles to ranks by a table, and
+``VectorTwoDimCyclic`` is the 1D cyclic vector of tiles.
 
 Tiles are CPU tensors of the collection's torch dtype (``torch.bfloat16``
 or ``torch.float32``), materialized lazily on first access.  numpy has no
@@ -19,7 +20,7 @@ collection dtype, and ``to_array`` gives a tensor.
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -313,6 +314,91 @@ def block_cyclic_kview(origin: TwoDimBlockCyclic, kp: int, kq: int,
                        name: Optional[str] = None) -> KCyclicView:
     """parsec_matrix_block_cyclic_kview equivalent."""
     return KCyclicView(origin, kp, kq, name=name)
+
+
+class SymTwoDimBlockCyclic(TwoDimBlockCyclic):
+    """Symmetric matrix storing one triangle only
+    (reference: sym_two_dim_rectangle_cyclic.c)."""
+
+    LOWER, UPPER = 0, 1
+
+    def __init__(self, *args, uplo: int = LOWER, **kw):
+        super().__init__(*args, **kw)
+        self.uplo = uplo
+
+    def tile_exists(self, m: int, n: int = 0) -> bool:
+        if not super().tile_exists(m, n):
+            return False
+        return n <= m if self.uplo == self.LOWER else m <= n
+
+    def _check(self, m: int, n: int) -> None:
+        if self.uplo == self.LOWER and n > m:
+            raise KeyError(f"{self.name}({m},{n}) not stored (lower)")
+        if self.uplo == self.UPPER and m > n:
+            raise KeyError(f"{self.name}({m},{n}) not stored (upper)")
+
+    def rank_of(self, m: int, n: int = 0) -> int:
+        self._check(m, n)
+        return super().rank_of(m, n)
+
+    def data_of(self, m: int, n: int = 0) -> Data:
+        self._check(m, n)
+        return super().data_of(m, n)
+
+
+class BandTwoDimBlockCyclic(TwoDimBlockCyclic):
+    """Band storage: only tiles within ``band_km`` of the diagonal exist
+    (reference: two_dim_rectangle_cyclic_band.c /
+    sym_two_dim_rectangle_cyclic_band.c — the *_band variants store the
+    band of a (symmetric) matrix; out-of-band tiles are not stored and
+    must not be addressed)."""
+
+    LOWER = SymTwoDimBlockCyclic.LOWER
+    UPPER = SymTwoDimBlockCyclic.UPPER
+
+    def __init__(self, *args, band_km: int = 1, uplo: Optional[int] = None,
+                 **kw):
+        super().__init__(*args, **kw)
+        self.band_km = band_km          # tiles kept each side of diagonal
+        self.uplo = uplo                # None=full band, LOWER, or UPPER
+
+    def tile_exists(self, m: int, n: int = 0) -> bool:
+        if not super().tile_exists(m, n):
+            return False
+        d = m - n
+        if self.uplo == self.LOWER and d < 0:   # below-diagonal only
+            return False
+        if self.uplo == self.UPPER and d > 0:
+            return False
+        return abs(d) <= self.band_km
+
+    def _check_band(self, m: int, n: int) -> None:
+        if not self.tile_exists(m, n):
+            raise KeyError(f"{self.name}({m},{n}) outside the stored band")
+
+    def rank_of(self, m: int, n: int = 0) -> int:
+        self._check_band(m, n)
+        return super().rank_of(m, n)
+
+    def data_of(self, m: int, n: int = 0) -> Data:
+        self._check_band(m, n)
+        return super().data_of(m, n)
+
+
+class TwoDimTabular(TiledMatrix):
+    """Arbitrary tile->rank table (reference: two_dim_tabular.c)."""
+
+    def __init__(self, mb: int, nb: int, lm: int, ln: int,
+                 table: Sequence[int], nodes: int = 1, myrank: int = 0,
+                 dtype: Any = torch.float32, name: str = "T"):
+        super().__init__(mb, nb, lm, ln, dtype=dtype, nodes=nodes,
+                         myrank=myrank, name=name)
+        if len(table) != self.mt * self.nt:
+            raise ValueError("table must have one rank per tile")
+        self.table = list(table)
+
+    def rank_of(self, m: int, n: int = 0) -> int:
+        return self.table[self.data_key(m, n)]
 
 
 class VectorTwoDimCyclic(TiledMatrix):

@@ -418,3 +418,66 @@ def test_serving_task_counts_match_the_pools(app, params):
             potrf_taskpool(mats[0])
     assert sum(class_totals(tp).values()) == \
         chip_smoke.serving_tasks(app, params)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_attention_path_rehearsal_on_cpu(causal):
+    """The ring-attention path's driver at a tiny size: every pass's
+    tasks and visit classes, no kernel of csrc/ launched, the output
+    within the JAX test's tolerance of the float64 dense reference."""
+    chip_smoke = _chip_smoke()
+    from parsec_tpu_torch.core.context import Context
+    P, T, d = 4, 16, 8
+    with Context(nb_cores=2, device="cpu") as ctx:
+        res = chip_smoke.drive_ring_attention(
+            ctx, P, T, d, causal, passes=1,
+            gen=torch.Generator().manual_seed(5), label="rehearsal")
+    assert res["launches"] == NO_LAUNCHES
+    assert res["visits"] == ({2: 6, 1: 4, 0: 6} if causal else {None: 16})
+    assert res["max_abs_err"] <= chip_smoke.ATTN_ATOL + \
+        chip_smoke.ATTN_RTOL * 10
+    assert res["device"]["faults"] == 0
+
+
+def test_recursive_potrf_path_rehearsal_on_cpu():
+    """The recursive potrf's driver at a tiny size: the inner pool's 20
+    tasks on the device module a pass, FACT and CHECK on the CPU, the
+    float64 residual, and CHECK's reading equal to the committed
+    factor."""
+    chip_smoke = _chip_smoke()
+    from parsec_tpu_torch.core.context import Context
+    with Context(nb_cores=2, device="cpu") as ctx:
+        res = chip_smoke.drive_recursive_potrf(
+            ctx, 64, 16, passes=1, gen=torch.Generator().manual_seed(2),
+            label="rehearsal")
+    assert res["launches"] == NO_LAUNCHES
+    assert res["residual"] <= chip_smoke.RECURSIVE_POTRF_TOL
+    assert res["cpu_tasks"] == 4 and len(res["times"]) == 1
+
+
+def test_wave_path_rehearsal_on_cpu():
+    chip_smoke = _chip_smoke()
+    from parsec_tpu_torch.core.context import Context
+    with Context(nb_cores=2, device="cpu") as ctx:
+        res = chip_smoke.drive_wave(ctx, 8, 4, passes=2, label="rehearsal")
+    assert res["launches"] == NO_LAUNCHES
+    assert res["cpu_tasks"] == 3 and len(res["times"]) == 2
+    assert res["device"]["faults"] == 0
+
+
+def test_two_rank_pingpong_rehearsal_on_cpu():
+    """The 2-rank pingpong rank function on two CPU ranks: both legs
+    move their payload hop by hop (eager for the pinned bandwidth leg),
+    and the report holds every leg to its activations."""
+    import torch_comm_workers as W
+    from parsec_tpu_torch.comm.launch import run_distributed
+    chip_smoke = _chip_smoke()
+    res = run_distributed(W.chip_pingpong, 2,
+                          args=("port", (8, 40), (1 << 16, 8)),
+                          device="cpu", timeout=180)
+    out = chip_smoke.report_pingpong(res)
+    assert out["launches"] == NO_LAUNCHES
+    assert out["rtt"]["hops"] == 40 and out["bw"]["bytes"] == 1 << 16
+    for r in res:
+        assert r["pingpong"]["bw"]["comm"]["act_rdv"] == 0
+        assert r["pingpong"]["rtt"]["s_per_hop"] > 0

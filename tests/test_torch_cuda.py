@@ -25,6 +25,12 @@ module fuses waves at its defaults.
 
 A JobService on the card serves one job of each catalog app (GEMM,
 potrf, stencil); f32 operands send K1 to its fma route.
+
+The remaining apps run on the card too: ring attention (both masks)
+against the float64 dense reference at the JAX package's test tolerance
+(rtol 2e-4, atol 2e-5), a recursive potrf whose inner pool runs on the
+card (K1 on its fma route, CHECK reading the committed factor), and the
+permute wave against ``expected_wave_result``.
 """
 
 import numpy as np
@@ -667,3 +673,84 @@ def test_job_service_serves_each_app_on_the_card(card):
     assert res["stencil"]["max_err"] <= 1e-5
     # 64 GEMM tiles plus the potrf's 10 SYRK/GEMM updates, all f32
     assert cuda_kernels.gemm_tile_route_launches["fma"].value - fma0 == 74
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_attention_on_the_card(card, causal):
+    """P = 4 parties of Tq = Tkv = 256, d = 128, f32 (TF32 off): every
+    output row within rtol 2e-4, atol 2e-5 of the float64 dense
+    reference; the ring's 16 visits all ran on the card, no kernel of
+    csrc/ among them."""
+    from parsec_tpu_torch.apps import ring_attention as ra
+    from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
+    assert not torch.backends.cuda.matmul.allow_tf32
+    P, T, d = 4, 256, 128
+    gen = torch.Generator(device=card).manual_seed(17)
+    Q, K, V = (torch.randn((P * T, d), generator=gen, device=card)
+               for _ in range(3))
+    KV = TwoDimBlockCyclic(2 * T, d, 2 * P * T, d, name="KV")
+    ACC = TwoDimBlockCyclic(T, 2 * d + 2, P * T, 2 * d + 2, name="ACC")
+    with Context(nb_cores=4) as ctx:
+        dev = ctx.device_registry.accelerators[0]
+        for q in range(P):
+            rows = slice(q * T, (q + 1) * T)
+            KV.place_on_device(q, 0, dev, ra.pack_kv(K[rows], V[rows]))
+            ACC.place_on_device(q, 0, dev, ra.pack_query(Q[rows]))
+        k1 = _k1_tiles()
+        ctx.add_taskpool(ra.ring_attention_taskpool(KV, ACC, causal=causal))
+        ctx.wait(timeout=120)
+        assert dev.stats.executed_tasks == P * P
+        assert _k1_tiles() == k1
+        got = torch.cat([ra.unpack_output(
+            ACC.data_of(q, 0).pull_to_host().payload, d)
+            for q in range(P)]).to(card, torch.float64)
+    want = ra.dense_reference(Q.double(), K.double(), V.double(),
+                              causal=causal)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_recursive_potrf_on_the_card(card):
+    """One n = 1024 f32 tile factored by an inner potrf over 256
+    subtiles on the card: max|LL' - A| / max|A| < 1e-4 in float64, the
+    inner pool's 10 SYRK/GEMM updates on K1's fma route, and CHECK reads
+    the committed factor (commit pulls the inner tiles home)."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    with Context(nb_cores=4) as ctx:
+        # the driver sets the kernel counts to 0 before its passes
+        res = chip_smoke.drive_recursive_potrf(
+            ctx, 1024, 256, passes=1,
+            gen=torch.Generator(device=card).manual_seed(3),
+            label="cuda test")
+    assert res["residual"] < 1e-4
+    # two passes (warm, timed) of 10 SYRK/GEMM updates, all on fma
+    assert res["k1_fma"] == res["launches"]["gemm_tile"] == 20
+
+
+@pytest.mark.cuda
+def test_permute_wave_on_the_card(card):
+    """P = 8 parties of (256, 256) f32 on the card: every W(q) equals
+    ``expected_wave_result`` exactly, P and C on the card, GATE on the
+    host."""
+    from parsec_tpu_torch.apps import wave
+    from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
+    P, n = 8, 256
+    V = TwoDimBlockCyclic(n, n, P * n, n, name="V")
+    W = TwoDimBlockCyclic(n, n, P * n, n, name="W")
+    wave.fill_wave_inputs(V, W)
+    with Context(nb_cores=4) as ctx:
+        ctx.add_taskpool(wave.permute_wave_taskpool(V, W))
+        ctx.wait(timeout=60)
+        assert ctx.device_registry.accelerators[0].stats.executed_tasks \
+            == 2 * P
+    for q in range(P):
+        got = W.data_of(q, 0).pull_to_host().payload
+        assert torch.all(got == wave.expected_wave_result(P, q))

@@ -1378,6 +1378,111 @@ def project_dyn(ctx, rank, nranks, pkg):
             "pool": (tp.nb_tasks, tp.nb_pending_actions)}
 
 
+# -- the ring, ring attention and all2all apps across ranks -----------------
+
+def _ring_vectors(pkg, nranks, rank, P, mb):
+    V = _vec(pkg, nranks, rank, mb, mb * P, name="V")
+    A = _vec(pkg, nranks, rank, mb, mb * P, name="A")
+    for m, _ in V.local_tiles():
+        put(V.data_of(m).copy_on(0).payload, np.full(mb, m + 1, np.float32))
+    for m, _ in A.local_tiles():
+        put(A.data_of(m).copy_on(0).payload, np.zeros(mb, np.float32))
+    return V, A
+
+
+def attn_operands(P, Tq, d, seed):
+    """Ring attention's Q, K, V (float32 numpy, P * Tq rows)."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((P * Tq, d)).astype(np.float32)
+                 for _ in range(3))
+
+
+def ring_suite(ctx, rank, nranks, pkg, Tq=4, d=8):
+    """The ring allreduce (two parties per rank: intra and inter-rank
+    hops; reference tests/test_apps_ring.py::_ring_ranks), then causal
+    ring attention with one party per rank, every KV block crossing the
+    wire: each rank's accumulators and task counts."""
+    ring = _mod(pkg, "apps.ring")
+    attn = _mod(pkg, "apps.ring_attention")
+    mat = _mod(pkg, "data.matrix")
+    done = counter(ctx)
+    P = 2 * nranks
+    V, A = _ring_vectors(pkg, nranks, rank, P, 4)
+    ctx.add_taskpool(ring.ring_pipeline_taskpool(
+        V, A, **({"device": "cpu"} if pkg == "port" else {})))
+    ctx.wait(timeout=180)
+    ring_vals = {m: get(A.data_of(m).pull_to_host().payload).tolist()
+                 for m, _ in A.local_tiles()}
+    ring_done = dict(done)
+    ctx.comm.ce.barrier(timeout=120)
+
+    P = nranks
+    Q, K, Vv = attn_operands(P, Tq, d, seed=13)
+    KV = mat.TwoDimBlockCyclic(mb=2 * Tq, nb=d, lm=P * 2 * Tq, ln=d,
+                               nodes=nranks, myrank=rank, P=nranks,
+                               name="KV")
+    ACC = mat.TwoDimBlockCyclic(mb=Tq, nb=2 * d + 2, lm=P * Tq,
+                                ln=2 * d + 2, nodes=nranks, myrank=rank,
+                                P=nranks, name="ACC")
+    for q, _ in KV.local_tiles():
+        KV.data_of(q, 0).overwrite_host(
+            attn.pack_kv(K[q * Tq:(q + 1) * Tq], Vv[q * Tq:(q + 1) * Tq]))
+    for q, _ in ACC.local_tiles():
+        ACC.data_of(q, 0).overwrite_host(
+            attn.pack_query(Q[q * Tq:(q + 1) * Tq]))
+    done.clear()
+    ctx.add_taskpool(attn.ring_attention_taskpool(
+        KV, ACC, device="cpu", causal=True))
+    ctx.wait(timeout=180)
+    out = {q: get(attn.unpack_output(get(
+        ACC.data_of(q, 0).pull_to_host().payload), d)).tolist()
+        for q, _ in ACC.local_tiles()}
+    return {"ring": ring_vals, "ring_done": ring_done, "attn": out,
+            "attn_done": dict(done), "termdet": termdet(ctx)}
+
+
+def all2all(ctx, rank, nranks, pkg, mb=4):
+    """reference: tests/apps/all2all (tests/test_apps_trees.py::_all2all)
+    — every rank sends a distinct block to every other rank (PTG over
+    two tabular distributions)."""
+    mat = _mod(pkg, "data.matrix")
+    api = _mod(pkg, "dsl.ptg.api")
+    # S(i,j) owned by rank i; R(i,j) owned by rank j: the (i,j) edge is
+    # an i->j message — all pairs = all-to-all
+    S = mat.TwoDimTabular(mb=mb, nb=mb, lm=nranks * mb, ln=nranks * mb,
+                          table=[i for i in range(nranks)
+                                 for _ in range(nranks)],
+                          nodes=nranks, myrank=rank, name="S")
+    R = mat.TwoDimTabular(mb=mb, nb=mb, lm=nranks * mb, ln=nranks * mb,
+                          table=[j for _ in range(nranks)
+                                 for j in range(nranks)],
+                          nodes=nranks, myrank=rank, name="R")
+    for i, j in S.local_tiles():
+        S.data_of(i, j).copy_on(0).payload[:] = 100.0 * i + j
+    for i, j in R.local_tiles():
+        R.data_of(i, j).copy_on(0).payload[:] = -1.0
+    p = api.PTG("a2a", N=nranks)
+    p.task("SEND", i=api.Range(0, nranks - 1), j=api.Range(0, nranks - 1)) \
+        .affinity(lambda i, j, S=S: S(i, j)) \
+        .flow("T", "READ",
+              api.IN(api.DATA(lambda i, j, S=S: S(i, j))),
+              api.OUT(api.TASK("RECV", "T", lambda i, j: dict(i=i, j=j)))) \
+        .body(lambda: None)
+    p.task("RECV", i=api.Range(0, nranks - 1), j=api.Range(0, nranks - 1)) \
+        .affinity(lambda i, j, R=R: R(i, j)) \
+        .flow("T", "READ",
+              api.IN(api.TASK("SEND", "T", lambda i, j: dict(i=i, j=j)))) \
+        .flow("D", "RW",
+              api.IN(api.DATA(lambda i, j, R=R: R(i, j))),
+              api.OUT(api.DATA(lambda i, j, R=R: R(i, j)))) \
+        .body(lambda T, D: {"D": T})
+    done = counter(ctx)
+    ctx.add_taskpool(p.build())
+    ctx.wait(timeout=120)
+    return {"vals": _local_tiles(R, pkg), "done": dict(done),
+            "proto": proto(ctx), "termdet": termdet(ctx)}
+
+
 # -- chip_smoke.py's 2-rank DTD GEMM, rehearsed on the CPU ------------------
 
 def chip_dtd_gemm(ctx, rank, nranks, pkg, mb, t, passes, refs):
@@ -1389,6 +1494,16 @@ def chip_dtd_gemm(ctx, rank, nranks, pkg, mb, t, passes, refs):
     import chip_smoke
     return chip_smoke._dtd_gemm_rank(ctx, rank, nranks, mb, t, passes,
                                      refs)
+
+
+def chip_pingpong(ctx, rank, nranks, pkg, rtt, bw):
+    """One rank of chip_smoke.py's 2-rank pingpong (the port only)."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    return {"pingpong": chip_smoke._pingpong_rank(ctx, rank, nranks, rtt,
+                                                  bw)}
 
 
 # -- the parent side ---------------------------------------------------------
