@@ -113,6 +113,36 @@ no result line):
               port's ``tools.journal_audit``.  K1 at 2048^3 f32 is timed
               in the kernels phase against ``torch.addmm`` with TF32 off,
               with B as (k, n) (GEMM jobs) and as (n, k) (potrf jobs).
+  checkpoint + grapher (one Context): one GEMM mb=2048 pass (8 x 8 x 8,
+              K1 on the card) with the DOT grapher installed (its file
+              must hold the 512 task nodes and the pass's 448 dependency
+              edges), then C (64 tiles of 2048^2 f32, 1 GiB, on the card)
+              through ``utils.checkpoint``: flushed home and written, then
+              restored into a freshly built collection of the same layout,
+              bit for bit; the bytes and the write and read seconds.
+  fault tolerance (2 ranks, after the 2-rank paths): the potrf at mb=6144,
+              nt=16, bf16 storage on two ranks of this card with
+              ``recovery_enable`` and the flight recorder armed (its
+              bundle in a temporary directory), and the fault plan
+              ``kill_rank=1@t+T,mode=close``: T puts the death at
+              ``RECOVERY_KILL_AT`` of the 2-rank no-fault pass measured
+              just before, counted from the pool's start, which both
+              ranks align on rank 1's engine clock at
+              ``RECOVERY_SETUP_S`` after its start (after the operand is
+              made on the card and the pool attached, which takes the
+              recovery snapshot of each rank's local tiles).  Rank 1 must
+              die (its slot None) and rank 0 complete: one recovery
+              started and none failed, L within 1e-2 of the single-rank
+              factor over every lower tile (the adopted ones remade on
+              the card by ``A.set_init(potrf.bench_operand(...))``), the
+              Cholesky flag clear, backward error <= 5e-2; it prints the
+              survivor's time from the pool's start to its completion
+              against the no-fault pass, the minimal and full replays and
+              the re-executed tasks, the restored tiles by source, the
+              snapshot's bytes and seconds, K1 on the survivor, its memory
+              peak, and ``summarize_bundle`` of the flight-recorder
+              bundle, which must hold rank 0's ring and a recovery-start
+              incident and which ``critpath.merge_traces`` must open.
 
 Telemetry.  Every path runs with the planes the reference installs at its
 defaults: the metrics registry with live attribution and health, the
@@ -208,6 +238,8 @@ from parsec_tpu_torch.dsl.ptg.jdf import jdf_taskpool
 from parsec_tpu_torch.native import load_schedext
 from parsec_tpu_torch.prof import critpath
 from parsec_tpu_torch.prof.causal import install_causal_tracer
+from parsec_tpu_torch.prof.flightrec import summarize_bundle
+from parsec_tpu_torch.prof.grapher import DotGrapher
 from parsec_tpu_torch.prof.pins import install_task_profiler
 from parsec_tpu_torch.prof.profiling import Profile
 from parsec_tpu_torch.prof.reader import intervals
@@ -215,6 +247,7 @@ from parsec_tpu_torch.service import JobService
 from parsec_tpu_torch.service.fabric import ServingFabric
 from parsec_tpu_torch.service.server import APPS, JobServer, request
 from parsec_tpu_torch.tools import journal_audit
+from parsec_tpu_torch.utils.checkpoint import checkpoint, restore
 from parsec_tpu_torch.utils.mca import params
 
 SEED = 20261016
@@ -1592,23 +1625,11 @@ def potrf_task_counts(nt: int) -> dict:
 
 def potrf_tile_maker(A: TwoDimBlockCyclic, tdev: torch.device):
     """The JAX package's potrf bench operand (``bench.py::_tile_generator``
-    as ``run_potrf_bench`` stages it), tile by tile: column j of tile (m, k)
-    holds (j * 1e-5 + s * 1e-3) mod 1, s the tile's index in
-    ``A.local_tiles()`` (upper tiles counted), plus n on a diagonal tile's
-    diagonal, all in f32, then rounded to the storage dtype.  It
-    regenerates exactly, without a second resident copy.  The diagonal
-    tiles are not symmetric (every row is the same)."""
-    index = {t: i for i, t in enumerate(A.local_tiles())}
-    col = torch.arange(A.nb, dtype=torch.float32, device=tdev) * 1e-5
-    n = float(A.lm)
-
-    def tile(m: int, k: int) -> torch.Tensor:
-        s = float(np.float32(index[(m, k)]) * np.float32(1e-3))
-        t = ((col + s) % 1.0).repeat(A.mb, 1)
-        if m == k:
-            t.diagonal().add_(n)
-        return t.to(A.dtype)
-    return tile
+    as ``run_potrf_bench`` stages it) over ``A``, a one-rank square tile
+    grid, tile by tile on ``tdev``: ``apps/potrf.bench_operand``, the
+    re-runnable source the fault-tolerance path gives ``set_init``, so a
+    tile recovery remakes equals the one made here bit for bit."""
+    return potrf.bench_operand(A.lm, A.mb, A.dtype, tdev)
 
 
 def drive_potrf(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
@@ -2186,6 +2207,91 @@ def phase_wave(ctx: Context) -> dict:
     summary = path_summary(res, res["best_s"])
     summary["cpu_tasks"] = res["cpu_tasks"]
     return summary
+
+
+def drive_checkpoint_grapher(ctx: Context, mb: int, t: int,
+                             label: str) -> dict:
+    """One GEMM pass (t x t x t tiles of mb^2, A and B bf16, C f32, tiles
+    born on the device, ``seeded_tile``) with the DOT grapher installed,
+    then C through ``checkpoint`` and ``restore`` into a fresh collection
+    of the same layout.  Holds the DOT to t^3 task nodes and the pass's
+    t^2 (t - 1) dependency edges (each C chain GEMM(m, n, k) ->
+    GEMM(m, n, k + 1); A and B come from the collections), and the
+    restored C to the checkpointed one bit for bit.  Returns numbers."""
+    dev = ctx.device_registry.accelerators[0]
+    sync = torch.cuda.synchronize if dev.is_cuda else (lambda: None)
+    n = t * mb
+    mats = {}
+    for name, dtype in (("A", torch.bfloat16), ("B", torch.bfloat16),
+                        ("C", torch.float32)):
+        M = mats[name] = TwoDimBlockCyclic(mb, mb, n, n, dtype=dtype,
+                                           name=name)
+        for (m, k) in M.local_tiles():
+            M.place_on_device(m, k, dev, seeded_tile(
+                name, m, k, mb, t, dtype, dev.tdev))
+    A, B, C = mats["A"], mats["B"], mats["C"]
+    sync()
+    # counts go to 0 just before the path runs and are read just after
+    reset_counts()
+    grapher = DotGrapher(ctx.rank)
+    grapher.install(ctx)
+    try:
+        res = gemm_pass(ctx, "ptg", A, B, C)
+        sync()
+    finally:
+        ctx.grapher = None
+        ctx.pins_unregister("complete_exec", grapher._complete)
+    launches = read_counts()
+    tmp = tempfile.mkdtemp(prefix="parsec_ckpt_")
+    try:
+        dot = grapher.dump(os.path.join(tmp, "gemm.dot"))
+        with open(dot) as fh:
+            lines = fh.read().splitlines()
+        nodes = sum(1 for ln in lines if "[label=" in ln and "->" not in ln)
+        edges = sum(1 for ln in lines if "->" in ln)
+        want_edges = t * t * (t - 1)
+        log(f"[{label}] GEMM pass {res['s'] * 1e3:.1f} ms with the DOT "
+            f"grapher; {os.path.getsize(dot)} B of DOT, {nodes} task nodes "
+            f"(expected {t ** 3}), {edges} dependency edges (expected "
+            f"{want_edges}); launches {launches}")
+        if nodes != t ** 3 or edges != want_edges:
+            raise AssertionError(f"[{label}] DOT holds {nodes} nodes and "
+                                 f"{edges} edges")
+        t0 = time.perf_counter()
+        shard = checkpoint(ctx, [C], os.path.join(tmp, "C"))
+        write_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(shard)
+        fresh = TwoDimBlockCyclic(mb, mb, n, n, dtype=torch.float32,
+                                  name="C")
+        t0 = time.perf_counter()
+        restored = restore(ctx, [fresh], os.path.join(tmp, "C"))
+        read_s = time.perf_counter() - t0
+        identical = restored == len(C.local_tiles()) and all(
+            torch.equal(newest_payload(C, m, k).cpu(),
+                        newest_payload(fresh, m, k).cpu())
+            for (m, k) in C.local_tiles())
+        log(f"[{label}] checkpoint of C ({len(C.local_tiles())} tiles of "
+            f"{mb}^2 f32, device copies flushed home): {nbytes / 2**30:.3f}"
+            f" GiB written in {write_s:.3f} s "
+            f"({nbytes / write_s / 2**30:.2f} GiB/s), restored into a fresh "
+            f"collection in {read_s:.3f} s "
+            f"({nbytes / read_s / 2**30:.2f} GiB/s): {restored} tiles, "
+            f"bit-identical {identical}")
+        if not identical:
+            raise AssertionError(f"[{label}] the restored C differs")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"launches": launches, "pass_ms": res["s"] * 1e3,
+            "dot_nodes": nodes, "dot_edges": edges,
+            "checkpoint_bytes": nbytes, "write_s": write_s,
+            "read_s": read_s, "bit_identical": identical,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30
+            if dev.is_cuda else 0.0}
+
+
+def phase_checkpoint_grapher(ctx: Context) -> dict:
+    return drive_checkpoint_grapher(ctx, 2048, 8,
+                                    "checkpoint + grapher mb=2048")
 
 
 def phase_gemm(ctx: Context, gen: torch.Generator) -> dict:
@@ -3370,10 +3476,12 @@ def phase_distributed(refs: dict, potrf_size=(6144, 16), gemm_size=(2048, 8),
         f"({len(refs['potrf'])} potrf L tiles, {len(refs['qr'])} QR R "
         f"tiles, {len(refs['dtd_gemm'])} DTD GEMM C tiles), shared with "
         f"the ranks by CUDA IPC")
-    plan = {"potrf": {"mb": potrf_mb, "nt": potrf_nt, "passes": 3},
+    # the potrf and QR passes cut to 2 and 1 timed ones (from 3 and 2) so
+    # that the fault-tolerance path fits the script's time budget
+    plan = {"potrf": {"mb": potrf_mb, "nt": potrf_nt, "passes": 2},
             "gemm": {"mb": gemm_mb, "t": gemm_t, "passes": 3},
             "dtd_gemm": {"mb": gemm_mb, "t": gemm_t, "passes": 3},
-            "qr": {"mb": qr_mb, "nt": qr_nt, "passes": 2},
+            "qr": {"mb": qr_mb, "nt": qr_nt, "passes": 1},
             "pingpong": dict(zip(("rtt", "bw"), pingpong_size))}
     trace_dir = tempfile.mkdtemp(prefix="parsec_2rank_trace_")
     try:
@@ -3417,7 +3525,8 @@ def phase_distributed(refs: dict, potrf_size=(6144, 16), gemm_size=(2048, 8),
             1e-5 * max(1, len(att["path"])):
         raise AssertionError(f"[{label_p}] buckets {b} do not sum to the "
                              f"makespan plus the overlap")
-    out["potrf"] = {"pass_ms": med * 1e3, "gflops": flops / med / 1e9,
+    out["potrf"] = {"pass_ms": med * 1e3, "pass_s": med,
+                    "gflops": flops / med / 1e9,
                     "worst_rel_fro": worst, "critpath_ms": {
                         k: v * 1e3 for k, v in b.items()},
                     "launches": _rank_launches(res, "potrf")}
@@ -3535,6 +3644,226 @@ def _rank_launches(res: list, path: str) -> dict:
     return dict(out)
 
 
+RECOVERY_SETUP_S = 12.0   # engine start -> the pool's start (both ranks;
+                          # set-up, the attach snapshot's 9 GiB of host
+                          # copies included, took 6.1-8.0 s on the H100)
+RECOVERY_KILL_AT = 0.45   # the death, as a share of the no-fault pass
+TAG_RECOVERY_GO = 20      # an application tag: the ranks' start exchange
+
+
+def recovery_rank(ctx, rank: int, nranks: int, mb: int, nt: int,
+                  setup_s: float, refs: dict) -> dict:
+    """One rank of the fault-tolerance path: the bench operand made on the
+    device (its lower local tiles; ``A.set_init`` with the same maker for
+    the tiles a survivor adopts), the pool attached (the recovery snapshot
+    of the local tiles, timed), then both ranks start the pool at
+    ``setup_s`` after rank 1's engine came up (CLOCK_MONOTONIC is the
+    host's, so the two processes share it) and wait.  Rank 1 is killed by
+    the fault plan and raises; rank 0 returns its recovery numbers, its
+    L tiles against ``refs`` (the single-rank factor) and the backward
+    error of the whole factor it now holds."""
+    dev = ctx.device_registry.accelerators[0]
+    sync = torch.cuda.synchronize if dev.is_cuda else (lambda: None)
+    ce = ctx.comm.ce
+    n = nt * mb
+    A = TwoDimBlockCyclic(mb, mb, n, n, nodes=nranks, myrank=rank, P=nranks,
+                          dtype=torch.bfloat16, name="A")
+    make = potrf.bench_operand(n, mb, torch.bfloat16, dev.tdev)
+    A.set_init(make)
+    for (m, k) in A.local_tiles():
+        if m >= k:
+            A.place_on_device(m, k, dev, make(m, k))
+    sync()
+    if dev.is_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    tp = potrf.potrf_taskpool(A)
+    t0 = time.perf_counter()
+    ctx.add_taskpool(tp)         # takes the recovery snapshot
+    snap_s = time.perf_counter() - t0
+    snaps = ctx.recovery._snaps.get(id(A), {})
+    snap_bytes = sum(p.numel() * p.element_size()
+                     for _v, p in snaps.values())
+    # the pool starts at setup_s past rank 1's engine start, on both ranks
+    got, evt = {}, threading.Event()
+
+    def on_go(src, payload):
+        got[src] = payload
+        evt.set()
+    ce.tag_register(TAG_RECOVERY_GO, on_go)
+    ce.send_am(TAG_RECOVERY_GO, 1 - rank, ce.started_at)
+    if not evt.wait(120):
+        raise TimeoutError(f"rank {rank}: no start stamp from the peer")
+    ce.tag_unregister(TAG_RECOVERY_GO)
+    go = (ce.started_at if rank == 1 else got[1]) + setup_s
+    setup_done = time.monotonic() - (ce.started_at if rank == 1 else got[1])
+    ahead = go - time.monotonic()
+    if ahead > 0:
+        time.sleep(ahead)
+    else:
+        # a late start moves the death earlier into the pass; the parent
+        # fails the path unless it still lands inside the run
+        log(f"[recovery rank {rank}] set-up took {setup_done:.2f} s, past "
+            f"the pool's start at {setup_s} s: starting now")
+    if 1 - rank in ce.dead_peers:
+        raise AssertionError(f"rank {rank}: the kill landed before the "
+                             f"pool started")
+    t_start = time.perf_counter()
+    ctx.wait()
+    sync()
+    t_done = time.perf_counter()
+    rec = ctx.recovery
+    st = rec.stats()
+    deaths = [ev["t"] for ev in ctx.journal.tail(4096)
+              if ev.get("e") == "recovery_start"]
+    lower = [(m, k) for (m, k) in A.local_tiles() if m >= k]
+    # the factor's tiles whose newest copy is on the host (restored ones
+    # a minimal replay left as they were) go to the card once, so that
+    # the checks below read every tile there
+    on_host = 0
+    for (m, k) in lower:
+        c = A.data_of(m, k).newest_copy()
+        if c is not None and c.device == 0:
+            on_host += 1
+            A.place_on_device(m, k, dev, newest_payload(A, m, k).to(
+                dev.tdev))
+    worst = 0.0
+    for (m, k) in lower:
+        got_t = newest_payload(A, m, k).to(dev.tdev)
+        ref = refs[(m, k)].to(dev.tdev)
+        if m == k:
+            got_t, ref = torch.tril(got_t), torch.tril(ref)
+        g, r = got_t.double(), ref.double()
+        worst = max(worst, float(torch.linalg.norm(g - r)
+                                 / torch.linalg.norm(r)))
+    bwd = backward_error(A, make)
+    return {"stats": st, "snapshot_s": snap_s, "snapshot_bytes": snap_bytes,
+            "setup_s": setup_done, "run_s": t_done - t_start,
+            "death_s": (deaths[0] - t_start) if deaths else None,
+            "lower_tiles": len(lower), "host_tiles": on_host,
+            "worst_rel_fro": worst,
+            "backward_error": bwd, "failed": tp.cholesky_check.failed(),
+            "k1": k1_tiles()[0], "launches": read_counts(),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30
+            if dev.is_cuda else 0.0}
+
+
+def phase_recovery(refs: dict, nofault_s: float, size=(6144, 16),
+                   setup_s: float = RECOVERY_SETUP_S,
+                   kill_at: float = RECOVERY_KILL_AT, extra_plan: str = "",
+                   device: str = "cuda") -> dict:
+    """The fault-tolerance path (the module docstring): two ranks, rank 1
+    killed at ``kill_at`` of ``nofault_s`` into the pool, rank 0 recovering
+    it.  ``extra_plan`` adds fault directives (a small rehearsal stretches
+    its pass with frame delays).  Fails unless rank 1 died, rank 0
+    completed with one recovery started and none failed, the factor
+    checks hold and the flight recorder's bundle holds rank 0's ring with
+    a recovery-start incident that ``merge_traces`` opens."""
+    mb, nt = size
+    label = f"fault tolerance: 2-rank potrf mb={mb}, rank 1 killed"
+    kill_s = setup_s + kill_at * nofault_s
+    spec = f"seed=13;kill_rank=1@t+{kill_s:.3f}s,mode=close" +         (f";{extra_plan}" if extra_plan else "")
+    bundle = tempfile.mkdtemp(prefix="parsec_flightrec_")
+    env = {"PARSEC_MCA_FAULT_PLAN": spec,
+           "PARSEC_MCA_RECOVERY_ENABLE": "1",
+           "PARSEC_MCA_FLIGHTREC_ENABLED": "1",
+           "PARSEC_MCA_FLIGHTREC_DIR": bundle,
+           "PARSEC_MCA_COMM_TRANSPORT": "evloop"}
+    log(f"[{label}] fault plan {spec!r}: the death at {kill_at:.2f} of the "
+        f"no-fault pass ({nofault_s * 1e3:.1f} ms) past the pool's start "
+        f"at {setup_s:.1f} s; recovery and the flight recorder armed "
+        f"(bundle {bundle})")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = run_distributed(recovery_rank, DIST_RANKS,
+                              args=(mb, nt, setup_s, refs), device=device,
+                              timeout=900, tolerate_ranks=(1,))
+        wall = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    try:
+        if res[1] is not None or res[0] is None:
+            raise AssertionError(f"[{label}] rank 1 must die and rank 0 "
+                                 f"complete: {res}")
+        r = res[0]
+        st = r["stats"]
+        if st["started"] != 1 or st["failed"] != 0 or st["completed"] != 1:
+            raise AssertionError(f"[{label}] recoveries {st}")
+        death = r["death_s"]
+        log(f"[{label}] {wall:.1f} s with spawn and set-up; rank 0 set-up "
+            f"{r['setup_s']:.2f} s; snapshot at attach "
+            f"{r['snapshot_bytes'] / 2**30:.3f} GiB of host copies in "
+            f"{r['snapshot_s']:.3f} s; rank 1 declared dead "
+            f"{death * 1e3:.1f} ms into the pool "
+            f"({death / nofault_s:.3f} of the no-fault pass)")
+        log(f"[{label}] rank 0 from the pool's start to completion "
+            f"{r['run_s'] * 1e3:.1f} ms, {r['run_s'] / nofault_s:.3f} x the "
+            f"no-fault 2-rank pass; recoveries {st['started']} started, "
+            f"{st['completed']} completed, {st['failed']} failed; minimal "
+            f"replays {st['minimal_replays']}, full replays "
+            f"{st['full_replays']}; tasks re-executed "
+            f"{st['tasks_reexecuted']}; restored tiles by source "
+            f"{st['restored_tiles']}; dead map {st['dead_map']}; K1 tiles "
+            f"on the survivor {r['k1']}, launches {r['launches']}; peak "
+            f"device memory {r['peak_gib']:.2f} GiB")
+        log(f"[{label}] {r['lower_tiles']} lower L tiles on the survivor "
+            f"({r['host_tiles']} of them newest on the host, moved to the "
+            f"card for the checks) against the single-rank factor: worst "
+            f"relative Frobenius "
+            f"error {r['worst_rel_fro']:.3e} (limit {POTRF_DIST_TOL:.0e}); "
+            f"backward error {r['backward_error']:.4e} (limit "
+            f"{POTRF_BWD_TOL:.0e}); Cholesky flag set {r['failed']}")
+        if r["lower_tiles"] != nt * (nt + 1) // 2 or \
+                not r["worst_rel_fro"] <= POTRF_DIST_TOL or \
+                not r["backward_error"] <= POTRF_BWD_TOL or r["failed"]:
+            raise AssertionError(f"[{label}] the recovered factor fails its "
+                                 f"checks")
+        if death is None or not 0.0 < death < r["run_s"]:
+            raise AssertionError(f"[{label}] the death ({death}) is not "
+                                 f"inside the run ({r['run_s']})")
+        # the survivor's ring is dumped on its own thread
+        deadline = time.time() + 30
+        while not os.path.exists(os.path.join(bundle, "rank0.ptt")) and \
+                time.time() < deadline:
+            time.sleep(0.1)
+        summary = summarize_bundle(bundle)
+        rows, _metas = critpath.merge_traces(summary["traces"])
+        log(f"[{label}] flight-recorder bundle: ranks {summary['ranks']}, "
+            f"{summary['events']} events ({len(rows)} rows through "
+            f"critpath.merge_traces), flows {summary['flows']}; incidents "
+            f"{[(i['rank'], i['reason']) for i in summary['incidents']]}")
+        if 0 not in summary["ranks"] or not any(
+                i["rank"] == 0 and i["reason"].startswith("recovery-start")
+                for i in summary["incidents"]):
+            raise AssertionError(f"[{label}] the bundle lacks rank 0's ring "
+                                 f"or its recovery-start incident")
+    finally:
+        shutil.rmtree(bundle, ignore_errors=True)
+    return {"launches": r["launches"], "run_ms": r["run_s"] * 1e3,
+            "ratio_to_nofault": r["run_s"] / nofault_s,
+            "death_share": death / nofault_s,
+            "recovery": {k: st[k] for k in ("started", "completed",
+                                            "failed", "minimal_replays",
+                                            "full_replays",
+                                            "tasks_reexecuted",
+                                            "restored_tiles")},
+            "snapshot_bytes": r["snapshot_bytes"],
+            "snapshot_s": r["snapshot_s"],
+            "worst_rel_fro": r["worst_rel_fro"],
+            "backward_error": r["backward_error"],
+            "peak_gib": r["peak_gib"],
+            "bundle_events": summary["events"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3610,8 +3939,11 @@ def main() -> int:
         "recursive potrf n=8192": in_context(
             lambda ctx: phase_recursive_potrf(ctx, gen),
             "recursive potrf n=8192"),
-        "permute wave P=8": in_context(phase_wave, "permute wave P=8")}
+        "permute wave P=8": in_context(phase_wave, "permute wave P=8"),
+        "checkpoint + grapher mb=2048": in_context(
+            phase_checkpoint_grapher, "checkpoint + grapher mb=2048")}
     dist = phase_distributed(refs)
+    recovered = phase_recovery(refs["potrf"], dist["potrf"]["pass_s"])
     del refs
     gc.collect()
     torch.cuda.empty_cache()
@@ -3619,7 +3951,8 @@ def main() -> int:
                      "2-rank GEMM mb=2048": dist["gemm"],
                      "2-rank DTD GEMM mb=2048": dist["dtd_gemm"],
                      "2-rank QR mb=6144": dist["qr"],
-                     "2-rank pingpong": dist["pingpong"]})
+                     "2-rank pingpong": dist["pingpong"],
+                     "2-rank potrf mb=6144, rank 1 killed": recovered})
     # the resident job service, run after every other path
     per_path["serving"] = phase_serving()
     gc.collect()

@@ -50,8 +50,14 @@ POTRF(k) is chain-held and runs in the step of its TRSM wave
 (``coaffinity``), as in the reference.  Across ranks nothing changes:
 every task runs where the collection's ``rank_of`` places its tile, and
 the remote-dep protocol carries the cross-rank edges; the chain fusion
-of the device module is off there.  The reference's
-``recovery_collections`` are not set (recovery is not ported).
+of the device module is off there.
+
+Recovery (core/recovery.py): the pool's ``recovery_collections`` is
+``[A]``, as in the reference, so with ``recovery_enable`` a peer death
+re-maps A's lost partition onto the survivors and re-enumerates the pool
+from restored tiles.  Adopted tiles need a re-runnable source:
+``A.set_init(bench_operand(...))`` remakes the bench operand's tiles on
+the card, bit for bit the ones ``bench_operand`` made before the run.
 """
 
 from __future__ import annotations
@@ -342,7 +348,38 @@ def potrf_taskpool(A: TiledMatrix, device: str = "cuda",
     tp.task_classes["TRSM"].properties["coaffinity"] = \
         lambda loc, A=A: A(loc["k"], loc["k"])
     tp.cholesky_check = check
+    # recovery spec (core/recovery.py): the whole dataflow reads and
+    # writes A, so a peer death can re-map A's lost partition onto the
+    # survivors and re-enumerate this pool from the restored tiles —
+    # give A an init_fn (A.set_init) so ADOPTED tiles have a
+    # re-runnable source, and the pool recovers instead of failing
+    tp.recovery_collections = [A]
     return tp
+
+
+def bench_operand(n: int, mb: int, dtype: torch.dtype,
+                  device: torch.device):
+    """The JAX package's potrf bench operand (``bench.py::_tile_generator``
+    as ``run_potrf_bench`` stages it), as ``tile(m, k)`` on ``device``:
+    column j of tile (m, k) holds (j * 1e-5 + s * 1e-3) mod 1, s the
+    tile's index in a one-rank layout's ``local_tiles()`` order (m * nt +
+    k, upper tiles counted), plus n on a diagonal tile's diagonal, all in
+    f32, then rounded to ``dtype``.  Deterministic per tile, so it
+    regenerates the operand without a second resident copy, and serves as
+    the re-runnable source (``set_init``) that remakes a dead rank's
+    tiles.  The diagonal tiles are not symmetric (every row is the
+    same)."""
+    nt = n // mb
+    col = torch.arange(mb, dtype=torch.float32, device=device) * 1e-5
+
+    def tile(m: int, k: int) -> torch.Tensor:
+        s = float(torch.tensor(m * nt + k, dtype=torch.float32)
+                  * torch.tensor(1e-3, dtype=torch.float32))
+        t = ((col + s) % 1.0).repeat(mb, 1)
+        if m == k:
+            t.diagonal().add_(float(n))
+        return t.to(dtype)
+    return tile
 
 
 def potrf_flops(n: int) -> float:

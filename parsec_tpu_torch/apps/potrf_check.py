@@ -45,12 +45,15 @@ def _sqn(R: torch.Tensor) -> float:
     return float(torch.sum(R.float() ** 2))
 
 
-def _l_tile(A, i: int, j: int) -> torch.Tensor:
-    """Factor tile (i, j) in f32; a diagonal tile's upper triangle holds
-    values the Cholesky never wrote, so it is cut off on use (no f32
-    copies are kept: at bench scale they would cost GBs of device
-    memory)."""
+def _l_tile(A, i: int, j: int, device=None) -> torch.Tensor:
+    """Factor tile (i, j) in f32 (on ``device`` when given: a recovered
+    pool's factor may hold tiles on the host beside the card's); a
+    diagonal tile's upper triangle holds values the Cholesky never wrote,
+    so it is cut off on use (no f32 copies are kept: at bench scale they
+    would cost GBs of device memory)."""
     t = newest_payload(A, i, j).float()
+    if device is not None:
+        t = t.to(device)
     return torch.tril(t) if i == j else t
 
 
@@ -71,7 +74,8 @@ def backward_error(A, orig_tile: Callable[[int, int], torch.Tensor]) -> float:
             den += w * _sqn(A0)
             R = A0
             for kk in range(j + 1):
-                R = R - _l_tile(A, i, kk) @ _l_tile(A, j, kk).T
+                R = R - _l_tile(A, i, kk, R.device) \
+                    @ _l_tile(A, j, kk, R.device).T
             num += w * _sqn(R)
     return float(np.sqrt(num) / max(np.sqrt(den), 1e-300))
 

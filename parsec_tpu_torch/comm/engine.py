@@ -20,12 +20,11 @@ differences:
   numpy lacks, travels as its raw 16-bit words (no ``ml_dtypes``);
 * no silent tier: the native frame path (``comm_frame_native``, default
   1) raises when commext does not build;
-* left out, each with the plane that calls it: the ``TAG_FLIGHT`` dump
-  handler (the flight recorder is not ported), the ``TAG_REJOIN`` /
-  ``TAG_RECOVER`` lanes and the incarnation epoch (the recovery plane),
-  and the comm fault directives (``kill_rank`` and the frame faults of
-  utils/faultinject.py, which raises on them).  Their wire tags stay
-  reserved so the tag numbering matches the JAX package's.
+* left out: the elastic-rejoin lane (``TAG_REJOIN``, the incarnation
+  epoch ``comm_epoch`` and reconnections from dead ranks).  A Context
+  refuses ``comm_epoch`` and ``recovery_rejoin``; the tag stays reserved
+  so the numbering matches the JAX package's, and a dead rank's
+  reconnection is still refused.
 """
 
 from __future__ import annotations
@@ -43,6 +42,7 @@ from itertools import islice
 from typing import Any, Callable, Dict, List, Optional
 
 from parsec_tpu_torch.core.errors import PeerFailedError
+from parsec_tpu_torch.utils import faultinject
 from parsec_tpu_torch.utils.debug_history import mark
 from parsec_tpu_torch.utils.mca import params
 from parsec_tpu_torch.utils.output import debug_verbose, warning
@@ -71,9 +71,25 @@ TAG_GET1_REP = 11
 TAG_CLOCK = 12    # clock-offset ping/pong (causal-trace alignment)
 TAG_HB = 13       # heartbeat (active failure detection of HUNG peers)
 TAG_METRICS = 14  # telemetry pull/push (cross-rank /metrics aggregation)
-# 15-17 are the JAX package's flight-recorder dump, elastic-rejoin and
-# recovery lanes: reserved here, with no handler (planes not ported)
+TAG_FLIGHT = 15   # flight-recorder incident dump request (prof/flightrec)
+# 16 is the JAX package's elastic-rejoin handshake: reserved, no handler
+TAG_REJOIN = 16
+TAG_RECOVER = 17  # recovery control lane (dead-set agreement, replay needs)
 TAG_USER = 18     # first tag available to applications
+
+# the fault injector names tags without importing this module (it is
+# below us in the layering); a drift between the two maps would
+# silently mistarget every tag-matched fault directive.  An explicit
+# raise, not assert: python -O would compile the guard away
+for _name, _tag in (("ACT", TAG_ACTIVATE), ("DTD", TAG_DTD),
+                    ("GET_REP", TAG_GET_REP), ("HB", TAG_HB),
+                    ("REJOIN", TAG_REJOIN), ("RECOVER", TAG_RECOVER)):
+    if faultinject.TAG_NAMES[_name] != _tag:
+        raise RuntimeError(
+            f"faultinject.TAG_NAMES[{_name!r}] drifted from "
+            "comm/engine.py's wire tags — every tag-matched fault "
+            "directive would silently mistarget")
+del _name, _tag
 
 #: frame header: (tag, pickle length, out-of-band buffer count).  Large
 #: array payloads ride OUT OF BAND (pickle protocol 5): the pickle holds
@@ -340,17 +356,40 @@ class CommEngine:
         #: ranks whose connection died mid-run (failure detection);
         #: barrier and quiescence waiters observe this and fail fast
         self.dead_peers: set = set()
-        #: dead ranks a recovery plane routed around.  The port has none
-        #: (it comes with the JAX package's core/recovery.py), so this
-        #: stays empty and every death fails the collectives that need
-        #: the rank; the barrier and quiescence code read it as the JAX
-        #: package's does
+        #: dead ranks the RECOVERY plane routed around (core/recovery):
+        #: barriers, quiescence and checkpoints run over the survivors
+        #: instead of failing — empty unless a recovery engaged, so the
+        #: containment-only behavior is reproduced exactly by default
         self.excused_peers: set = set()
+        #: recovery control lane (core/recovery.py): dead-set agreement
+        #: reports/broadcasts and minimal-replay need/ack messages all
+        #: ride one tag, dispatched to the coordinator's handler
+        self.on_recover: Optional[Callable[[int, dict], None]] = None
+        self.tag_register(TAG_RECOVER, self._recover_cb)
+        #: set when an injected kill_rank fired on THIS rank: its own
+        #: containment must not be "recovered" into a split brain
+        self.fault_killed = False
+        #: monotonic stamp of the engine's start: kill_rank's ``t+<sec>``
+        #: counts from here
+        self.started_at: Optional[float] = None
         #: failure detection: monotonic stamp of the last frame each peer
         #: delivered (ANY tag counts as liveness; TAG_HB only guarantees
         #: a floor of traffic on an otherwise-quiet control lane)
         self._last_heard: Dict[int, float] = {}
         self._hb_check_at = time.monotonic()
+        #: fault injection (utils/faultinject.py): None compiles every
+        #: per-frame hook to a single attribute check
+        self._fault = faultinject.comm_faults(rank) \
+            if faultinject.ARMED else None
+        #: Safra reconcile hook: the remote-dep layer adjusts its message
+        #: balance (global AND per-destination — the recovery reconcile
+        #: subtracts a dead rank's whole contribution, so the two must
+        #: move together) when the injector drops/duplicates an app frame
+        self.on_frame_fault: Optional[Callable[[str, int, Any, int],
+                                               None]] = None
+        #: kill_rank mode=hang: a muted engine neither sends nor
+        #: processes frames (sockets stay open — the silent-hang fault)
+        self._muted = False
         self.tag_register(TAG_HB, self._hb_cb)
         #: telemetry plane (prof/metrics.py): a provider returns this
         #: rank's sample list for TAG_METRICS pulls; replies to OUR
@@ -370,6 +409,10 @@ class CommEngine:
         #: SAME TAG_METRICS req/reply machinery (zero new wire tags)
         self.journal = None
         self.journal_provider: Optional[Callable[[], Any]] = None
+        #: flight recorder (prof/flightrec.py): a peer's incident
+        #: broadcast asks this rank to dump its ring into the bundle
+        self.on_flight_dump: Optional[Callable[[str], None]] = None
+        self.tag_register(TAG_FLIGHT, self._flight_cb)
         #: starved-checker rebase accounting (observability of the
         #: failure detector): per-peer silence-clock rebases; written
         #: only by the single thread running check_peer_timeouts
@@ -661,7 +704,7 @@ class CommEngine:
         with self._clock_lock:
             return {r: dict(st) for r, st in self.clock.items()}
 
-    # -- telemetry plane: TAG_METRICS pull/push -------------------------
+    # -- telemetry plane: TAG_METRICS pull/push + TAG_FLIGHT dumps ------
     # lint: on-loop (AM callback: builds a snapshot — short lock holds
     # in the registry — and replies on the control lane)
     def _metrics_cb(self, src: int, msg: dict) -> None:
@@ -729,6 +772,17 @@ class CommEngine:
         return {r: snap for r, snap in out.items()
                 if isinstance(snap, dict) and snap}
 
+    # lint: on-loop (AM callback — hands the dump to a timer thread so
+    # file I/O never stalls the comm loop)
+    def _flight_cb(self, src: int, msg: dict) -> None:
+        cb = self.on_flight_dump
+        if cb is None:
+            return
+        t = threading.Timer(0.0, cb, args=(
+            str((msg or {}).get("reason", f"peer rank {src}")),))
+        t.daemon = True
+        t.start()
+
     # -- active failure detection: heartbeats + silence timeout ---------
     # lint: on-loop (AM callback)
     def _hb_cb(self, src: int, payload: Any) -> None:
@@ -776,7 +830,7 @@ class CommEngine:
         lane so it measures protocol liveness, not bulk-queue depth.
         Driven by the remote-dep progress machinery on the TAG_CLOCK
         probe cadence (capped at comm_peer_timeout_s / 3)."""
-        if self.nranks == 1:
+        if self.nranks == 1 or self._muted:
             return
         for r in range(self.nranks):
             if r == self.rank or r in self.dead_peers:
@@ -813,7 +867,7 @@ class CommEngine:
         ``hb_rebases``) so the detector's own behavior is observable
         in the metrics plane."""
         timeout = float(params.get("comm_peer_timeout_s", 15.0))
-        if timeout <= 0 or self.nranks == 1:
+        if timeout <= 0 or self.nranks == 1 or self._muted:
             return
         now = time.monotonic()
         stall_start = self._hb_check_at
@@ -845,6 +899,31 @@ class CommEngine:
     def hb_rebases(self) -> Dict[int, int]:
         """Per-peer starved-checker rebase counts (metrics export)."""
         return dict(self._hb_rebases)
+
+    # -- recovery plane (core/recovery.py) -------------------------------
+    def excuse_peer(self, r: int) -> None:
+        """Mark a dead rank ROUTED-AROUND: collectives and quiescence
+        proceed over the survivors instead of failing on it."""
+        first = r not in self.excused_peers
+        self.excused_peers.add(r)
+        with self._bar_cond:
+            self._bar_cond.notify_all()
+        jr = self.journal
+        if jr is not None and first:
+            jr.emit("peer_excused", peer=r)
+
+    # lint: on-loop (AM callback)
+    def _recover_cb(self, src: int, msg: Any) -> None:
+        """Recovery control lane: hand the message to the coordinator's
+        handler (dead-set agreement + minimal-replay needs).  Handlers
+        must not block — they store and signal only."""
+        cb = self.on_recover
+        if cb is not None and isinstance(msg, dict):
+            try:
+                cb(src, msg)
+            except Exception as exc:
+                warning("rank %d: recovery control message from %d "
+                        "failed: %s", self.rank, src, exc)
 
     def declare_peer_dead(self, r: int, exc: Exception) -> None:
         """Shared death path (EOF, corruption, heartbeat silence): mark,
@@ -894,6 +973,125 @@ class CommEngine:
         for r in list(self.dead_peers):
             out.setdefault(r, {"dead": True})
         return out
+
+    # -- fault injection (utils/faultinject.py hook points) -------------
+    def _arm_kill(self) -> None:
+        """Stamp the engine's start and schedule this rank's kill_rank
+        directive, if any."""
+        self.started_at = time.monotonic()
+        if self._fault is None or self._fault.kill is None:
+            return
+        k = self._fault.kill
+        t = threading.Timer(max(0.0, k.at_s), self.fault_kill,
+                            args=(k.mode,))
+        t.daemon = True
+        t.start()
+
+    def fault_kill(self, mode: str = "close") -> None:
+        """Injected rank death.  ``close`` hard-closes every socket (the
+        EOF detector path); ``hang`` goes silent with sockets open (only
+        the heartbeat timeout can see it)."""
+        warning("rank %d: FAULT INJECTION kill_rank fired (mode=%s)",
+                self.rank, mode)
+        #: the recovery plane must never "recover" the killed rank's own
+        #: view of its peers — that would split-brain the gang
+        self.fault_killed = True
+        if mode == "hang":
+            self._muted = True
+            return
+        self._kill_close()
+
+    def _kill_close(self) -> None:
+        raise NotImplementedError
+
+    def _fault_frame(self, tag: int, dst: int, payload: Any) -> bool:
+        """Apply a matching frame directive to an outbound frame;
+        returns True when the frame was consumed (drop/delay/trunc) —
+        dup sends the extra copy and falls through to the normal send."""
+        act = self._fault.frame_action(tag, dst, payload)
+        if act is None:
+            return False
+        kind, ms = act
+        debug_verbose(3, "rank %d: FAULT %s_frame tag=%d dst=%d",
+                      self.rank, kind, tag, dst)
+        if kind == "drop":
+            if self.on_frame_fault is not None:
+                self.on_frame_fault("drop", tag, payload, dst)
+            return True
+        if kind == "delay":
+            def _delayed_send():
+                try:
+                    self.send_am(tag, dst, payload, _nofault=True)
+                except OSError:
+                    # the lane died while the frame was held: reconcile
+                    # like a drop, or the Safra balance leaks the held
+                    # frame's count forever
+                    if self.on_frame_fault is not None:
+                        self.on_frame_fault("drop", tag, payload, dst)
+            t = threading.Timer(ms * 1e-3, _delayed_send)
+            t.daemon = True
+            t.start()
+            return True
+        if kind == "dup":
+            if self.on_frame_fault is not None:
+                self.on_frame_fault("dup", tag, payload, dst)
+            self.send_am(tag, dst, payload, _nofault=True)
+            return False
+        if kind == "trunc":
+            # an undecodable frame: the receiver severs the connection
+            # (the wire-corruption detector); the frame's message never
+            # arrives, so reconcile the balance like a drop
+            if self.on_frame_fault is not None:
+                self.on_frame_fault("drop", tag, payload, dst)
+            try:
+                self._send_raw_parts(
+                    dst, [_LEN.pack(tag, 8, 0), b"\xde\xad\xbe\xef" * 2])
+            except OSError:
+                pass
+            return True
+        return False
+
+    def _send_raw_parts(self, dst: int, parts: List[Any]) -> None:
+        raise NotImplementedError
+
+    def _recv_fault_hold(self, tag: int, src: int, payload: Any) -> bool:
+        """Recv-side delay injection (utils/faultinject ``delay_recv``):
+        hold a just-received, already-decoded frame for its directive's
+        ``ms`` while LATER frames — same peer and others — dispatch
+        first.  This is reorder coverage the send-side ``delay_frame``
+        cannot provide: TCP delivers each stream in order, so only a
+        post-framing hold reorders the RECEIVE path.  Returns True when
+        the frame was consumed (redelivery is scheduled); callers then
+        skip their normal dispatch.  Counters stay honest: the frame
+        was received (frames_recv already bumped), and the handler-side
+        Safra credit lands at the delayed dispatch — the in-flight
+        window is visible to the termination balance."""
+        f = self._fault
+        if f is None:
+            return False
+        ms = f.recv_delay_ms(tag, src, payload)
+        if ms is None:
+            return False
+        debug_verbose(3, "rank %d: FAULT delay_recv tag=%d src=%d ms=%g",
+                      self.rank, tag, src, ms)
+        t = threading.Timer(ms * 1e-3, self._deliver_held,
+                            args=(tag, src, payload))
+        t.daemon = True
+        t.start()
+        return True
+
+    def _deliver_held(self, tag: int, src: int, payload: Any) -> None:
+        """Timer-thread redelivery of a held frame.  Fine as-is on the
+        threaded transport (handlers already run on per-peer recv
+        threads); the funnelled event loop overrides to re-post onto
+        its loop thread."""
+        try:
+            self._dispatch(tag, src, payload)
+        except Exception as exc:
+            warning("rank %d: held-frame handler tag=%d failed: %s",
+                    self.rank, tag, exc)
+            if self.on_error is not None:
+                self.on_error(exc)
 
     # -- pack/unpack (reference: ce.pack/unpack) ------------------------
     @staticmethod
@@ -1099,7 +1297,8 @@ class CommEngine:
                         sever: Callable[[str], None],
                         alive: Callable[[], bool]) -> bool:
         """Shared delivery of parser-completed frames (the evloop and
-        shm transports' one dispatch loop): stats, unpickle, dispatch.  ``sever(why)`` is the transport's
+        shm transports' one dispatch loop): stats, unpickle, recv-side
+        fault holds, dispatch.  ``sever(why)`` is the transport's
         corruption path; ``alive()`` says whether to keep dispatching
         after a handler ran (it may have torn the peer down).  Returns
         False when the caller must stop reading this peer."""
@@ -1117,6 +1316,11 @@ class CommEngine:
                     return False
             else:
                 payload = None
+            if self._fault is not None and \
+                    self._recv_fault_hold(tag, src, payload):
+                if not alive():
+                    return False
+                continue   # redelivery scheduled; later frames flow
             self._safe_dispatch(tag, src, payload)
             if not alive():
                 return False
@@ -1172,6 +1376,7 @@ class SocketCE(CommEngine):
         # connect simultaneously and close each other's canonical socket.
         for dst in range(rank):
             self._connect(dst)
+        self._arm_kill()
 
     # -- connection management -------------------------------------------
     def _accept_loop(self) -> None:
@@ -1196,7 +1401,7 @@ class SocketCE(CommEngine):
                 conn.close()
                 continue
             if src in self.dead_peers:
-                # no rejoin protocol (the recovery plane is not ported):
+                # no rejoin protocol (the elastic rejoin is not ported):
                 # a dead rank's reconnection would be a half-connected
                 # zombie (frames dispatched while every reply is refused
                 # by the dead-peer guard)
@@ -1304,6 +1509,11 @@ class SocketCE(CommEngine):
     def _recv_loop(self, conn: socket.socket, src: int) -> None:
         max_ln = int(params.get("comm_max_frame_mb", 4096)) << 20
         while not self._stop:
+            if self._muted:
+                # injected silent hang: stop consuming (data piles up in
+                # the kernel buffer; our socket stays open and mute)
+                time.sleep(0.05)
+                continue
             hdr = self._recv_exact(conn, _LEN.size, src)
             if hdr is None:
                 self._peer_lost(src)
@@ -1352,6 +1562,9 @@ class SocketCE(CommEngine):
                 self._peer_corrupt(src, conn,
                                    f"undecodable frame tag={tag}: {exc}")
                 return
+            if self._fault is not None and \
+                    self._recv_fault_hold(tag, src, payload):
+                continue   # redelivery scheduled; later frames flow
             try:
                 self._dispatch(tag, src, payload)
             except Exception as exc:   # handler error must not kill recv,
@@ -1389,6 +1602,30 @@ class SocketCE(CommEngine):
             except OSError:
                 pass
 
+    def _kill_close(self) -> None:
+        """Injected hard death: every socket closes abruptly (peers see
+        EOF); the engine object stays nominally alive."""
+        try:
+            self._listener.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        try:
+            self._listener.close()
+        except OSError:
+            pass
+        with self._plock:
+            peers, self._peers = dict(self._peers), {}
+        for s in peers.values():
+            try:
+                s.close()
+            except OSError:
+                pass
+
+    def _send_raw_parts(self, dst: int, parts: List[Any]) -> None:
+        s = self._connect(dst)
+        with self._send_locks[dst]:
+            self._sendmsg_all(s, parts)
+
     def probe_clocks(self, samples: Optional[int] = None) -> int:
         # clock pings ride send_am, and send_am to an undialed higher
         # rank parks in _connect's 30s wait — which would starve the
@@ -1396,7 +1633,7 @@ class SocketCE(CommEngine):
         # _hb_send lesson).  Probe ESTABLISHED peers only; a peer still
         # dialing in gets its first round once the progress loop sees
         # it established (the fast first-round retry).
-        if self.nranks == 1:
+        if self.nranks == 1 or self._muted:
             return 0
         n = samples if samples is not None \
             else max(1, int(params.get("comm_clock_samples", 4)))
@@ -1423,6 +1660,8 @@ class SocketCE(CommEngine):
         # thread that runs check_peer_timeouts behind a blocking
         # sendmsg.  A skipped beat only delays the PEER's view of us by
         # one tick; our own view of them rides _last_heard regardless.
+        if self._muted:
+            return
         with self._plock:
             s = self._peers.get(r)
         lock = self._send_locks.get(r)
@@ -1449,7 +1688,8 @@ class SocketCE(CommEngine):
         finally:
             lock.release()
 
-    def send_am(self, tag: int, dst: int, payload: Any = None) -> None:
+    def send_am(self, tag: int, dst: int, payload: Any = None,
+                _nofault: bool = False) -> None:
         mark("send_am tag=%d dst=%d", tag, dst)
         if dst == self.rank:
             # local delivery short-circuit (counts as a message so the
@@ -1458,11 +1698,16 @@ class SocketCE(CommEngine):
             self.recv_msgs += 1
             self._dispatch(tag, self.rank, payload)
             return
+        if self._muted:
+            return   # injected silent hang swallows every outbound frame
         if dst in self.dead_peers:
             # the closed socket used to raise OSError from sendmsg; now
             # that death drops the peer entry, raise the same class
             # rather than re-dialing a corpse for 30s
             raise OSError(f"peer rank {dst} is dead")
+        if self._fault is not None and not _nofault \
+                and self._fault_frame(tag, dst, payload):
+            return
         parts = _frame_parts(tag, payload)
         s = self._connect(dst)
         with self._send_locks[dst]:
@@ -1538,7 +1783,8 @@ class SocketCE(CommEngine):
 #: frames (a termination token or GET request must not wait behind a
 #: multi-MB payload drain); a partially-written frame is never preempted
 _CTL_TAGS = frozenset((TAG_TERMDET, TAG_BARRIER, TAG_GET_REQ, TAG_UTRIG,
-                       TAG_CLOCK, TAG_HB, TAG_METRICS))
+                       TAG_CLOCK, TAG_HB, TAG_METRICS, TAG_FLIGHT,
+                       TAG_RECOVER))
 
 #: receive state machine stages
 _ST_HS, _ST_HDR, _ST_BODY, _ST_BLEN, _ST_BUF = range(5)
@@ -1678,6 +1924,7 @@ class EventLoopCE(CommEngine):
             # would leak (and block a rebind of this port)
             self.fini()
             raise
+        self._arm_kill()
 
     # -- public loop hooks (the remote-dep layer's progress seam) -------
     def post(self, fn: Callable, *args) -> None:
@@ -1752,7 +1999,24 @@ class EventLoopCE(CommEngine):
     # -- the loop --------------------------------------------------------
     def _loop(self) -> None:
         sel = self._sel
+        mute_done = False
         while not self._stop:
+            if self._muted and not mute_done:
+                # injected silent hang: deafen the selector once (a
+                # level-triggered readable socket we refuse to read
+                # would otherwise busy-spin the loop)
+                mute_done = True
+                for peer in list(self._peers.values()) + list(self._anon):
+                    if peer.sock is not None and peer.registered:
+                        try:
+                            sel.unregister(peer.sock)
+                        except (KeyError, ValueError, OSError):
+                            pass
+                        peer.registered = False
+                try:
+                    sel.unregister(self._listener)
+                except (KeyError, ValueError, OSError):
+                    pass
             self._drain_ring()
             if self._stop:
                 break
@@ -1793,6 +2057,8 @@ class EventLoopCE(CommEngine):
         release posted just before the stop flag flipped must reach the
         peers — the threaded transport sent it synchronously), bounded
         so dead peers cannot hang teardown."""
+        if self._muted:
+            return   # a hung rank ships nothing, by definition
         end = time.monotonic() + deadline
         while time.monotonic() < end:
             self._drain_ring()
@@ -1953,9 +2219,43 @@ class EventLoopCE(CommEngine):
             self._close_peer(peer)
             self._clear_peer_queues(peer)
 
+    def _kill_close(self) -> None:
+        """Injected hard death: close everything abruptly on the loop
+        thread; each dropped connection surfaces on OUR side too, so the
+        killed rank's own context fails structurally instead of
+        wedging."""
+        def doit():
+            try:
+                self._listener.close()
+            except OSError:
+                pass
+            for peer in list(self._peers.values()):
+                if peer.sock is not None:
+                    self._peer_down(peer, "fault_kill (injected)")
+        self.post(doit)
+
+    def _send_raw_parts(self, dst: int, parts: List[Any]) -> None:
+        views = [memoryview(p) for p in parts if len(p)]
+        nbytes = sum(v.nbytes for v in views)
+
+        def doit():
+            peer = self._peers.get(dst)
+            if peer is None or peer.sock is None:
+                return
+            peer.q_bulk.append((time.monotonic(), nbytes, views))
+            peer.out_bytes += nbytes
+            self._flush(peer)
+        self.post(doit)
+
     # -- send path -------------------------------------------------------
-    def send_am(self, tag: int, dst: int, payload: Any = None) -> None:
+    def send_am(self, tag: int, dst: int, payload: Any = None,
+                _nofault: bool = False) -> None:
         mark("send_am tag=%d dst=%d", tag, dst)
+        if self._muted and dst != self.rank:
+            return   # injected silent hang swallows every outbound frame
+        if self._fault is not None and not _nofault and dst != self.rank \
+                and self._fault_frame(tag, dst, payload):
+            return
         if dst == self.rank:
             # local delivery short-circuit (counts as a message so the
             # termination balance stays symmetric); same posted-FIFO
@@ -2004,7 +2304,7 @@ class EventLoopCE(CommEngine):
 
     def _flush(self, peer: _EvPeer) -> None:
         sock = peer.sock
-        if sock is None:
+        if sock is None or self._muted:
             return
         stats = self.stats
         while True:
@@ -2086,6 +2386,8 @@ class EventLoopCE(CommEngine):
 
     # -- receive path ----------------------------------------------------
     def _on_read(self, peer: _EvPeer) -> None:
+        if self._muted:
+            return   # injected silent hang: stop consuming
         if peer.fparser is not None:
             self._on_read_native(peer)
             return
@@ -2235,7 +2537,7 @@ class EventLoopCE(CommEngine):
                 return False
             peer.rank = src
             if src in self.dead_peers:
-                # no rejoin protocol (the recovery plane is not ported):
+                # no rejoin protocol (the elastic rejoin is not ported):
                 # accepting a dead rank would create a half-connected
                 # zombie (its frames dispatched and Safra-counted while
                 # _send_now drops every reply)
@@ -2334,8 +2636,17 @@ class EventLoopCE(CommEngine):
                 return False
         else:
             payload = None
+        if self._fault is not None and \
+                self._recv_fault_hold(tag, src, payload):
+            return peer.sock is not None   # redelivery scheduled
         self._safe_dispatch(tag, src, payload)
         return peer.sock is not None
+
+    def _deliver_held(self, tag: int, src: int, payload: Any) -> None:
+        # funnelled contract: handlers run ONLY on the loop thread — a
+        # Timer-thread dispatch (the base-class redelivery) would race
+        # every lock-free structure the loop owns
+        self._post(("call", self._safe_dispatch, (tag, src, payload)))
 
     def _eof(self, peer: _EvPeer) -> None:
         if peer.fparser is not None:

@@ -114,13 +114,16 @@ def _card_of(rank: int, cards: List[str]) -> Optional[str]:
 def run_distributed(fn: Callable, nranks: int, args: tuple = (),
                     nb_cores: int = 2, timeout: float = 120.0,
                     port_base: Optional[int] = None,
-                    device: str = "cuda") -> List[Any]:
+                    device: str = "cuda",
+                    tolerate_ranks=()) -> List[Any]:
     """Run ``fn(ctx, rank, nranks, *args)`` on ``nranks`` processes;
     returns the per-rank results in rank order.  ``device`` is each
     child's ``device`` knob: "cuda" (the card; the default) or "cpu".
-    An error on any rank fails the run (the JAX package's
-    ``tolerate_ranks``, for the recovery plane's kill tests, is not
-    ported)."""
+
+    ``tolerate_ranks``: ranks whose failure is EXPECTED (kill victims
+    under recovery — the survivors' completion is the result that
+    matters); their slot in the returned list is None when they
+    errored.  An error on any other rank still fails the run."""
     device = str(device).lower()
     if device not in ("cuda", "gpu", "cpu"):
         raise ValueError(f"device must be 'cuda' or 'cpu', not {device!r}")
@@ -149,12 +152,15 @@ def run_distributed(fn: Callable, nranks: int, args: tuple = (),
             os.environ.pop("CUDA_VISIBLE_DEVICES", None)
         else:
             os.environ["CUDA_VISIBLE_DEVICES"] = saved
+    tolerate = set(tolerate_ranks)
     results: dict = {}
     errors: List[str] = []
     try:
         for _ in range(nranks):
             rank, err, res = outq.get(timeout=timeout)
-            if err is not None:
+            if err is not None and rank in tolerate:
+                results[rank] = None   # expected casualty (a kill)
+            elif err is not None:
                 errors.append(f"rank {rank}:\n{err}")
             else:
                 results[rank] = res

@@ -34,19 +34,16 @@ differences:
   wire are the producer's.  A received payload lands as a host ``Data``
   copy holding a CPU tensor, which the device module stages in like any
   host tile;
-* left out with the planes that call them: the recovery plane's
-  reconcile, incarnation fences and pool restarts (``recovery_reconcile``,
-  ``forget_pool``, ``note_peer_epoch``, ...) and the flight recorder's
-  trace sink.  The pool-generation (``pe``) checks and the ``_lineage`` /
-  ``_replay_filter`` branches stay, inert: the port's pools carry
-  ``run_epoch`` 0 and both attributes as None.  The distributed-DTD lanes
+* the recovery plane's hooks (core/recovery.py) serve PTG pools: the
+  per-peer Safra reconcile with the dead rank's fence, ``forget_pool``,
+  excused deaths in the quiescence ring and containment's hand-off.  The
+  elastic-rejoin pieces (``note_peer_epoch``, the ``_ep`` incarnation
+  stamp) and everything DTD-specific are left out: a recovery-enabled
+  Context refuses a DTD pool at attach, so the distributed-DTD lanes
   (``TAG_DTD``: ``dtd_send``, ``_dtd_cb``, the backlog of frames that
   beat their pool, the rendezvous-pull count in the quiescence checks)
-  serve dsl/dtd/insert.py.  Their per-pool forgetting (the per-pool
-  pull count and the purge in ``forget_pool``) and their generation
-  fences (a torn generation's frame dropped, a later one's re-parked)
-  belong to the recovery plane and go with it: a DTD frame is delivered
-  to its pool, or parked until the pool registers.
+  carry no per-pool forgetting and no generation fences: a DTD frame is
+  delivered to its pool, or parked until the pool registers.
 """
 
 from __future__ import annotations
@@ -210,6 +207,19 @@ class RemoteDepEngine:
         self._terminated = threading.Event()
         self._app_sent = 0                  # guarded-by: _term_lock
         self._app_recv = 0                  # guarded-by: _term_lock
+        #: per-peer twins of the Safra counters: a RECOVERY subtracts a
+        #: dead rank's whole contribution in one critical section so
+        #: the token balance reflects survivor traffic only
+        #: (core/recovery.py; guarded-by: _term_lock)
+        self._sent_to: Dict[int, int] = {}
+        self._recv_from: Dict[int, int] = {}
+        #: dead-rank fencing: frames from a rank in this set arrive after
+        #: its recovery reconcile, stale traffic of the dead rank —
+        #: dropped BEFORE the Safra credit (its counters were reconciled
+        #: away).  The JAX package keys a fence epoch per rank here, for
+        #: its elastic rejoin; with no rejoin, a fence is for good
+        #: (guarded-by: _term_lock)
+        self._fenced: set = set()
         self._retry_pending = False         # guarded-by: _dlock
         #: dynamic taskpools holding a runtime action until the
         #: pool-scoped quiescence round proves global drain (the
@@ -222,18 +232,23 @@ class RemoteDepEngine:
         #: that touch it (per-pool error sinks) instead of poisoning the
         #: whole context
         ce.on_peer_dead = self._on_peer_dead
+        #: Safra reconcile for injected frame faults (utils/faultinject):
+        #: a dropped app frame un-counts its send, a duplicated one
+        #: counts twice — the token balance stays convergent either way
+        ce.on_frame_fault = self._on_frame_fault
         #: per-message wire id (origin_rank, seq): receivers drop
-        #: duplicate deliveries (rendezvous retransmits) after crediting
-        #: them in the Safra balance
+        #: duplicate deliveries (retransmits, injected dups) after
+        #: crediting them in the Safra balance
         self._fid_seq = itertools.count(1)
         self._seen_fids: set = set()
         self._fid_order: "deque" = deque()
-        #: causal tracer (prof/causal.py), attached through the
-        #: ``tracer`` property below; ``_sinks`` is the fan-out tuple
-        #: every trace site iterates (the JAX package's flight recorder,
-        #: its second sink, is not ported).  Empty = zero tracing work
-        #: on every send/recv path
+        #: causal tracer (prof/causal.py) and flight recorder
+        #: (prof/flightrec.py), attached through the ``tracer`` /
+        #: ``flightrec`` properties below; ``_sinks`` is the maintained
+        #: fan-out tuple every trace site iterates.  Empty = zero
+        #: tracing work on every send/recv path
         self._tracer = None
+        self._flightrec = None
         self._sinks: Tuple = ()
         #: protocol counters (exported through stats() -> bench bw/rtt;
         #: guarded-by: _proto_lock)
@@ -330,7 +345,8 @@ class RemoteDepEngine:
         # telemetry plane wiring — BEFORE the progress machinery arms:
         # the first clock-probe round fires at attach on the loop
         # thread, and its accepted RTT must find on_clock_rtt wired
-        # (the always-on registry serves TAG_METRICS pulls)
+        # (the always-on registry serves TAG_METRICS pulls, an armed
+        # flight recorder answers TAG_FLIGHT dump requests)
         m = getattr(context, "metrics", None)
         if m is not None:
             ce.metrics_provider = m.samples
@@ -341,6 +357,14 @@ class RemoteDepEngine:
             # incarnation + clock table, the engine learns where
             # barrier/death events land and how to answer journal pulls
             jr.attach_comm(ce)
+        fr = getattr(context, "_flightrec", None)
+        if fr is not None:
+            fr.attach_comm(self)
+        rec = getattr(context, "recovery", None)
+        if rec is not None:
+            # recovery plane (core/recovery.py): wires the TAG_RECOVER
+            # control lane's handler
+            rec.attach_comm(self)
         if self.funnelled:
             self._progress = None
             ce.add_periodic(self._purge_stale_handles, 5.0)
@@ -550,8 +574,38 @@ class RemoteDepEngine:
         self.context.record_error(exc, None)
 
     # ------------------------------------------------------------------
-    # robustness: dedup, rendezvous retry, containment
+    # robustness: fault reconcile, dedup, rendezvous retry, containment
     # ------------------------------------------------------------------
+    def _on_frame_fault(self, kind: str, tag: int, payload,
+                        dst: int = -1) -> None:
+        """Safra reconcile for injected frame faults: the counters must
+        reflect what actually crossed the wire, or the token never sees
+        a zero balance again (a permanent hang the PLAN did not ask
+        for).  Only Safra-counted tags matter.  The per-destination
+        twin moves WITH the global counter — recovery_reconcile
+        subtracts a dead rank's contribution wholesale, and a drift
+        between the two would push the post-recovery balance negative
+        forever."""
+        if tag == TAG_BATCH:
+            n = len(payload) if isinstance(payload, list) else 1
+        elif tag in (TAG_ACTIVATE, TAG_GET_REQ, TAG_GET_REP, TAG_DTD):
+            n = 1
+        else:
+            return
+        d = n if kind == "dup" else -n
+        with self._term_lock:
+            if dst >= 0 and dst in self._fenced \
+                    and dst not in self._sent_to:
+                # the injector's delay timer outlived the peer AND its
+                # recovery: recovery_reconcile already erased this
+                # lane's whole count — subtracting the held frame again
+                # would drive the survivor balance permanently negative
+                # and the token would never see zero
+                return
+            self._app_sent += d
+            if dst >= 0:
+                self._sent_to[dst] = self._sent_to.get(dst, 0) + d
+
     def _is_dup(self, msg) -> bool:
         """Receiver-side dedup by wire id.  Called AFTER the Safra recv
         credit (the duplicate's send was also counted), bounded memory.
@@ -613,13 +667,15 @@ class RemoteDepEngine:
                     pass
 
     def _on_peer_dead(self, rank: int, exc: Exception) -> None:
-        """Containment: a dead peer's taskpools (parked rendezvous pulls
-        rooted there, pools that exchanged traffic with it via
-        Taskpool.peer_ranks) fail through the per-pool error route
-        (Context.record_pool_error).  Only when nothing can be
-        attributed does the failure land on the context globally.  The
-        JAX package first offers the pools to its recovery plane, which
-        the port does not carry."""
+        """Containment — with a second exit: a dead peer's taskpools
+        (parked rendezvous pulls rooted there, pools that exchanged
+        traffic with it via Taskpool.peer_ranks) are first offered to
+        the RECOVERY plane (core/recovery.py), which re-executes their
+        lost lineage on the survivors; whatever recovery does not take
+        fails through the per-pool error route (Context.record_pool_error)
+        exactly as before.  Only when nothing can be attributed AND no
+        recovery excused the death does the failure land on the context
+        globally."""
         pools: Dict[int, Any] = {}
         for key in [k for k in list(self._pending_gets) if k[0] == rank]:
             pend = self._pending_gets.pop(key, None)
@@ -631,16 +687,75 @@ class RemoteDepEngine:
         live = [tp for tp in pools.values()
                 if not getattr(tp, "completed", False)
                 and not getattr(tp, "cancelled", False)]
+        handled = False
+        rec = getattr(self.context, "recovery", None)
+        if rec is not None:
+            handled, live = rec.on_peer_dead(rank, exc, live)
+        routed = False
         for tp in live:
+            routed = True
             self.context.record_pool_error(tp, exc)
-        if not live:
+        if not routed and not handled:
             self.context.record_error(exc, None)
 
     def _contain_pool(self, tp, exc: Exception) -> None:
-        """Pool-scoped containment: route through
-        Context.record_pool_error (the JAX package first swallows
-        secondary failures of a pool its recovery plane is rebuilding)."""
+        """Pool-scoped containment with recovery awareness: secondary
+        failures of a generation that is already being rebuilt (dead-
+        child sends, parked pulls of the torn run) are swallowed — the
+        restart owns that pool's fate — everything else routes through
+        Context.record_pool_error as before."""
+        rec = getattr(self.context, "recovery", None)
+        if rec is not None and isinstance(exc, PeerFailedError) \
+                and rec.recovering(tp) and rec.excused(exc.rank):
+            return
         self.context.record_pool_error(tp, exc)
+
+    # -- recovery reconcile (core/recovery.py) ---------------------------
+    def recovery_reconcile(self, dead: int) -> None:
+        """Subtract a dead rank's whole contribution from the Safra
+        balance and fence its future stragglers, in ONE critical
+        section — after this the token sees exactly the in-flight
+        traffic among survivors, so termination detection converges
+        once the re-inserted sub-DAG drains (the generalization of the
+        on_frame_fault drop reconcile)."""
+        with self._term_lock:
+            self._fenced.add(dead)
+            sent = self._sent_to.pop(dead, 0)
+            recv = self._recv_from.pop(dead, 0)
+            self._app_sent -= sent
+            self._app_recv -= recv
+        jr = getattr(self.context, "journal", None)
+        if jr is not None:
+            jr.emit("safra_reconcile", peer=dead, sent=sent, recv=recv)
+
+    def forget_pool(self, tp) -> None:
+        """Drop every parked/queued protocol item of a pool's torn
+        generation (recovery restart): delayed activations, outbox and
+        flush-window frames, parked rendezvous pulls.  Safra stays
+        balanced: inbound items were credited at receive, outbound ones
+        were counted only if they reached _send_app (queued-not-sent
+        outbox entries were not)."""
+        tpid = tp.taskpool_id
+        with self._dlock:
+            self._delayed = [(s, m) for (s, m) in self._delayed
+                             if not (isinstance(m, dict)
+                                     and m.get("tp") == tpid)]
+        with self._outbox_lock:
+            for key in [k for k, edges in list(self._outbox.items())
+                        if edges and edges[0][0].taskpool is tp]:
+                self._outbox.pop(key, None)
+        with self._flush_lock:
+            for dst in list(self._flushbox):
+                kept = [(t, m) for (t, m) in self._flushbox[dst]
+                        if not (isinstance(m, dict)
+                                and m.get("tp") == tpid)]
+                if kept:
+                    self._flushbox[dst] = kept
+                else:
+                    del self._flushbox[dst]
+        for key, pend in list(self._pending_gets.items()):
+            if pend.get("tp") is tp:
+                self._pending_gets.pop(key, None)
 
     def debug_state(self) -> Dict[str, Any]:
         """Protocol-state snapshot for the hang autopsy (Context.wait's
@@ -965,6 +1080,7 @@ class RemoteDepEngine:
         with self._term_lock:
             self._color_black = True
             self._app_sent += 1
+            self._sent_to[dst] = self._sent_to.get(dst, 0) + 1
         if self._sinks:
             payload = self._traced(tag, dst, payload)
         self._post_send(tag, dst, payload)
@@ -979,6 +1095,7 @@ class RemoteDepEngine:
         with self._term_lock:
             self._color_black = True
             self._app_sent += len(items)
+            self._sent_to[dst] = self._sent_to.get(dst, 0) + len(items)
         if self._sinks:
             # per inner message: each gets its own correlation id; the
             # receiver's _batch_cb re-dispatches them individually, so
@@ -992,11 +1109,12 @@ class RemoteDepEngine:
             self.proto["coalesced_msgs"] += len(items)
         self._post_send(TAG_BATCH, dst, list(items))
 
-    # -- causal tracing (prof/causal.py): every traced app frame carries
-    # a send timestamp + (src_rank, event_seq) correlation id; matched
-    # comm_send/comm_recv events become the merged trace's flow edges.
-    # The ``tracer`` property maintains ``_sinks`` so every site below
-    # fans out over ONE tuple.
+    # -- causal tracing (prof/causal.py) + flight recorder: every traced
+    # app frame carries a send timestamp + (src_rank, event_seq)
+    # correlation id; matched comm_send/comm_recv events become the
+    # merged trace's flow edges.  The ``tracer``/``flightrec``
+    # properties maintain ``_sinks`` so every site below fans out over
+    # ONE tuple.
     @property
     def tracer(self):
         return self._tracer
@@ -1004,7 +1122,22 @@ class RemoteDepEngine:
     @tracer.setter
     def tracer(self, value) -> None:
         self._tracer = value
-        self._sinks = (value,) if value is not None else ()
+        self._resinks()
+
+    @property
+    def flightrec(self):
+        return self._flightrec
+
+    @flightrec.setter
+    def flightrec(self, value) -> None:
+        self._flightrec = value
+        self._resinks()
+
+    def _resinks(self) -> None:
+        # tracer FIRST: its counter issues the correlation id when both
+        # are live, so the ring's flow edges match the full trace's
+        self._sinks = tuple(s for s in (self._tracer, self._flightrec)
+                            if s is not None)
 
     def _traced(self, tag: int, dst: int, payload):
         sinks = self._sinks
@@ -1046,18 +1179,27 @@ class RemoteDepEngine:
     # ------------------------------------------------------------------
     # receiver side
     # ------------------------------------------------------------------
-    def _on_app_recv(self, src: int, msg=None) -> None:
-        """Safra credit for one received app message (the JAX package
-        also fences stragglers of a dead incarnation here, a recovery
-        plane feature the port does not carry)."""
+    def _on_app_recv(self, src: int, msg=None) -> bool:
+        """Safra credit for one received app message; returns False —
+        and credits NOTHING — when the frame is fenced: a straggler of
+        a dead rank whose counters recovery_reconcile already
+        subtracted (crediting it would push the survivor balance
+        negative forever).  The fence check and the credit share one
+        critical section so a concurrent reconcile can never see half
+        of either."""
         with self._term_lock:
+            if src in self._fenced:
+                return False
             self._color_black = True   # Safra: receiving blackens
             self._app_recv += 1
+            self._recv_from[src] = self._recv_from.get(src, 0) + 1
+        return True
 
     # lint: on-loop (AM handler: runs in place on the evloop thread)
     def _activate_cb(self, src: int, msg: dict) -> None:
         self._trace_recv(TAG_ACTIVATE, src, msg)
-        self._on_app_recv(src, msg)   # exactly once per message
+        if not self._on_app_recv(src, msg):   # exactly once per message
+            return            # fenced: dead-rank straggler
         if self._is_dup(msg):
             return            # retransmit/injected dup: already acted on
         self._try_activation(src, msg)
@@ -1141,7 +1283,8 @@ class RemoteDepEngine:
     # lint: on-loop (AM handler)
     def _get_req_cb(self, src: int, msg: dict) -> None:
         self._trace_recv(TAG_GET_REQ, src, msg)
-        self._on_app_recv(src, msg)
+        if not self._on_app_recv(src, msg):
+            return
         if self._is_dup(msg):
             return
         h = msg["handle"]
@@ -1187,7 +1330,8 @@ class RemoteDepEngine:
     # lint: on-loop (AM handler)
     def _get_rep_cb(self, src: int, msg: dict) -> None:
         self._trace_recv(TAG_GET_REP, src, msg)
-        self._on_app_recv(src, msg)
+        if not self._on_app_recv(src, msg):
+            return
         if self._is_dup(msg):
             return
         key = (msg["root"], msg["handle"])
@@ -1237,15 +1381,19 @@ class RemoteDepEngine:
         # queues while the pull hasn't been registered yet.  A duplicate
         # is credited (its send was counted too) but must NOT register a
         # second pull — the leaked pending count would hang termination.
-        # (The JAX package also drops a dead incarnation's frames here,
-        # before the credit, and a torn generation's after it: recovery-
-        # plane fences the port does not carry.)
+        # A dead rank's straggler is dropped before the credit (the
+        # JAX package also drops a torn pool generation's frames after
+        # it; a recovery-enabled Context refuses DTD pools, so the port
+        # carries no pool-generation fence here).
         dup = self._is_dup(msg)
         tp = self.context.taskpools.get(msg.get("tp")) \
             if isinstance(msg, dict) else None
         with self._term_lock:
+            if src in self._fenced:
+                return   # fenced: dead-rank straggler, no credit
             self._color_black = True
             self._app_recv += 1
+            self._recv_from[src] = self._recv_from.get(src, 0) + 1
             if not dup and isinstance(msg, dict) and "ref" in msg:
                 self.dtd_refs_pending += 1
         if dup:
@@ -1347,20 +1495,47 @@ class RemoteDepEngine:
         if self._flushbox:
             self._drain_flush_window(force=True)
             return False
+        rec = getattr(ctx, "recovery", None)
+        if rec is not None and rec.busy():
+            # a queued/active restart is about to rewind a pool: the
+            # gang is NOT done, even if every counter reads zero right
+            # now (the completed-pool-grace window)
+            return False
         with ctx._lock:
             return ctx._active_taskpools == 0
+
+    def _wait_recovery_idle(self, deadline) -> None:
+        """Sole-survivor quiescence short-circuits must not outrun a
+        queued recovery restart (the multi-rank rings are covered by
+        the idle predicates; a lone rank has no ring to hold it)."""
+        rec = getattr(self.context, "recovery", None)
+        if rec is None:
+            return
+        while rec.busy():
+            if deadline is not None and time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"rank {self.rank}: recovery still restarting "
+                    "pools at the quiescence deadline")
+            time.sleep(0.01)
 
     def _balance(self) -> int:
         with self._term_lock:
             return self._app_sent - self._app_recv
 
     def _live_peers(self) -> List[int]:
-        """Peers still in the gang: not declared dead (with no recovery
-        plane, a death fails the quiescence collectives, so these are
-        every peer until one dies)."""
+        """Peers still in the gang: not declared dead.  After a
+        recovery excused a death, the Safra ring and the quiescence
+        collectives run over exactly these ranks."""
         dead = self.ce.dead_peers
         return [r for r in range(self.nranks)
                 if r != self.rank and r not in dead]
+
+    def recovery_coordinator(self) -> int:
+        """Lowest live rank — the deterministic coordinator of every
+        TAG_RECOVER round (dead-set agreement, the completed-pool
+        retirement handshake).  Every survivor computes the same value
+        from its dead set, so the rounds need no leader election."""
+        return min([self.rank] + self._live_peers())
 
     def _next_live(self, r: int) -> Optional[int]:
         """The ring successor of ``r`` among live ranks (self counts as
@@ -1499,6 +1674,9 @@ class RemoteDepEngine:
         if self._flushbox:
             self._drain_flush_window(force=True)
             return False
+        rec = getattr(ctx, "recovery", None)
+        if rec is not None and rec.busy():
+            return False   # a restart is rebuilding a held pool
         with self._term_lock:
             # a CONTAINED/cancelled dyn pool released its active-pool
             # slot but its hold entry lingers: counting it would wedge
@@ -1557,17 +1735,33 @@ class RemoteDepEngine:
         while not done_evt.wait(0.05):
             fatal = self.ce.dead_peers - self.ce.excused_peers
             if fatal:
+                rec = getattr(self.context, "recovery", None)
+                if rec is not None and rec.enabled:
+                    # the excusal runs on the DECLARING comm thread a
+                    # few instructions after the dead mark; this poll
+                    # can land in that window when the GIL deschedules
+                    # the declarer — give the excusal one bounded beat
+                    # before calling the death fatal (recovery-off
+                    # keeps the immediate containment)
+                    grace = time.monotonic() + 0.5
+                    while fatal and time.monotonic() < grace:
+                        time.sleep(0.01)
+                        fatal = self.ce.dead_peers - \
+                            self.ce.excused_peers
+            if fatal:
                 dead = sorted(fatal)
                 raise PeerFailedError(
                     dead[0], f"rank {self.rank}: {what} with dead "
                              f"peer(s) {dead}")
             if not self._live_peers():
-                # sole survivor: local idle = global.  Checked EVERY
-                # iteration, not only on a dead-set delta: a token sent
-                # to a peer that died in the window between this ring
-                # starting and seen_dead's snapshot is lost with no
-                # delta to observe, and the ring would wait on it
-                # forever
+                # sole survivor: local idle = global — once the
+                # death's queued restart finished re-arming (the
+                # completed-pool-grace race).  Checked EVERY iteration,
+                # not only on a dead-set delta: a token sent to a peer
+                # that died in the window between this ring starting
+                # and seen_dead's snapshot is lost with no delta to
+                # observe, and the ring would wait on it forever
+                self._wait_recovery_idle(deadline)
                 on_done()
                 return
             if self.ce.dead_peers != seen_dead:
@@ -1588,8 +1782,12 @@ class RemoteDepEngine:
             if not self._dyn_holds:
                 return
         if self.nranks == 1 or not self._live_peers():
-            # single rank, or the sole survivor: local drain IS global
-            # drain
+            # single rank, or the sole survivor of a recovered gang:
+            # local drain IS global drain — once no restart is queued
+            # over the held pools
+            self._wait_recovery_idle(
+                None if timeout is None
+                else time.monotonic() + timeout)
             self._release_dyn_holds()
             self._dyn_released.clear()
             return
@@ -1605,7 +1803,11 @@ class RemoteDepEngine:
         ring: a recovery-excused death narrows the collective to the
         survivors; an unexcused one still fails fast."""
         if self.nranks == 1 or not self._live_peers():
-            return   # sole survivor: local idle is global idle
+            # sole survivor: local idle is global idle — but a queued
+            # recovery restart must finish re-arming first, or the
+            # caller retires/reads pools the restore is rewinding
+            self._wait_recovery_idle(time.monotonic() + timeout)
+            return
         self._drive_ring(
             self._local_idle, self._terminated, "token",
             self._terminated.set, "global termination",

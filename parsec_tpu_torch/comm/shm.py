@@ -42,8 +42,7 @@ differences:
   the path and the size instead of a SIGBUS at the first write past the
   free space;
 * the elastic-rejoin support (re-created inbound rings, stale-outbound
-  checks) and the injected kill/mute hooks are left out, with the
-  recovery plane and the comm fault directives.
+  checks) is left out with the rejoin lane (comm/engine.py).
 """
 
 from __future__ import annotations
@@ -321,6 +320,7 @@ class ShmCE(CommEngine):
         # retry tick, not from the NEXT send (a barrier 'arrive' may be
         # the only frame this rank ever sends the peer)
         self._post(("timer", self._retry_pending, 0.02))
+        self._arm_kill()
 
     def _door_addr(self, r: int) -> bytes:
         # leading NUL = Linux abstract namespace
@@ -396,7 +396,7 @@ class ShmCE(CommEngine):
             if self._stop:
                 break
             self._run_timers()
-            progressed = self._drain_rings()
+            progressed = self._drain_rings() if not self._muted else False
             if progressed or self._ring:
                 continue
             # pre-sleep protocol: raise the waiting flags, then re-check
@@ -407,10 +407,10 @@ class ShmCE(CommEngine):
                 rg = peer.inbound
                 if rg is not None:
                     rg.set_waiting(1)
-            # count only rings a drain would actually consume: a dead
-            # peer's residual bytes stay in the ring forever and must
-            # not turn the loop into a busy-spin
-            dirty = any(
+            # count only rings a drain would actually consume: a muted
+            # engine or a dead peer's residual bytes stay in the ring
+            # forever and must not turn the loop into a busy-spin
+            dirty = not self._muted and any(
                 p.inbound is not None and p.rank not in self.dead_peers
                 and p.inbound.tail() != p.inbound.head()
                 for p in self._peers.values())
@@ -566,6 +566,10 @@ class ShmCE(CommEngine):
                 f"rank {src}: {why}", detector="corrupt")),
             lambda: src not in self.dead_peers)
 
+    def _deliver_held(self, tag: int, src: int, payload: Any) -> None:
+        # funnelled contract: handlers run ONLY on the loop thread
+        self._post(("call", self._safe_dispatch, (tag, src, payload)))
+
     def _ring_eof(self, peer: _ShmPeer) -> None:
         """The producer set ``closed`` and every byte drained: EOF.
         Orderly shutdown is filtered by declare_peer_dead's _stop
@@ -581,8 +585,14 @@ class ShmCE(CommEngine):
             "closed its ring mid-run" + (f": {why}" if why else "")))
 
     # -- send path -------------------------------------------------------
-    def send_am(self, tag: int, dst: int, payload: Any = None) -> None:
+    def send_am(self, tag: int, dst: int, payload: Any = None,
+                _nofault: bool = False) -> None:
         mark("send_am tag=%d dst=%d", tag, dst)
+        if self._muted and dst != self.rank:
+            return   # injected silent hang swallows every outbound frame
+        if self._fault is not None and not _nofault and dst != self.rank \
+                and self._fault_frame(tag, dst, payload):
+            return
         if dst == self.rank:
             self.sent_msgs += 1
             if threading.current_thread() is self._thread and \
@@ -624,6 +634,15 @@ class ShmCE(CommEngine):
             peer.pending_bytes += nbytes
             return
         self._write_views(peer, views)
+
+    def _send_raw_parts(self, dst: int, parts: List[Any]) -> None:
+        views = [memoryview(p) for p in parts if len(p)]
+
+        def doit():
+            peer = self._peers.get(dst)
+            if peer is not None and dst not in self.dead_peers:
+                self._write_views(peer, views, count_frame=False)
+        self.post(doit)
 
     def _attach(self, peer: _ShmPeer) -> bool:
         path = _ring_path(self.port_base, self.rank, peer.rank)
@@ -729,7 +748,7 @@ class ShmCE(CommEngine):
         # wedge the thread that runs check_peer_timeouts (the SocketCE
         # discipline, ported to rings)
         peer = self._peers.get(r)
-        if peer is None or peer.outbound is None:
+        if peer is None or peer.outbound is None or self._muted:
             return
         rg = peer.outbound
         parts = _frame_parts(TAG_HB, None)   # header-only frame
@@ -758,25 +777,41 @@ class ShmCE(CommEngine):
                 peer.outbound.close()
                 peer.outbound = None
 
+    def _kill_close(self) -> None:
+        """Injected hard death: close every outbound ring (peers see
+        EOF) and surface each drop locally, mirroring the TCP kill."""
+        def doit():
+            for peer in list(self._peers.values()):
+                if peer.outbound is not None:
+                    peer.outbound.set_closed()
+                self._doorbell(peer)
+            for peer in list(self._peers.values()):
+                if peer.rank not in self.dead_peers:
+                    self.declare_peer_dead(peer.rank, PeerFailedError(
+                        peer.rank, f"rank {self.rank}: fault_kill "
+                        "(injected)"))
+        self.post(doit)
+
     def _shutdown_drain(self, deadline: float = 5.0) -> None:
         """Orderly shutdown ships what is already queued (a barrier
         release POSTED just before the stop flag flipped must still be
         written — the evloop transport's contract), then waits
         (bounded) for consumers to drain it before marking our
         outbound rings closed: peers see a clean EOF, not silence."""
-        end = time.monotonic() + deadline
-        while time.monotonic() < end:
-            self._drain_cmds()
-            busy = bool(self._ring)
-            for peer in self._peers.values():
-                rg = peer.outbound
-                if rg is not None and not rg.closed() and \
-                        peer.rank not in self.dead_peers and \
-                        rg.tail() != rg.head():
-                    busy = True
-            if not busy:
-                break
-            time.sleep(0.002)   # lint: allow-blocking (teardown drain)
+        if not self._muted:
+            end = time.monotonic() + deadline
+            while time.monotonic() < end:
+                self._drain_cmds()
+                busy = bool(self._ring)
+                for peer in self._peers.values():
+                    rg = peer.outbound
+                    if rg is not None and not rg.closed() and \
+                            peer.rank not in self.dead_peers and \
+                            rg.tail() != rg.head():
+                        busy = True
+                if not busy:
+                    break
+                time.sleep(0.002)   # lint: allow-blocking (teardown drain)
         for peer in self._peers.values():
             if peer.outbound is not None:
                 peer.outbound.set_closed()

@@ -32,10 +32,12 @@ Remote successors then ride the remote-dep protocol, and ``wait`` adds
 the gang's global quiescence to local completion.
 
 Streams map onto virtual processes by ``vpmap`` (core/vpmap.py) and bind
-to cores under ``runtime_bind_threads``, as in the JAX package.  Three
-optional planes of the JAX package are not ported (ICI transport, flight
-recorder, recovery): each one's knob is registered with default 0 and
-raises NotImplementedError when set.
+to cores under ``runtime_bind_threads``, as in the JAX package.  The
+crash-dump flight recorder (``flightrec_enabled``) and the recovery plane
+(``recovery_enable``) are opt-in, as there.  One optional plane of the
+JAX package is not ported (the ICI transport): its knob is registered
+with default 0 and raises NotImplementedError when set, and so do the
+knobs of the recovery plane's elastic rejoin and DTD skip agreement.
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from parsec_tpu_torch.core.vpmap import VPMap, bind_current_thread
 from parsec_tpu_torch.core import termdet as _termdet  # noqa: F401 (registers the termdet components)
 # the telemetry planes: imported here so their knobs (defaults 1) are
 # registered before a Context reads them
+from parsec_tpu_torch.prof import flightrec as _flightrec
 from parsec_tpu_torch.prof import health as _health  # noqa: F401
 from parsec_tpu_torch.prof import journal as _journal
 from parsec_tpu_torch.prof import liveattr as _liveattr  # noqa: F401
@@ -103,13 +106,20 @@ params.register("runtime_gc_freeze", 1,
                 "per process; cycles allocated BEFORE that are never "
                 "reclaimed afterwards.  0 = leave the collector alone")
 
+params.register("recovery_enable", 0,
+                "peer-death RECOVERY: surviving ranks re-map a dead "
+                "rank's data partition onto themselves and re-execute "
+                "the lost lineage instead of failing the affected "
+                "taskpools (core/recovery.py).  0 (default) keeps the "
+                "containment-only failure lifecycle: a dead peer fails "
+                "the pools that touch it.  A recovery-enabled Context "
+                "refuses an insert-driven (DTD) or dynamic pool at attach")
+
 #: optional planes of the JAX package this port does not carry yet:
 #: (MCA knob, plane name).  Registered with default 0 here so a run that
 #: turns one on fails loudly instead of silently doing nothing.
 _UNPORTED_PLANES = (
     ("comm_ici_enabled", "ICI multi-device transport"),
-    ("flightrec_enabled", "flight recorder"),
-    ("recovery_enable", "recovery plane"),
 )
 for _knob, _plane in _UNPORTED_PLANES:
     params.register(_knob, 0, f"{_plane}: not ported yet (must stay 0)")
@@ -119,9 +129,9 @@ for _knob, _plane in _UNPORTED_PLANES:
 #: while one is set (override or environment), since nothing would read
 #: it
 _UNPORTED_KNOBS = (
-    ("liveattr_straggler_incident_s",
-     "the straggler's flight-recorder trigger"),
-    ("journal_autopsy_tail", "the hang autopsy's journal section"),
+    ("comm_epoch", "the elastic rejoin's incarnation epoch"),
+    ("recovery_rejoin", "the recovery plane's elastic rejoin"),
+    ("recovery_dtd_skip", "the recovery plane's DTD skip agreement"),
 )
 
 _gc_frozen = False
@@ -236,11 +246,11 @@ class Context:
         #: comm/remote_dep.py RemoteDepEngine of a distributed run
         #: (attached by its constructor), else None
         self.comm = None
-        self.grapher = None            # DOT grapher (not ported)
+        self.grapher = None            # DOT grapher (prof/grapher.py)
         self.ici = None                # ICI transport (not ported)
         self._causal_tracer = None     # prof/causal.py CausalTracer
         self.metrics = None            # prof/metrics.py RuntimeMetrics
-        self._flightrec = None         # flight recorder (not ported)
+        self._flightrec = None         # prof/flightrec.py FlightRecorder
         # control-plane black box (prof/journal.py): a bounded ring of
         # protocol decisions, no per-task emits.  A deliberate difference
         # from the JAX package, which installs a disabled journal at
@@ -251,8 +261,9 @@ class Context:
         #: schedule() and the C quantum stamp Task.ready_at only when a
         #: telemetry consumer wants it (causal tracer or metrics
         #: registry), and devices/cuda.py fires device_dispatch/
-        #: device_done PINS only when the causal tracer listens; both
-        #: maintained by _recompute_ready_stamp on (un)install
+        #: device_done PINS only when the causal tracer or the flight
+        #: recorder listens; both maintained by _recompute_ready_stamp
+        #: on (un)install
         self._ready_stamp = False
         self._device_spans = False
         #: transient-task retry budget, cached off the worker hot path
@@ -320,9 +331,19 @@ class Context:
 
         # telemetry plane: the always-on metrics registry (PAPI-SDE
         # counterpart grown into a scrapeable registry), with live
-        # attribution and health riding its hooks
+        # attribution and health riding its hooks, and the crash-dump
+        # flight recorder (armed via flightrec_enabled)
         if int(params.get("metrics_enabled", 1)):
             _metrics.RuntimeMetrics(rank=self.rank).install(self)
+        if int(params.get("flightrec_enabled", 0)):
+            _flightrec.FlightRecorder(self).install(self)
+        # recovery plane (core/recovery.py): opt-in — when disabled
+        # (the default) every peer-death path keeps the containment
+        # behavior, byte for byte
+        self.recovery = None
+        if int(params.get("recovery_enable", 0)):
+            from parsec_tpu_torch.core.recovery import RecoveryCoordinator
+            self.recovery = RecoveryCoordinator(self)
         self._recompute_ready_stamp()
         debug_verbose(3, "context up: %d streams, scheduler=%s",
                       self.nb_cores, self.scheduler.name)
@@ -330,11 +351,14 @@ class Context:
     def _recompute_ready_stamp(self) -> None:
         """Telemetry-consumer gates: schedule() stamps Task.ready_at iff
         someone consumes it, and the device module emits its dispatch/
-        done span events iff the causal tracer listens (the JAX
-        package's flight recorder, the other listener, is not ported)."""
+        done span events iff the causal tracer or the flight recorder
+        (its "device" class) listens."""
         self._ready_stamp = (self._causal_tracer is not None
                              or self.metrics is not None)
-        self._device_spans = self._causal_tracer is not None
+        fr = self._flightrec
+        self._device_spans = (self._causal_tracer is not None
+                              or (fr is not None
+                                  and "device" in fr.classes))
 
     def _recompute_db_spin(self) -> None:
         """Arm (or re-arm) the inlined comm-poll window from the
@@ -360,6 +384,18 @@ class Context:
     def pins_unregister(self, event: str, cb: Callable) -> None:
         if event in self._pins and cb in self._pins[event]:
             self._pins[event].remove(cb)
+
+    def telemetry_incident(self, reason: str):
+        """Fire the flight recorder's incident dump (no-op unarmed).
+        Called from containment/error paths — must never raise."""
+        fr = self._flightrec
+        if fr is None:
+            return None
+        try:
+            return fr.incident(reason)
+        except Exception as exc:
+            debug_verbose(1, "flight recorder incident failed: %s", exc)
+            return None
 
     def accelerator_spaces(self) -> list:
         """Memory-space indices of the enabled device modules."""
@@ -398,7 +434,11 @@ class Context:
 
     # -- taskpool lifecycle ------------------------------------------------
     def add_taskpool(self, tp: Taskpool, start: bool = False) -> None:
-        """reference: parsec_context_add_taskpool (scheduling.c:678)."""
+        """reference: parsec_context_add_taskpool (scheduling.c:678).
+        With the recovery plane on, a pool it cannot recover (DTD,
+        dynamic) is refused here, before it attaches."""
+        if self.recovery is not None:
+            self.recovery.refuse_unsupported(tp)
         with self._lock:
             self._active_taskpools += 1
             # register BEFORE attach: a comm message arriving in between
@@ -407,6 +447,12 @@ class Context:
             tp.attach(self, self.termdet_for(tp))
             self._pending_start.append(tp)
         install_taskpool_properties(self, tp)
+        if self.recovery is not None:
+            # recovery registration: snapshot the pool's collections'
+            # local tiles (the lineage base a restart restores to) and
+            # record its replay spec; pools without one stay on the
+            # containment path
+            self.recovery.register_pool(tp)
         if self.comm is not None:
             # activations may have raced this registration
             self.comm.retry_delayed()
@@ -473,39 +519,55 @@ class Context:
         deadline = None if timeout is None else start + timeout
         pred = lambda: self._active_taskpools == 0 or self._errors  # noqa: E731
         while True:
-            with self._cond:
-                bounds = [t for t in (autopsy_at, deadline) if t is not None]
-                slice_s = max(0.0, min(bounds) - _time.monotonic()) \
-                    if bounds else None
-                ok = self._cond.wait_for(pred, timeout=slice_s)
-            if ok:
+            while True:
+                with self._cond:
+                    bounds = [t for t in (autopsy_at, deadline)
+                              if t is not None]
+                    slice_s = max(0.0, min(bounds) - _time.monotonic()) \
+                        if bounds else None
+                    ok = self._cond.wait_for(pred, timeout=slice_s)
+                if ok:
+                    break
+                now = _time.monotonic()
+                if autopsy_at is not None and now >= autopsy_at:
+                    from parsec_tpu_torch.utils.output import warning
+                    warning("context wait exceeded the %.0fs soft "
+                            "deadline — hang autopsy:\n%s", autopsy_s,
+                            self.hang_autopsy())
+                    autopsy_at = None
+                if deadline is not None and now >= deadline:
+                    break
+            self._raise_first_error()
+            if not ok:
+                raise TimeoutError("parsec context wait timed out")
+            # drain device pipelines: deps are released eagerly on
+            # dispatch (devices/cuda.py completer), so pool termination
+            # means "all work launched" — quiescence means "all work
+            # done", and late device-side failures surface here
+            self.sync_devices(timeout=timeout)
+            self._raise_first_error()
+            if self.comm is None:
                 break
-            now = _time.monotonic()
-            if autopsy_at is not None and now >= autopsy_at:
-                from parsec_tpu_torch.utils.output import warning
-                warning("context wait exceeded the %.0fs soft "
-                        "deadline — hang autopsy:\n%s", autopsy_s,
-                        self.hang_autopsy())
-                autopsy_at = None
-            if deadline is not None and now >= deadline:
-                break
-        self._raise_first_error()
-        if not ok:
-            raise TimeoutError("parsec context wait timed out")
-        # drain device pipelines: deps are released eagerly on dispatch
-        # (devices/cuda.py completer), so pool termination means "all
-        # work launched" — quiescence means "all work done", and late
-        # device-side failures surface here
-        self.sync_devices(timeout=timeout)
-        self._raise_first_error()
-        if self.comm is not None:
             # distributed: local completion is not global completion —
             # peers may still pull our data (reference: ranks keep
-            # progressing comm until termdet quiesces the whole run).
-            # The JAX package then re-waits when its recovery plane
-            # re-armed a pool, and retires the completed pools; the port
-            # has no recovery plane
+            # progressing comm until termdet quiesces the whole run)
             self.comm.wait_quiescence()
+            with self._lock:
+                if self._active_taskpools != 0 and not self._errors:
+                    # a recovery restart re-armed a pool while the
+                    # quiescence round ran (completed-pool grace): the
+                    # gang is NOT done — go back to waiting instead of
+                    # handing tiles mid-restore to the application
+                    continue
+                # past global quiescence every completed pool is
+                # GLOBALLY done: retire them so a later peer death
+                # cannot resurrect them for re-execution
+                # (core/recovery.py restarts only locally-complete,
+                # not-yet-retired pools)
+                for tp in self.taskpools.values():
+                    if getattr(tp, "completed", False):
+                        tp.retired = True
+            break
 
     def sync_devices(self, timeout: Optional[float] = None) -> None:
         """Quiesce device pipelines; raises late device failures."""
@@ -539,6 +601,12 @@ class Context:
                               len(marks), "\n".join(marks[-64:]))
         # per-pool error isolation: a pool carrying an error_sink keeps
         # its failures to itself
+        from parsec_tpu_torch.core.errors import PeerFailedError
+        if isinstance(exc, PeerFailedError):
+            # containment fired: capture what just happened before the
+            # ring overwrites it (no-op unless the recorder is armed)
+            self.telemetry_incident(
+                f"PeerFailedError rank={exc.rank} ({exc.detector})")
         tp = getattr(task, "taskpool", None)
         sink = getattr(tp, "error_sink", None) if tp is not None else None
         if sink is not None:
@@ -556,6 +624,9 @@ class Context:
         peer, a rendezvous timeout) through the pool's error sink,
         falling back to the context-wide error list exactly like
         record_error."""
+        self.telemetry_incident(
+            f"pool {getattr(tp, 'taskpool_id', '?')} error: "
+            f"{type(exc).__name__}")
         sink = getattr(tp, "error_sink", None) if tp is not None else None
         if sink is not None:
             try:
@@ -605,6 +676,34 @@ class Context:
                 lines.append("comm: " + repr(self.comm.debug_state()))
             except Exception as exc:   # the autopsy must never raise
                 lines.append(f"comm: <debug_state failed: {exc}>")
+        # control-plane tail: the last ~N protocol events per rank,
+        # clock-aligned — a wedged negotiation (a mode vote that never
+        # got its quorum, a need round nobody answered) is visible in
+        # the autopsy text itself, no bundle pull needed
+        tail_n = int(params.get("journal_autopsy_tail", 20))
+        if tail_n > 0 and self.journal is not None:
+            try:
+                per_rank = _journal.cluster_journals(self, timeout=2.0)
+                for r in sorted(per_rank):
+                    snap = per_rank[r]
+                    snap["events"] = snap.get("events", [])[-tail_n:]
+                merged = _journal.merge_journals(per_rank)
+                if merged:
+                    t0 = merged[0]["t"]
+                    lines.append("control-plane journal tail "
+                                 f"(last {tail_n}/rank, clock-aligned):")
+                    lines.extend("  " + _journal.format_event(ev, t0)
+                                 for ev in merged)
+            except Exception as exc:   # the autopsy must never raise
+                lines.append(f"journal tail: <failed: {exc}>")
+        # armed flight recorder: the last-N-seconds ring is worth more
+        # than this snapshot — dump it and point the reader at the
+        # bundle (summarize with python -m parsec_tpu_torch.prof.flightrec)
+        bundle = self.telemetry_incident("hang-autopsy")
+        if bundle is not None:
+            lines.append(f"flight recorder incident bundle: {bundle} "
+                         "(summarize: python -m "
+                         f"parsec_tpu_torch.prof.flightrec {bundle})")
         return "\n".join(lines)
 
     # -- remote deps (filled in by the comm layer) ------------------------
@@ -641,6 +740,8 @@ class Context:
         self._pins_modules = []
         if self.metrics is not None:
             self.metrics.uninstall(self)
+        if self._flightrec is not None:
+            self._flightrec.uninstall(self)
         jdir = str(params.get("journal_dir", "") or "").strip()
         if jdir and self.journal is not None:
             # per-rank black-box bundle for the JAX package's

@@ -363,6 +363,13 @@ def release_deps(es, task: Task) -> List[Task]:
     #: creates a repo entry for them, so they are returned to the freelist
     #: once flush_activations has snapshotted the payload
     remote_only_arena: List[DataCopy] = []
+    #: minimal-replay restart gate (core/recovery.py): local deliveries
+    #: to consumers outside the replay plan are redundant re-sends of
+    #: already-materialized work — skipping them HERE (not in
+    #: deliver_dep) also keeps them out of the repo usage count, so the
+    #: producer's entry still retires.  Remote activations always fire;
+    #: the receiving rank's own filter decides there.
+    replay_filter = tp._replay_filter
 
     # only flows with output deps can deliver anything (class-level
     # partition, core/task.py): a CTL-only or sink flow skips the whole
@@ -396,6 +403,10 @@ def release_deps(es, task: Task) -> List[Task]:
                             es, task, flow, dep, succ_tc, succ_locals, copy)
                         remote_count += 1
                         continue
+                    if replay_filter is not None and \
+                            succ_tc.make_key(succ_locals) \
+                            not in replay_filter:
+                        continue   # consumer not re-enumerated (minimal)
                     local_deliveries.append(
                         (succ_tc, succ_locals, end.flow, dep))
             # Null outputs: data is discarded (arena copies will be

@@ -106,8 +106,24 @@ def task_progress(es, task: Task, distance: int = 0) -> None:
     """Run one task through its lifecycle
     (reference: __parsec_task_progress)."""
     tp = task.taskpool
+    # claim BEFORE the fence check: the recovery drain polls
+    # running_task, and a worker descheduled between reading run_epoch
+    # and publishing its claim would execute a stale body over
+    # already-restored tiles — claimed-then-checked, the drain either
+    # sees the claim and waits, or the check runs after the bump and
+    # discards (the restore happens strictly after the bump)
     es.running_task = task
     try:
+        if task.pool_epoch != tp.run_epoch:
+            # recovery fence: the pool restarted (core/recovery.py)
+            # after this task was scheduled.  Discard WITHOUT executing
+            # and WITHOUT decrementing — the restart re-counted
+            # nb_tasks from scratch and this instance belongs to the
+            # torn generation (its repo/input holds died with the old
+            # structures too)
+            task.status = _COMPLETE
+            es.pins("task_discard", task)
+            return
         if tp.cancelled:
             # cancelled pool: drop the task without executing or
             # releasing successors; the termdet was force-quiesced, so
@@ -224,6 +240,34 @@ def complete_execution(es, task: Task, failed: bool = False) -> None:
     (reference: __parsec_complete_execution:441)."""
     tc = task.task_class
     tp = task.taskpool
+    if task.pool_epoch != tp.run_epoch:
+        # recovery fence (async arm): a device completer or retry path
+        # finishing a pre-restart task must neither release successors
+        # into the rebuilt dep structures nor decrement the re-counted
+        # termdet — the restart owns every count of the new generation.
+        # Its BODY ran, though, and may have mutated write-flow tiles
+        # in place: bump their version clocks so the payloads can
+        # never masquerade as the (unmutated) recorded version — the
+        # minimal-replay planner then sees an unrecorded writer and
+        # takes the restore-point fallback instead of synthesizing
+        # from silently-corrupted "live" bytes
+        for flow in tc._write_flows:
+            copy = task.data.get(flow.name)
+            if copy is not None and copy.data is not None \
+                    and copy.data.collection is not None:
+                copy.data.complete_write(copy.device)
+        task.status = _COMPLETE
+        es.pins("task_discard", task)
+        return
+    # recovery lineage (core/recovery.py LineageLog; None = zero work):
+    # read versions snap BEFORE the write-flow bump below — an RW flow's
+    # bound copy still carries the version the body consumed.  The C
+    # chain hands a pool with a lineage log back to this path
+    # (native/schedext.c: the "lineage" bailout), so every completion
+    # of a registered pool is recorded here
+    lin = tp._lineage
+    lin_reads = None if (lin is None or failed) \
+        else lin.snap_reads(task)
     if not failed:
         try:
             for flow in tc._write_flows:
@@ -242,6 +286,11 @@ def complete_execution(es, task: Task, failed: bool = False) -> None:
             engine.consume_inputs(task)
         except Exception as exc:
             es.context.record_error(exc, task)
+    if lin is not None and not failed:
+        # record AFTER release_deps: write versions are final (the
+        # writeback path may have superseded the bound copy) and
+        # flush_activations already noted this task's remote dests
+        lin.record(task, lin_reads)
     task.status = _COMPLETE
     cbs = es._pins_map.get("complete_exec")   # inlined es.pins
     if cbs:
@@ -328,7 +377,8 @@ def _native_hook_return(es, task, ret, distance: int = 0) -> None:
 def _td_flush(es) -> None:
     """Apply the worker's batched termdet decrements — the batch
     boundary (quantum end / idle / worker exit).  Each entry carries
-    the generation it accumulated under.
+    the generation it accumulated under; the termdet drops
+    torn-generation deltas under its own lock (recovery rewind).
 
     RE-ENTRANT: a flushed decrement can fire a pool termination whose
     completion callback synchronously completes an ASYNC parent task

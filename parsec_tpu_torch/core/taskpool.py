@@ -117,17 +117,41 @@ class Taskpool:
         #: layer) — peer-death containment fails exactly the pools whose
         #: dataflow touches the dead rank (RemoteDepEngine._on_peer_dead)
         self.peer_ranks: set = set()
-        #: generation stamp every task carries (Task.pool_epoch) and the
-        #: termdet's batched decrements are checked against; the port has
-        #: no recovery plane, so it stays 0
+        #: recovery generation (core/recovery.py): bumped when a peer
+        #: death restarts this pool on the survivors.  Tasks stamp it at
+        #: construction (Task.pool_epoch); stale-generation tasks and
+        #: counter decrements are fenced at task_progress /
+        #: complete_execution, and cross-rank activations carry it so a
+        #: survivor mid-restart parks frames from an already-recovered
+        #: peer instead of losing them
         self.run_epoch = 0
-        #: the JAX package's recovery lineage log and minimal-replay
-        #: filter.  The port has no recovery plane, so both stay None;
-        #: they exist because the C chain reads them off every pool
-        #: (native/schedext.c gates_for: a missing attribute is an error
-        #: there, not a bailout)
+        #: recovery spec: the collections this pool's dataflow reads and
+        #: writes (builders set it; core/recovery.py snapshots/restores
+        #: them).  Empty = not recoverable — peer death keeps the
+        #: containment behavior
+        self.recovery_collections: list = []
+        #: recorded lineage log (core/recovery.LineageLog), installed by
+        #: the RecoveryCoordinator at registration when the lineage
+        #: plane is on.  None keeps complete_execution's hook at one
+        #: attribute load + None check; the C chain reads it off every
+        #: pool (native/schedext.c gates_for) and hands a pool that has
+        #: one back to Python, where the record is taken
         self._lineage = None
+        #: minimal-replay enumeration filter (core/recovery.py): during
+        #: a minimal restart only keys in this set re-enumerate,
+        #: re-deliver locally, and accept remote deliveries — every
+        #: other delivery of the restarted generation is a redundant
+        #: re-send of already-materialized work and drops.  None (the
+        #: pristine and full-replay states) disables the gate
         self._replay_filter: Optional[set] = None
+        #: GLOBALLY done: set once a distributed run passes global
+        #: quiescence after this pool completed (Context.wait), or the
+        #: recovery plane's RETIREMENT HANDSHAKE confirmed every live
+        #: rank locally complete.  A pool that completed only LOCALLY
+        #: stays restartable — another survivor may still need its
+        #: re-executed partition; a retired one is never resurrected by
+        #: recovery
+        self.retired = False
         #: memory-space indices this pool's tasks may execute on.  None =
         #: unrestricted; a frozenset restricts DeviceRegistry.best_device
         self.device_spaces: Optional[frozenset] = None
@@ -162,6 +186,26 @@ class Taskpool:
         """Produce the initial ready tasks; return them for scheduling.
         Subclasses implement enumeration; base pools start empty."""
         return []
+
+    def recovery_reset(self) -> None:
+        """Drop every in-flight dependency/repo structure so the pool
+        can re-enumerate from restored collection state (called by the
+        RecoveryCoordinator AFTER the run_epoch bump fenced stale tasks
+        and the termdet counters were rewound)."""
+        self.deps_table = ConcurrentHashTable()
+        self._native_deps = _native_dep_table()
+        for tc in self.task_classes.values():
+            tc.repo = DataRepo(nb_flows=len(tc.flows), name=tc.name)
+        self.reshape.clear()
+        self.dirty_data.clear()
+        self.peer_ranks = set()
+        # the torn generation's lineage describes pre-restart state;
+        # the new generation records afresh.  The replay filter is
+        # (re)installed by the coordinator AFTER this reset when the
+        # restart is minimal — None here is the full-replay default
+        if self._lineage is not None:
+            self._lineage.clear()
+        self._replay_filter = None
 
     def ready(self) -> None:
         """Startup done: drop the hold and let termination fire
@@ -223,6 +267,7 @@ class ParameterizedTaskpool(Taskpool):
         nb_local = 0
         ready: List[Task] = []
         append = ready.append
+        flt = self._replay_filter
         for tc in self.task_classes.values():
             aff = tc.affinity
             if aff is None and myrank != 0:
@@ -232,7 +277,8 @@ class ParameterizedTaskpool(Taskpool):
             all_ready = not tc._ft_inputs
             vt = tc.native_vt()
             if vt is not None and all_ready and aff is None \
-                    and tc.key_fn is None and len(tc.params) == 1:
+                    and flt is None and tc.key_fn is None \
+                    and len(tc.params) == 1:
                 # flat dep-free class (the independent-task shape):
                 # enumerate AND construct directly from the parameter
                 # range in C — Python Task.__init__ and the per-
@@ -250,8 +296,16 @@ class ParameterizedTaskpool(Taskpool):
                 continue
             build = vt.build_one if vt is not None else None
             for locals_ in tc.iter_space(self.globals):
-                # owner-computes (TaskClass.rank_of)
+                # owner-computes through the recovery translation: a
+                # dead rank's partition enumerates on its adopting
+                # survivor at re-execution (TaskClass.rank_of applies
+                # the same table on the activation-routing side)
                 if aff is not None and tc.rank_of(locals_) != myrank:
+                    continue
+                if flt is not None and tc.make_key(locals_) not in flt:
+                    # minimal-replay restart: this task's outputs are
+                    # intact and nothing in the plan consumes them —
+                    # skip the re-execution entirely
                     continue
                 nb_local += 1
                 if all_ready or tc.nb_task_inputs(locals_) == 0:
@@ -347,6 +401,10 @@ class Compound(Taskpool):
                 launched = self._idx
                 pool = self.pools[launched]
             pool.on_complete(self._sub_done)
+            # recovery must never restart a compound member once it
+            # completed: a re-fired completion would double-advance the
+            # composition's cursor
+            pool._compound_member = True
             self.context.add_taskpool(pool, start=True)
             # cancel() racing this launch saw the sub-pool CREATED and
             # skipped it; it set our flag BEFORE reading the state, so

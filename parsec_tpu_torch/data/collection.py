@@ -19,6 +19,19 @@ from parsec_tpu_torch.data.data import Data
 class DataCollection:
     """Abstract collection (reference: parsec_data_collection_t)."""
 
+    #: recovery re-mapping (core/recovery.py): {dead rank -> adopting
+    #: survivor} for THIS collection's partition, or None.  A class
+    #: default keeps ``owner_of`` at one attribute load + None check
+    #: when no recovery is active; installed per collection so pools
+    #: over untouched collections never see a re-mapped owner.
+    _recovery_translate = None
+    #: re-runnable source: ``fn(*indices) -> tensor`` regenerating a
+    #: tile's INITIAL payload — the lineage walk's base version for
+    #: tiles whose live copies died with their rank (the "re-runnable
+    #: source task" of the recovery plane; see core/recovery.py).  A
+    #: payload on a card lands there as the tile's device copy
+    init_fn = None
+
     def __init__(self, nodes: int = 1, myrank: int = 0, name: str = "dc"):
         self.nodes = nodes
         self.myrank = myrank
@@ -34,16 +47,34 @@ class DataCollection:
         raise NotImplementedError
 
     def owner_of(self, *indices) -> int:
-        """The rank currently SERVING these indices.  Runtime rank
-        decisions — task placement, local-tile materialization — go
-        through here; ``rank_of`` stays the pure distribution function.
-        The port has no recovery plane to re-map a dead rank's
-        partition, so the two agree."""
-        return self.rank_of(*indices)
+        """The rank currently SERVING these indices: ``rank_of`` routed
+        through the recovery translation (a dead rank's partition is
+        re-balanced onto survivors; core/recovery.py).  Runtime rank
+        decisions — task placement, activation routing, local-tile
+        materialization — go through here; ``rank_of`` stays the pure
+        distribution function."""
+        r = self.rank_of(*indices)
+        t = self._recovery_translate
+        return t.get(r, r) if t else r
+
+    def set_init(self, fn) -> "DataCollection":
+        """Register a re-runnable tile source: ``fn(*indices)`` returns
+        the INITIAL payload of a tile.  Recovery reconstructs a dead
+        rank's lost tiles from it when no snapshot survives."""
+        self.init_fn = fn
+        return self
+
+    def set_rank_translation(self, table: Optional[Dict[int, int]]) -> None:
+        """Install (or clear, with None/{}) the recovery re-mapping for
+        this collection.  Written by the RecoveryCoordinator only."""
+        self._recovery_translate = dict(table) if table else None
 
     def tile_key(self, *indices) -> tuple:
-        """The identity of one tile: the key its ``Data`` is created
-        with, so a tile maps back to ``(collection, indices)``."""
+        """The LINEAGE identity of one tile: the key its ``Data`` is
+        created with and the key the recovery lineage log records for
+        reads/writes (core/recovery.py) — one source of truth, so the
+        minimal-replay planner can map a recorded tile back to
+        ``(collection, indices)`` without guessing the construction."""
         return (self.name,) + tuple(indices)
 
     def vpid_of(self, *indices) -> int:

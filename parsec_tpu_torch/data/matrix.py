@@ -154,6 +154,10 @@ class TiledMatrix(DataCollection):
         with self._lock:
             t = self._tiles.get((m, n))
             if t is None:
+                # owner_of, not rank_of: after a recovery re-mapping
+                # this rank legitimately serves adopted tiles of a dead
+                # rank's partition (their payloads are restored by the
+                # RecoveryCoordinator before any task reads them)
                 if self.owner_of(m, n) != self.myrank:
                     raise KeyError(
                         f"{self.name}({m},{n}) lives on rank "

@@ -1321,6 +1321,38 @@ class CudaDevice(Device):
         weakref.finalize(dc, _forget_on, weakref.ref(self), key, nbytes)
         self.stats.bytes_in += nbytes
 
+    def drop_stale(self, tp) -> int:
+        """Recovery drain (core/recovery.py): take every task of ``tp``'s
+        torn generation (``pool_epoch`` behind the pool's ``run_epoch``)
+        off the launch queue and complete it through the epoch fence
+        (core/scheduling.complete_execution: versions tainted, nothing
+        released, the termdet untouched) WITHOUT launching it, so none of
+        its kernels can write a tile in place after the restore.  What
+        was already launched or chain-held is waited out by ``sync``,
+        which the drain calls next.  Returns the number dropped."""
+        from parsec_tpu_torch.core import scheduling
+        with self._cond:
+            drop = [item for item in self._pending
+                    if item[0].taskpool is tp
+                    and item[0].pool_epoch != tp.run_epoch]
+            if not drop:
+                return 0
+            gone = {id(item) for item in drop}
+            self._pending = deque(item for item in self._pending
+                                  if id(item) not in gone)
+            # visible to sync() until the fenced completions ran
+            self._completing += 1
+        try:
+            for task, _spec, load, readers in drop:
+                self.load_sub(load)
+                self._release_readers(readers)
+                scheduling.complete_execution(self.es, task)
+        finally:
+            with self._cond:
+                self._completing -= 1
+                self._cond.notify_all()
+        return len(drop)
+
     def sync(self, timeout: Optional[float] = None) -> None:
         """Drain the device: wait for every queued task to be launched
         and completed, run every chain still held, finalize every launch,

@@ -42,12 +42,14 @@ differences:
   done, and the copy-down is synchronous on the launch stream
   (devices/cuda.py, "Ordering"), so no in-place successor can have
   written the tile yet;
-* left out with the recovery plane (which the port does not carry, and
-  whose knob a Context refuses): the insert-stream lineage and skip
-  agreement (``_insert_pos``, ``_note_insert``, ``_ghost_insert``,
-  ``dtd_arm_skip``, ``dtd_skip_report``, ``dtd_capture_seeds``,
-  ``dtd_taint_stale``), ``recovery_reset``, and the flight recorder's
-  ``dtd_lane`` sink.  The port's pools carry ``_lineage`` None.
+* left out with the recovery plane's DTD half (a recovery-enabled
+  Context refuses a DTD pool at attach, core/recovery.py): the
+  insert-stream lineage and skip agreement (``_insert_pos``,
+  ``_note_insert``, ``_ghost_insert``, ``dtd_arm_skip``,
+  ``dtd_skip_report``, ``dtd_capture_seeds``, ``dtd_taint_stale``) and
+  ``recovery_reset``.  The port's DTD pools carry ``_lineage`` None.  The
+  lane events reach the causal tracer and the flight recorder's ``dtd``
+  class alike.
 """
 
 from __future__ import annotations
@@ -545,10 +547,15 @@ class DTDTaskpool(Taskpool):
         if ctx is None:
             return
         tr = ctx._causal_tracer
-        if tr is None:
+        fr = ctx._flightrec
+        if fr is not None and "dtd" not in fr.classes:
+            fr = None   # class-gated out: no tensor read on its account
+        if tr is None and fr is None:
             return
         val = _chain_val(arr) if arr is not None else None
-        tr.dtd_event(op, wire, lane, ver, val)
+        for sink in (tr, fr):
+            if sink is not None:
+                sink.dtd_event(op, wire, lane, ver, val)
 
     # -- tiles -------------------------------------------------------------
     def tile_of(self, dc: DataCollection, *indices) -> DTDTile:

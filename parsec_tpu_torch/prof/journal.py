@@ -40,8 +40,11 @@ In the port: the journal is installed on every Context at
 ``journal_enabled`` 1, as in the JAX package, and dumped at
 ``Context.fini`` under ``journal_dir``.  The emit sites of the JAX
 package live in its comm, recovery and service layers; the port carries
-the comm layer's (barrier rounds, peer deaths) and the health plane's
-``health_transition``, and ``cluster_journals`` pulls the peers'
+the comm layer's (barrier rounds, peer deaths, excusals, the Safra
+reconcile), the recovery plane's (core/recovery.py: dead-set agreement,
+epoch fences, mode votes, retirement) and the health plane's
+``health_transition``; the hang autopsy prints the clock-aligned tail
+(``journal_autopsy_tail``), and ``cluster_journals`` pulls the peers'
 snapshots over the comm engine's TAG_METRICS lane.  One deliberate
 difference: at
 ``journal_enabled`` 0 the port installs no journal at all
@@ -85,9 +88,11 @@ params.register("journal_dir", "",
                 "<dir>/journal-rank<N>.jsonl at fini — the per-rank "
                 "bundle tools/journal_audit.py merges and audits "
                 "(chaos --audit-journal arms this per case)")
-# not registered here: journal_autopsy_tail, the JAX package's hang-
-# autopsy section of journal events — the port's hang autopsy does not
-# read the journal, which has no emit site on one rank yet
+params.register("journal_autopsy_tail", 20,
+                "control-plane events per rank the hang autopsy "
+                "prints (clock-aligned, newest last) so a wedged "
+                "negotiation is visible in the autopsy text without "
+                "pulling bundles (0 disables the section)")
 
 #: The event-schema table: type -> REQUIRED emit fields.  PCL-JRNL
 #: checks every ``journal.emit("<type>")`` literal in the tree against

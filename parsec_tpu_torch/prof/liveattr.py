@@ -15,10 +15,9 @@ prof/critpath.py over merged ``.ptt`` dumps).  This module answers
 * **straggler detection** — a task whose sojourn (or queue wait)
   exceeds ``liveattr_straggler_mult`` x its class p99 (min-count
   guarded) emits a structured anomaly event, counts in
-  ``parsec_stragglers_total{job,class,kind}`` (in the JAX package it
-  also fires the flight recorder, rate-limited by
-  ``liveattr_straggler_incident_s``; the port has no recorder, so it
-  has neither the trigger nor its knob);
+  ``parsec_stragglers_total{job,class,kind}``, and — rate-limited by
+  ``liveattr_straggler_incident_s`` — fires the flight recorder so the
+  incident bundle captures the straggler's causal neighborhood;
 * **online makespan decomposition** — each job's elapsed time
   telescopes into exec / queue / comm / idle buckets: exec and queue
   from the class profiles (sampled mean x exact done count), comm from
@@ -85,6 +84,11 @@ params.register("liveattr_straggler_floor_ms", 50.0,
                 "microsecond-scale task classes a pure multiple of a "
                 "tight p99 would flag every GC pause and scheduler "
                 "deschedule on a loaded host")
+params.register("liveattr_straggler_incident_s", 60.0,
+                "rate limit on straggler-triggered flight-recorder "
+                "incident dumps, seconds (the recorder's own "
+                "flightrec_min_interval_s applies on top; 0 disables "
+                "the trigger entirely)")
 params.register("liveattr_anomaly_log", 64,
                 "bounded ring of recent structured anomaly events kept "
                 "for the status surface")
@@ -221,6 +225,9 @@ class LiveAttr:
         self._min_n = int(params.get("liveattr_straggler_min", 64))
         self._floor = float(params.get("liveattr_straggler_floor_ms",
                                        50.0)) * 1e-3
+        self._inc_s = float(params.get("liveattr_straggler_incident_s",
+                                       60.0))
+        self._last_incident = 0.0
         self._anomalies: deque = deque(
             maxlen=max(4, int(params.get("liveattr_anomaly_log", 64))))
         #: per-(job, class, kind) straggler counts (guarded-by: _lock)
@@ -352,8 +359,9 @@ class LiveAttr:
     # -- anomalies --------------------------------------------------------
     def _anomaly(self, rec: _Rec, task, kind: str, dt: float,
                  thr: float) -> None:
-        """Structured straggler event: log it and count it (the JAX
-        package also fires its flight recorder here, not ported)."""
+        """Structured straggler event: log it, count it, and —
+        rate-limited — fire the flight recorder so the incident bundle
+        captures the straggler's causal neighborhood."""
         ev = {"ts": time.time(), "job": rec.job, "cls": rec.cls,
               "kind": kind, "latency_s": round(dt, 6),
               "threshold_s": round(thr, 6), "mult": self._mult,
@@ -364,6 +372,19 @@ class LiveAttr:
             self._strag_counts[k] = self._strag_counts.get(k, 0) + 1
         debug_verbose(2, "liveattr: straggler %s %s %.3fms > %.3fms",
                       rec.cls, kind, dt * 1e3, thr * 1e3)
+        ctx = getattr(self._metrics, "context", None)
+        if ctx is None or self._inc_s <= 0:
+            return
+        now = time.monotonic()
+        with self._lock:
+            if now - self._last_incident < self._inc_s:
+                return
+            self._last_incident = now
+        # telemetry_incident never raises (it logs a failed dump)
+        ctx.telemetry_incident(
+            f"straggler: {rec.cls} job={rec.job} {kind} "
+            f"{dt * 1e3:.1f}ms > {self._mult:g}x p99 "
+            f"({thr * 1e3:.1f}ms)")
 
     def anomalies(self) -> List[dict]:
         with self._lock:

@@ -33,8 +33,8 @@ run), and the job-service collector while no JobService is attached.
 Scraped through the JobServer's ``{"op": "metrics"}`` request or a
 plain HTTP ``GET /metrics`` on the same port (service/server.py), as in
 the JAX package.  A job over ``metrics_slo_job_s`` counts in
-``parsec_jobs_slo_breached_total``; the flight-recorder incident the JAX
-package also fires then is not ported (nor is the recorder).
+``parsec_jobs_slo_breached_total`` and, with the flight recorder armed,
+triggers an incident dump.
 """
 
 from __future__ import annotations
@@ -76,9 +76,9 @@ params.register("metrics_ring", 256,
                 "(bucket counts are exact regardless)")
 params.register("metrics_slo_job_s", 0.0,
                 "job admission->completion SLO in seconds: a finished "
-                "job over budget counts in jobs_slo_breached_total (the "
-                "JAX package also triggers a flight-recorder incident "
-                "dump; the port has no recorder yet).  0 disables")
+                "job over budget counts in jobs_slo_breached_total and "
+                "— with the flight recorder armed — triggers an "
+                "incident dump (0 disables the breach trigger)")
 
 #: log2 histogram bucket bounds: 2^-20 s (~1 us) .. 2^6 s (64 s).
 #: Fixed at module scope so every rank's buckets merge positionally.
@@ -585,11 +585,12 @@ class RuntimeMetrics:
                 self.job_queue.observe(max(0.0, total_s - run_s))
                 self.job_duration.observe(total_s)
                 if self._slo > 0 and total_s > self._slo:
-                    # the JAX package also fires the flight recorder's
-                    # incident dump here (a no-op there while the
-                    # recorder is unarmed); the port has no recorder,
-                    # so the incident waits with it
                     self._slo_breached.inc()
+                    ctx = self.context
+                    if ctx is not None:
+                        ctx.telemetry_incident(
+                            f"job {job.job_id} breached the "
+                            f"{self._slo:g}s SLO ({total_s:.2f}s)")
         except Exception:   # telemetry must never fail a job callback
             pass
 

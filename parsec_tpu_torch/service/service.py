@@ -4,9 +4,10 @@ The port's copy of the JAX package's service/service.py.  Its deliberate
 differences: the Context it builds runs on the card unless
 ``device="cpu"``/``"cpu:N"`` is passed (the Context's own default), and
 the recovery plane's transitions (``note_recovery`` and the plane's
-``attach_service``/``detach_service``) are not ported, since the port
-has no recovery plane: the degraded-rank set fills from
-``PeerFailedError`` containment and is cleared by nothing yet.
+``attach_service``/``detach_service``) are not ported: the port's
+recovery plane restarts PTG pools without notifying a service, so the
+degraded-rank set fills from ``PeerFailedError`` containment and is
+cleared by nothing yet.
 
 The batch shape of the runtime (build Context -> add_taskpool ->
 Context.wait -> fini) keeps nothing warm between runs.  The job service
@@ -440,7 +441,7 @@ class JobService:
         """True while any peer rank is dead under the service
         (containment kept unaffected jobs running; capacity is
         reduced).  In the JAX package recovery or a rejoin clears it;
-        the port has no recovery plane yet."""
+        the port's recovery plane does not notify the service yet."""
         return bool(self._degraded_ranks)
 
     def degraded_ranks(self) -> List[int]:
@@ -457,8 +458,8 @@ class JobService:
                 "max_pending": self._max_pending,
                 "degraded": bool(self._degraded_ranks),
                 "degraded_ranks": sorted(self._degraded_ranks),
-                # the job clients' keys; with no recovery plane no rank
-                # is ever recovering
+                # the job clients' keys; with no recovery notification no
+                # rank is ever recovering here
                 "recovering": False,
                 "recovering_ranks": [],
             }

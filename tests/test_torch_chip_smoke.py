@@ -481,3 +481,43 @@ def test_two_rank_pingpong_rehearsal_on_cpu():
     for r in res:
         assert r["pingpong"]["bw"]["comm"]["act_rdv"] == 0
         assert r["pingpong"]["rtt"]["s_per_hop"] > 0
+
+
+def test_checkpoint_grapher_path_rehearsal_on_cpu():
+    """The checkpoint + grapher path at a tiny size: the DOT holds the
+    pass's t^3 task nodes and t^2 (t - 1) edges, and C restores into a
+    fresh collection bit for bit."""
+    chip_smoke = _chip_smoke()
+    from parsec_tpu_torch.core.context import Context
+    with Context(nb_cores=2, device="cpu") as ctx:
+        res = chip_smoke.drive_checkpoint_grapher(ctx, 16, 4, "rehearsal")
+    assert res["launches"] == NO_LAUNCHES
+    assert (res["dot_nodes"], res["dot_edges"]) == (64, 48)
+    assert res["bit_identical"] and res["checkpoint_bytes"] > 16 * 16 * 16 * 4
+
+
+def test_fault_tolerance_path_rehearsal_on_cpu():
+    """The fault-tolerance path on two CPU ranks at a tiny size (its pass
+    stretched by frame delays so the kill lands inside it): rank 1 dies,
+    rank 0 recovers and completes, its factor holds the card's limits
+    against the single-rank run's, and the flight-recorder bundle holds
+    rank 0's recovery-start incident."""
+    chip_smoke = _chip_smoke()
+    from parsec_tpu_torch.core.context import Context
+    refs = {}
+    with Context(nb_cores=2, device="cpu") as ctx:
+        chip_smoke.drive_potrf(ctx, 32, 4, torch.bfloat16, passes=1,
+                               label="rehearsal", keep=refs)
+    sys.path.insert(0, str(ROOT))   # the spawned ranks import chip_smoke
+    try:
+        out = chip_smoke.phase_recovery(
+            refs, nofault_s=2.0, size=(32, 4), setup_s=3.0, kill_at=0.4,
+            extra_plan="delay_frame=tag:ACT,p=1,ms=300", device="cpu")
+    finally:
+        sys.path.remove(str(ROOT))
+    assert out["recovery"]["started"] == 1
+    assert out["recovery"]["failed"] == 0
+    assert out["recovery"]["restored_tiles"]["init"] > 0
+    assert out["worst_rel_fro"] <= chip_smoke.POTRF_DIST_TOL
+    assert out["backward_error"] <= chip_smoke.POTRF_BWD_TOL
+    assert out["launches"] == NO_LAUNCHES

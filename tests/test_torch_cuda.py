@@ -31,6 +31,12 @@ against the float64 dense reference at the JAX package's test tolerance
 (rtol 2e-4, atol 2e-5), a recursive potrf whose inner pool runs on the
 card (K1 on its fma route, CHECK reading the committed factor), and the
 permute wave against ``expected_wave_result``.
+
+Fault tolerance on the card: a 2-rank potrf whose rank 1 is killed mid-run
+completes on rank 0 (adopted tiles remade on the card) within the 2-rank
+limits, a collection whose tiles live on the card round-trips through
+checkpoint and restore bit for bit, and the recovery drain keeps a queued
+in-place K1 launch of the torn generation off restored bytes.
 """
 
 import numpy as np
@@ -754,3 +760,71 @@ def test_permute_wave_on_the_card(card):
     for q in range(P):
         got = W.data_of(q, 0).pull_to_host().payload
         assert torch.all(got == wave.expected_wave_result(P, q))
+
+
+def _chip_smoke():
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    return chip_smoke
+
+
+@pytest.mark.cuda
+def test_two_rank_potrf_recovers_a_killed_rank_on_the_card(card):
+    """The fault-tolerance path at mb=512, nt=6 (bf16, two ranks on this
+    card, the pass stretched by 300 ms activation-frame delays so the
+    kill lands inside it): rank 1 killed, rank 0 recovers — one recovery
+    started, none failed, adopted tiles remade on the card — and its
+    factor is within 1e-2 of the single-rank run's, backward error
+    within 5e-2, K1 launched by the survivor."""
+    import pathlib
+    import sys
+    chip_smoke = _chip_smoke()
+    refs = {}
+    with Context(nb_cores=4) as ctx:
+        chip_smoke.drive_potrf(ctx, 512, 6, torch.bfloat16, passes=1,
+                               label="cuda test", keep=refs)
+    root = str(pathlib.Path(__file__).resolve().parent.parent)
+    sys.path.insert(0, root)   # the spawned ranks import chip_smoke
+    try:
+        out = chip_smoke.phase_recovery(
+            refs, nofault_s=2.0, size=(512, 6), setup_s=6.0, kill_at=1.0,
+            extra_plan="delay_frame=tag:ACT,p=1,ms=300")
+    finally:
+        sys.path.remove(root)
+    assert out["recovery"]["started"] == 1
+    assert out["recovery"]["failed"] == 0
+    assert out["recovery"]["restored_tiles"]["init"] > 0
+    assert out["worst_rel_fro"] <= 1e-2
+    assert out["backward_error"] <= 5e-2
+    assert out["launches"]["gemm_tile"] + \
+        out["launches"]["gemm_tile_grouped"] > 0
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_of_a_device_resident_collection(card):
+    """C of a GEMM pass, its tiles the card's, through checkpoint (flushed
+    home) and restore into a fresh collection: bit for bit; the DOT of the
+    pass holds its 64 task nodes and 48 edges; K1 ran every tile."""
+    chip_smoke = _chip_smoke()
+    with Context(nb_cores=4) as ctx:
+        res = chip_smoke.drive_checkpoint_grapher(ctx, 512, 4, "cuda test")
+    assert res["bit_identical"]
+    assert (res["dot_nodes"], res["dot_edges"]) == (64, 48)
+    assert res["launches"]["gemm_tile"] + \
+        res["launches"]["gemm_tile_grouped"] > 0
+
+
+@pytest.mark.cuda
+def test_stale_k1_launch_never_lands_on_restored_bytes(card):
+    """The recovery drain on the card: a K1 ``out=C`` launch queued at the
+    epoch bump is completed through the fence without launching, the one
+    already in the manager finishes before the restore, and nothing lands
+    on the restored bytes afterwards (K1's counter moves once)."""
+    from test_torch_recovery_plane import stale_launch_case
+    stale_launch_case("cuda", 256,
+                      on_launch=lambda: _k1_tiles())

@@ -1,7 +1,7 @@
 """The port's fault plan (utils/faultinject.py) and the transient retry
 path of core/scheduling.py, on both scheduler paths.  Twins of the
-single-rank tests of tests/test_fault.py; the comm and multi-rank ones
-wait for the port's comm layer."""
+single-rank task-fault tests of tests/test_fault.py; the comm directives
+and the multi-rank cases are in tests/test_torch_fault.py."""
 
 import numpy as np
 import pytest
@@ -27,14 +27,17 @@ def test_fault_plan_parsing():
     assert ftask.key == "POTRF(k=0)" and ftask.n == 2
     assert disp.ms == 5.0 and disp.p == 0.1 and disp.key is None
     assert keyed.key == "GEMM" and keyed.ms == 1.5
-    # the JAX package's comm and health directives act on planes the
-    # port does not carry: naming one raises rather than arming nothing
-    for spec in ("seed=1;drop_frame=tag:ACT,p=0.25",
-                 "kill_rank=1@t+2.5s,mode=hang", "degrade=rank=0,ms=5"):
-        with pytest.raises(ValueError, match="not ported"):
-            faultinject.FaultPlan(spec)
+    # the comm and health directives parse as the JAX package's do
+    # (their hooks: comm/engine.py, comm/shm.py; tests/test_torch_fault.py)
+    drop, kill, degrade = (
+        faultinject.FaultPlan(spec).directives[0]
+        for spec in ("seed=1;drop_frame=tag:ACT,p=0.25",
+                     "kill_rank=1@t+2.5s,mode=hang", "degrade=rank=0,ms=5"))
+    assert (drop.kind, drop.tag, drop.p) == ("drop_frame", 1, 0.25)
+    assert (kill.rank, kill.at_s, kill.mode) == (1, 2.5, "hang")
+    assert (degrade.rank, degrade.ms) == (0, 5.0)
     with pytest.raises(ValueError, match="unknown fault-plan field"):
-        faultinject.FaultPlan("fail_task=rank=1")
+        faultinject.FaultPlan("fail_task=bogus=1")
 
 
 def test_fault_plan_parses_as_the_jax_package_does():

@@ -2,8 +2,9 @@
 single-rank tests of tests/test_health.py, and parity with the JAX
 package's monitor on the same scripted observations.
 
-The fabric (drain/undrain), the flight-recorder bundle and the auditor's
-H1 corpus wait for the service layer, the recorder and tools/.  The rate
+The flight-recorder bundle's health snapshot is twinned; the fabric
+(drain/undrain) and the auditor's H1 corpus wait for the service layer
+and tools/.  The rate
 limit is driven by an injected clock (a deliberate difference of the
 port's monitor), so no assertion here rests on wall time under load.
 """
@@ -269,3 +270,44 @@ def test_health_folds_no_per_task_hook():
         hooked = {ev for ev, cbs in ctx._pins.items() if cbs}
         assert ctx.metrics.health is not None
     assert hooked == {"complete_exec", "task_discard", "job_done"}
+
+
+# ---------------------------------------------------------------------------
+# flight recorder: the health snapshot in incident bundles
+# ---------------------------------------------------------------------------
+
+def test_flightrec_bundle_carries_health_and_comm_delta(tmp_path):
+    """Twin of the JAX package's test: an incident bundle carries the
+    health plane's scores and series beside the comm counters' window
+    (empty on one rank).  The dump runs on its own thread: the test
+    waits for the file."""
+    import json
+    import os
+    from parsec_tpu_torch.core.context import Context
+    params.set("flightrec_enabled", 1)
+    params.set("flightrec_dir", str(tmp_path))
+    params.set("flightrec_min_interval_s", 0.0)
+    params.set("health_interval_s", 0.0)
+    try:
+        with Context(nb_cores=2, device="cpu") as ctx:
+            ctx.add_taskpool(_n_pool(10))
+            ctx.wait(timeout=60)
+            ctx.metrics.health.refresh(force=True)
+            bundle = ctx.telemetry_incident("unit-test incident")
+            path = os.path.join(bundle, "health-rank0.json")
+            deadline = time.monotonic() + 10
+            while ctx._flightrec.incidents < 1 \
+                    and time.monotonic() < deadline:
+                time.sleep(0.02)
+    finally:
+        for k in ("flightrec_enabled", "flightrec_dir",
+                  "flightrec_min_interval_s", "health_interval_s"):
+            params.unset(k)
+    assert os.path.exists(path)
+    with open(path) as fh:
+        doc = json.load(fh)
+    assert doc["reason"] == "unit-test incident"
+    assert doc["health"]["0"]["ewma"] == pytest.approx(1.0)
+    assert doc["health_series"]["0"]
+    assert "comm_delta" in doc and "comm_window_s" in doc
+

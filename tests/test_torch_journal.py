@@ -318,3 +318,107 @@ def test_journal_op_on_job_server():
     assert got["port"] == (True, ["0"], [("job_admit", 1, None),
                                          ("job_start", 1, None),
                                          ("job_done", 1, "done")])
+
+
+# ---------------------------------------------------------------------------
+# the journal in incident bundles, the autopsy tail, degraded retirement
+# ---------------------------------------------------------------------------
+
+def _ctx(**kw):
+    from parsec_tpu_torch.core.context import Context
+    return Context(device="cpu", **kw)
+
+
+def test_flightrec_bundle_includes_journal(tmp_path):
+    """Every incident bundle carries the control-plane story next to
+    the data-plane ring (read back by the port's journal auditor)."""
+    import time
+    from parsec_tpu_torch.tools import journal_audit
+    params.set("flightrec_enabled", 1)
+    params.set("flightrec_dir", str(tmp_path))
+    params.set("flightrec_min_interval_s", 0.0)
+    try:
+        with _ctx(nb_cores=2) as ctx:
+            ctx.journal.emit("epoch_fence", pool=7, epoch=1)
+            bundle = ctx.telemetry_incident("unit-test incident")
+            assert bundle == str(tmp_path)
+            jpath = os.path.join(bundle, "journal-rank0.jsonl")
+            deadline = time.monotonic() + 10.0
+            found = False
+            while not found and time.monotonic() < deadline:
+                if os.path.exists(jpath):
+                    try:
+                        snaps = journal_audit.load_file(jpath)
+                        found = any(
+                            e["e"] == "epoch_fence" and e["pool"] == 7
+                            for s in snaps for e in s["events"])
+                    except (ValueError, OSError):
+                        pass   # torn mid-append read
+                if not found:
+                    time.sleep(0.05)
+            assert found
+    finally:
+        params.unset("flightrec_enabled")
+        params.unset("flightrec_dir")
+        params.unset("flightrec_min_interval_s")
+
+
+def test_autopsy_prints_clock_aligned_journal_tail():
+    with _ctx(nb_cores=2) as ctx:
+        ctx.journal.emit("retired", pool=3)
+        text = ctx.hang_autopsy()
+    assert "control-plane journal tail" in text
+    assert "retired" in text and "pool=3" in text
+
+
+def test_retire_degraded_counted_and_journaled():
+    """A completed pool whose retirement handshake never concluded
+    (coordinator unreachable) falls back to the grace-window eviction —
+    counted in parsec_recovery_retire_degraded_total and journaled."""
+    import time
+    import torch
+    from parsec_tpu_torch.data.matrix import VectorTwoDimCyclic
+    params.set("recovery_enable", 1)
+    params.set("recovery_completed_grace_s", 0.05)
+    try:
+        with _ctx(nb_cores=2) as ctx:
+            rec = ctx.recovery
+            assert rec is not None
+
+            class _StubCE:
+                nranks = 2
+                rank = 0
+                dead_peers = ()
+
+                def send_am(self, *a, **k):
+                    raise OSError("coordinator unreachable")
+
+            class _StubRDE:
+                ce = _StubCE()
+
+                def recovery_coordinator(self):
+                    return 1   # someone else, and unreachable
+
+            rec._rde = _StubRDE()
+            V = VectorTwoDimCyclic(mb=4, lm=16, nodes=1, myrank=0)
+            for m, _ in V.local_tiles():
+                V.data_of(m).copy_on(0).payload.copy_(torch.zeros(4))
+            tp = _n_pool(4, name="degrader")
+            tp.recovery_collections = [V]
+            ctx.add_taskpool(tp, start=True)
+            ctx.wait(timeout=30)
+            time.sleep(0.1)        # past the shrunk grace window
+            with rec._lock:
+                rec._sweep_locked()
+            assert rec.retire_degraded == 1
+            assert rec.stats()["retire_degraded"] == 1
+            kinds = [e["e"] for e in ctx.journal.tail(50)]
+            assert "retire_report" in kinds
+            assert "retire_degraded" in kinds
+            fams = {s["n"]: s["v"] for s in rec._collect()
+                    if s["t"] == "counter" and not s["l"]}
+            assert fams["parsec_recovery_retire_degraded_total"] == 1
+    finally:
+        params.unset("recovery_enable")
+        params.unset("recovery_completed_grace_s")
+

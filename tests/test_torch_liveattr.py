@@ -340,6 +340,9 @@ class _Metrics:
     _split_queue = False
     _sample = 1
 
+    def __init__(self):
+        self.context = None
+
 
 def _engine(cls=la_mod.LiveAttr):
     params.set("liveattr_straggler_min", 16)
@@ -385,6 +388,33 @@ def test_straggler_fires_on_a_synthetic_outlier():
     text = render_text(la.samples())
     assert 'parsec_stragglers_total{class="S",job="-",kind="exec"} 1' \
         in text
+
+
+def test_straggler_fires_the_flight_recorder_rate_limited():
+    """A straggler fires ``Context.telemetry_incident`` (the flight
+    recorder's dump), at most once per ``liveattr_straggler_incident_s``;
+    at 0 the trigger is off."""
+    class _Ctx:
+        def __init__(self):
+            self.reasons = []
+
+        def telemetry_incident(self, reason):
+            self.reasons.append(reason)
+
+    for window, want in ((60.0, 1), (0.0, 0)):
+        params.set("liveattr_straggler_incident_s", window)
+        try:
+            la = _engine()
+        finally:
+            params.unset("liveattr_straggler_incident_s")
+        ctx = la._metrics.context = _Ctx()
+        tc = _TC("S")
+        _feed(la, tc, [1e-3] * 64)
+        _feed(la, tc, [0.300, 0.400])       # two stragglers, one window
+        assert len(la.anomalies()) == 2
+        assert len(ctx.reasons) == want
+        assert all(r.startswith("straggler: S job=") and " exec " in r
+                   for r in ctx.reasons)
 
 
 def test_straggler_stays_silent_on_ordinary_variance():

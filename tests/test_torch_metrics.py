@@ -560,8 +560,8 @@ def test_job_slo_breach_counts():
     ``test_job_slo_breach_counts_and_triggers_incident``: with
     ``metrics_slo_job_s`` below any job's duration every job counts in
     ``parsec_jobs_slo_breached_total``, and a Context accepts the knob.
-    The incident half waits with the flight recorder, which the port
-    does not carry."""
+    The incident half is ``test_job_slo_breach_counts_and_triggers_incident``
+    below."""
     from parsec_tpu_torch.service.service import JobService
     params.set("metrics_slo_job_s", 1e-9)   # every job breaches
     try:
@@ -580,6 +580,33 @@ def test_job_slo_breach_counts():
     finally:
         params.unset("metrics_slo_job_s")
     assert re.search(r"parsec_jobs_slo_breached_total 3\b", text)
+
+
+def test_job_slo_breach_counts_and_triggers_incident(tmp_path):
+    """Twin of the JAX package's test: a breach with the flight recorder
+    armed counts and dumps an incident bundle."""
+    from parsec_tpu_torch.service.service import JobService
+    params.set("metrics_slo_job_s", 1e-9)   # every job breaches
+    params.set("flightrec_enabled", 1)
+    params.set("flightrec_dir", str(tmp_path))
+    try:
+        with JobService(nb_cores=2, device="cpu") as svc:
+            job = svc.submit(lambda: _n_pool(8, "slo"), name="slo")
+            assert job.wait(timeout=30)
+            ctx = svc.context
+            deadline = time.monotonic() + 10
+            while ctx._flightrec.incidents < 1 \
+                    and time.monotonic() < deadline:
+                time.sleep(0.02)
+            assert ctx._flightrec.incidents >= 1
+            text = render_text(ctx.metrics.samples())
+            assert re.search(r"parsec_jobs_slo_breached_total [1-9]",
+                             text)
+            assert (tmp_path / "rank0.ptt").exists()
+    finally:
+        params.unset("metrics_slo_job_s")
+        params.unset("flightrec_enabled")
+        params.unset("flightrec_dir")
 
 
 def test_job_slo_off_by_default_counts_nothing():

@@ -4,8 +4,8 @@ the pinsext trace sink): twins of the single-rank tests of
 tests/test_prof.py, and parity with the JAX package's tracer.
 
 The gauge aggregator's twins run each script through both packages'
-aggregators.  Left for later layers: the DOT grapher (not ported), the
-DTD front-end and the tools/ trace CLIs.  The JAX package's test
+aggregators, and the DOT grapher's twins each DAG through both
+packages' graphers.  Left out: the tools/ trace CLIs.  The JAX package's test
 of its Python event path has no twin: the port has no such tier, and a
 pinsext that does not build raises (tested here) instead.
 
@@ -625,3 +625,53 @@ def test_aggregator_nonnumeric_ingest_and_clean_close():
             agg.close()
         got[side] = (row, agg._thread.is_alive())
     assert got["port"] == got["jax"] == ({"ok": 3.0, "f": 1.5}, False)
+
+
+def _dot_of(pkg, tmp_path, build):
+    """Run ``build(ctx, A)`` under the package's DOT grapher; the DOT."""
+    import importlib
+    root = "parsec_tpu" if pkg == "jax" else "parsec_tpu_torch"
+    Ctx = importlib.import_module(f"{root}.core.context").Context
+    Grapher = importlib.import_module(f"{root}.prof.grapher").DotGrapher
+    TDBC = importlib.import_module(f"{root}.data.matrix").TwoDimBlockCyclic
+    A = TDBC(mb=4, nb=4, lm=4, ln=4)
+    A.data_of(0, 0).copy_on(0).payload[:] = 0.0
+    with (Ctx(nb_cores=2) if pkg == "jax"
+          else Ctx(nb_cores=2, device="cpu")) as ctx:
+        g = Grapher(rank=0)
+        g.install(ctx)
+        assert ctx.grapher is g
+        build(ctx, A, root)
+    return open(g.dump(str(tmp_path / f"{pkg}.dot"))).read()
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_dot_grapher_records_dag(tmp_path, pkg):
+    nt = 5
+
+    def build(ctx, A, root):
+        import importlib
+        api = importlib.import_module(f"{root}.dsl.ptg")
+        ctx.add_taskpool(_chain_pool(A, nt, ptg=api))
+        ctx.wait()
+    text = _dot_of(pkg, tmp_path, build)
+    assert text.startswith("digraph")
+    assert text.count("->") == nt - 1           # the chain's edges
+    assert text.count('label="S(') == nt        # one node per task
+    assert 'label="T"' in text                  # edges carry flow names
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_dot_grapher_covers_dtd_edges(tmp_path, pkg):
+    def build(ctx, A, root):
+        import importlib
+        dtd = importlib.import_module(f"{root}.dsl.dtd")
+        tp = dtd.DTDTaskpool("d")
+        ctx.add_taskpool(tp)
+        ctx.start()
+        t = tp.tile_of(A, 0, 0)
+        for _ in range(4):
+            tp.insert_task(lambda T: T + 1.0, (t, dtd.INOUT))
+        tp.wait()
+    assert _dot_of(pkg, tmp_path, build).count("->") == 3
+

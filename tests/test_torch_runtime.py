@@ -165,8 +165,7 @@ def test_device_cpu_param_attaches_the_cpu_backed_module():
         port_params.unset("device")
 
 
-@pytest.mark.parametrize("knob", ["comm_ici_enabled", "flightrec_enabled",
-                                  "recovery_enable", "device_dispatchers"])
+@pytest.mark.parametrize("knob", ["comm_ici_enabled", "device_dispatchers"])
 def test_unported_plane_knob_raises(knob):
     # device_dispatchers: one manager thread per device by design, so any
     # count but 1 stays unported
@@ -178,8 +177,8 @@ def test_unported_plane_knob_raises(knob):
         port_params.unset(knob)
 
 
-@pytest.mark.parametrize("knob", ["liveattr_straggler_incident_s",
-                                  "journal_autopsy_tail"])
+@pytest.mark.parametrize("knob", ["comm_epoch", "recovery_rejoin",
+                                  "recovery_dtd_skip"])
 def test_knob_without_a_ported_reader_raises(knob, monkeypatch):
     """Knobs of the JAX package whose readers are not ported are not
     registered, and a Context refuses to start while one is set."""

@@ -232,11 +232,16 @@ def test_new_arena_binding_parity():
 
 def test_a_pool_with_a_lineage_log_leaves_the_c_chain():
     """Twin of the JAX package's lineage-ring parity at the gate the C
-    chain owns: a pool carrying a lineage log (the recovery plane, not
-    ported) is deferred to the Python completion path, every task
-    counted under ``lineage``, with the same results."""
+    chain owns: a pool carrying a lineage log (the recovery plane's
+    ``LineageLog``) is deferred to the Python completion path, where the
+    log records every completion, every task counted under ``lineage``,
+    with the same results."""
+    from parsec_tpu_torch.core.recovery import LineageLog
+    logs = []
+
     def prep(tp):
-        tp._lineage = object()
+        tp._lineage = LineageLog(8192)
+        logs.append(tp._lineage)
 
     nat = _run("port", 1, _mixed, prep)
     py = _run("port", 0, _mixed, prep)
@@ -244,6 +249,7 @@ def test_a_pool_with_a_lineage_log_leaves_the_c_chain():
         == [[6.0]]
     assert nat["counts"] == py["counts"]
     assert nat["bailouts"] == {"lineage": 46}
+    assert [len(lg.completed) for lg in logs] == [46, 46]
 
 
 def test_taskcore_object_contract():

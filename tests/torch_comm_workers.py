@@ -1506,6 +1506,59 @@ def chip_pingpong(ctx, rank, nranks, pkg, rtt, bw):
                                                   bw)}
 
 
+# -- fault tolerance (the port only; copies of the JAX package's chaos
+# workloads, whose kill runs fail in the JAX package's own tests) -----------
+
+def _wait_s() -> float:
+    import os
+    return float(os.environ.get("PARSEC_CHAOS_WAIT_S", "60"))
+
+
+def potrf_workload(ctx, rank, nranks, recover=False):
+    """Tiled Cholesky with an internal numerical check — the
+    PTG/remote-dep path (activations, rendezvous, writebacks).  With
+    ``recover`` the collection carries an init_fn re-runnable source,
+    so a kill_rank plan ends in lineage re-execution on the survivors
+    instead of a structured failure — and the survivors validate the
+    ADOPTED tiles too (local_tiles routes through the translated
+    owner)."""
+    import torch
+    from parsec_tpu_torch.apps.potrf import potrf_taskpool
+    from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
+
+    n, mb = 96, 16
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal((n, n)).astype(np.float32)
+    spd = (a @ a.T + n * np.eye(n)).astype(np.float32)
+    A = TwoDimBlockCyclic(mb=mb, nb=mb, lm=n, ln=n, nodes=nranks,
+                          myrank=rank, name="A")
+    if recover:
+        A.set_init(lambda m, nn: torch.from_numpy(
+            spd[m * mb:(m + 1) * mb, nn * mb:(nn + 1) * mb].copy()))
+    for m, nn in A.local_tiles():
+        A.data_of(m, nn).copy_on(0).payload.copy_(torch.from_numpy(
+            spd[m * mb:(m + 1) * mb, nn * mb:(nn + 1) * mb]))
+    ctx.add_taskpool(potrf_taskpool(A, device="cpu"))
+    ctx.wait(timeout=_wait_s())
+    # every rank knows the full answer (same seed): validate the LOCAL
+    # tiles — a silently wrong tile fails ITS rank
+    Lref = np.linalg.cholesky(spd.astype(np.float64))
+    for m, nn in A.local_tiles():
+        if nn > m:
+            continue
+        got = get(A.data_of(m, nn).pull_to_host().payload).astype(
+            np.float64)
+        ref = Lref[m * mb:(m + 1) * mb, nn * mb:(nn + 1) * mb]
+        if m == nn:
+            got, ref = np.tril(got), np.tril(ref)
+        np.testing.assert_allclose(got, ref, rtol=5e-2, atol=5e-2)
+    return "ok"
+
+
+def potrf_recover_workload(ctx, rank, nranks):
+    return potrf_workload(ctx, rank, nranks, recover=True)
+
+
 # -- the parent side ---------------------------------------------------------
 
 def run_port(fn, nranks, args=(), **kw):
