@@ -91,7 +91,7 @@ no result line):
               backlogged frame left) and routed QR, the JAX package's
               pingpong probes on host bodies (8 B x 400 hops round trip,
               8 MiB x 32 hops bandwidth: host numbers), then potrf over
-              shm in turns with evloop.
+              shm in turns with evloop (one pass each, in fresh processes).
 12. serving — the resident job service (``parsec_tpu_torch.service``):
               four GEMM jobs (n=8192, nb=2048, f32: K1 on its ``fma``
               route), two potrf jobs (n=8192, nb=2048, f32) and four
@@ -143,6 +143,31 @@ no result line):
               peak, and ``summarize_bundle`` of the flight-recorder
               bundle, which must hold rank 0's ring and a recovery-start
               incident and which ``critpath.merge_traces`` must open.
+  rejoin + DTD recovery (2 ranks over shm, one spawn, after the killed
+              potrf; recovery and the flight recorder armed): the GEMM
+              mb=2048 8 x 8 x 8 (A, B bf16, C f32, tiles seeded per index
+              on the card) for a pass A; rank 1's engine goes down
+              (``rde.fini()``) and comes back as incarnation 1
+              (``comm_epoch`` 1) through ``ctx.recovery.rejoin()`` over
+              the shm rings rank 0 re-created; pass B on the rejoined
+              rank.  It fails unless rank 0 counts one rejoin, the dead
+              set is empty again, both passes' C check and the JobService
+              on rank 0 went recovering -> healthy.  Then the same GEMM
+              through DTD with ``recovery_replay`` and ``set_init`` (the
+              seeded makers), started on both ranks ``FT_SETUP_S`` after
+              rank 1's restarted engine came up; that incarnation's plan
+              ``kill_rank=1@t+T,mode=close`` puts the death at
+              ``RECOVERY_KILL_AT`` of the 2-rank DTD pass measured just
+              before.  Rank 1 must die, rank 0 complete with one recovery
+              started and none failed, C within 1e-3 of the plain-version
+              product over all 64 tiles, and the bundle hold rank 0's
+              recovery-start incident for the DTD pool; it prints the
+              agreed skip prefix (or the fallback's reason), the inserts
+              ghosted, the held cut payloads, minimal and full replays, C
+              bit for bit against K1's chain, the survivor's time against
+              the no-fault pass, K1 on the survivor, its memory peak and
+              the snapshot's bytes and seconds; and the seconds from the
+              engine going down to the rejoin ACK, pass B against pass A.
 
 Telemetry.  Every path runs with the planes the reference installs at its
 defaults: the metrics registry with live attribution and health, the
@@ -3169,6 +3194,54 @@ def _potrf_rank(ctx, rank: int, nranks: int, mb: int, nt: int,
     return out
 
 
+def _gemm_mats(rank: int, nranks: int, mb: int, t: int, dev) -> dict:
+    """A, B (bf16) and C (f32) over a P=2 row grid, every local tile made
+    on the device by its seeded maker; each collection's ``set_init`` is
+    the same maker, so a survivor remakes an adopted tile bit for bit."""
+    mats = {}
+    for nm, dt in (("A", torch.bfloat16), ("B", torch.bfloat16),
+                   ("C", torch.float32)):
+        M = TwoDimBlockCyclic(mb, mb, t * mb, t * mb, nodes=nranks,
+                              myrank=rank, P=nranks, dtype=dt, name=nm)
+
+        def make(m, n, nm=nm, dt=dt):
+            return seeded_tile(nm, m, n, mb, t, dt, dev.tdev)
+        M.set_init(make)
+        for (m, n) in M.local_tiles():
+            M.place_on_device(m, n, dev, make(m, n))
+        mats[nm] = M
+    return mats
+
+
+def _gemm_c_check(mats: dict, mb: int, t: int, dev, passes: int,
+                  bits: bool = False) -> dict:
+    """Every local C tile against C0 + passes * A@B by the plain version
+    (relative error); with ``bits``, also against K1's own chain over k
+    (the PTG path's order, in place): bit for bit.  The chain launches K1,
+    so a caller reads its counts before this."""
+    worst, identical = 0.0, True
+    C = mats["C"]
+
+    def tile(nm, m, n):
+        return seeded_tile(nm, m, n, mb, t, mats[nm].dtype, dev.tdev)
+    for (m, n) in C.local_tiles():
+        prod = torch.zeros((mb, mb), device=dev.tdev)
+        for k in range(t):
+            prod = gemm_tile_reference(tile("A", m, k), tile("B", k, n),
+                                       prod, 1.0)
+        got = newest_payload(C, m, n).to(dev.tdev)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"C({m},{n}) is not finite")
+        worst = max(worst, rel_err(got, tile("C", m, n) + passes * prod))
+        if bits:
+            ref = tile("C", m, n)
+            for k in range(t):
+                ref = gemm_tile(tile("A", m, k), tile("B", k, n), ref, 1.0)
+            identical = identical and torch.equal(got, ref)
+    return {"count": len(C.local_tiles()), "worst_rel": worst,
+            "bit_identical": bool(identical) if bits else None}
+
+
 def _gemm_rank(ctx, rank: int, nranks: int, mb: int, t: int,
                passes: int) -> dict:
     """GEMM over a P=2 row grid, C += A @ B per pass with A and B bf16
@@ -3176,31 +3249,9 @@ def _gemm_rank(ctx, rank: int, nranks: int, mb: int, t: int,
     classes).  Every tile comes from a generator seeded by its index, so
     each rank rebuilds the plain-version product of its own C tiles."""
     dev = ctx.device_registry.accelerators[0]
-    mats = {nm: TwoDimBlockCyclic(mb, mb, t * mb, t * mb, nodes=nranks,
-                                  myrank=rank, P=nranks, dtype=dt, name=nm)
-            for nm, dt in (("A", torch.bfloat16), ("B", torch.bfloat16),
-                           ("C", torch.float32))}
-
-    def tile(name, m, n):
-        return seeded_tile(name, m, n, mb, t, mats[name].dtype, dev.tdev)
-
-    for nm, M in mats.items():
-        for (m, n) in M.local_tiles():
-            M.place_on_device(m, n, dev, tile(nm, m, n))
+    mats = _gemm_mats(rank, nranks, mb, t, dev)
     out = _rank_passes(ctx, passes, lambda: gemm_taskpool(*mats.values()))
-    worst = 0.0
-    C = mats["C"]
-    for (m, n) in C.local_tiles():
-        prod = torch.zeros((mb, mb), device=dev.tdev)
-        for k in range(t):
-            prod = gemm_tile_reference(tile("A", m, k), tile("B", k, n),
-                                       prod, 1.0)
-        ref = tile("C", m, n) + (passes + 1) * prod
-        got = newest_payload(C, m, n).to(dev.tdev)
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"rank {rank}: C({m},{n}) is not finite")
-        worst = max(worst, rel_err(got, ref))
-    out["tiles"] = {"count": len(C.local_tiles()), "worst_rel": worst}
+    out["tiles"] = _gemm_c_check(mats, mb, t, dev, passes + 1)
     return out
 
 
@@ -3214,14 +3265,7 @@ def _dtd_gemm_rank(ctx, rank: int, nranks: int, mb: int, t: int,
     DTD run's (``refs``, the same seeded operands and passes) bit for
     bit, and no DTD pull or backlogged frame may remain."""
     dev = ctx.device_registry.accelerators[0]
-    mats = {nm: TwoDimBlockCyclic(mb, mb, t * mb, t * mb, nodes=nranks,
-                                  myrank=rank, P=nranks, dtype=dt, name=nm)
-            for nm, dt in (("A", torch.bfloat16), ("B", torch.bfloat16),
-                           ("C", torch.float32))}
-    for nm, M in mats.items():
-        for (m, n) in M.local_tiles():
-            M.place_on_device(m, n, dev, seeded_tile(nm, m, n, mb, t,
-                                                     M.dtype, dev.tdev))
+    mats = _gemm_mats(rank, nranks, mb, t, dev)
     stalls = []
 
     def insert(tp):
@@ -3613,7 +3657,10 @@ def phase_distributed(refs: dict, potrf_size=(6144, 16), gemm_size=(2048, 8),
     log(f"[2-rank shm] ring directory {shm_dir}: {du.total / 2**20:.0f} "
         f"MiB, {du.free / 2**20:.0f} MiB free; comm_shm_ring_mb "
         f"{params.get('comm_shm_ring_mb')} per directed pair")
-    one = {"potrf": dict(plan["potrf"], passes=1)}
+    # one pass a turn, in a fresh pair of processes each: the turns' warm
+    # pass is cut so that the rejoin and DTD-recovery legs fit the
+    # script's time budget
+    one = {"potrf": dict(plan["potrf"], passes=0)}
     turns = {}
     for transport in ("shm", "evloop"):
         rr = _two_ranks(one, refs, transport)
@@ -3630,8 +3677,9 @@ def phase_distributed(refs: dict, potrf_size=(6144, 16), gemm_size=(2048, 8),
             raise AssertionError(f"[{label}] ran on "
                                  f"{[r['potrf']['transport'] for r in rr]}")
         turns[transport] = ps[-1]["s"] * 1e3
-    log(f"[2-rank potrf] timed pass shm {turns['shm']:.1f} ms against "
-        f"evloop {turns['evloop']:.1f} ms (in turns, slowest rank)")
+    log(f"[2-rank potrf] pass shm {turns['shm']:.1f} ms against evloop "
+        f"{turns['evloop']:.1f} ms (in turns, one cold pass each in fresh "
+        f"processes, slowest rank)")
     out["potrf"]["turns_ms"] = turns
     return out
 
@@ -3864,6 +3912,351 @@ def phase_recovery(refs: dict, nofault_s: float, size=(6144, 16),
             "bundle_events": summary["events"]}
 
 
+#: the rejoin and DTD-recovery legs (one spawn of two ranks over shm)
+FT_SETUP_S = 5.0          # rank 1's restarted engine -> the DTD pool's
+                          # start (both ranks): the rejoin, pass B, its
+                          # check, the DTD operands and the attach
+                          # snapshot (1.76 s on the H100)
+FT_REJOIN_TIMEOUT_S = 30.0
+TAG_FT_GO = 21            # an application tag: rank 1's start stamp
+
+
+def _ft_pass(ctx, sync, tp) -> float:
+    """One pass of ``tp`` after a barrier, timed to its completion."""
+    ctx.comm.ce.barrier(timeout=600)
+    t0 = time.perf_counter()
+    ctx.add_taskpool(tp)
+    ctx.wait()
+    sync()
+    return time.perf_counter() - t0
+
+
+def rejoin_rank(ctx, rank: int, nranks: int, mb: int, t: int,
+                kill_plan: str = "") -> dict:
+    """One rank of the rejoin leg: a PTG GEMM pass A; rank 1's engine goes
+    down (``rde.fini()``) and comes back as incarnation 1 (``comm_epoch``
+    1, with ``kill_plan`` armed when given) through
+    ``ctx.recovery.rejoin()``; rank 0, which holds a JobService on its
+    context, waits for the death and the rejoin; pass B on the rejoined
+    rank.  Each pass's C is checked.  The kernel counts go to 0 first."""
+    from parsec_tpu_torch.comm.engine import make_ce
+    from parsec_tpu_torch.comm.remote_dep import RemoteDepEngine
+    from parsec_tpu_torch.utils import faultinject
+    dev = ctx.device_registry.accelerators[0]
+    sync = torch.cuda.synchronize if dev.is_cuda else (lambda: None)
+    rde = ctx.comm
+    ce = rde.ce
+    reset_counts()
+    out = {"transport": ctx.comm.stats()["transport"]}
+    mats = _gemm_mats(rank, nranks, mb, t, dev)
+    sync()
+    svc = JobService(context=ctx, max_active=1) if rank == 0 else None
+    out["pass_a_s"] = _ft_pass(ctx, sync, gemm_taskpool(*mats.values()))
+    out["pass_a"] = _gemm_c_check(mats, mb, t, dev, 1)
+    ce.barrier(timeout=600)
+    t_down = time.monotonic()
+    if rank == 1:
+        port_base = ce.port_base
+        rde.fini()                         # the rank goes down
+        time.sleep(1.0)
+        params.set("comm_epoch", 1)        # its restarted incarnation,
+        if kill_plan:                      # with the DTD leg's kill
+            faultinject.arm(kill_plan)
+        t_up = time.monotonic()
+        ce = make_ce(rank, nranks, port_base)
+        rde = RemoteDepEngine(ce, ctx)
+        ctx.recovery.rejoin(timeout=FT_REJOIN_TIMEOUT_S)
+        t_ack = time.monotonic()
+        out["rejoin"] = {"down_to_ack_s": t_ack - t_down,
+                         "up_to_ack_s": t_ack - t_up, "epoch": ce.epoch}
+    else:
+        deadline = time.monotonic() + FT_REJOIN_TIMEOUT_S
+        while 1 not in ce.dead_peers:
+            if time.monotonic() > deadline:
+                raise TimeoutError("rank 1's death was never declared")
+            time.sleep(0.005)
+        t_dead = time.monotonic()
+        # the dead mark clears in the handshake just before the rejoin is
+        # counted and the service told
+        while 1 in ce.dead_peers or ctx.recovery.rejoins < 1:
+            if time.monotonic() > deadline + FT_REJOIN_TIMEOUT_S:
+                raise TimeoutError("rank 1 never rejoined")
+            time.sleep(0.005)
+        out["rejoin"] = {"down_to_dead_s": t_dead - t_down,
+                         "down_to_rejoined_s": time.monotonic() - t_down,
+                         "rejoins": ctx.recovery.rejoins,
+                         "dead": sorted(ce.dead_peers)}
+        svc_states = [(ev.get("state"), ev.get("cause"))
+                      for ev in ctx.journal.tail(4096)
+                      if ev.get("e") == "service_state"
+                      and ev.get("peer") == 1]
+        st = svc.stats()
+        out["service"] = {"transitions": svc_states,
+                          "degraded": st["degraded"],
+                          "recovering": st["recovering"]}
+        svc.shutdown(timeout=30)
+    ce.barrier(timeout=600)
+    out["pass_b_s"] = _ft_pass(ctx, sync, gemm_taskpool(*mats.values()))
+    out["pass_b"] = _gemm_c_check(mats, mb, t, dev, 2)
+    out["rejoin_launches"] = read_counts()
+    return out
+
+
+def ft_rank(ctx, rank: int, nranks: int, mb: int, t: int, setup_s: float,
+            kill_plan: str) -> dict:
+    """One rank of the rejoin and DTD-recovery legs (shm, recovery and the
+    flight recorder armed): the rejoin leg (``rejoin_rank``, rank 1's
+    restarted incarnation arming ``kill_plan``), then the GEMM through
+    DTD (``recovery_replay`` re-inserts it, the operands' ``set_init``
+    remakes adopted tiles), started on both ranks at ``setup_s`` past rank
+    1's restarted engine; the plan kills rank 1 in it and rank 0
+    recovers.  Rank 1 sends its own numbers with its start stamp; rank 0
+    returns both ranks'."""
+    dev = ctx.device_registry.accelerators[0]
+    sync = torch.cuda.synchronize if dev.is_cuda else (lambda: None)
+    got, evt = {}, threading.Event()
+
+    def on_go(src, payload):
+        got[src] = payload
+        evt.set()
+    if rank == 0:
+        ctx.comm.ce.tag_register(TAG_FT_GO, on_go)
+    out = rejoin_rank(ctx, rank, nranks, mb, t, kill_plan)
+    gc.collect()
+    ce = ctx.comm.ce                       # rank 1's is the restarted one
+    reset_counts()
+    if dev.is_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    dmats = _gemm_mats(rank, nranks, mb, t, dev)
+    sync()
+    tp = DTDTaskpool("gemm-ft")
+    tp.recovery_collections = list(dmats.values())
+    tp.recovery_replay = lambda pool: gemm_dtd_insert(pool, *dmats.values())
+    rec0 = dict(ctx.recovery.counts)
+    t0 = time.perf_counter()
+    ctx.add_taskpool(tp)                   # takes the recovery snapshot
+    out["snapshot_s"] = time.perf_counter() - t0
+    out["snapshot_bytes"] = sum(
+        p.numel() * p.element_size()
+        for M in dmats.values()
+        for _v, p in ctx.recovery._snaps.get(id(M), {}).values())
+    if rank == 1:
+        ce.send_am(TAG_FT_GO, 0, {"started_at": ce.started_at, **out})
+        start = ce.started_at
+    else:
+        if not evt.wait(120):
+            raise TimeoutError("no start stamp from rank 1")
+        out["peer"] = got[1]
+        start = got[1]["started_at"]
+        ce.tag_unregister(TAG_FT_GO)
+    go = start + setup_s
+    out["setup_s"] = time.monotonic() - start
+    ahead = go - time.monotonic()
+    if ahead > 0:
+        time.sleep(ahead)
+    else:
+        log(f"[rejoin + DTD recovery rank {rank}] set-up took "
+            f"{out['setup_s']:.2f} s, past the pool's start at {setup_s} s: "
+            f"starting now")
+    if 1 - rank in ce.dead_peers:
+        raise AssertionError(f"rank {rank}: the kill landed before the "
+                             f"DTD pool started")
+    t_start = time.perf_counter()
+    gemm_dtd_insert(tp, *dmats.values())
+    out["insert_s"] = time.perf_counter() - t_start
+    tp.wait()
+    ctx.wait()
+    sync()
+    t_done = time.perf_counter()
+    out["run_s"] = t_done - t_start
+    out["launches"] = read_counts()
+    out["k1"] = k1_tiles()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 \
+        if dev.is_cuda else 0.0
+    st = ctx.recovery.stats()
+    out["stats"] = st
+    out["recoveries"] = {k: st[k] - rec0[k] for k in rec0}
+    deaths = [ev for ev in ctx.journal.tail(4096)
+              if ev.get("e") == "recovery_start" and tp.taskpool_id in
+              (ev.get("pools") or ())]
+    out["death_s"] = (deaths[-1]["t"] - t_start) if deaths else None
+    skip = [ev for ev in ctx.journal.tail(4096)
+            if ev.get("e") == "replay_mode" and ev.get("pool") ==
+            tp.taskpool_id]
+    out["replay_mode"] = skip[-1] if skip else None
+    out["pool"] = tp.taskpool_id
+    out["dtd"] = _gemm_c_check(dmats, mb, t, dev, 1, bits=True)
+    return out
+
+
+def phase_rejoin_dtd(dtd_nofault_s: float, size=(2048, 8),
+                     setup_s: float = FT_SETUP_S,
+                     kill_at: float = RECOVERY_KILL_AT,
+                     extra_plan: str = "", device: str = "cuda") -> dict:
+    """The elastic rejoin and the DTD recovery on two ranks of this card,
+    in one spawn over shm (recovery and the flight recorder armed): the
+    rejoin leg (the PTG GEMM; rank 1 down and back as incarnation 1; a
+    JobService on rank 0 degraded, then healthy), then the DTD GEMM with
+    rank 1 killed at ``kill_at`` of ``dtd_nofault_s`` (the 2-rank DTD
+    pass measured just before) into the pool and recovered on rank 0.
+    ``extra_plan`` adds fault directives to rank 1's restarted
+    incarnation (a small rehearsal stretches its pass with dispatch
+    delays)."""
+    mb, t = size
+    label_r = f"rejoin: 2-rank GEMM mb={mb}, shm"
+    label_d = f"DTD recovery: 2-rank DTD GEMM mb={mb}, rank 1 killed"
+    kill_s = setup_s + kill_at * dtd_nofault_s
+    plan = f"seed=17;kill_rank=1@t+{kill_s:.3f}s,mode=close" + \
+        (f";{extra_plan}" if extra_plan else "")
+    bundle = tempfile.mkdtemp(prefix="parsec_flightrec_")
+    env = {"PARSEC_MCA_RECOVERY_ENABLE": "1",
+           "PARSEC_MCA_FLIGHTREC_ENABLED": "1",
+           "PARSEC_MCA_FLIGHTREC_DIR": bundle,
+           # the rejoin's death dumps an incident first; the DTD kill's
+           # must not fall inside the recorder's 30 s rate limit
+           "PARSEC_MCA_FLIGHTREC_MIN_INTERVAL_S": "1",
+           "PARSEC_MCA_COMM_TRANSPORT": "shm"}
+    log(f"[{label_r}] then [{label_d}]: rank 1's restarted incarnation "
+        f"arms {plan!r}, the death at {kill_at:.2f} of the 2-rank DTD pass "
+        f"({dtd_nofault_s * 1e3:.1f} ms) past the pool's start at "
+        f"{setup_s:.1f} s after that incarnation's engine came up")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = run_distributed(ft_rank, DIST_RANKS,
+                              args=(mb, t, setup_s, plan), device=device,
+                              timeout=900, tolerate_ranks=(1,))
+        wall = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    try:
+        if res[1] is not None or res[0] is None:
+            raise AssertionError(f"[{label_d}] rank 1 must die and rank 0 "
+                                 f"complete: {res}")
+        r0 = res[0]
+        r1 = r0["peer"]
+        log(f"[{label_r}] {wall:.1f} s for both legs with spawn and "
+            f"set-up; transport {r0['transport']}")
+        # -- rejoin ---------------------------------------------------------
+        rj0, rj1 = r0["rejoin"], r1["rejoin"]
+        pa = max(r0["pass_a_s"], r1["pass_a_s"])
+        pb = max(r0["pass_b_s"], r1["pass_b_s"])
+        worst = max(r["pass_a"]["worst_rel"] for r in (r0, r1))
+        worst_b = max(r["pass_b"]["worst_rel"] for r in (r0, r1))
+        svc = r0["service"]
+        log(f"[{label_r}] rank 1 down -> rank 0 declared it dead "
+            f"{rj0['down_to_dead_s']:.3f} s, rejoined (dead mark cleared) "
+            f"{rj0['down_to_rejoined_s']:.3f} s; rank 1 down -> rejoin ACK "
+            f"{rj1['down_to_ack_s']:.3f} s (1.0 s of it down by design; "
+            f"its new engine up -> ACK {rj1['up_to_ack_s']:.3f} s), "
+            f"incarnation epoch {rj1['epoch']}; rank 0 rejoins "
+            f"{rj0['rejoins']}, dead set {rj0['dead']}; pass A "
+            f"{pa * 1e3:.1f} ms, pass B (on the rejoined rank) "
+            f"{pb * 1e3:.1f} ms ({pb / pa:.3f} x pass A; slowest rank); C "
+            f"rel err after A {worst:.3e}, after B {worst_b:.3e} (limit "
+            f"{GEMM_DIST_TOL:.0e}); JobService on rank 0: {svc}")
+        if rj0["rejoins"] != 1 or rj0["dead"] or rj1["epoch"] != 1:
+            raise AssertionError(f"[{label_r}] rejoin {rj0} {rj1}")
+        if not (worst <= GEMM_DIST_TOL and worst_b <= GEMM_DIST_TOL):
+            raise AssertionError(f"[{label_r}] C disagrees: {worst}, "
+                                 f"{worst_b}")
+        states = [s for s, _c in svc["transitions"]]
+        if svc["degraded"] or svc["recovering"] or not states or \
+                states[0] != "recovering" or states[-1] != "healthy" or \
+                ("healthy", "rejoin") not in svc["transitions"]:
+            raise AssertionError(f"[{label_r}] the service did not go "
+                                 f"degraded -> healthy: {svc}")
+        # -- DTD recovery ---------------------------------------------------
+        rc = r0["recoveries"]
+        st = r0["stats"]
+        death = r0["death_s"]
+        mode = r0["replay_mode"] or {}
+        d = r0["dtd"]
+        # a fallback to the full replay is printed with its reason
+        why = "" if mode.get("mode") == "skip" else \
+            f", fallback reason {mode.get('reason')!r}"
+        log(f"[{label_d}] rank 0 set-up {r0['setup_s']:.2f} s; snapshot "
+            f"at attach {r0['snapshot_bytes'] / 2**30:.3f} GiB of host "
+            f"copies in {r0['snapshot_s']:.3f} s (rank 1: "
+            f"{r1['snapshot_bytes'] / 2**30:.3f} GiB in "
+            f"{r1['snapshot_s']:.3f} s); rank 1 declared dead "
+            f"{(death or 0) * 1e3:.1f} ms into the pool "
+            f"({(death or 0) / dtd_nofault_s:.3f} of the no-fault pass), "
+            f"the insert stream ended {r0['insert_s'] * 1e3:.1f} ms in "
+            f"(the restart waits for its end)")
+        log(f"[{label_d}] rank 0 from the pool's start to completion "
+            f"{r0['run_s'] * 1e3:.1f} ms, {r0['run_s'] / dtd_nofault_s:.3f} "
+            f"x the no-fault 2-rank DTD pass; recoveries {rc}; replay "
+            f"{mode.get('mode')}: agreed skip prefix "
+            f"{mode.get('prefix')} of {t ** 3} inserts ghosted, held cut "
+            f"payloads {mode.get('seeds')} (all held by rank 0, the sole "
+            f"survivor), {mode.get('tasks')} tasks re-run{why}; "
+            f"minimal replays {st['minimal_replays']}, full replays "
+            f"{st['full_replays']}, skip agreements "
+            f"{st['skip_agreements']}; tasks re-executed "
+            f"{st['tasks_reexecuted']}; restored tiles by source "
+            f"{st['restored_tiles']}; K1 tiles on the survivor {r0['k1'][0]} "
+            f"({r0['k1'][1]} wgmma), launches {r0['launches']}; peak "
+            f"device memory {r0['peak_gib']:.2f} GiB")
+        log(f"[{label_d}] {d['count']} C tiles on the survivor against the "
+            f"plain-version product: rel err {d['worst_rel']:.3e} (limit "
+            f"{GEMM_DIST_TOL:.0e}); bit-identical to the PTG path's C (K1's "
+            f"chain over k) {d['bit_identical']}")
+        if rc["started"] != 1 or rc["failed"] != 0 or rc["completed"] != 1:
+            raise AssertionError(f"[{label_d}] recoveries {rc}")
+        if d["count"] != t * t or not d["worst_rel"] <= GEMM_DIST_TOL:
+            raise AssertionError(f"[{label_d}] C fails its check: {d}")
+        if death is None or not 0.0 < death < r0["run_s"]:
+            raise AssertionError(f"[{label_d}] the death ({death}) is not "
+                                 f"inside the run ({r0['run_s']})")
+        deadline = time.time() + 30
+        while not os.path.exists(os.path.join(bundle, "rank0.ptt")) and \
+                time.time() < deadline:
+            time.sleep(0.1)
+        summary = summarize_bundle(bundle)
+        incidents = [(i["rank"], i["reason"]) for i in summary["incidents"]]
+        log(f"[{label_d}] flight-recorder bundle: ranks {summary['ranks']}, "
+            f"{summary['events']} events, flows {summary['flows']}; "
+            f"incidents {incidents}")
+        if not any(rk == 0 and why.startswith("recovery-start") and
+                   f"[{r0['pool']}]" in why for rk, why in incidents):
+            raise AssertionError(f"[{label_d}] the bundle lacks rank 0's "
+                                 f"recovery-start incident for the DTD pool")
+    finally:
+        shutil.rmtree(bundle, ignore_errors=True)
+    launches = collections.Counter(r0["launches"])
+    for r in (r0, r1):
+        launches.update(r["rejoin_launches"])
+    return {"launches": dict(launches),
+            "rejoin": {"down_to_ack_s": rj1["down_to_ack_s"],
+                       "up_to_ack_s": rj1["up_to_ack_s"],
+                       "pass_a_ms": pa * 1e3, "pass_b_ms": pb * 1e3,
+                       "service": svc["transitions"]},
+            "dtd": {"run_ms": r0["run_s"] * 1e3,
+                    "ratio_to_nofault": r0["run_s"] / dtd_nofault_s,
+                    "death_share": death / dtd_nofault_s,
+                    "replay": {k: mode.get(k) for k in
+                               ("mode", "prefix", "seeds", "tasks",
+                                "reason")},
+                    "recovery": {k: st[k] for k in
+                                 ("minimal_replays", "full_replays",
+                                  "skip_agreements", "tasks_reexecuted",
+                                  "restored_tiles")},
+                    "snapshot_bytes": r0["snapshot_bytes"],
+                    "snapshot_s": r0["snapshot_s"],
+                    "worst_rel": d["worst_rel"],
+                    "bit_identical": d["bit_identical"],
+                    "k1": r0["k1"][0], "peak_gib": r0["peak_gib"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3944,6 +4337,7 @@ def main() -> int:
             phase_checkpoint_grapher, "checkpoint + grapher mb=2048")}
     dist = phase_distributed(refs)
     recovered = phase_recovery(refs["potrf"], dist["potrf"]["pass_s"])
+    rejoined = phase_rejoin_dtd(dist["dtd_gemm"]["pass_ms"] / 1e3)
     del refs
     gc.collect()
     torch.cuda.empty_cache()
@@ -3952,7 +4346,9 @@ def main() -> int:
                      "2-rank DTD GEMM mb=2048": dist["dtd_gemm"],
                      "2-rank QR mb=6144": dist["qr"],
                      "2-rank pingpong": dist["pingpong"],
-                     "2-rank potrf mb=6144, rank 1 killed": recovered})
+                     "2-rank potrf mb=6144, rank 1 killed": recovered,
+                     "2-rank rejoin + DTD GEMM mb=2048, rank 1 killed":
+                     rejoined})
     # the resident job service, run after every other path
     per_path["serving"] = phase_serving()
     gc.collect()

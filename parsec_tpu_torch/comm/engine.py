@@ -19,12 +19,7 @@ differences:
   ``unpack`` rebuilds a CPU tensor over the received buffer.  bf16, which
   numpy lacks, travels as its raw 16-bit words (no ``ml_dtypes``);
 * no silent tier: the native frame path (``comm_frame_native``, default
-  1) raises when commext does not build;
-* left out: the elastic-rejoin lane (``TAG_REJOIN``, the incarnation
-  epoch ``comm_epoch`` and reconnections from dead ranks).  A Context
-  refuses ``comm_epoch`` and ``recovery_rejoin``; the tag stays reserved
-  so the numbering matches the JAX package's, and a dead rank's
-  reconnection is still refused.
+  1) raises when commext does not build.
 """
 
 from __future__ import annotations
@@ -72,8 +67,7 @@ TAG_CLOCK = 12    # clock-offset ping/pong (causal-trace alignment)
 TAG_HB = 13       # heartbeat (active failure detection of HUNG peers)
 TAG_METRICS = 14  # telemetry pull/push (cross-rank /metrics aggregation)
 TAG_FLIGHT = 15   # flight-recorder incident dump request (prof/flightrec)
-# 16 is the JAX package's elastic-rejoin handshake: reserved, no handler
-TAG_REJOIN = 16
+TAG_REJOIN = 16   # elastic-rejoin handshake of a restarted incarnation
 TAG_RECOVER = 17  # recovery control lane (dead-set agreement, replay needs)
 TAG_USER = 18     # first tag available to applications
 
@@ -137,6 +131,14 @@ params.register("comm_peer_timeout_s", 15.0,
                 "machinery, so a HUNG peer — open socket, nothing "
                 "flowing — is detected, not just a closed one; "
                 "0 disables active detection)")
+
+params.register("comm_epoch", 0,
+                "incarnation epoch of this process's comm engine: a "
+                "rank RESTARTED after a death rejoins with a bumped "
+                "epoch (TAG_REJOIN handshake) so survivors can fence "
+                "stale frames of the previous incarnation out of the "
+                "protocol (core/recovery.py elastic rejoin); 0 = first "
+                "incarnation")
 
 params.register("comm_transport", "evloop",
                 "socket transport module: 'evloop' (single-threaded "
@@ -356,6 +358,10 @@ class CommEngine:
         #: ranks whose connection died mid-run (failure detection);
         #: barrier and quiescence waiters observe this and fail fast
         self.dead_peers: set = set()
+        #: dead rank -> the thread still handing its death to containment
+        #: and recovery (declare_peer_dead marks the rank dead first);
+        #: guarded-by: _bar_cond
+        self._routing: Dict[int, int] = {}
         #: dead ranks the RECOVERY plane routed around (core/recovery):
         #: barriers, quiescence and checkpoints run over the survivors
         #: instead of failing — empty unless a recovery engaged, so the
@@ -369,6 +375,18 @@ class CommEngine:
         #: set when an injected kill_rank fired on THIS rank: its own
         #: containment must not be "recovered" into a split brain
         self.fault_killed = False
+        #: this engine's incarnation epoch (comm_epoch): restarted
+        #: ranks rejoin with a bumped value; receivers fence older ones
+        self.epoch = int(params.get("comm_epoch", 0))
+        #: elastic rejoin: gate on reconnections from dead ranks (set by
+        #: the recovery coordinator; the default keeps the zombie
+        #: rejection) and the survivor-side handshake validator
+        self.rejoin_allowed = False
+        self.on_rejoin: Optional[Callable[[int, dict],
+                                          Optional[dict]]] = None
+        self._rejoin_cond = threading.Condition()
+        self._rejoin_ack: Optional[dict] = None   # guarded-by: _rejoin_cond
+        self.tag_register(TAG_REJOIN, self._rejoin_cb)
         #: monotonic stamp of the engine's start: kill_rank's ``t+<sec>``
         #: counts from here
         self.started_at: Optional[float] = None
@@ -925,6 +943,56 @@ class CommEngine:
                 warning("rank %d: recovery control message from %d "
                         "failed: %s", self.rank, src, exc)
 
+    def peer_rejoined(self, r: int, epoch: int) -> None:
+        """A restarted incarnation of ``r`` completed the TAG_REJOIN
+        handshake: clear the death marks so traffic flows again (its
+        transport connection was re-established at handshake time)."""
+        self.dead_peers.discard(r)
+        self.excused_peers.discard(r)
+        self._note_heard(r)
+        with self._bar_cond:
+            self._bar_cond.notify_all()
+
+    # lint: on-loop (AM callback)
+    def _rejoin_cb(self, src: int, msg: Any) -> None:
+        if not isinstance(msg, dict):
+            return
+        k = msg.get("k")
+        if k == "req":
+            cb = self.on_rejoin
+            reply = None
+            if cb is not None:
+                try:
+                    reply = cb(src, msg)
+                except Exception as exc:
+                    warning("rank %d: rejoin validation failed: %s",
+                            self.rank, exc)
+            if reply is None:
+                reply = {"k": "deny"}
+            try:
+                self.send_am(TAG_REJOIN, src, reply)
+            except OSError:
+                pass   # the rejoiner vanished again; nothing to do
+        elif k == "ack":
+            with self._rejoin_cond:
+                self._rejoin_ack = msg
+                self._rejoin_cond.notify_all()
+        # denies are NOT stashed: one fast deny (a survivor with a
+        # higher fence) must not mask a later ack from a survivor that
+        # already validated us and flipped peer_rejoined — the waiter
+        # keeps waiting for an ack until its timeout
+
+    def wait_rejoin_ack(self, timeout: float) -> Optional[dict]:
+        """Block for a rejoin ACK (restarted-rank side); None when no
+        survivor acknowledged within the timeout (all denied or
+        unreachable)."""
+        with self._rejoin_cond:
+            self._rejoin_cond.wait_for(
+                lambda: self._rejoin_ack is not None, timeout=timeout)
+            ack = self._rejoin_ack
+            self._rejoin_ack = None
+        return ack
+
     def declare_peer_dead(self, r: int, exc: Exception) -> None:
         """Shared death path (EOF, corruption, heartbeat silence): mark,
         drop the transport state, wake barrier waiters, and route the
@@ -936,11 +1004,31 @@ class CommEngine:
         if jr is not None:
             jr.emit("peer_dead", peer=r,
                     detector=getattr(exc, "detector", "unknown"))
+        with self._bar_cond:
+            self._routing[r] = threading.get_ident()
         self.dead_peers.add(r)
         self._drop_peer(r)
         with self._bar_cond:
             self._bar_cond.notify_all()
-        self._peer_failure(r, exc)
+        try:
+            self._peer_failure(r, exc)
+        finally:
+            with self._bar_cond:
+                self._routing.pop(r, None)
+                self._bar_cond.notify_all()
+
+    def wait_death_routed(self, r: int, timeout: float = 5.0) -> None:
+        """Return once rank ``r``'s death has been handed to containment
+        and recovery (at once when that is done, or when this thread is
+        the one handing it over).  A sender that found ``r`` dead in the
+        window between its dead mark and the hand-off waits here, so the
+        hand-off, not the sender, decides the pool's fate (a deliberate
+        difference from the JAX package, whose sender fails the pool when
+        it loses that race)."""
+        me = threading.get_ident()
+        with self._bar_cond:
+            self._bar_cond.wait_for(
+                lambda: self._routing.get(r, me) == me, timeout=timeout)
 
     def _stop_requested(self) -> bool:
         return bool(getattr(self, "_stop", False))
@@ -1400,15 +1488,18 @@ class SocketCE(CommEngine):
                         "(magic=%r version=%r)", self.rank, magic, ver)
                 conn.close()
                 continue
-            if src in self.dead_peers:
-                # no rejoin protocol (the elastic rejoin is not ported):
-                # a dead rank's reconnection would be a half-connected
-                # zombie (frames dispatched while every reply is refused
-                # by the dead-peer guard)
+            if src in self.dead_peers and not self.rejoin_allowed:
+                # no rejoin protocol armed: a dead rank's reconnection
+                # would be a half-connected zombie (frames dispatched
+                # while every reply is refused by the dead-peer guard)
                 warning("rank %d: rejected reconnection from dead rank "
                         "%d", self.rank, src)
                 conn.close()
                 continue
+            if src in self.dead_peers:
+                warning("rank %d: reconnection from dead rank %d "
+                        "accepted pending TAG_REJOIN handshake",
+                        self.rank, src)
             with self._plock:
                 self._peers.setdefault(src, conn)
                 self._send_locks.setdefault(src, threading.Lock())
@@ -2536,15 +2627,22 @@ class EventLoopCE(CommEngine):
                 self._close_peer(peer)
                 return False
             peer.rank = src
-            if src in self.dead_peers:
-                # no rejoin protocol (the elastic rejoin is not ported):
-                # accepting a dead rank would create a half-connected
-                # zombie (its frames dispatched and Safra-counted while
-                # _send_now drops every reply)
+            if src in self.dead_peers and not self.rejoin_allowed:
+                # no rejoin protocol armed: accepting a dead rank would
+                # create a half-connected zombie (its frames dispatched
+                # and Safra-counted while _send_now drops every reply)
                 warning("rank %d: rejected reconnection from dead rank "
                         "%d", self.rank, src)
                 self._close_peer(peer)
                 return False
+            if src in self.dead_peers:
+                # elastic rejoin (core/recovery.py): adopt the stream —
+                # the rank stays dead (sends still refused, app frames
+                # fenced by incarnation epoch) until its TAG_REJOIN
+                # handshake validates, which flips peer_rejoined
+                warning("rank %d: reconnection from dead rank %d "
+                        "accepted pending TAG_REJOIN handshake",
+                        self.rank, src)
             existing = self._peers.get(src)
             if existing is not None and existing is not peer:
                 if existing.sock is None:

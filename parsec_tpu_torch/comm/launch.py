@@ -75,6 +75,11 @@ def _worker(rank: int, nranks: int, port_base: int, nb_cores: int,
         ce.barrier()   # every rank's handlers are wired before user code
         try:
             result = fn(ctx, rank, nranks, *args)
+            # a rank that went down and rejoined inside ``fn`` (elastic
+            # rejoin, core/recovery.py) holds a new engine: the closing
+            # barrier and the teardown use the context's current one
+            rde = ctx.comm or rde
+            ce = rde.ce
             ce.barrier()
             # past the final barrier every rank is done: peers closing
             # their sockets now (possibly while we still serialize the
@@ -82,7 +87,8 @@ def _worker(rank: int, nranks: int, port_base: int, nb_cores: int,
             ce._stop = True
             outq.put((rank, None, result))
         finally:
-            ce._stop = True
+            rde = ctx.comm or rde
+            rde.ce._stop = True
             ctx.fini()
             rde.fini()
     except Exception:

@@ -34,16 +34,16 @@ differences:
   wire are the producer's.  A received payload lands as a host ``Data``
   copy holding a CPU tensor, which the device module stages in like any
   host tile;
-* the recovery plane's hooks (core/recovery.py) serve PTG pools: the
-  per-peer Safra reconcile with the dead rank's fence, ``forget_pool``,
-  excused deaths in the quiescence ring and containment's hand-off.  The
-  elastic-rejoin pieces (``note_peer_epoch``, the ``_ep`` incarnation
-  stamp) and everything DTD-specific are left out: a recovery-enabled
-  Context refuses a DTD pool at attach, so the distributed-DTD lanes
-  (``TAG_DTD``: ``dtd_send``, ``_dtd_cb``, the backlog of frames that
-  beat their pool, the rendezvous-pull count in the quiescence checks)
-  carry no per-pool forgetting and no generation fences: a DTD frame is
-  delivered to its pool, or parked until the pool registers.
+* the recovery plane's hooks (core/recovery.py) are the JAX package's:
+  the per-peer Safra reconcile with the incarnation fence, the ``_ep``
+  stamp of a rejoined incarnation, ``forget_pool`` (the DTD backlog and
+  the per-generation rendezvous-pull counts included), the DTD lanes'
+  pool-generation fences, excused deaths in the quiescence ring,
+  ``rearm_dynamic_hold`` and containment's hand-off;
+* a send that finds a rank dead before its death reached the recovery
+  plane waits for that hand-off (``CommEngine.wait_death_routed``)
+  before it fails the pool: the JAX package's sender fails it when it
+  loses that race.
 """
 
 from __future__ import annotations
@@ -213,13 +213,16 @@ class RemoteDepEngine:
         #: (core/recovery.py; guarded-by: _term_lock)
         self._sent_to: Dict[int, int] = {}
         self._recv_from: Dict[int, int] = {}
-        #: dead-rank fencing: frames from a rank in this set arrive after
-        #: its recovery reconcile, stale traffic of the dead rank —
-        #: dropped BEFORE the Safra credit (its counters were reconciled
-        #: away).  The JAX package keys a fence epoch per rank here, for
-        #: its elastic rejoin; with no rejoin, a fence is for good
-        #: (guarded-by: _term_lock)
-        self._fenced: set = set()
+        #: incarnation fencing: frames from ``src`` whose ``_ep`` is
+        #: below the fence are stale traffic of a dead incarnation —
+        #: dropped BEFORE the Safra credit (their sender's counters were
+        #: reconciled away; guarded-by: _term_lock)
+        self._fence_epoch: Dict[int, int] = {}
+        self._peer_epoch: Dict[int, int] = {}   # guarded-by: _term_lock
+        #: this engine's own incarnation (comm_epoch): stamped into app
+        #: frames past epoch 0 so survivors can tell a rejoined rank's
+        #: traffic from its dead predecessor's
+        self._epoch = int(getattr(ce, "epoch", 0))
         self._retry_pending = False         # guarded-by: _dlock
         #: dynamic taskpools holding a runtime action until the
         #: pool-scoped quiescence round proves global drain (the
@@ -238,8 +241,10 @@ class RemoteDepEngine:
         ce.on_frame_fault = self._on_frame_fault
         #: per-message wire id (origin_rank, seq): receivers drop
         #: duplicate deliveries (retransmits, injected dups) after
-        #: crediting them in the Safra balance
-        self._fid_seq = itertools.count(1)
+        #: crediting them in the Safra balance.  The sequence starts at
+        #: epoch << 48 so a rejoined incarnation can never collide with
+        #: ids its predecessor already burned into peers' dedup windows
+        self._fid_seq = itertools.count(1 + (self._epoch << 48))
         self._seen_fids: set = set()
         self._fid_order: "deque" = deque()
         #: causal tracer (prof/causal.py) and flight recorder
@@ -313,6 +318,9 @@ class RemoteDepEngine:
         #: the one-sided GET itself rides uncounted CE messages;
         #: guarded-by: _term_lock)
         self.dtd_refs_pending = 0
+        #: per-pool share of dtd_refs_pending, so a recovery restart can
+        #: forget exactly its pool's parked pulls (guarded-by: _term_lock)
+        self._dtd_refs_tp: Dict[Tuple[int, int], int] = {}
         self._recv_handlers = {
             "activate": self._activate_cb,
             "get_req": self._get_req_cb,
@@ -363,7 +371,9 @@ class RemoteDepEngine:
         rec = getattr(context, "recovery", None)
         if rec is not None:
             # recovery plane (core/recovery.py): wires the TAG_RECOVER
-            # control lane's handler
+            # control lane's handler and the TAG_REJOIN validator, and
+            # lets the transport accept reconnections from dead ranks
+            # pending that handshake
             rec.attach_comm(self)
         if self.funnelled:
             self._progress = None
@@ -594,7 +604,7 @@ class RemoteDepEngine:
             return
         d = n if kind == "dup" else -n
         with self._term_lock:
-            if dst >= 0 and dst in self._fenced \
+            if dst >= 0 and dst in self._fence_epoch \
                     and dst not in self._sent_to:
                 # the injector's delay timer outlived the peer AND its
                 # recovery: recovery_reconcile already erased this
@@ -705,12 +715,26 @@ class RemoteDepEngine:
         restart owns that pool's fate — everything else routes through
         Context.record_pool_error as before."""
         rec = getattr(self.context, "recovery", None)
-        if rec is not None and isinstance(exc, PeerFailedError) \
-                and rec.recovering(tp) and rec.excused(exc.rank):
-            return
+        if rec is not None and isinstance(exc, PeerFailedError):
+            # a send that saw the rank dead before its death reached the
+            # recovery plane: the plane decides once it has it
+            self.ce.wait_death_routed(exc.rank)
+            if rec.recovering(tp) and rec.excused(exc.rank):
+                return
         self.context.record_pool_error(tp, exc)
 
     # -- recovery reconcile (core/recovery.py) ---------------------------
+    def peer_fence(self, src: int) -> int:
+        with self._term_lock:
+            return self._fence_epoch.get(src, 0)
+
+    def note_peer_epoch(self, src: int, epoch: int) -> None:
+        """A rejoined incarnation announced ``epoch``: frames at or
+        above it pass the fence, its dead predecessor's stay out."""
+        with self._term_lock:
+            self._peer_epoch[src] = epoch
+            self._fence_epoch.setdefault(src, 0)
+
     def recovery_reconcile(self, dead: int) -> None:
         """Subtract a dead rank's whole contribution from the Safra
         balance and fence its future stragglers, in ONE critical
@@ -719,27 +743,30 @@ class RemoteDepEngine:
         once the re-inserted sub-DAG drains (the generalization of the
         on_frame_fault drop reconcile)."""
         with self._term_lock:
-            self._fenced.add(dead)
+            fence = self._fence_epoch[dead] = \
+                self._peer_epoch.get(dead, 0) + 1
             sent = self._sent_to.pop(dead, 0)
             recv = self._recv_from.pop(dead, 0)
             self._app_sent -= sent
             self._app_recv -= recv
         jr = getattr(self.context, "journal", None)
         if jr is not None:
-            jr.emit("safra_reconcile", peer=dead, sent=sent, recv=recv)
+            jr.emit("safra_reconcile", peer=dead, fence=fence,
+                    sent=sent, recv=recv)
 
     def forget_pool(self, tp) -> None:
         """Drop every parked/queued protocol item of a pool's torn
         generation (recovery restart): delayed activations, outbox and
-        flush-window frames, parked rendezvous pulls.  Safra stays
-        balanced: inbound items were credited at receive, outbound ones
-        were counted only if they reached _send_app (queued-not-sent
-        outbox entries were not)."""
+        flush-window frames, parked rendezvous pulls, DTD backlog and
+        pending-pull counts.  Safra stays balanced: inbound items were
+        credited at receive, outbound ones were counted only if they
+        reached _send_app (queued-not-sent outbox entries were not)."""
         tpid = tp.taskpool_id
         with self._dlock:
             self._delayed = [(s, m) for (s, m) in self._delayed
                              if not (isinstance(m, dict)
                                      and m.get("tp") == tpid)]
+            self._dtd_backlog.pop(tpid, None)
         with self._outbox_lock:
             for key in [k for k, edges in list(self._outbox.items())
                         if edges and edges[0][0].taskpool is tp]:
@@ -756,6 +783,11 @@ class RemoteDepEngine:
         for key, pend in list(self._pending_gets.items()):
             if pend.get("tp") is tp:
                 self._pending_gets.pop(key, None)
+        with self._term_lock:
+            # every generation of this pool: the restart re-registers
+            # what the new generation actually pulls
+            for key in [k for k in self._dtd_refs_tp if k[0] == tpid]:
+                self.dtd_refs_pending -= self._dtd_refs_tp.pop(key)
 
     def debug_state(self) -> Dict[str, Any]:
         """Protocol-state snapshot for the hang autopsy (Context.wait's
@@ -1061,6 +1093,18 @@ class RemoteDepEngine:
         if isinstance(payload, dict) and "_fid" not in payload:
             payload["_fid"] = (self.rank, next(self._fid_seq))
 
+    def _stamp_ep(self, payload) -> None:
+        """Incarnation mark, re-stamped PER HOP (unlike the fid): the
+        receiver's fence is keyed by the rank it physically received
+        the frame from, so ``_ep`` must name the LAST sender's
+        incarnation — a rejoined rank relaying an epoch-0 originator's
+        activation down the bcast tree must not have the relay fenced
+        as its dead predecessor's straggler.  First incarnations
+        (epoch 0) stamp nothing — a fence only ever exists for ranks
+        that died, and a rejoiner is epoch >= 1 by construction."""
+        if self._epoch and isinstance(payload, dict):
+            payload["_ep"] = self._epoch
+
     def _dead_peer_guard(self, dst: int) -> None:
         if dst in self.ce.dead_peers:
             raise PeerFailedError(
@@ -1077,6 +1121,7 @@ class RemoteDepEngine:
         queueing — callers route it into the owning taskpool."""
         self._dead_peer_guard(dst)
         self._stamp_fid(payload)
+        self._stamp_ep(payload)
         with self._term_lock:
             self._color_black = True
             self._app_sent += 1
@@ -1092,6 +1137,7 @@ class RemoteDepEngine:
         self._dead_peer_guard(dst)
         for _tag, p in items:
             self._stamp_fid(p)
+            self._stamp_ep(p)
         with self._term_lock:
             self._color_black = True
             self._app_sent += len(items)
@@ -1182,14 +1228,17 @@ class RemoteDepEngine:
     def _on_app_recv(self, src: int, msg=None) -> bool:
         """Safra credit for one received app message; returns False —
         and credits NOTHING — when the frame is fenced: a straggler of
-        a dead rank whose counters recovery_reconcile already
+        a dead incarnation whose counters recovery_reconcile already
         subtracted (crediting it would push the survivor balance
         negative forever).  The fence check and the credit share one
         critical section so a concurrent reconcile can never see half
         of either."""
         with self._term_lock:
-            if src in self._fenced:
-                return False
+            fence = self._fence_epoch.get(src)
+            if fence is not None:
+                ep = msg.get("_ep", 0) if isinstance(msg, dict) else 0
+                if ep < fence:
+                    return False
             self._color_black = True   # Safra: receiving blackens
             self._app_recv += 1
             self._recv_from[src] = self._recv_from.get(src, 0) + 1
@@ -1199,7 +1248,7 @@ class RemoteDepEngine:
     def _activate_cb(self, src: int, msg: dict) -> None:
         self._trace_recv(TAG_ACTIVATE, src, msg)
         if not self._on_app_recv(src, msg):   # exactly once per message
-            return            # fenced: dead-rank straggler
+            return            # fenced: stale incarnation straggler
         if self._is_dup(msg):
             return            # retransmit/injected dup: already acted on
         self._try_activation(src, msg)
@@ -1364,12 +1413,31 @@ class RemoteDepEngine:
         tp = self.context.taskpools.get(msg.get("tp"))
         if tp is not None:
             tp.peer_ranks.add(dst)
+            # recovery generation: a survivor mid-restart parks frames
+            # of its already-recovered peer instead of losing them
+            msg.setdefault("pe", tp.run_epoch)
         self._send_app(TAG_DTD, dst, msg)
 
-    def dtd_ref_done(self) -> None:
+    def dtd_ref_done(self, ref_key=None) -> None:
         """One rendezvous pull completed (locked: the counter is shared
-        between the progress thread and socket recv threads)."""
+        between the progress thread and socket recv threads).
+        ``ref_key`` is the (taskpool_id, pool-generation) the pull was
+        credited under in _dtd_cb.  A pull whose pool a recovery
+        already forgot (forget_pool subtracted that generation's whole
+        share) must NOT decrement again — the double-count would drive
+        the global below zero, and a truthy negative keeps _local_idle
+        False forever; the generation in the key also stops a
+        pre-restart pull's completion from eating the NEW generation's
+        count."""
         with self._term_lock:
+            if ref_key is not None:
+                n = self._dtd_refs_tp.get(ref_key)
+                if n is None:
+                    return   # forgotten by a recovery restart
+                if n <= 1:
+                    self._dtd_refs_tp.pop(ref_key, None)
+                else:
+                    self._dtd_refs_tp[ref_key] = n - 1
             self.dtd_refs_pending -= 1
 
     # lint: on-loop (AM handler)
@@ -1380,46 +1448,84 @@ class RemoteDepEngine:
         # window where the Safra token sees an even balance and empty
         # queues while the pull hasn't been registered yet.  A duplicate
         # is credited (its send was counted too) but must NOT register a
-        # second pull — the leaked pending count would hang termination.
-        # A dead rank's straggler is dropped before the credit (the
-        # JAX package also drops a torn pool generation's frames after
-        # it; a recovery-enabled Context refuses DTD pools, so the port
-        # carries no pool-generation fence here).
+        # second pull — the leaked pending count would hang termination
+        from parsec_tpu_torch.core.taskpool import TaskpoolState
         dup = self._is_dup(msg)
         tp = self.context.taskpools.get(msg.get("tp")) \
             if isinstance(msg, dict) else None
+        pe = msg.get("pe", 0) if isinstance(msg, dict) else 0
+        # a torn generation's message is credited (its sender is live
+        # and counted) but takes NO side effects — in particular its
+        # 'ref' must not register a pull nobody will ever complete
+        stale = tp is not None and pe < tp.run_epoch
         with self._term_lock:
-            if src in self._fenced:
-                return   # fenced: dead-rank straggler, no credit
+            fence = self._fence_epoch.get(src)
+            if fence is not None and \
+                    (msg.get("_ep", 0) if isinstance(msg, dict)
+                     else 0) < fence:
+                return   # stale incarnation: no credit, no delivery
             self._color_black = True
             self._app_recv += 1
             self._recv_from[src] = self._recv_from.get(src, 0) + 1
-            if not dup and isinstance(msg, dict) and "ref" in msg:
+            if not dup and not stale and isinstance(msg, dict) \
+                    and "ref" in msg:
+                # keyed by (pool, generation): a restart's forget_pool
+                # subtracts exactly the torn generation's share, and a
+                # pre-restart pull completing late cannot eat the new
+                # generation's count (dtd_ref_done misses its key)
+                key = (msg.get("tp"), pe)
                 self.dtd_refs_pending += 1
-        if dup:
+                self._dtd_refs_tp[key] = \
+                    self._dtd_refs_tp.get(key, 0) + 1
+        if dup or stale:
             return
         if tp is not None:
             tp.peer_ranks.add(src)
         incoming = getattr(tp, "_dtd_incoming", None)
-        if incoming is not None:
+        if incoming is not None and pe <= tp.run_epoch and \
+                (tp.run_epoch == 0
+                 or tp.state >= TaskpoolState.RUNNING):
+            # past a restart (run_epoch > 0) frames additionally wait
+            # for the rebuilt structures (state back at RUNNING) in the
+            # backlog; the pristine-pool fast path is unchanged
             incoming(src, msg)
             return
         with self._dlock:   # pool not registered here yet: backlog
             self._dtd_backlog.setdefault(msg["tp"], []).append((src, msg))
         # re-check: the pool may have registered — and drained an empty
         # backlog — between the lookup above and the append (the drain
-        # pops under _dlock, so a second drain cannot double-deliver)
+        # pops under _dlock, so a second drain cannot double-deliver).
+        # The SAME deliverability gate as above applies: a pool parked
+        # below RUNNING by a recovery restart must keep the frame in
+        # the backlog, or the mid-restart parking would be a no-op
+        # (immediate re-drain into the half-torn structures)
         tp = self.context.taskpools.get(msg["tp"])
         if tp is not None \
-                and getattr(tp, "_dtd_incoming", None) is not None:
+                and getattr(tp, "_dtd_incoming", None) is not None \
+                and (tp.run_epoch == 0
+                     or tp.state >= TaskpoolState.RUNNING):
             self.dtd_drain_backlog(tp)
 
     def dtd_drain_backlog(self, tp) -> None:
-        """Deliver DTD messages that arrived before ``tp`` registered."""
+        """Deliver DTD messages that arrived before ``tp`` registered.
+        Generation-aware: frames of a torn generation drop (their Safra
+        credit already landed), frames from a generation we have not
+        reached yet re-park for the next drain."""
         with self._dlock:
             backlog = self._dtd_backlog.pop(tp.taskpool_id, [])
+        keep = []
         for src, msg in backlog:
+            pe = msg.get("pe", 0) if isinstance(msg, dict) else 0
+            if pe < tp.run_epoch:
+                continue   # torn generation: credited, void
+            if pe > tp.run_epoch:
+                keep.append((src, msg))
+                continue
             tp._dtd_incoming(src, msg)
+        if keep:
+            with self._dlock:
+                self._dtd_backlog.setdefault(tp.taskpool_id,
+                                             []).extend(keep)
 
     def _deliver(self, tp, deliveries, array: Optional[torch.Tensor],
                  corr=None) -> None:
@@ -1532,9 +1638,10 @@ class RemoteDepEngine:
 
     def recovery_coordinator(self) -> int:
         """Lowest live rank — the deterministic coordinator of every
-        TAG_RECOVER round (dead-set agreement, the completed-pool
-        retirement handshake).  Every survivor computes the same value
-        from its dead set, so the rounds need no leader election."""
+        TAG_RECOVER round (dead-set agreement, DTD skip agreement,
+        the completed-pool retirement handshake).  Every survivor
+        computes the same value from its dead set, so the rounds need no
+        leader election."""
         return min([self.rank] + self._live_peers())
 
     def _next_live(self, r: int) -> Optional[int]:
@@ -1658,6 +1765,15 @@ class RemoteDepEngine:
         released only when resolve_dynamic_holds proves global drain."""
         with self._term_lock:
             self._dyn_holds.append(tp)
+
+    def rearm_dynamic_hold(self, tp) -> None:
+        """Recovery restart of a DynamicTaskpool: the pool keeps (or
+        regains) exactly one registration, so the restarted generation
+        still resolves through the pool-scoped quiescence round
+        instead of stranding the hold across the restart."""
+        with self._term_lock:
+            if tp not in self._dyn_holds:
+                self._dyn_holds.append(tp)
 
     def _dyn_idle(self) -> bool:
         """Locally drained MODULO the dynamic holds: every non-held pool

@@ -40,9 +40,12 @@ differences:
 * a ring's file is allocated in full when it is created
   (``posix_fallocate``), so a ``/dev/shm`` too small for it raises with
   the path and the size instead of a SIGBUS at the first write past the
-  free space;
-* the elastic-rejoin support (re-created inbound rings, stale-outbound
-  checks) is left out with the rejoin lane (comm/engine.py).
+  free space.  A re-created inbound ring (elastic rejoin, below) is
+  allocated the same way, and its peer's dispatch queue is emptied with
+  the torn stream;
+* a write stalled on a full ring returns when its own drain of the
+  inbound rings declared the peer dead (the JAX package's loop goes on
+  reading the indices of the ring that death closed).
 """
 
 from __future__ import annotations
@@ -320,6 +323,9 @@ class ShmCE(CommEngine):
         # retry tick, not from the NEXT send (a barrier 'arrive' may be
         # the only frame this rank ever sends the peer)
         self._post(("timer", self._retry_pending, 0.02))
+        # rejoin support: a restarted incarnation re-creates its ring
+        # files — stale outbound mappings must drop so sends re-attach
+        self._post(("timer", self._verify_outbound, 1.0))
         self._arm_kill()
 
     def _door_addr(self, r: int) -> bytes:
@@ -411,7 +417,8 @@ class ShmCE(CommEngine):
             # engine or a dead peer's residual bytes stay in the ring
             # forever and must not turn the loop into a busy-spin
             dirty = not self._muted and any(
-                p.inbound is not None and p.rank not in self.dead_peers
+                p.inbound is not None and
+                (p.rank not in self.dead_peers or self.rejoin_allowed)
                 and p.inbound.tail() != p.inbound.head()
                 for p in self._peers.values())
             if dirty or self._ring:
@@ -466,6 +473,32 @@ class ShmCE(CommEngine):
                     r not in self.dead_peers:
                 self._attach(peer)
 
+    def _drop_stale_outbound(self, peer: _ShmPeer) -> None:
+        """Rejoin freshness: a restarted incarnation re-created its
+        inbound ring files, so an outbound mapping whose inode no
+        longer matches the on-disk path is a write-only hole into the
+        dead incarnation's anonymous inode — drop it and let the next
+        send re-attach to the fresh ring."""
+        rg = peer.outbound
+        if rg is None:
+            return
+        try:
+            fresh = os.stat(rg.path).st_ino == os.fstat(rg.fd).st_ino
+        except OSError:
+            fresh = False
+        if not fresh:
+            rg.close()              # owner=False: never unlinks
+            peer.outbound = None
+
+    # lint: on-loop (periodic hook)
+    def _verify_outbound(self) -> None:
+        """One inode stat per attached peer per tick, armed only when
+        rejoin is enabled."""
+        if not self.rejoin_allowed:
+            return
+        for peer in list(self._peers.values()):
+            self._drop_stale_outbound(peer)
+
     # lint: on-loop (periodic hook)
     def _check_unattached(self) -> None:
         """A peer with queued frames whose inbound ring never appeared
@@ -486,8 +519,12 @@ class ShmCE(CommEngine):
     # lint: on-loop (doorbell/ring drain handler)
     def _drain_rings(self) -> bool:
         progressed = False
+        rejoinable = self.rejoin_allowed
         for peer in list(self._peers.values()):
-            if peer.rank in self.dead_peers:
+            if peer.rank in self.dead_peers and not rejoinable:
+                # with rejoin armed, a dead peer's ring was re-created
+                # EMPTY at _drop_peer: draining it costs nothing until
+                # a restarted incarnation writes its TAG_REJOIN frame
                 continue
             rg = peer.inbound
             if rg is None:
@@ -565,6 +602,19 @@ class ShmCE(CommEngine):
                 src, f"rank {self.rank}: protocol corruption from "
                 f"rank {src}: {why}", detector="corrupt")),
             lambda: src not in self.dead_peers)
+
+    def peer_rejoined(self, r: int, epoch: int) -> None:
+        """TAG_REJOIN validated: beyond the base bookkeeping, make sure
+        our outbound path re-attaches to the RESTARTED incarnation's
+        ring (the _drop_peer at death usually closed it already; this
+        covers an attach that raced the restart)."""
+        super().peer_rejoined(r, epoch)
+
+        def fresh():
+            peer = self._peers.get(r)
+            if peer is not None:
+                self._drop_stale_outbound(peer)
+        self.post(fresh)
 
     def _deliver_held(self, tag: int, src: int, payload: Any) -> None:
         # funnelled contract: handlers run ONLY on the loop thread
@@ -707,6 +757,12 @@ class ShmCE(CommEngine):
                     # sends from handlers park on the command ring)
                     if threading.current_thread() is self._thread:
                         self._drain_rings()
+                        if peer.outbound is not rg:
+                            # the drain met the peer's end of stream and
+                            # declared it dead, which closed this ring:
+                            # the frame is undeliverable, as to any dead
+                            # peer
+                            return
                     now = time.monotonic()
                     if deadline is None:
                         deadline = now + self._stall_timeout
@@ -770,12 +826,33 @@ class ShmCE(CommEngine):
         if peer is not None:
             peer.pending.clear()
             peer.pending_bytes = 0
-            # frames can never reach a dead peer: drop the outbound
-            # mapping (its residual inbound bytes stay undrained —
-            # _drain_rings skips dead peers)
+            # REJOIN SUPPORT: re-create the transport state the dead
+            # incarnation poisoned.  The stale outbound mapping points
+            # at the dead process's (possibly unlinked) inode — close
+            # it so the next send attaches to the restarted
+            # incarnation's fresh ring; with rejoin armed our inbound
+            # ring re-creates EMPTY with a fresh parser and an empty
+            # dispatch queue, so the rejoiner's TAG_REJOIN frame lands
+            # on a clean stream instead of appending to a torn one.
+            # Without rejoin its residual bytes stay undrained
+            # (_drain_rings skips dead peers)
             if peer.outbound is not None:
                 peer.outbound.close()
                 peer.outbound = None
+            if peer.inbound is not None and not self._stop \
+                    and self.rejoin_allowed:
+                try:
+                    peer.inbound.close()   # owner: unlinks the old path
+                    peer.inq.clear()
+                    peer.inbound = _Ring(
+                        _ring_path(self.port_base, r, self.rank),
+                        owner=True, cap=self._cap)
+                    peer.parser, peer.fp_native = make_parser(
+                        self._max_frame, require=True)
+                except OSError as exc:
+                    warning("rank %d: could not re-create inbound ring "
+                            "for dead rank %d: %s", self.rank, r, exc)
+                    peer.inbound = None
 
     def _kill_close(self) -> None:
         """Injected hard death: close every outbound ring (peers see

@@ -34,10 +34,11 @@ the gang's global quiescence to local completion.
 Streams map onto virtual processes by ``vpmap`` (core/vpmap.py) and bind
 to cores under ``runtime_bind_threads``, as in the JAX package.  The
 crash-dump flight recorder (``flightrec_enabled``) and the recovery plane
-(``recovery_enable``) are opt-in, as there.  One optional plane of the
-JAX package is not ported (the ICI transport): its knob is registered
-with default 0 and raises NotImplementedError when set, and so do the
-knobs of the recovery plane's elastic rejoin and DTD skip agreement.
+(``recovery_enable``) are opt-in, as there; the recovery plane covers
+PTG, DTD and dynamic pools, elastic rejoin and the job service's
+recovery notices.  One optional plane of the JAX package is not ported
+(the ICI transport): its knob is registered with default 0 and raises
+NotImplementedError when set.
 """
 
 from __future__ import annotations
@@ -112,8 +113,7 @@ params.register("recovery_enable", 0,
                 "the lost lineage instead of failing the affected "
                 "taskpools (core/recovery.py).  0 (default) keeps the "
                 "containment-only failure lifecycle: a dead peer fails "
-                "the pools that touch it.  A recovery-enabled Context "
-                "refuses an insert-driven (DTD) or dynamic pool at attach")
+                "the pools that touch it")
 
 #: optional planes of the JAX package this port does not carry yet:
 #: (MCA knob, plane name).  Registered with default 0 here so a run that
@@ -123,16 +123,6 @@ _UNPORTED_PLANES = (
 )
 for _knob, _plane in _UNPORTED_PLANES:
     params.register(_knob, 0, f"{_plane}: not ported yet (must stay 0)")
-
-#: knobs of the JAX package whose readers are not ported: (MCA knob,
-#: what reads it there).  Not registered; a Context refuses to start
-#: while one is set (override or environment), since nothing would read
-#: it
-_UNPORTED_KNOBS = (
-    ("comm_epoch", "the elastic rejoin's incarnation epoch"),
-    ("recovery_rejoin", "the recovery plane's elastic rejoin"),
-    ("recovery_dtd_skip", "the recovery plane's DTD skip agreement"),
-)
 
 _gc_frozen = False
 
@@ -157,11 +147,6 @@ def _check_unported_planes() -> None:
         if int(params.get(knob, 0)):
             raise NotImplementedError(
                 f"{plane} ({knob}=1) is not ported yet")
-    for knob, reader in _UNPORTED_KNOBS:
-        if params.get(knob) is not None:
-            raise NotImplementedError(
-                f"{knob} is set, but its reader, {reader}, is not "
-                f"ported yet")
 
 
 class ExecutionStream:
@@ -434,11 +419,7 @@ class Context:
 
     # -- taskpool lifecycle ------------------------------------------------
     def add_taskpool(self, tp: Taskpool, start: bool = False) -> None:
-        """reference: parsec_context_add_taskpool (scheduling.c:678).
-        With the recovery plane on, a pool it cannot recover (DTD,
-        dynamic) is refused here, before it attaches."""
-        if self.recovery is not None:
-            self.recovery.refuse_unsupported(tp)
+        """reference: parsec_context_add_taskpool (scheduling.c:678)."""
         with self._lock:
             self._active_taskpools += 1
             # register BEFORE attach: a comm message arriving in between

@@ -1,4 +1,4 @@
-"""Recovery plane: lineage re-execution and partition re-mapping.
+"""Recovery plane: lineage re-execution, partition re-mapping, rejoin.
 
 The second exit from every containment path — RECOVER instead of
 failing the pools a dead peer touched:
@@ -15,7 +15,8 @@ failing the pools a dead peer touched:
      re-runnable source (``DataCollection.set_init``) for tiles whose
      only copy died with their rank — and re-inserts the re-execution
      sub-DAG on the survivors (``ParameterizedTaskpool.startup``
-     re-enumeration with translated owner-computes).
+     re-enumeration with translated owner-computes, or the pool's
+     ``recovery_replay`` for insert-driven DTD pools).
 
      **Minimal replay** (``recovery_minimal``, default on): every pool
      with the lineage plane armed keeps a RECORDED per-task lineage
@@ -32,9 +33,13 @@ failing the pools a dead peer touched:
      materialized versions; cross-survivor re-feeds negotiate over the
      TAG_RECOVER control lane (a peer that cannot honor a need nacks
      and both sides fall back).  Replay-from-restore-point stays the
-     fallback — taken whenever the lineage ring evicted the cut or a
-     need was refused — counted in
-     ``parsec_recovery_full_replays_total``.
+     fallback — taken whenever the lineage ring evicted the cut, the
+     pool is dynamic, a DTD skip could not be agreed, or a need was
+     refused — counted in ``parsec_recovery_full_replays_total``.
+     Insert-driven (DTD) pools agree a skippable prefix of their SPMD
+     insert stream instead (``dtd_skip_prefix``, ``_plan_dtd_skip``):
+     the replay ghost-tracks the agreed prefix and re-executes the
+     rest, and a designated holder rank serves each tile's cut value.
 
   2. **Partition re-mapping.**  The dead rank's key range re-balances
      onto survivors through a rank-translation table installed PER
@@ -44,13 +49,27 @@ failing the pools a dead peer touched:
      consult — routes around the hole.  Pools over untouched
      collections never observe a re-mapped owner.
 
+  3. **Elastic rejoin.**  A restarted rank comes back with a bumped
+     incarnation epoch (``--mca comm_epoch`` / ``PARSEC_MCA_COMM_EPOCH``),
+     re-dials the transports, and performs a TAG_REJOIN handshake: the
+     survivors validate the epoch against the fence recorded at death
+     (stale frames of the previous incarnation are dropped before they
+     can touch the Safra balance — see RemoteDepEngine), clear the dead
+     mark, hand back the current translation table, and the rank takes
+     its partition back for every subsequently attached pool.  On shm
+     the survivor re-creates its inbound ring for the dead rank when
+     the death is declared, so the restarted incarnation's handshake
+     finds a fresh, empty ring (comm/shm.py).  A JobService attached to
+     the plane (``attach_service``) is told of each start, completion,
+     failure and rejoin (``note_recovery``).
+
 Safra/termdet reconciliation: the remote-dep engine keeps per-peer send
 and receive counters next to the global balance; a recovery subtracts
 the dead rank's whole contribution in one critical section (the same
 contract ``faultinject.on_frame_fault`` established for injected drops)
-and fences later frames from the dead rank, so the token sees exactly
-the in-flight traffic among survivors and termination converges after
-re-insertion.
+and fences later frames from the dead incarnation, so the token sees
+exactly the in-flight traffic among survivors and termination converges
+after re-insertion.
 
 Everything here is OPT-IN (``recovery_enable``, default 0): disabled,
 every path reproduces the containment behavior exactly.
@@ -66,13 +85,6 @@ learning of a death it has not detected yet declares it immediately.
 The port's copy of the JAX package's core/recovery.py.  Its deliberate
 differences:
 
-* PTG pools only.  An insert-driven (DTD) or dynamic pool is REFUSED at
-  attach (``refuse_unsupported`` raises NotImplementedError) while the
-  plane is on, never silently contained: the JAX package's DTD skip
-  agreement, DTD replay and dynamic-pool restarts are not ported, and
-  neither are elastic rejoin (``TAG_REJOIN``, incarnation epochs) and
-  the job service's recovery notifications.  A Context refuses
-  ``comm_epoch``, ``recovery_rejoin`` and ``recovery_dtd_skip``;
 * tiles are torch tensors: snapshots and checkpoint captures are host
   clones, and a re-runnable source may return a tensor on a card, which
   then lands there as the tile's device copy (no host round trip);
@@ -80,7 +92,21 @@ differences:
   task still queued in a device module completes through the epoch
   fence without launching, and every module's launch stream is
   synchronized, so no in-place kernel (K1 with ``out=C``) can land on
-  restored bytes.  A drain that times out aborts the recovery.
+  restored bytes.  A drain that times out aborts the recovery.  A DTD
+  task the drain drops unlaunched claims no landed write in the skip
+  evidence (core/scheduling.complete_execution ``ran``);
+* the minimal planner takes every desc-read tile of the instance space
+  as live before it plans (the JAX package's loses desc rewinds when no
+  task has completed yet);
+* an attached service hears a recovery's ``start`` before the event is
+  queued (the JAX package's can hear it after the recovery thread's
+  ``done``, and then stays degraded);
+* a restart that ends while a later death's event for the same pool is
+  queued leaves the pool marked recovering (the JAX package unmarks it,
+  and its replay's sends to the second dead rank then fail the pool);
+* a replay-driven (DTD) pool's restart first waits for the
+  application's insert stream to end (``_await_insert_stream``), so the
+  replay never inserts beside it.
 """
 
 from __future__ import annotations
@@ -115,6 +141,10 @@ params.register("recovery_drain_s", 10.0,
                 "bodies to leave the workers before tiles are restored "
                 "(the run_epoch fence discards them at completion; this "
                 "wait keeps their in-place writes off restored data)")
+params.register("recovery_rejoin", 1,
+                "accept TAG_REJOIN handshakes from restarted "
+                "incarnations of dead ranks (needs recovery_enable; "
+                "0 keeps the zombie-reconnect rejection)")
 params.register("recovery_completed_grace_s", 30.0,
                 "how long a LOCALLY-completed pool stays restartable "
                 "after its termination: within the window a peer death "
@@ -141,7 +171,8 @@ params.register("recovery_minimal", 1,
                 "whole local partition.  Falls back to the full "
                 "restore-point replay whenever the plan is infeasible "
                 "(ring evicted, no snapshot for an exact-version cut, "
-                "a peer nacked a re-feed need)")
+                "a peer nacked a re-feed need, dynamic/insert-driven "
+                "pool)")
 params.register("recovery_agree_window_s", 0.25,
                 "coordinator-side coalescing window of the dead-set "
                 "agreement round: death reports arriving within it "
@@ -151,7 +182,8 @@ params.register("recovery_agree_window_s", 0.25,
 params.register("recovery_agree_timeout_s", 3.0,
                 "how long a non-coordinator survivor waits for the "
                 "confirmed dead-set broadcast (and a minimal-replay "
-                "requester for its need acks) before "
+                "requester for its need acks, and a DTD skip-agreement "
+                "participant for the frontier/prefix round) before "
                 "proceeding with its local view / full replay — the "
                 "bounded fallback when the coordinator itself died "
                 "mid-round")
@@ -164,6 +196,13 @@ params.register("recovery_need_rounds", 2,
                 "set) instead of falling straight back to full replay; "
                 "past the cap the fallback is taken, counted in "
                 "parsec_recovery_need_rounds_total{outcome=exhausted}")
+params.register("recovery_dtd_skip", 1,
+                "cross-rank skip agreement for multi-rank DTD pools "
+                "(needs recovery_enable + recovery_minimal): survivors "
+                "agree on the largest common skippable insert-stream "
+                "prefix and the replay ghost-tracks it instead of "
+                "re-executing; 0 keeps the always-full DTD replay.  "
+                "Round timeouts ride recovery_agree_timeout_s")
 
 
 class RecoveryUnsupported(RuntimeError):
@@ -509,6 +548,68 @@ def minimal_plan(records, *, dead_set, pending=(), adopted=(),
 # the coordinator
 # ---------------------------------------------------------------------------
 
+def dtd_skip_prefix(frontiers: Dict[int, int],
+                    landed: Dict[int, Dict[Any, int]],
+                    writes) -> Tuple[int, Dict[Any, int], Dict[Any, int]]:
+    """The largest common skippable DTD insert-stream prefix (pure;
+    unit-tested on hand-built ladders).
+
+    ``frontiers[rank]`` is each survivor's completion frontier (every
+    LOCAL insert position below it completed); ``landed[rank][wire]``
+    the whole-covering version whose bytes that rank's datum holds;
+    ``writes`` the SPMD-identical ``(pos, wire)`` write ladder (the
+    coordinator uses its own — the streams are identical by the DTD
+    contract).
+
+    A prefix ``K`` is honorable when, for every tile, the version the
+    skipped prefix leaves it at (``vcut`` = number of writes below K)
+    is HELD by some survivor (``landed == vcut``) — that rank becomes
+    the tile's designated holder, serving the cut value in place of
+    the skipped producers' deliveries.  Tiles the prefix never writes
+    (``vcut == 0``) restore from the pool-attach snapshot / init_fn
+    instead.  Returns ``(K, holders, vcut)``; ``K == 0`` means no
+    common prefix is consistent with the survivors' materializable
+    cuts and the gang takes the full replay."""
+    from bisect import bisect_left
+    if not frontiers:
+        return 0, {}, {}
+    top = min(frontiers.values())
+    if top <= 0:
+        return 0, {}, {}
+    by_tile: Dict[Any, List[int]] = {}
+    for pos, wire in writes:
+        by_tile.setdefault(wire, []).append(pos)
+    for lst in by_tile.values():
+        lst.sort()
+    ranks = sorted(landed)
+    # feasibility only changes where a write enters/leaves the prefix,
+    # so only the CLASS MAXIMA need testing: the frontier itself plus
+    # each write position below it (any feasible K shares its class
+    # maximum's vcuts, so the largest feasible K is always one of
+    # these).  Bounds the scan by the write-ladder size (itself capped
+    # by the lineage ring) instead of the raw insert count.
+    cands = [top] + sorted({p for p, _w in writes if 0 < p < top},
+                           reverse=True)
+    for k in cands:
+        holders: Dict[Any, int] = {}
+        vcuts: Dict[Any, int] = {}
+        ok = True
+        for wire, poss in by_tile.items():
+            vcut = bisect_left(poss, k)   # writes at positions < k
+            if vcut == 0:
+                continue
+            holder = next((r for r in ranks
+                           if landed[r].get(wire, 0) == vcut), None)
+            if holder is None:
+                ok = False
+                break
+            holders[wire] = holder
+            vcuts[wire] = vcut
+        if ok:
+            return k, holders, vcuts
+    return 0, {}, {}
+
+
 class RecoveryCoordinator:
     """Per-context recovery coordinator (``Context.recovery``).
 
@@ -535,6 +636,7 @@ class RecoveryCoordinator:
         self.agree_timeout = float(
             params.get("recovery_agree_timeout_s", 3.0))
         self.need_rounds_cap = int(params.get("recovery_need_rounds", 2))
+        self.dtd_skip_on = bool(int(params.get("recovery_dtd_skip", 1)))
         #: incremental tile checkpoint store (utils/checkpoint.py),
         #: shared by every registered pool's lineage hook; None = the
         #: capture plane is off (interval 0, the default)
@@ -561,6 +663,13 @@ class RecoveryCoordinator:
         self._extra_seeds: Dict[int, set] = {}
         #: (taskpool_id, peer) -> ack verdict of our need request
         self._need_acks: Dict[Tuple[int, int], bool] = {}
+        #: (taskpool_id, rank) -> (round, report) — DTD skip-agreement
+        #: frontier/landed reports collected by the coordinator
+        #: (guarded-by: _ctl_cond)
+        self._skip_reports: Dict[Tuple[int, int], Tuple[int, dict]] = {}
+        #: taskpool_id -> (round, skipset msg) — the coordinator's
+        #: agreed-prefix broadcast (guarded-by: _ctl_cond)
+        self._skip_set: Dict[int, Tuple[int, dict]] = {}
         #: (taskpool_id, peer) -> (round, mode) — the mode-agreement
         #: votes, stamped with the voter's restart-attempt round so a
         #: stale round's ballot can never satisfy (or poison) the
@@ -582,7 +691,7 @@ class RecoveryCoordinator:
         #: (guarded-by: _ctl_cond)
         self._frozen_tasks: Dict[int, set] = {}
         self._rde = None               # RemoteDepEngine (attach_comm)
-        #: taskpool_id -> {"tp", "collections", "completed_at"}
+        #: taskpool_id -> {"tp", "collections", "replay", "completed_at"}
         #: (guarded-by: _lock)
         self._specs: Dict[int, Dict[str, Any]] = {}
         #: collection snapshots: id(dc) -> {idx: (version, host tensor)}
@@ -603,17 +712,25 @@ class RecoveryCoordinator:
         #: rebuilt (guarded-by: _lock)
         self._pending_dead: set = set()
         self._translated: List[Any] = []         # guarded-by: _lock
+        #: rejoined incarnation epochs (guarded-by: _lock)
+        self._peer_epochs: Dict[int, int] = {}
+        #: rejoins that landed while a restart was active: their
+        #: translation entries clear once the restart pipeline drains
+        #: (guarded-by: _lock)
+        self._pending_untranslate: set = set()
+        self._services: List[Any] = []           # guarded-by: _lock
         # observability (metrics plane reads these at scrape; the
         # counters move only on the recovery/comm threads)
         self.counts = {"started": 0, "completed": 0, "failed": 0}
         self.tasks_reexecuted = 0
         self.rejoins = 0
-        #: restart-policy split: minimal (recorded-lineage plan) vs full
-        #: (replay-from-restore-point fallback) pool restarts
+        #: restart-policy split: minimal (recorded-lineage plan OR an
+        #: agreed DTD skip prefix) vs full (replay-from-restore-point
+        #: fallback) pool restarts
         self.minimal_replays = 0
         self.full_replays = 0
-        #: the JAX package's DTD skip agreements and elastic rejoins: not
-        #: ported, so both stay 0 (their metric families scrape as there)
+        #: concluded DTD skip agreements (a nonzero prefix agreed AND
+        #: committed through the mode round)
         self.skip_agreements = 0
         #: completed pools retired through the explicit handshake
         #: (coordinator confirmed every live rank locally complete)
@@ -643,39 +760,41 @@ class RecoveryCoordinator:
 
     # -- wiring ----------------------------------------------------------
     def attach_comm(self, rde) -> None:
-        """Called by RemoteDepEngine at construction: wire the
-        TAG_RECOVER control lane."""
+        """Called by RemoteDepEngine at construction: wire the rejoin
+        handshake and let the transport accept reconnections from dead
+        ranks (the recovery knob gates it)."""
         self._rde = rde
         rde.ce.on_recover = self._on_recover_msg
+        if int(params.get("recovery_rejoin", 1)):
+            rde.ce.rejoin_allowed = True
+            rde.ce.on_rejoin = self.on_rejoin_request
+
+    def attach_service(self, service) -> None:
+        with self._lock:
+            self._services.append(service)
+
+    def detach_service(self, service) -> None:
+        with self._lock:
+            if service in self._services:
+                self._services.remove(service)
+
+    def _notify_services(self, event: str, rank: int) -> None:
+        with self._lock:
+            services = list(self._services)
+        for svc in services:
+            try:
+                svc.note_recovery(event, rank)
+            except Exception as exc:
+                debug_verbose(2, "recovery service notify: %s", exc)
 
     # -- registration ----------------------------------------------------
-    def refuse_unsupported(self, tp: Taskpool) -> None:
-        """Refuse, before it attaches, a pool this plane cannot recover:
-        an insert-driven (DTD) or dynamic-discovery pool.  The JAX
-        package replays those (DTD skip agreement, dynamic restarts);
-        the port does not, and containing them in its place would be a
-        silent downgrade of what ``recovery_enable`` promises."""
-        from parsec_tpu_torch.dsl.dtd.insert import DTDTaskpool
-        if isinstance(tp, DTDTaskpool):
-            raise NotImplementedError(
-                f"recovery_enable=1: {tp!r} is an insert-driven (DTD) "
-                "pool, and the port's recovery plane restarts PTG pools "
-                "only (DTD recovery is not ported)")
-        if getattr(tp, "dynamic", False):
-            raise NotImplementedError(
-                f"recovery_enable=1: {tp!r} is a dynamic-discovery pool, "
-                "and the port's recovery plane restarts enumerable PTG "
-                "pools only (DynamicTaskpool recovery is not ported)")
-
     def register_pool(self, tp: Taskpool) -> None:
         """Record a pool's recovery spec at attach and snapshot its
         collections' local tiles — the lineage restore point.  A pool
-        without collections stays on the containment path; a DTD or
-        dynamic pool raises (``refuse_unsupported``, which
-        ``Context.add_taskpool`` runs before it attaches the pool)."""
-        self.refuse_unsupported(tp)
+        without collections stays on the containment path."""
         collections = list(getattr(tp, "recovery_collections", ()) or ())
         spec = {"tp": tp, "collections": collections,
+                "replay": getattr(tp, "recovery_replay", None),
                 "completed_at": None}
         if collections:
             tp.on_complete(self._pool_done)
@@ -863,6 +982,7 @@ class RecoveryCoordinator:
                 for tpid in evicted:
                     self._plan_state.pop(tpid, None)
                     self._extra_seeds.pop(tpid, None)
+                    self._skip_set.pop(tpid, None)
                     self._retire_reports.pop(tpid, None)
                     self._frozen_tasks.pop(tpid, None)
                     for kk in [kk for kk in self._need_acks
@@ -871,6 +991,9 @@ class RecoveryCoordinator:
                     for kk in [kk for kk in self._peer_modes
                                if kk[0] == tpid]:
                         del self._peer_modes[kk]
+                    for kk in [kk for kk in self._skip_reports
+                               if kk[0] == tpid]:
+                        del self._skip_reports[kk]
         live_dcs = {id(dc) for spec in self._specs.values()
                     for dc in spec["collections"]}
         for key in [k for k in self._snaps if k not in live_dcs]:
@@ -901,6 +1024,12 @@ class RecoveryCoordinator:
         take: List[Taskpool] = []
         leave: List[Taskpool] = []
         touching = {tp.taskpool_id for tp in pools}
+        # the services hear the start BEFORE the event is queued: the
+        # recovery thread may finish it (and report "done") before this
+        # comm thread got past the queueing, and a "start" arriving after
+        # its "done" would leave the rank degraded for good (a deliberate
+        # difference: the JAX package notifies at the end of this method)
+        self._notify_services("start", rank)
         with self._lock:
             # the restart set is GANG-WIDE per pool, not per-traffic:
             # the re-executed DAG is global, so every survivor must
@@ -938,14 +1067,17 @@ class RecoveryCoordinator:
                     candidates.append(tp)
             for tp in candidates:
                 spec = self._specs.get(tp.taskpool_id)
-                # anything that is not a parameterized enumeration is
-                # not replayable: a base startup() re-enumerates
-                # nothing, and a restart would restore the tiles,
-                # re-execute zero tasks, and "complete" with silently
-                # reverted data (DTD and dynamic pools never register:
-                # refuse_unsupported)
-                replayable = spec is not None and \
-                    isinstance(tp, ParameterizedTaskpool)
+                # insert-driven pools (anything that is not a
+                # parameterized enumeration) NEED a replay callable: a
+                # base startup() re-enumerates nothing, and a restart
+                # would restore the tiles, re-execute zero tasks, and
+                # "complete" with silently reverted data
+                replayable = spec is not None and (
+                    spec["replay"] is not None
+                    or isinstance(tp, ParameterizedTaskpool))
+                # DynamicTaskpool pools (incl. distributed ones holding
+                # a _dyn_hold) recover too: startup() re-seeds the
+                # discovery roots and _restart_pool re-arms the hold
                 ok = (spec is not None and spec["collections"]
                       and replayable
                       and not tp.cancelled
@@ -988,6 +1120,12 @@ class RecoveryCoordinator:
                 # the restarted pool's retirement quorum re-collects
                 # from its re-completions (stale reports must not
                 # retire a pool a survivor is still replaying).  Skip
+                # reports/broadcasts are NOT purged: like the mode
+                # ballots they carry the restart-attempt round and
+                # _plan_dtd_skip matches rounds — purging would delete
+                # a FASTER peer's current-round report (a hang-detected
+                # death lets peers report before we even declare) and
+                # force a spurious full-replay fallback
                 self._retire_reports.pop(tpid_, None)
         # excuse SYNCHRONOUSLY, on the declaring thread: a survivor
         # polling wait_quiescence every 50 ms must never observe
@@ -1035,6 +1173,24 @@ class RecoveryCoordinator:
             return rank in self._dead_map or rank in self._pending_dead
 
     # -- the recovery thread ---------------------------------------------
+    def _apply_untranslate(self) -> None:
+        """Clear translation entries of ranks that rejoined while a
+        restart was active, once the restart pipeline drained — a
+        deferred clear nobody applies would leave the rejoined rank's
+        partition re-mapped forever."""
+        with self._lock:
+            if self._active or self._events \
+                    or not self._pending_untranslate:
+                return
+            pend = set(self._pending_untranslate)
+            self._pending_untranslate.clear()
+            translated = list(self._translated)
+        for dc in translated:
+            table = dict(dc._recovery_translate or {})
+            for r in pend:
+                table.pop(r, None)
+            dc.set_rank_translation(table)
+
     def _run(self) -> None:
         while True:
             with self._lock:
@@ -1058,6 +1214,8 @@ class RecoveryCoordinator:
                     with self._lock:
                         self._active.discard(tp.taskpool_id)
                     self.context.record_pool_error(tp, exc)
+                self._notify_services("failed", rank)
+        self._apply_untranslate()
 
     def _process_event(self, rank: int, exc: Exception,
                        pools: List[Taskpool]) -> None:
@@ -1122,6 +1280,7 @@ class RecoveryCoordinator:
         if jr is not None:
             jr.emit("recovery_done", peer=rank, ok=ok,
                     duration_s=round(dt, 4))
+        self._notify_services("done" if ok else "failed", rank)
         warning("rank %d: recovery for dead rank %d %s in %.2fs",
                 ctx.rank, rank, "completed" if ok else "FAILED", dt)
 
@@ -1170,7 +1329,10 @@ class RecoveryCoordinator:
             with self._lock:
                 self._active.discard(tp.taskpool_id)
             return 0
-        # partition re-mapping on THIS pool's collections.  The
+        if spec["replay"] is not None:
+            self._await_insert_stream(tp)
+        # partition re-mapping on THIS pool's collections (plus the
+        # pool-level table DTD integer affinities consult).  The
         # pre-restore window is TRANSACTIONAL: a failed pre-flight must
         # roll the tables back, or owner_of would keep routing the dead
         # partition here with no restored payloads — a later pool over
@@ -1194,23 +1356,35 @@ class RecoveryCoordinator:
         dead_set = set(dead_map)
         tpid = tp.taskpool_id
         # minimal replay applies to enumerable PTG pools with a
-        # complete lineage ring; everything else (evicted/disabled
-        # ring) takes the restore-point fallback
+        # complete lineage ring; insert-driven DTD pools take the
+        # SKIP-AGREEMENT path instead (ghost-replay the agreed
+        # prefix); everything else (dynamic discovery, evicted/
+        # disabled ring) takes the restore-point fallback
         want_minimal = (self.minimal_on and self.lineage_on
+                        and spec["replay"] is None
+                        and not getattr(tp, "dynamic", False)
                         and isinstance(tp, ParameterizedTaskpool)
                         and tp._lineage is not None
                         and not tp._lineage.overflow)
+        want_skip = (self.minimal_on and self.lineage_on
+                     and self.dtd_skip_on
+                     and spec["replay"] is not None
+                     and callable(getattr(tp, "dtd_skip_report", None))
+                     and tp._lineage is not None
+                     and not tp._lineage.overflow)
         with self._ctl_cond:
             # (stale votes need no purge here: ballots carry the
             # restart-attempt round, and _agree_mode matches rounds —
             # purging instead would delete a FASTER peer's
             # current-round vote and split the gang's modes)
             self._plan_state[tpid] = "open" if want_minimal else "full"
-        fallback_reason = None
-        if not want_minimal:
+        if not want_minimal and not want_skip:
             self._broadcast_mode(tpid, False)
+        fallback_reason = None
+        if not want_minimal and not want_skip:
             fallback_reason = self._static_fallback_reason(tp, spec)
         rplan = synth = base_restores = None
+        skip = None
         try:
             # pre-flight: every tile this rank now owns must have a
             # restore source — check BEFORE tearing runtime state down
@@ -1264,6 +1438,28 @@ class RecoveryCoordinator:
                     with self._ctl_cond:
                         self._plan_state[tpid] = "full"
                     self._broadcast_mode(tpid, False)
+            if want_skip:
+                # DTD insert-stream skip agreement: evidence is stable
+                # now (fence + drain), and the torn generation's comm
+                # state is gone — agree the skippable prefix BEFORE
+                # the reset discards the landed/seed evidence
+                try:
+                    skip = self._plan_dtd_skip(tp, spec, dead_set)
+                    self._broadcast_mode(tpid, True)
+                    if not self._agree_mode(tpid):
+                        debug_verbose(1, "rank %d: pool %d DTD skip "
+                                      "fell back (skip-vote full on a "
+                                      "peer)", ctx.rank, tpid)
+                        fallback_reason = "skip-vote full"
+                        skip = None
+                        self._broadcast_mode(tpid, False)
+                except RecoveryUnsupported as why:
+                    debug_verbose(1, "rank %d: pool %d DTD skip fell "
+                                  "back to full replay (%s)",
+                                  ctx.rank, tpid, why)
+                    fallback_reason = str(why)
+                    skip = None
+                    self._broadcast_mode(tpid, False)
             # termdet rewind.  force_terminated: a pool that completed
             # LOCALLY (its partition drained before the kill) must
             # still restart — the adopter's re-executed activations
@@ -1286,6 +1482,14 @@ class RecoveryCoordinator:
                     ctx._active_taskpools += 1
                 tp._done_event.clear()
             tp.termdet.taskpool_addto_runtime_actions(tp, 1)  # startup
+            if getattr(tp, "_dyn_hold", False):
+                # a DynamicTaskpool's distributed termination hold was
+                # zeroed with the counters: re-take it (and keep the
+                # comm layer's registration) so the restarted pool
+                # still resolves through the pool-scoped Safra round
+                # instead of stranding resolve_dynamic_holds
+                tp.termdet.taskpool_addto_runtime_actions(tp, 1)
+                rde.rearm_dynamic_hold(tp)
             tp.recovery_reset()
             if rplan is not None:
                 # minimal: restore the adopted partition (its versions
@@ -1297,6 +1501,20 @@ class RecoveryCoordinator:
                         self._restore_tile(dc, idx, arr, how)
                 for dc, idx, arr in base_restores:
                     self._restore_tile(dc, idx, arr, "snapshot")
+            elif skip is not None:
+                # DTD skip: restore ONLY tiles the agreed prefix never
+                # writes (vcut 0 — pool-attach snapshot / init state);
+                # every written tile's cut value is the designated
+                # holder's live bytes, seeded/served during the replay
+                vc = skip["vcut"]
+                dcids = getattr(tp, "_dc_ids", {})
+                for dc, idx, arr, how in plan:
+                    wire = ("c", dcids.get(id(dc)),
+                            dc.data_key(*idx))
+                    if wire not in vc:
+                        self._restore_tile(dc, idx, arr, how)
+                tp.dtd_arm_skip(skip["prefix"], skip["holders"],
+                                skip["seeds"], vc)
             else:
                 # restore the last surviving version of every owned tile
                 for dc, idx, arr, how in plan:
@@ -1310,14 +1528,22 @@ class RecoveryCoordinator:
                 dc.set_rank_translation(prev)
             raise
         # re-insert the re-execution sub-DAG
-        ready = tp.startup()
-        if rplan is not None and synth:
-            # deliveries whose producers are skipped: hand the
-            # materialized versions straight to the dep countdown
-            ready.extend(self._deliver_synth(tp, synth))
-        n = max(int(tp.nb_tasks), 0)
-        if ready:
-            scheduling.schedule(ctx.streams[0], ready)
+        if spec["replay"] is not None:
+            spec["replay"](tp)
+            if skip is not None:
+                # covers the all-skipped stream (no post-prefix insert
+                # triggered the finalize) and disarms the filter
+                tp.dtd_skip_finish()
+            n = max(int(tp.nb_tasks), 0)
+        else:
+            ready = tp.startup()
+            if rplan is not None and synth:
+                # deliveries whose producers are skipped: hand the
+                # materialized versions straight to the dep countdown
+                ready.extend(self._deliver_synth(tp, synth))
+            n = max(int(tp.nb_tasks), 0)
+            if ready:
+                scheduling.schedule(ctx.streams[0], ready)
         jr2 = ctx.journal
         rnd = self._mode_round(tpid)
         if rplan is not None:
@@ -1330,6 +1556,18 @@ class RecoveryCoordinator:
                           "task(s), %d synthesized edge(s), %d "
                           "rewound tile(s)", ctx.rank, tpid, n,
                           len(synth), len(base_restores))
+        elif skip is not None:
+            self.minimal_replays += 1
+            self.skip_agreements += 1
+            if jr2 is not None:
+                jr2.emit("replay_mode", pool=tpid, mode="skip",
+                         round=rnd, prefix=skip["prefix"],
+                         seeds=len(skip["seeds"]), tasks=n)
+            debug_verbose(1, "rank %d: pool %d DTD MINIMAL replay: "
+                          "skipped the agreed insert prefix %d (%d "
+                          "held cut payload(s)), %d task(s) re-run",
+                          ctx.rank, tpid, skip["prefix"],
+                          len(skip["seeds"]), n)
         else:
             self.full_replays += 1
             if jr2 is not None:
@@ -1338,18 +1576,48 @@ class RecoveryCoordinator:
                          tasks=n)
             # every full-replay fallback is DIAGNOSABLE from the
             # flight-recorder bundle (reason string: evicted ring /
-            # nacked need / unsupported pool / ...), not inferred from
-            # counter deltas
+            # nacked need / skip-vote full / unsupported pool / ...),
+            # not inferred from counter deltas
             ctx.telemetry_incident(
                 f"recovery-fallback pool={tpid} "
                 f"reason={fallback_reason or 'unknown'}")
         tp.ready()
         with self._lock:
-            self._active.discard(tp.taskpool_id)
+            # a later death's event still queued for this pool keeps it
+            # recovering: this generation's sends to that rank (it may
+            # be the adopter this restart just mapped to) are the torn
+            # generation's, excused, not a failure of the pool (a
+            # deliberate difference: the JAX package unmarks it here)
+            if not any(tp in pools for _r, _e, pools in self._events):
+                self._active.discard(tp.taskpool_id)
         # frames parked while the pool was down deliver into the new
         # generation now
         rde.retry_delayed()
+        drain = getattr(ctx.comm, "dtd_drain_backlog", None)
+        if drain is not None and hasattr(tp, "_dtd_incoming"):
+            drain(tp)
         return n
+
+    def _await_insert_stream(self, tp) -> None:
+        """Wait (bounded by ``recovery_drain_s``) until the application
+        has ended the insert stream of a replay-driven pool (``wait()``
+        marks it, ``_finished``).  The replay re-inserts the whole
+        stream from the recovery thread, so it must not overlap the
+        application's own inserts: a death landing mid-stream would have
+        both threads insert the same tasks (a deliberate difference: the
+        JAX package restarts at once).  The application's inserts after
+        the death run in the torn generation, which the fence below
+        discards.  A stream that does not end in time (blocked on a full
+        window behind the dead rank's tiles) aborts the recovery."""
+        deadline = time.monotonic() + self.drain_s
+        while not getattr(tp, "_finished", True):
+            if time.monotonic() >= deadline:
+                raise RecoveryUnsupported(
+                    f"rank {self.context.rank}: the insert stream of pool "
+                    f"{tp.taskpool_id} did not end within "
+                    f"{self.drain_s:g}s of the death; its replay would "
+                    "overlap it")
+            time.sleep(0.005)
 
     def _restore_tile(self, dc, idx: Tuple, arr, how: str) -> None:
         """Land one restore payload as the tile's newest version.  A host
@@ -1381,9 +1649,9 @@ class RecoveryCoordinator:
         dc.data_of(*idx).overwrite_host(arr)
 
     def _static_fallback_reason(self, tp, spec) -> str:
-        """Why a pool never even attempts a minimal plan — the reason
-        string every full-replay fallback's flight-recorder incident
-        carries."""
+        """Why a pool never even attempts a minimal/skip plan — the
+        reason string every full-replay fallback's flight-recorder
+        incident carries."""
         if not (self.minimal_on and self.lineage_on):
             return "minimal replay disabled by configuration"
         lin = tp._lineage
@@ -1391,6 +1659,12 @@ class RecoveryCoordinator:
             return "unsupported pool (no lineage ring armed)"
         if lin.overflow:
             return "evicted ring"
+        if spec["replay"] is not None:
+            if not self.dtd_skip_on:
+                return "dtd skip agreement disabled by configuration"
+            return "unsupported pool (replay-driven, no skip report)"
+        if getattr(tp, "dynamic", False):
+            return "unsupported pool (dynamic discovery)"
         return "unsupported pool"
 
     # -- dead-set agreement + replay-need negotiation (TAG_RECOVER) ------
@@ -1511,6 +1785,28 @@ class RecoveryCoordinator:
             with self._ctl_cond:
                 self._need_acks[(msg.get("tp"), src)] = \
                     bool(msg.get("ok"))
+                self._ctl_cond.notify_all()
+        elif k == "skipf":
+            # DTD skip agreement: a survivor's frontier/landed report
+            # (or its full vote) — store for the coordinator's round
+            if jr is not None:
+                jr.emit("skip_offer", pool=msg.get("tp"),
+                        round=int(msg.get("round", 0)),
+                        frontier=int(msg.get("frontier", -1)),
+                        src=src, full=msg.get("full"))
+            with self._ctl_cond:
+                self._skip_reports[(msg.get("tp"), src)] = \
+                    (int(msg.get("round", 0)), msg)
+                self._ctl_cond.notify_all()
+        elif k == "skipset":
+            # the coordinator's agreed-prefix broadcast
+            if jr is not None:
+                jr.emit("skip_cut", pool=msg.get("tp"),
+                        round=int(msg.get("round", 0)),
+                        prefix=int(msg.get("prefix", 0)), src=src)
+            with self._ctl_cond:
+                self._skip_set[msg.get("tp")] = \
+                    (int(msg.get("round", 0)), msg)
                 self._ctl_cond.notify_all()
         elif k == "retire":
             # retirement handshake: a rank reports local completion
@@ -1742,6 +2038,150 @@ class RecoveryCoordinator:
                     return _result(False)
                 self._ctl_cond.wait(left)
 
+    # -- DTD insert-stream skip agreement ---------------------------------
+    def _plan_dtd_skip(self, tp, spec, dead_set: set) -> dict:
+        """Agree the largest common skippable insert-stream prefix for
+        one multi-rank DTD pool restart (one TAG_RECOVER report/
+        broadcast round, bounded by ``recovery_agree_timeout_s``) and
+        materialize this rank's side of it: the cut payloads it is the
+        designated holder of, and the vcut map the selective restore
+        consults.  A sole survivor short-circuits to its local view
+        (no wire round).  Raises :class:`RecoveryUnsupported` on any
+        infeasibility — the caller votes full and the mode round
+        falls the whole gang back symmetrically."""
+        from parsec_tpu_torch.comm.engine import TAG_RECOVER
+        tpid = tp.taskpool_id
+        rep = tp.dtd_skip_report()
+        full_why = rep.get("full")
+        rde = self._rde
+        ce = rde.ce if rde is not None else None
+        peers = rde._live_peers() if rde is not None else []
+        rnd = self._mode_round(tpid)
+        me = self.context.rank
+        jr = self.context.journal
+        if jr is not None:
+            # this rank's OWN offered cut — the auditor checks every
+            # agreed prefix against every offer in the round
+            jr.emit("skip_offer", pool=tpid, round=rnd,
+                    frontier=(-1 if full_why is not None
+                              else int(rep["frontier"])),
+                    full=full_why)
+        if not peers or ce is None:
+            # sole survivor: the agreement short-circuits locally
+            if full_why is not None:
+                raise RecoveryUnsupported(f"dtd skip: {full_why}")
+            k, holders, vcuts = dtd_skip_prefix(
+                {me: rep["frontier"]}, {me: rep["landed"]},
+                rep["writes"])
+            if jr is not None:
+                jr.emit("skip_cut", pool=tpid, round=rnd, prefix=int(k))
+            if k <= 0:
+                raise RecoveryUnsupported(
+                    "dtd skip: no skippable prefix in the local view")
+        elif rde.recovery_coordinator() == ce.rank:
+            # coordinator: collect every survivor's frontier report,
+            # cut the common prefix, broadcast it (prefix 0 = the gang
+            # falls back fast instead of timing out one by one)
+            k, holders, vcuts = 0, {}, {}
+            why = None
+            if full_why is not None:
+                why = f"local vote full ({full_why})"
+            else:
+                deadline = time.monotonic() + self.agree_timeout
+                reports: Dict[int, dict] = {}
+                with self._ctl_cond:
+                    while True:
+                        reports = {}
+                        for r in peers:
+                            ent = self._skip_reports.get((tpid, r))
+                            if ent is not None and ent[0] == rnd:
+                                reports[r] = ent[1]
+                        if len(reports) == len(peers):
+                            break
+                        left = deadline - time.monotonic()
+                        if left <= 0:
+                            break
+                        self._ctl_cond.wait(left)
+                if len(reports) < len(peers):
+                    why = "a survivor's skip report never arrived"
+                else:
+                    fulls = sorted(r for r, m in reports.items()
+                                   if m.get("full"))
+                    if fulls:
+                        why = (f"rank {fulls[0]} voted full "
+                               f"({reports[fulls[0]]['full']})")
+                    else:
+                        frontiers = {me: rep["frontier"]}
+                        landed = {me: dict(rep["landed"])}
+                        for r, m in reports.items():
+                            frontiers[r] = int(m["frontier"])
+                            landed[r] = dict(m["landed"])
+                        k, holders, vcuts = dtd_skip_prefix(
+                            frontiers, landed, rep["writes"])
+                        if k <= 0:
+                            why = ("no common prefix consistent with "
+                                   "the survivors' materializable cuts")
+            out = {"k": "skipset", "tp": tpid, "round": rnd,
+                   "prefix": k, "holders": holders, "vcut": vcuts}
+            if jr is not None:
+                jr.emit("skip_cut", pool=tpid, round=rnd, prefix=int(k),
+                        why=why)
+            for r in peers:
+                try:
+                    ce.send_am(TAG_RECOVER, r, dict(out))
+                except OSError:
+                    pass   # its death gets its own event
+            if why is not None:
+                raise RecoveryUnsupported(f"dtd skip: {why}")
+        else:
+            # participant: report the frontier (or the full vote),
+            # then wait for the coordinator's agreed prefix
+            coord = rde.recovery_coordinator()
+            msg = {"k": "skipf", "tp": tpid, "round": rnd}
+            if full_why is not None:
+                msg["full"] = full_why
+            else:
+                msg["frontier"] = rep["frontier"]
+                msg["landed"] = rep["landed"]
+            try:
+                ce.send_am(TAG_RECOVER, coord, msg)
+            except OSError:
+                raise RecoveryUnsupported(
+                    "dtd skip: coordinator unreachable")
+            if full_why is not None:
+                raise RecoveryUnsupported(f"dtd skip: {full_why}")
+            deadline = time.monotonic() + self.agree_timeout
+            with self._ctl_cond:
+                while True:
+                    ent = self._skip_set.get(tpid)
+                    if ent is not None and ent[0] == rnd:
+                        agreed = ent[1]
+                        break
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        raise RecoveryUnsupported(
+                            "dtd skip: agreed-prefix broadcast never "
+                            "arrived (coordinator died mid-round?)")
+                    self._ctl_cond.wait(left)
+            k = int(agreed.get("prefix", 0))
+            holders = dict(agreed.get("holders") or {})
+            vcuts = dict(agreed.get("vcut") or {})
+            if k <= 0:
+                raise RecoveryUnsupported(
+                    "dtd skip: coordinator declared no skippable "
+                    "prefix")
+        mine = [w for w, h in holders.items() if h == me]
+        seeds = tp.dtd_capture_seeds(mine)
+        if len(seeds) != len(mine):
+            # a held cut payload with no host bytes is an
+            # infeasibility, not a crash — the mode round falls the
+            # gang back symmetrically
+            raise RecoveryUnsupported(
+                "dtd skip: a held cut payload is not host-pullable")
+        return {"prefix": k, "holders": holders, "vcut": vcuts,
+                "seeds": seeds}
+
+    # -- minimal replay (recorded-lineage plan) ---------------------------
     def _plan_minimal(self, tp, spec, dead_set: set) -> ReplayPlan:
         """Compute, negotiate, and FREEZE the minimal plan for one pool
         restart.  Raises RecoveryUnsupported on any infeasibility — the
@@ -2103,6 +2543,119 @@ class RecoveryCoordinator:
                 f"{tp.taskpool_id} not drained within {self.drain_s:g}s "
                 f"({exc}) — restoring under them would corrupt the "
                 "lineage base") from exc
+
+    # -- rejoin ----------------------------------------------------------
+    def on_rejoin_request(self, src: int, msg: dict) -> Optional[dict]:
+        """Survivor side of the rejoin handshake (comm thread): validate
+        the incarnation epoch against the fence, clear the dead mark,
+        hand back the translation table.  Returns the ack payload, or
+        None to deny."""
+        rde = self._rde
+        if rde is None:
+            return None
+        epoch = int(msg.get("epoch", 0))
+        fence = rde.peer_fence(src)
+        jr = self.context.journal
+        if epoch < fence:
+            if jr is not None:
+                jr.emit("rejoin_req", src=src, epoch=epoch, ok=False,
+                        fence=fence)
+            warning("rank %d: rejected rejoin of rank %d with stale "
+                    "epoch %d (fence %d)", self.context.rank, src,
+                    epoch, fence)
+            return None
+        if jr is not None:
+            jr.emit("rejoin_req", src=src, epoch=epoch, ok=True,
+                    fence=fence)
+        rde.note_peer_epoch(src, epoch)
+        rde.ce.peer_rejoined(src, epoch)
+        with self._ctl_cond:
+            # the agreement plane must not re-declare a rejoined rank
+            # from stale confirmations of its previous incarnation
+            self._agree_confirmed.discard(src)
+            self._agree_reports.pop(src, None)
+            for s in self._agree_reports.values():
+                s.discard(src)
+        busy = False
+        with self._lock:
+            self._peer_epochs[src] = epoch
+            self._dead_map.pop(src, None)
+            dead_map = dict(self._dead_map)
+            busy = bool(self._active) or bool(self._events)
+            translated = list(self._translated)
+            if busy:
+                # a restart mid-flight keeps its table until done (the
+                # re-executing tasks must keep resolving to their
+                # adopter); the recovery thread applies the clear once
+                # the pipeline drains (_apply_untranslate)
+                self._pending_untranslate.add(src)
+        if not busy:
+            # the rank takes its partition back for FUTURE lookups
+            for dc in translated:
+                table = dict(dc._recovery_translate or {})
+                table.pop(src, None)
+                dc.set_rank_translation(table)
+        self.rejoins += 1
+        self._notify_services("rejoin", src)
+        warning("rank %d: rank %d REJOINED (incarnation epoch %d)",
+                self.context.rank, src, epoch)
+        ce = rde.ce
+        with ce._bar_cond:
+            bar_gen = ce._bar_gen
+        return {"k": "ack", "epoch": epoch, "rank": self.context.rank,
+                "translation": dead_map, "bar_gen": bar_gen}
+
+    def rejoin(self, timeout: float = 30.0) -> Dict[int, int]:
+        """Restarted-rank side: announce the new incarnation to every
+        live peer and wait for the first ack; returns the received
+        translation table (other still-dead ranks' re-mappings)."""
+        rde = self._rde
+        if rde is None:
+            raise RuntimeError("rejoin needs an attached comm engine")
+        ce = rde.ce
+        peers = [r for r in range(ce.nranks)
+                 if r != ce.rank and r not in ce.dead_peers]
+        if not peers:
+            raise RuntimeError("rejoin: no live peers to rejoin")
+        from parsec_tpu_torch.comm.engine import TAG_REJOIN
+        req = {"k": "req", "rank": ce.rank, "epoch": ce.epoch}
+        deadline = time.monotonic() + timeout
+        ack = None
+        while ack is None:
+            # RE-ANNOUNCE each round: a frame sent before a survivor
+            # finished re-creating its transport state for us (the shm
+            # ring re-creation race, a still-dialing socket) is lost —
+            # the request is idempotent, so retry until acked
+            for r in peers:
+                try:
+                    ce.send_am(TAG_REJOIN, r, dict(req))
+                except OSError:
+                    continue   # that survivor died meanwhile
+            left = deadline - time.monotonic()
+            if left <= 0:
+                break
+            ack = ce.wait_rejoin_ack(min(2.0, left))
+        if ack is None:
+            raise TimeoutError(
+                f"rank {ce.rank}: rejoin not acknowledged within "
+                f"{timeout:g}s (every survivor denied the epoch or was "
+                "unreachable)")
+        table = {int(k): int(v)
+                 for k, v in (ack.get("translation") or {}).items()}
+        jr = self.context.journal
+        if jr is not None:
+            jr.emit("rejoin_done", epoch=ce.epoch,
+                    acked_by=int(ack.get("rank", -1)),
+                    bar_gen=int(ack.get("bar_gen", 0)))
+        with self._lock:
+            self._dead_map.update(table)
+        # generation-numbered state transfer: the fresh engine's barrier
+        # counter syncs to the survivors' so the next collective round
+        # numbers match across the rebuilt gang
+        with ce._bar_cond:
+            ce._bar_gen = max(ce._bar_gen,
+                              int(ack.get("bar_gen", 0)))
+        return table
 
     # -- observability ----------------------------------------------------
     def stats(self) -> Dict[str, Any]:

@@ -235,9 +235,14 @@ def _maybe_retry(es, task: Task, exc: Exception, distance: int) -> bool:
     return True
 
 
-def complete_execution(es, task: Task, failed: bool = False) -> None:
+def complete_execution(es, task: Task, failed: bool = False,
+                       ran: bool = True) -> None:
     """Completion: version bumps, release deps, repo holds, termdet
-    (reference: __parsec_complete_execution:441)."""
+    (reference: __parsec_complete_execution:441).  ``ran`` False is a
+    stale task the device module's recovery drain dropped unlaunched
+    (devices/cuda.py ``drop_stale``, a deliberate difference from the
+    JAX package, which has no such drop): no byte of its tiles was
+    written, so the DTD taint below must not claim its write landed."""
     tc = task.task_class
     tp = task.taskpool
     if task.pool_epoch != tp.run_epoch:
@@ -256,6 +261,17 @@ def complete_execution(es, task: Task, failed: bool = False) -> None:
             if copy is not None and copy.data is not None \
                     and copy.data.collection is not None:
                 copy.data.complete_write(copy.device)
+        if ran and task.dtd is not None and tp._lineage is not None:
+            # DTD twin of the version taint: a SUCCESSFUL body's
+            # in-place tile writes are LANDED bytes — advance the
+            # tiles' applied_ver so the skip-agreement landed map
+            # cannot claim an older version over mutated payloads.  A
+            # FAILED body's bytes are indeterminate (it may have
+            # mutated partway): they match NO version, so the pool
+            # votes full instead
+            taint = getattr(tp, "dtd_taint_stale", None)
+            if taint is not None:
+                taint(task.dtd, failed=failed)
         task.status = _COMPLETE
         es.pins("task_discard", task)
         return

@@ -127,9 +127,11 @@ class Taskpool:
         self.run_epoch = 0
         #: recovery spec: the collections this pool's dataflow reads and
         #: writes (builders set it; core/recovery.py snapshots/restores
-        #: them).  Empty = not recoverable — peer death keeps the
-        #: containment behavior
+        #: them) and, for insert-driven pools, a replay callable that
+        #: re-inserts the lost work.  Empty/None = not recoverable —
+        #: peer death keeps the containment behavior
         self.recovery_collections: list = []
+        self.recovery_replay: Optional[Callable] = None
         #: recorded lineage log (core/recovery.LineageLog), installed by
         #: the RecoveryCoordinator at registration when the lineage
         #: plane is on.  None keeps complete_execution's hook at one

@@ -1325,8 +1325,9 @@ class CudaDevice(Device):
         """Recovery drain (core/recovery.py): take every task of ``tp``'s
         torn generation (``pool_epoch`` behind the pool's ``run_epoch``)
         off the launch queue and complete it through the epoch fence
-        (core/scheduling.complete_execution: versions tainted, nothing
-        released, the termdet untouched) WITHOUT launching it, so none of
+        (core/scheduling.complete_execution with ``ran=False``: versions
+        tainted, no DTD write claimed landed, nothing released, the
+        termdet untouched) WITHOUT launching it, so none of
         its kernels can write a tile in place after the restore.  What
         was already launched or chain-held is waited out by ``sync``,
         which the drain calls next.  Returns the number dropped."""
@@ -1346,7 +1347,7 @@ class CudaDevice(Device):
             for task, _spec, load, readers in drop:
                 self.load_sub(load)
                 self._release_readers(readers)
-                scheduling.complete_execution(self.es, task)
+                scheduling.complete_execution(self.es, task, ran=False)
         finally:
             with self._cond:
                 self._completing -= 1

@@ -42,14 +42,15 @@ differences:
   done, and the copy-down is synchronous on the launch stream
   (devices/cuda.py, "Ordering"), so no in-place successor can have
   written the tile yet;
-* left out with the recovery plane's DTD half (a recovery-enabled
-  Context refuses a DTD pool at attach, core/recovery.py): the
-  insert-stream lineage and skip agreement (``_insert_pos``,
-  ``_note_insert``, ``_ghost_insert``, ``dtd_arm_skip``,
-  ``dtd_skip_report``, ``dtd_capture_seeds``, ``dtd_taint_stale``) and
-  ``recovery_reset``.  The port's DTD pools carry ``_lineage`` None.  The
-  lane events reach the causal tracer and the flight recorder's ``dtd``
-  class alike.
+* a region lane's writer writes back only its own extent (the JAX
+  package writes the whole tile back).  The insert-stream skip agreement
+  of the recovery plane (``_note_insert``, ``_ghost_insert``,
+  ``dtd_arm_skip``, ``dtd_skip_report``, ``dtd_capture_seeds``,
+  ``dtd_taint_stale``) is the JAX package's, and a pool with region
+  lanes still latches unskippable (``_skip_note``) as there; a skip
+  holder's seed is a host tensor that lands as the tile's host copy.
+  The lane events reach the causal tracer and the flight recorder's
+  ``dtd`` class alike.
 """
 
 from __future__ import annotations
@@ -283,7 +284,7 @@ class _DTDState:
     __slots__ = ("task", "remaining", "successors", "done", "affinity",
                  "rank", "is_recv", "needed", "tile", "version", "payload",
                  "remote_sends", "pushout", "region", "local_writes",
-                 "extents")
+                 "insert_pos", "extents")
 
     def __init__(self, task: Optional[Task], rank: int = 0):
         self.task = task
@@ -307,6 +308,11 @@ class _DTDState:
         #: dynamic_release advances each tile's applied_ver from them
         #: once the body has actually run
         self.local_writes: List[Tuple["DTDTile", int, Any]] = []
+        #: SPMD insert-stream position (only stamped with the recovery
+        #: lineage plane armed) — the unit of the cross-rank skip
+        #: agreement: dynamic_release records it completed, and a
+        #: restart's tid-gated replay filter skips agreed positions
+        self.insert_pos: Optional[int] = None
         #: written flow name -> the byte extent of its region lane, for
         #: lane writes with one: the CPU hook writes back only that
         #: extent (None: whole tiles)
@@ -362,6 +368,38 @@ class DTDTaskpool(Taskpool):
         self._flush_queue: List[Tuple[Any, torch.Tensor]] = []
         self._drained = False
         self._recv_tc: Optional[TaskClass] = None
+        # -- insert-stream lineage (core/recovery.py DTD skip agreement)
+        # All of it gates on the shared lineage plane: with
+        # PARSEC_MCA_RECOVERY_ENABLE=0 the pool's ``_lineage`` stays
+        # None and every hook below is one attribute check.
+        #: SPMD insert-stream position counter — bumped on EVERY
+        #: insert_task call (local and remote placements alike), so it
+        #: is identical on every rank by construction
+        #: (guarded-by: _dep_lock, _window)
+        self._insert_pos = 0
+        #: stream positions placed on THIS rank / completed here
+        #: (dynamic_release records completion post-body)
+        #: (guarded-by: _dep_lock, _window)
+        self._pos_local: set = set()
+        self._pos_done: set = set()     # guarded-by: _dep_lock, _window
+        #: (pos, wire_key) per tracked write, in stream order — the
+        #: per-tile write ladder the skip-agreement coordinator cuts
+        #: (guarded-by: _dep_lock, _window)
+        self._wlog: List[Tuple[int, Any]] = []
+        #: latched reason this pool can never skip (region lanes,
+        #: tile_new wire keys, insert-log overflow) — the skip report
+        #: then votes full instead of planning from partial evidence
+        self._skip_note: Optional[str] = None
+        #: a skip replay already ran this generation: a second death
+        #: takes the full replay (the replayed wlog's placement went
+        #: through the translation and is not holder-designation safe)
+        self._skip_done = False
+        #: armed by the RecoveryCoordinator between recovery_reset and
+        #: the replay: {"prefix", "holders", "seeds", "vcut", "done"} —
+        #: insert_task ghost-tracks positions below the agreed prefix
+        #: and the finalize installs the holder writers/seeds
+        self._dtd_skip: Optional[dict] = None
+
     # -- lifecycle ---------------------------------------------------------
     def attach(self, context, termdet) -> None:
         super().attach(context, termdet)
@@ -385,6 +423,53 @@ class DTDTaskpool(Taskpool):
     def _flush_on_complete(self, tp) -> None:
         if not self.cancelled and self._finished:
             self._flush_home()
+
+    def recovery_reset(self) -> None:
+        """Recovery restart (core/recovery.py): drop every lane/window/
+        surrogate structure of the torn generation on top of the base
+        dep/repo reset.  The pool's ``recovery_replay`` then re-inserts
+        the lost task stream against restored tiles — re-created
+        ``tile_of`` wrappers resolve their home through the translated
+        owner, so a single survivor replays the whole chain locally.
+
+        Insert-stream lineage: with the recovery lineage plane armed,
+        every insert stamps its SPMD stream position
+        (``_DTDState.insert_pos``), ``dynamic_release`` records the
+        completed positions, and ``_wlog`` keeps the per-tile write
+        ladder — the evidence of the cross-rank SKIP AGREEMENT
+        (core/recovery.py ``_plan_dtd_skip``): survivors agree on the
+        largest common skippable prefix consistent with every rank's
+        materializable ``(tile, version)`` cut, and the replay's
+        tid-gated filter ghost-tracks the skipped prefix (versions and
+        ordering advance, bodies do not run) while designated HOLDER
+        ranks serve the cut values in place of the skipped producers'
+        deliveries.  Any rank that cannot honor the prefix votes full
+        and the mode-agreement round falls the whole gang back
+        symmetrically — SPMD insert streams provably never diverge."""
+        super().recovery_reset()
+        if not self._finished:
+            # the attach-time wait() hold was zeroed with the counters;
+            # re-take it so a wait() that has not happened yet finds
+            # its decrement balanced
+            self.termdet.taskpool_addto_runtime_actions(self, 1)
+        with self._dep_lock:
+            self._tiles.clear()
+            self._tiles_by_wire.clear()
+            self._expected.clear()
+            self._received.clear()
+            self._flush_queue.clear()
+            self._inflight = 0
+            self._drained = False
+            # insert-stream lineage restarts with the new generation
+            # (the pre-kill evidence was consumed by the skip plan);
+            # _skip_note/_skip_done latches survive — a structurally
+            # unskippable pool stays unskippable across restarts
+            self._insert_pos = 0
+            self._pos_local.clear()
+            self._pos_done.clear()
+            self._wlog = []
+            self._dtd_skip = None
+            self._window.notify_all()
 
     def wait(self, timeout: Optional[float] = None) -> None:
         """Drain: all inserted tasks complete
@@ -448,11 +533,12 @@ class DTDTaskpool(Taskpool):
                 tile.home_rank, self._wire_msg("flush", tile, ver, lane))
 
     def _dtd_send_contained(self, dst: int, msg: dict) -> None:
-        """DTD send with containment: a task body that spans the instant
-        a peer is DECLARED dead completes into a send the dead-peer guard
-        rejects — that failure belongs to the pool, never to the calling
-        worker thread.  (The JAX package's containment also swallows it
-        when a recovery restart owns the pool; the port has none.)"""
+        """DTD send with recovery-aware containment: a task body that
+        spans the instant a peer is DECLARED dead completes into a
+        send the dead-peer guard rejects — that failure belongs to the
+        pool (and is swallowed outright when a recovery restart
+        already owns this pool's fate), never to the calling worker
+        thread."""
         comm = self.context.comm
         try:
             comm.dtd_send(dst, msg)
@@ -614,6 +700,12 @@ class DTDTaskpool(Taskpool):
         with self._dep_lock:
             self._tiles[("new", id(datum))] = t
             self._tiles_by_wire[wire] = t
+            if self._lineage is not None and self._skip_note is None:
+                # _new_seq is not reset across a restart, so replayed
+                # tile_new wires would not match the recorded ladder —
+                # this pool's skip report votes full
+                self._skip_note = "tile_new wire keys are not " \
+                                  "replay-stable"
         return t
 
     def data_flush_all(self) -> None:
@@ -628,12 +720,204 @@ class DTDTaskpool(Taskpool):
         for t in tiles:
             t.data.pull_to_host()
 
+    # -- insert-stream skip agreement (core/recovery.py DTD minimal
+    # replay).  Everything below gates on the recovery lineage plane
+    # (``self._lineage``); disabled, none of it runs.
+    def _note_insert(self, pos: int, nargs, rank: int) -> None:
+        """Record one insert's write ladder + placement (lineage armed
+        only): the skip-agreement coordinator cuts the per-tile write
+        positions, and the frontier is the contiguous completed prefix
+        of the LOCAL positions."""
+        cap = self._lineage.cap
+        with self._window:
+            if len(self._wlog) >= cap:
+                if self._skip_note is None:
+                    # a truncated ladder cannot prove a cut sound
+                    self._skip_note = "insert log overflow"
+                return
+            for value, mode, _f, _r in nargs:
+                if mode in (OUTPUT, INOUT):
+                    self._wlog.append((pos, self._as_tile_locked(value)))
+            if rank == self.myrank:
+                self._pos_local.add(pos)
+
+    def _as_tile_locked(self, value) -> Any:
+        """wire_key of a tile value with _dep_lock already held (the
+        _window condition shares the lock, so _as_tile/tile_of would
+        self-deadlock)."""
+        if isinstance(value, DTDTile):
+            return value.wire_key
+        if isinstance(value, DataRef):
+            key = (id(value.dc), value.dc.data_key(*value.indices))
+            t = self._tiles.get(key)
+            if t is not None:
+                return t.wire_key
+            dcid = self._dc_ids.get(id(value.dc))
+            if dcid is None:
+                dcid = self._dc_ids[id(value.dc)] = len(self._dc_ids)
+            return ("c", dcid, value.dc.data_key(*value.indices))
+        if isinstance(value, Data):
+            return ("d", id(value))
+        raise TypeError(f"cannot interpret {value!r} as a tile")
+
+    def _ghost_insert(self, nargs) -> None:
+        """Dep-tracking-only replay of one agreed-skippable insert: its
+        writes advance tile versions through DONE pass-through
+        surrogates (ordering numbering stays identical to the original
+        stream on every rank) and nothing is counted, scheduled, or
+        executed — the values of the skipped prefix are served by the
+        designated holder ranks (``_dtd_skip_finalize_locked``)."""
+        writes = [(self._as_tile(value),
+                   region.rid if region is not None else None)
+                  for value, mode, _f, region in nargs
+                  if mode in (OUTPUT, INOUT)]
+        with self._dep_lock:
+            for tile, rid in writes:
+                self._surrogate_write(tile, rid)
+
+    def dtd_arm_skip(self, prefix: int, holders: Dict[Any, int],
+                     seeds: Dict[Any, torch.Tensor],
+                     vcut: Dict[Any, int]) -> None:
+        """Arm the tid-gated replay filter (RecoveryCoordinator, after
+        ``recovery_reset`` and before the replay callable runs)."""
+        with self._dep_lock:
+            self._dtd_skip = {"prefix": int(prefix),
+                              "holders": dict(holders),
+                              "seeds": dict(seeds),
+                              "vcut": dict(vcut), "done": False}
+
+    def _dtd_skip_finalize_locked(self) -> None:  # holds-lock: _dep_lock
+        """Ghost prefix fully tracked: on each tile's designated HOLDER
+        rank, replace the last ghost surrogate with a completed LOCAL
+        writer over the seeded cut payload — local consumers read the
+        datum directly, and the SPMD processing of a remote consumer's
+        insert triggers the payload send exactly like a completed
+        normal producer (``_insert_remote``'s ``lw.done`` path)."""
+        sk = self._dtd_skip
+        if sk is None or sk["done"]:
+            return
+        sk["done"] = True
+        me = self.myrank
+        for wire, holder in sk["holders"].items():
+            tile = self._tiles_by_wire.get(wire)
+            if tile is None:
+                continue   # the replay stream never touched it
+            vcut = sk["vcut"].get(wire, tile.version)
+            if holder != me:
+                # non-holders keep the done ghost surrogate; their
+                # consumers revive it (_mark_needed) and the holder's
+                # payload lands through the ordinary recv chain
+                continue
+            seed = sk["seeds"].get(wire)
+            if seed is not None:
+                tile.data.overwrite_host(to_host(seed))
+            d = _DTDState(None, rank=me)
+            d.done = True
+            d.tile = tile
+            d.version = vcut
+            tile.last_writer = d
+            tile.readers = []
+            if tile.lanes:
+                tile.lanes = {None: _Lane(d, version=vcut)}
+            with self._apply_lock:
+                if vcut > tile.applied_ver:
+                    # the seeded bytes ARE the cut landing: an older
+                    # stale payload must not clobber them
+                    tile.applied_ver = vcut
+
+    def dtd_skip_finish(self) -> None:
+        """Replay stream done (RecoveryCoordinator): finalize (covers
+        the all-skipped stream, where no post-prefix insert triggered
+        it — the holder writers must still exist so ``_flush_home``
+        ships the cut values home) and disarm.  A later death of this
+        generation takes the full replay: the replayed ladder's
+        placement went through the rank translation and is no longer
+        holder-designation evidence."""
+        with self._dep_lock:
+            self._dtd_skip_finalize_locked()
+            self._dtd_skip = None
+            self._skip_done = True
+
+    def dtd_skip_report(self) -> Dict[str, Any]:
+        """This survivor's half of the skip agreement, computed AFTER
+        the run_epoch fence and in-flight drain (the numbers are
+        stable): either ``{"full": reason}`` — this rank votes full —
+        or the insert-stream completion frontier plus the per-tile
+        landed versions the coordinator cuts against.
+
+        ``frontier`` = the largest K such that every LOCAL position
+        < K completed; ``landed[wire]`` = the whole-covering version
+        whose bytes this rank's datum actually holds
+        (``DTDTile.applied_ver``) — the materializable cut evidence."""
+        lin = self._lineage
+        if lin is None or lin.overflow:
+            return {"full": "evicted ring"}
+        if self._skip_note is not None:
+            return {"full": self._skip_note}
+        if self._skip_done:
+            return {"full": "skip already replayed this generation"}
+        with self._window:
+            frontier = self._insert_pos
+            for p in sorted(self._pos_local):
+                if p not in self._pos_done:
+                    frontier = p
+                    break
+            landed = {t.wire_key: t.applied_ver
+                      for t in self._tiles.values()}
+            wlog = list(self._wlog)
+        return {"frontier": frontier, "landed": landed, "writes": wlog}
+
+    def dtd_capture_seeds(self, wires) -> Dict[Any, torch.Tensor]:
+        """Host copies of the agreed cut values this rank holds —
+        captured BEFORE recovery_reset discards the shadow datums (an
+        adopted tile's cut bytes may live only in the old shadow).
+        Raises KeyError/ValueError-free: an unpullable payload returns
+        a partial map and the caller falls back."""
+        out: Dict[Any, torch.Tensor] = {}
+        with self._window:
+            tiles = {w: self._tiles_by_wire.get(w) for w in wires}
+        for wire, tile in tiles.items():
+            if tile is None:
+                continue
+            copy = tile.data.pull_to_host()
+            if copy is None or copy.payload is None:
+                continue
+            out[wire] = to_host(copy.payload).clone()
+        return out
+
+    def dtd_taint_stale(self, state: "_DTDState",
+                        failed: bool = False) -> None:
+        """Epoch-fence discard of a stale-generation body that RAN
+        (core/scheduling.complete_execution): its in-place writes are
+        LANDED bytes the skip report must see — advance applied_ver so
+        the landed map can never claim an older version over mutated
+        payloads (the DTD twin of the stale-body version taint).
+        A body that FAILED may have mutated its tiles PARTWAY: those
+        bytes match no version at all, so the pool latches unskippable
+        instead of claiming the write landed.
+
+        The position is completion evidence too: the landed map must
+        never run AHEAD of the frontier.  A body straddling the fence
+        (claimed pre-restart, completed post-fence) that advanced
+        applied_ver without recording its position would leave NO rank
+        holding the frontier's cut bytes — the agreement would cut
+        prefix 0 and force a full replay on a fully-completed write."""
+        if failed:
+            if state.local_writes and self._skip_note is None:
+                self._skip_note = "stale body failed mid-write"
+            return
+        self._advance_applied(state.local_writes)
+        if self._lineage is not None and state.insert_pos is not None:
+            with self._window:
+                self._pos_done.add(state.insert_pos)
+
     def _advance_applied(self, local_writes) -> None:
         """A completed body's WHOLE-COVERING writes are LANDED values:
         advance each tile's applied_ver monotonically (sliced region
         lanes stay out — their extent never names the whole tile).
-        (The JAX package's stale-discard taint, a recovery-plane site,
-        calls it too.)"""
+        One helper for both landing sites (dynamic_release and the
+        stale-discard taint) so the landing-order guard and the
+        skip-agreement landed map can never diverge."""
         for wtile, wver, wrid in local_writes:
             if wrid is None or wrid not in self._region_slices:
                 with self._apply_lock:
@@ -806,11 +1090,38 @@ class DTDTaskpool(Taskpool):
             raise RuntimeError(
                 "attach the DTD pool to a context before inserting")
         nargs = _norm(args)
+        lin = self._lineage
+        pos = None
+        if lin is not None:
+            # SPMD stream position: every rank's counter advances on
+            # every insert call, so positions name the same logical
+            # task cluster-wide (the skip-agreement unit)
+            with self._window:
+                pos = self._insert_pos
+                self._insert_pos += 1
         for *_x, r in nargs:
             if r is not None and r.slices is not None:
                 self._region_slices[r.rid] = r.slices
+            if r is not None and lin is not None \
+                    and self._skip_note is None:
+                # region lanes track sub-tile writers whose landing
+                # versions applied_ver cannot name — unskippable
+                self._skip_note = "region lanes"
         args = [(v, b) for v, b, _f, _r in nargs]
         rank = self._task_rank(args) if self.nranks > 1 else self.myrank
+        if lin is not None:
+            sk = self._dtd_skip
+            if sk is not None and pos < sk["prefix"]:
+                # agreed-skippable prefix: ghost-track the write
+                # ordering (versions advance, no body runs, no counts)
+                self._ghost_insert(nargs)
+                return None
+            if sk is not None:
+                # first post-prefix insert: install the holder writers
+                # and seed the cut payloads BEFORE this insert tracks
+                with self._dep_lock:
+                    self._dtd_skip_finalize_locked()
+            self._note_insert(pos, nargs, rank)
         if rank != self.myrank:
             self._insert_remote(nargs, rank)
             return None
@@ -825,6 +1136,7 @@ class DTDTaskpool(Taskpool):
         task = Task(tc, self, {"tid": next(_seq)})
         task.priority = priority
         state = _DTDState(task, rank=self.myrank)
+        state.insert_pos = pos
         task.dtd = state
 
         with self._window:
@@ -1208,7 +1520,8 @@ class DTDTaskpool(Taskpool):
                         return
                     self._dtd_payload(msg, arr)
                 finally:
-                    comm.dtd_ref_done()
+                    comm.dtd_ref_done((msg.get("tp"),
+                                       msg.get("pe", 0)))
 
             comm.ce.get(msg["from"], msg["ref"], on_data)
             return
@@ -1253,6 +1566,14 @@ class DTDTaskpool(Taskpool):
             with self._dep_lock:
                 t = self._tiles.get(key)
                 if t is None:
+                    if self._lineage is not None \
+                            and self._skip_note is None:
+                        # id()-based wire keys are neither rank- nor
+                        # replay-stable: a skip plan over them would
+                        # exchange meaningless landed evidence — vote
+                        # full up front (the tile_new latch's twin)
+                        self._skip_note = "raw Data wire keys are " \
+                                          "not replay-stable"
                     # raw Data has no owner rank: local-only tile
                     t = DTDTile(value, home_rank=self.myrank,
                                 wire_key=("d", id(value)))
@@ -1454,6 +1775,10 @@ class DTDTaskpool(Taskpool):
                                                      lane)))
                 encoded.add((dst, tile, ver, lane))
         with self._window:
+            if self._lineage is not None and state.insert_pos is not None:
+                # insert-stream completion evidence: the skip report's
+                # frontier is the contiguous prefix of these positions
+                self._pos_done.add(state.insert_pos)
             # worklist: an unneeded surrogate whose last obligation clears
             # completes IN PLACE (no task to run) and propagates to its
             # own successors immediately — the ordering chain through

@@ -42,11 +42,13 @@ In the port: the journal is installed on every Context at
 package live in its comm, recovery and service layers; the port carries
 the comm layer's (barrier rounds, peer deaths, excusals, the Safra
 reconcile), the recovery plane's (core/recovery.py: dead-set agreement,
-epoch fences, mode votes, retirement) and the health plane's
-``health_transition``; the hang autopsy prints the clock-aligned tail
-(``journal_autopsy_tail``), and ``cluster_journals`` pulls the peers'
-snapshots over the comm engine's TAG_METRICS lane.  One deliberate
-difference: at
+epoch fences, mode votes, the DTD skip agreement's ``skip_offer`` and
+``skip_cut``, retirement, the rejoin handshake's ``rejoin_req`` and
+``rejoin_done``), the job service's (``service_state``, the recovery
+notices among them) and the health plane's ``health_transition``; the
+hang autopsy prints the clock-aligned tail (``journal_autopsy_tail``),
+and ``cluster_journals`` pulls the peers' snapshots over the comm
+engine's TAG_METRICS lane.  One deliberate difference: at
 ``journal_enabled`` 0 the port installs no journal at all
 (``ctx.journal`` is None) where the JAX package installs a disabled one.
 

@@ -1,13 +1,10 @@
 """JobService: a resident, multi-tenant front door for one warm Context.
 
 The port's copy of the JAX package's service/service.py.  Its deliberate
-differences: the Context it builds runs on the card unless
-``device="cpu"``/``"cpu:N"`` is passed (the Context's own default), and
-the recovery plane's transitions (``note_recovery`` and the plane's
-``attach_service``/``detach_service``) are not ported: the port's
-recovery plane restarts PTG pools without notifying a service, so the
-degraded-rank set fills from ``PeerFailedError`` containment and is
-cleared by nothing yet.
+difference: the Context it builds runs on the card unless
+``device="cpu"``/``"cpu:N"`` is passed (the Context's own default).  With
+the recovery plane on, the service attaches to it and ``note_recovery``
+moves a rank degraded -> recovering -> healthy, as in the JAX package.
 
 The batch shape of the runtime (build Context -> add_taskpool ->
 Context.wait -> fini) keeps nothing warm between runs.  The job service
@@ -117,13 +114,20 @@ class JobService:
         #: — the service keeps admitting and serving every job that stays
         #: off the dead ranks (single-rank pools, jobs on surviving
         #: ranks); the set is surfaced through stats()/degraded for
-        #: operators and load balancers.  The port's Context has no
-        #: recovery plane (the JAX package's context.recovery reports
-        #: the start/done/rejoin transitions that heal the set there),
-        #: so nothing removes a rank yet
+        #: operators and load balancers
         self._degraded_ranks: set = set()
+        #: ranks a recovery is currently re-executing around (the
+        #: degraded -> recovering -> healthy transition the stats
+        #: surface and tools/job_client.py expose); guarded-by: _lock
+        self._recovering_ranks: set = set()
         self.gauges = JobGauges(self)
         self.gauges.install(context)
+        if getattr(context, "recovery", None) is not None:
+            # the recovery plane reports start/done/rejoin transitions
+            # so degraded-mode bookkeeping UN-degrades (without them
+            # these sets would be set-only — a healed service would look
+            # sick forever)
+            context.recovery.attach_service(self)
         # the always-on metrics registry (prof/metrics.py) folds the
         # service view into its scrape: job queue depths, degraded
         # flag, per-job task counters over the JobGauges window, and
@@ -440,13 +444,44 @@ class JobService:
     def degraded(self) -> bool:
         """True while any peer rank is dead under the service
         (containment kept unaffected jobs running; capacity is
-        reduced).  In the JAX package recovery or a rejoin clears it;
-        the port's recovery plane does not notify the service yet."""
+        reduced).  CLEARED when recovery completes or the rank
+        rejoins — degraded is a state, not a scar."""
         return bool(self._degraded_ranks)
 
     def degraded_ranks(self) -> List[int]:
         with self._lock:
             return sorted(self._degraded_ranks)
+
+    def note_recovery(self, event: str, rank: int) -> None:
+        """Recovery-plane transitions (core/recovery.py notifier):
+        ``start`` marks the rank degraded+recovering, ``done`` heals it
+        (re-mapped partition serving again), ``failed`` leaves it
+        degraded, ``rejoin`` heals it fully (the rank itself is back).
+        Running jobs that were stamped with the failed rank but
+        survived through recovery get the stamp cleared; terminally
+        FAILED jobs keep theirs — it is their diagnosis."""
+        with self._lock:
+            if event == "start":
+                self._degraded_ranks.add(rank)
+                self._recovering_ranks.add(rank)
+                jobs = []
+                state = "recovering"
+            elif event in ("done", "rejoin"):
+                self._recovering_ranks.discard(rank)
+                self._degraded_ranks.discard(rank)
+                jobs = [j for j in self._jobs.values()
+                        if j.failed_rank == rank and not j.done]
+                state = "healthy"
+            else:   # failed: recovery gave up; the degradation stands
+                self._recovering_ranks.discard(rank)
+                jobs = []
+                state = "degraded"
+        jr = getattr(self.context, "journal", None)
+        if jr is not None:
+            jr.emit("service_state", peer=rank, state=state,
+                    cause=event)
+        for job in jobs:
+            job.failed_rank = None
 
     def stats(self) -> Dict[str, Any]:
         with self._lock:
@@ -458,10 +493,8 @@ class JobService:
                 "max_pending": self._max_pending,
                 "degraded": bool(self._degraded_ranks),
                 "degraded_ranks": sorted(self._degraded_ranks),
-                # the job clients' keys; with no recovery notification no
-                # rank is ever recovering here
-                "recovering": False,
-                "recovering_ranks": [],
+                "recovering": bool(self._recovering_ranks),
+                "recovering_ranks": sorted(self._recovering_ranks),
             }
 
     def drain(self, timeout: Optional[float] = None) -> bool:
@@ -504,6 +537,8 @@ class JobService:
         self.gauges.uninstall(self.context)
         if getattr(self.context, "metrics", None) is not None:
             self.context.metrics.detach_service(self)
+        if getattr(self.context, "recovery", None) is not None:
+            self.context.recovery.detach_service(self)
         if self._own_context:
             self.context.fini()
 

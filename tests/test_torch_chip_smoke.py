@@ -521,3 +521,25 @@ def test_fault_tolerance_path_rehearsal_on_cpu():
     assert out["worst_rel_fro"] <= chip_smoke.POTRF_DIST_TOL
     assert out["backward_error"] <= chip_smoke.POTRF_BWD_TOL
     assert out["launches"] == NO_LAUNCHES
+
+
+def test_rejoin_and_dtd_recovery_legs_rehearsal_on_cpu():
+    """The rejoin and DTD-recovery legs on two CPU ranks over shm at a
+    tiny size (rank 1's restarted incarnation stalls each dispatch so the
+    kill lands inside the DTD pass): rank 1 rejoins, both GEMM passes and
+    the service's degraded -> healthy check hold, then rank 1 dies in the
+    DTD GEMM and rank 0 recovers it with C checked."""
+    chip_smoke = _chip_smoke()
+    sys.path.insert(0, str(ROOT))   # the spawned ranks import chip_smoke
+    try:
+        out = chip_smoke.phase_rejoin_dtd(
+            dtd_nofault_s=2.0, size=(32, 4), setup_s=5.0, kill_at=0.4,
+            extra_plan="delay_dispatch=ms=100", device="cpu")
+    finally:
+        sys.path.remove(str(ROOT))
+    assert out["rejoin"]["up_to_ack_s"] < chip_smoke.FT_REJOIN_TIMEOUT_S
+    assert tuple(out["rejoin"]["service"][-1]) == ("healthy", "rejoin")
+    assert out["dtd"]["worst_rel"] <= chip_smoke.GEMM_DIST_TOL
+    assert out["dtd"]["bit_identical"] is True
+    assert out["dtd"]["recovery"]["tasks_reexecuted"] > 0
+    assert out["launches"] == NO_LAUNCHES

@@ -423,3 +423,38 @@ def test_shm_attach_to_a_ring_not_sized_yet_retries(tmp_path):
         peer.close()
     finally:
         ring.close()
+
+
+def test_shm_stalled_write_survives_its_drain_declaring_the_peer_dead():
+    """A write stalled on a full ring drains our own inbound rings; when
+    that drain meets the peer's end of stream it declares the peer dead,
+    which closes the very ring being written.  The write must stop there
+    (the frame is undeliverable, as to any dead peer), not read the
+    closed ring's indices (seen on the card: a 2-rank DTD GEMM's 8 MiB
+    payload to the rank the fault plan had just killed)."""
+    params.set("comm_shm_ring_mb", 0)     # clamps to the 64KB floor
+    try:
+        ce0, ce1 = _pair()
+        errors = []
+        ce0.on_error = errors.append
+        ce0.rejoin_allowed = True         # the survivor re-creates rings
+        ce0.send_am(13, 1, None)          # attach both outbound rings
+        ce1.send_am(13, 0, None)
+        assert _wait(lambda: ce0._peers[1].outbound is not None
+                     and ce1._peers[0].outbound is not None, 5)
+        ce1.post(time.sleep, 0.6)         # ce1 stops draining ...
+        time.sleep(0.05)
+        ce0.send_am(30, 1, {"b": b"x" * 300_000})   # ... so ce0 stalls
+        assert _wait(lambda: ce0.ring_full_stalls > 0, 5)
+        ce1._peers[0].outbound.set_closed()   # ce1's stream to ce0 ends
+        assert _wait(lambda: 1 in ce0.dead_peers, 5)
+        time.sleep(0.2)
+        # the death itself reaches on_error (no containment is wired
+        # here); nothing else may
+        from parsec_tpu_torch.core.errors import PeerFailedError
+        assert [e for e in errors if not isinstance(e, PeerFailedError)] \
+            == []
+        assert ce0._peers[1].outbound is None
+    finally:
+        _drain((ce0, ce1))
+        params.unset("comm_shm_ring_mb")

@@ -36,7 +36,9 @@ Fault tolerance on the card: a 2-rank potrf whose rank 1 is killed mid-run
 completes on rank 0 (adopted tiles remade on the card) within the 2-rank
 limits, a collection whose tiles live on the card round-trips through
 checkpoint and restore bit for bit, and the recovery drain keeps a queued
-in-place K1 launch of the torn generation off restored bytes.
+in-place K1 launch of the torn generation off restored bytes.  A rank
+goes down and rejoins, and a 2-rank DTD GEMM whose rank 1 is killed
+recovers on rank 0 through the skip agreement, C bit for bit K1's chain.
 """
 
 import numpy as np
@@ -828,3 +830,60 @@ def test_stale_k1_launch_never_lands_on_restored_bytes(card):
     from test_torch_recovery_plane import stale_launch_case
     stale_launch_case("cuda", 256,
                       on_launch=lambda: _k1_tiles())
+
+
+@pytest.mark.cuda
+def test_two_rank_dtd_gemm_recovers_a_killed_rank_on_the_card(card):
+    """The rejoin and DTD-recovery legs at mb=512, 8 x 8 x 8 (two ranks on
+    this card over shm; rank 1's restarted incarnation stalls each
+    dispatch 50 ms so the kill lands inside the DTD pass): rank 1 rejoins
+    and serves pass B, then dies in the DTD GEMM; rank 0 recovers it, C
+    within 1e-3 of the plain-version product and bit for bit K1's chain,
+    K1 launched by the survivor."""
+    import pathlib
+    import sys
+    chip_smoke = _chip_smoke()
+    root = str(pathlib.Path(__file__).resolve().parent.parent)
+    sys.path.insert(0, root)   # the spawned ranks import chip_smoke
+    try:
+        out = chip_smoke.phase_rejoin_dtd(
+            dtd_nofault_s=2.0, size=(512, 8), setup_s=8.0, kill_at=0.4,
+            extra_plan="delay_dispatch=ms=50")
+    finally:
+        sys.path.remove(root)
+    assert out["dtd"]["worst_rel"] <= 1e-3
+    assert out["dtd"]["bit_identical"] is True
+    assert out["dtd"]["recovery"]["tasks_reexecuted"] > 0
+    assert out["launches"]["gemm_tile"] + \
+        out["launches"]["gemm_tile_grouped"] > 0
+
+
+@pytest.mark.cuda
+def test_killed_rank_rejoins_and_serves_on_the_card(card):
+    """The rejoin leg alone at mb=512 over evloop: rank 1's engine goes
+    down and comes back as incarnation 1, rank 0 counts one rejoin and
+    its JobService heals, both GEMM passes check on the card."""
+    import os
+    import pathlib
+    import sys
+    from parsec_tpu_torch.comm import run_distributed
+    chip_smoke = _chip_smoke()
+    root = str(pathlib.Path(__file__).resolve().parent.parent)
+    os.environ["PARSEC_MCA_RECOVERY_ENABLE"] = "1"
+    sys.path.insert(0, root)
+    try:
+        res = run_distributed(chip_smoke.rejoin_rank, 2, args=(512, 8),
+                              device="cuda", timeout=300)
+    finally:
+        sys.path.remove(root)
+        os.environ.pop("PARSEC_MCA_RECOVERY_ENABLE", None)
+    assert res[0]["rejoin"]["rejoins"] == 1 and res[0]["rejoin"]["dead"] == []
+    assert res[1]["rejoin"]["epoch"] == 1
+    assert not res[0]["service"]["degraded"]
+    assert ("healthy", "rejoin") in \
+        [tuple(x) for x in res[0]["service"]["transitions"]]
+    for r in res:
+        assert r["pass_a"]["worst_rel"] <= 1e-3
+        assert r["pass_b"]["worst_rel"] <= 1e-3
+    assert sum(r["rejoin_launches"]["gemm_tile"] +
+               r["rejoin_launches"]["gemm_tile_grouped"] for r in res) > 0

@@ -62,6 +62,10 @@ def test_fault_plan_take_counts_and_determinism():
         streams = []
         for _ in range(2):
             faultinject.arm("seed=3;fail_task=p=0.5")
+            # rank 0, as the JAX package's view below: the module keeps
+            # the rank the last armed transport reported, which an
+            # earlier test in this process may have left at 1
+            faultinject.runtime(0)
             streams.append([faultinject.task_fault("S(k=0)")
                             for _ in range(32)])
         ref.arm("seed=3;fail_task=p=0.5")

@@ -9,10 +9,10 @@ the Safra reconcile, the pool-generation gate, the degraded-checkpoint
 markers, the recorded lineage ring and the incremental checkpoint store,
 and the metrics families.  Each case runs once per package (``pkg``) with
 the reference test's own assertions; the port's Contexts run on
-``device="cpu"``.  Past the twins: the port's refusals (DTD and dynamic
-pools under recovery, the elastic-rejoin knobs) and the drain of the
-device module before a restore.  The multi-process kill runs are in
-tests/test_torch_recovery_kill.py.
+``device="cpu"``.  The DTD skip agreement, the rejoin and the service's
+notices are in tests/test_torch_recovery_dtd.py, the multi-process kill
+runs in tests/test_torch_recovery_kill.py and
+tests/test_torch_recovery_dtd_kill.py.
 """
 
 import importlib
@@ -651,10 +651,10 @@ def test_stale_body_discard_taints_tile_versions(pkg):
 
 def test_dead_rank_fence_drops_stragglers(pkg):
     """The first half of test_epoch_fence_drops_stale_incarnation_frames
-    (its second half, a rejoined incarnation passing the fence, needs
-    the elastic rejoin the port leaves out): the reconcile removes the
-    dead rank's whole contribution, and its straggler is fenced with no
-    credit and not parked."""
+    (its second half is test_torch_recovery_dtd.py's
+    ``test_epoch_fence_passes_rejoined_incarnation``): the reconcile
+    removes the dead rank's whole contribution, and its straggler is
+    fenced with no credit and not parked."""
     ce, ctx, rde = _two_rank_ctx(pkg)
     try:
         with rde._term_lock:

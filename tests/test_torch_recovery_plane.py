@@ -1,8 +1,8 @@
 """The port's own rules for the fault-tolerance planes, on the CPU.
 
 A Context starts with the flight recorder and with the recovery plane
-armed; with recovery on it refuses the pools the port cannot recover
-(DTD and dynamic ones) instead of containing them silently; the drain
+armed; with recovery on it registers DTD and dynamic pools with their
+recovery specs as it does PTG pools; the drain
 before a restore empties the device module (``device="cpu:1"``, the
 CPU-backed module that runs the card's pipeline), so no queued kernel of
 the torn generation lands on restored bytes; and ``set_init`` with
@@ -35,30 +35,42 @@ def test_fault_tolerance_plane_knob_installs(knob, attr, tmp_path):
         assert ctx._flightrec is None and ctx.recovery is None
 
 
-def _dtd_pool():
+def _dtd_pool(V):
     from parsec_tpu_torch.dsl.dtd import DTDTaskpool
-    return DTDTaskpool("dtd")
+    tp = DTDTaskpool("dtd")
+    tp.recovery_collections = [V]
+    tp.recovery_replay = lambda pool: None
+    return tp
 
 
-def _dynamic_pool():
+def _dynamic_pool(V):
     from parsec_tpu_torch.core.taskpool import DynamicTaskpool
-    return DynamicTaskpool("dyn")
+    tp = DynamicTaskpool("dyn")
+    tp.recovery_collections = [V]
+    return tp
 
 
 @pytest.mark.parametrize("make", [_dtd_pool, _dynamic_pool],
                          ids=["dtd", "dynamic"])
-def test_recovery_refuses_pools_it_cannot_recover(make):
-    """Under ``recovery_enable`` an insert-driven or dynamic pool is
-    refused before it attaches — never contained in place of the JAX
-    package's DTD and dynamic restarts, which the port leaves out."""
+def test_recovery_registers_dtd_and_dynamic_pools(make):
+    """Under ``recovery_enable`` an insert-driven or dynamic pool with a
+    recovery spec registers like a PTG pool: its spec (collections, and
+    the DTD pool's replay callable) is recorded, its local tiles are
+    snapshotted and its lineage ring is armed, so a peer death restarts
+    it (the DTD skip agreement, the dynamic pool's re-armed hold)."""
+    from parsec_tpu_torch.data.matrix import VectorTwoDimCyclic
     params.set("recovery_enable", 1)
     try:
         with Context(nb_cores=1, device="cpu") as ctx:
-            tp = make()
-            with pytest.raises(NotImplementedError, match="not ported"):
-                ctx.add_taskpool(tp)
-            assert tp.taskpool_id not in ctx.taskpools
-            assert ctx._active_taskpools == 0
+            V = VectorTwoDimCyclic(mb=4, lm=8, nodes=1, myrank=0, name="V")
+            tp = make(V)
+            ctx.add_taskpool(tp)
+            spec = ctx.recovery._specs[tp.taskpool_id]
+            assert spec["collections"] == [V]
+            assert spec["replay"] is tp.recovery_replay
+            assert tp._lineage is not None
+            assert set(ctx.recovery._snaps[id(V)]) == {(0, 0), (1, 0)}
+            tp.cancel()
             ctx.wait(timeout=10)
     finally:
         params.unset("recovery_enable")
@@ -205,3 +217,55 @@ def test_minimal_plan_sees_desc_tiles_without_records(pkg):
             ctx.fini()
     finally:
         P.unset("recovery_enable")
+
+
+def test_a_dropped_stale_dtd_task_claims_no_landed_write():
+    """The drain's ``drop_stale`` completes a queued stale DTD task
+    without launching it (``complete_execution(..., ran=False)``): its
+    insert position must not count as completed nor its tile's applied
+    version advance, or the skip agreement would take its write as
+    landed.  The task already in the manager runs, and does count."""
+    from parsec_tpu_torch.data.matrix import VectorTwoDimCyclic
+    from parsec_tpu_torch.dsl.dtd import INOUT, DTDTaskpool
+    params.set("recovery_enable", 1)
+    params.set("device_fuse", 1)
+    faultinject.arm("seed=1;delay_dispatch=ms=400")
+    try:
+        with Context(nb_cores=2, device="cpu:1") as ctx:
+            (dev,) = ctx.device_registry.accelerators
+            V = VectorTwoDimCyclic(mb=4, lm=8, nodes=1, myrank=0,
+                                   name="Vst")
+            for m in range(2):
+                V.data_of(m).copy_on(0).payload[:] = 0.0
+            tp = DTDTaskpool("stale-dtd")
+            tp.recovery_collections = [V]
+            tp.recovery_replay = lambda pool: None
+            ctx.add_taskpool(tp)
+            ctx.start()
+
+            def inc(T):
+                return T + 1.0
+            for m in range(2):
+                tp.insert_task(inc, (tp.tile_of(V, m), INOUT),
+                               device="cuda")
+            deadline = time.monotonic() + 10
+            while time.monotonic() < deadline:
+                with dev._cond:
+                    if dev._launching and len(dev._pending) == 1:
+                        break
+                time.sleep(0.005)
+            with dev._cond:
+                assert dev._launching == 1 and len(dev._pending) == 1
+                queued = dev._pending[0][0].dtd
+            (qtile, _v, _r), = queued.local_writes
+            tp.run_epoch += 1                      # the restart's fence
+            ctx.recovery._drain_inflight(tp)
+            assert queued.insert_pos not in tp._pos_done
+            assert qtile.applied_ver == 0
+            assert tp._pos_done == {1 - queued.insert_pos}
+            tp.cancel()
+            ctx.wait(timeout=10)
+    finally:
+        faultinject.disarm()
+        params.unset("device_fuse")
+        params.unset("recovery_enable")

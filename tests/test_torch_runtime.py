@@ -179,13 +179,38 @@ def test_unported_plane_knob_raises(knob):
 
 @pytest.mark.parametrize("knob", ["comm_epoch", "recovery_rejoin",
                                   "recovery_dtd_skip"])
-def test_knob_without_a_ported_reader_raises(knob, monkeypatch):
-    """Knobs of the JAX package whose readers are not ported are not
-    registered, and a Context refuses to start while one is set."""
-    assert knob not in port_params._params
-    monkeypatch.setenv("PARSEC_MCA_" + knob.upper(), "5")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_context.Context(nb_cores=1, device="cpu")
+def test_recovery_knob_is_registered_and_read(knob):
+    """The knobs of the elastic rejoin and the DTD skip agreement are
+    registered at the JAX package's defaults, and a set value reaches
+    its reader: the comm engine's incarnation epoch, the transport's
+    rejoin gate, the recovery plane's skip switch."""
+    from parsec_tpu.utils.mca import params as jax_params
+    import parsec_tpu.comm.engine  # noqa: F401  (registers comm_epoch)
+    import parsec_tpu.core.recovery  # noqa: F401
+    import parsec_tpu_torch.comm.engine as port_engine
+    import parsec_tpu_torch.core.recovery  # noqa: F401
+    assert port_params._params[knob].default == \
+        jax_params._params[knob].default
+    value = {"comm_epoch": 3, "recovery_rejoin": 0,
+             "recovery_dtd_skip": 0}[knob]
+    assert value != port_params._params[knob].default
+    port_params.set(knob, value)
+    port_params.set("recovery_enable", 1)
+    try:
+        with port_context.Context(nb_cores=1, device="cpu") as ctx:
+            if knob == "comm_epoch":
+                assert port_engine.CommEngine(0, 1).epoch == 3
+            elif knob == "recovery_rejoin":
+                import types
+                ce = types.SimpleNamespace(rejoin_allowed=False,
+                                           on_rejoin=None, on_recover=None)
+                ctx.recovery.attach_comm(types.SimpleNamespace(ce=ce))
+                assert ce.rejoin_allowed is False and ce.on_rejoin is None
+            else:
+                assert ctx.recovery.dtd_skip_on is False
+    finally:
+        port_params.unset(knob)
+        port_params.unset("recovery_enable")
 
 
 @pytest.mark.parametrize("knob", ["journal_enabled", "metrics_enabled"])
