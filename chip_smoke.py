@@ -123,14 +123,15 @@ no result line):
   fault tolerance (2 ranks, after the 2-rank paths): the potrf at mb=6144,
               nt=16, bf16 storage on two ranks of this card with
               ``recovery_enable`` and the flight recorder armed (its
-              bundle in a temporary directory), and the fault plan
-              ``kill_rank=1@t+T,mode=close``: T puts the death at
-              ``RECOVERY_KILL_AT`` of the 2-rank no-fault pass measured
-              just before, counted from the pool's start, which both
-              ranks align on rank 1's engine clock at
-              ``RECOVERY_SETUP_S`` after its start (after the operand is
-              made on the card and the pool attached, which takes the
-              recovery snapshot of each rank's local tiles).  Rank 1 must
+              bundle in a temporary directory); both ranks start the
+              pool on rank 1's engine clock at ``RECOVERY_SETUP_S`` after
+              its start (after the operand is made on the card and the
+              pool attached, which takes the recovery snapshot of each
+              rank's local tiles), and rank 1 kills itself
+              (``kill_on_progress``: the close of ``kill_rank``) once it
+              has completed ``RECOVERY_KILL_AT`` of its share of the
+              pool's tasks, so the death lands inside the pool however
+              long the pass takes under load.  Rank 1 must
               die (its slot None) and rank 0 complete: one recovery
               started and none failed, L within 1e-2 of the single-rank
               factor over every lower tile (the adopted ones remade on
@@ -155,10 +156,11 @@ no result line):
               on rank 0 went recovering -> healthy.  Then the same GEMM
               through DTD with ``recovery_replay`` and ``set_init`` (the
               seeded makers), started on both ranks ``FT_SETUP_S`` after
-              rank 1's restarted engine came up; that incarnation's plan
-              ``kill_rank=1@t+T,mode=close`` puts the death at
-              ``RECOVERY_KILL_AT`` of the 2-rank DTD pass measured just
-              before.  Rank 1 must die, rank 0 complete with one recovery
+              rank 1's restarted engine came up; rank 1 kills itself
+              (``fault_kill``, the close of ``kill_rank``) once it has
+              completed ``RECOVERY_KILL_AT`` of its share of the pool's
+              tasks, so the death lands inside the pool however long the
+              pass takes.  Rank 1 must die, rank 0 complete with one recovery
               started and none failed, C within 1e-3 of the plain-version
               product over all 64 tiles, and the bundle hold rank 0's
               recovery-start incident for the DTD pool; it prints the
@@ -168,6 +170,25 @@ no result line):
               the no-fault pass, K1 on the survivor, its memory peak and
               the snapshot's bytes and seconds; and the seconds from the
               engine going down to the rejoin ACK, pass B against pass A.
+  several modules (``device="cuda*8"``: eight device modules over the one
+              card, each its own launch stream, memory space, LRU and
+              1/8 budget; each path in a Context of its own, after the
+              2-rank paths): the GEMM mb=2048 8 x 8 x 8 with
+              ``panel_bcast`` (A, B on the host, C on the modules; best
+              of 3, C within 1e-3 of the plain product, the ICI engine's
+              broadcasts must fire), potrf mb=6144 nt=16 (median of 3,
+              backward error <= 5e-2, the IR ladder), geqrf mb=6144 nt=8
+              (one timed pass, the QR checks), the permute wave P=8 of
+              4096^2 f32 (window 1000 ms: k edges on <= 2 launches a
+              pass), the zig chain (a proactive placement must fire),
+              ring attention N=32768 over the modules, and the SPMD trio
+              (``parallel/spmd.py``: SUMMA on 2x4 and the reduce-scatter
+              GEMM on 1x8 at n=16384 f32, TF32 off, within 1e-4 of the
+              plain product; the halo stencil over 2^26 f32 within 1e-5
+              of its serial form).  Each path prints its pass time beside
+              the one-module pass's, its launches, the ICI engine's
+              ``IciStats`` and each module's ledger peak; a warm pass
+              precedes each timed one.
 
 Telemetry.  Every path runs with the planes the reference installs at its
 defaults: the metrics registry with live attribution and health, the
@@ -222,6 +243,7 @@ from __future__ import annotations
 
 import collections
 import gc
+import itertools
 import json
 import math
 import os
@@ -261,6 +283,7 @@ from parsec_tpu_torch.dsl.dtd import DTDTaskpool
 from parsec_tpu_torch.dsl.ptg import DATA, IN, OUT, PTG, Range, TASK
 from parsec_tpu_torch.dsl.ptg.jdf import jdf_taskpool
 from parsec_tpu_torch.native import load_schedext
+from parsec_tpu_torch.parallel import spmd
 from parsec_tpu_torch.prof import critpath
 from parsec_tpu_torch.prof.causal import install_causal_tracer
 from parsec_tpu_torch.prof.flightrec import summarize_bundle
@@ -360,6 +383,51 @@ def at_defaults() -> bool:
 
 def device_counts(dev) -> dict:
     return {k: getattr(dev.stats, k) for k in DEVICE_STATS}
+
+
+class _SummedStats:
+    """The counters of several modules, summed at each read."""
+
+    def __init__(self, modules):
+        self._modules = modules
+
+    def __getattr__(self, name):
+        return sum(getattr(m.stats, name) for m in self._modules)
+
+
+class MeshView:
+    """The modules of a several-module Context (``device="cuda*N"``) seen
+    by the path drivers as one device: ``stats`` sums theirs, and a tile
+    placed through ``place`` is born on the module ``distribute_devices``
+    pins it to (owner-computes over the modules, as the JAX package's
+    dryrun spreads its graphs over its devices)."""
+
+    def __init__(self, ctx: Context):
+        self.modules = list(ctx.device_registry.accelerators)
+        self.spaces = [m.space for m in self.modules]
+        first = self.modules[0]
+        self.tdev, self.is_cuda = first.tdev, first.is_cuda
+        self.name = f"{len(self.modules)} modules over {first.tdev}"
+        self.stats = _SummedStats(self.modules)
+
+    def owner(self, M, m: int, n: int):
+        d = M.data_of(m, n)
+        if d.preferred_device not in self.spaces:
+            M.distribute_devices(self.spaces)
+        return self.modules[self.spaces.index(d.preferred_device)]
+
+
+def path_device(ctx: Context):
+    """The device a path driver places its tiles on and reads its counters
+    from: the one module, or a ``MeshView`` of several."""
+    accs = ctx.device_registry.accelerators
+    return accs[0] if len(accs) == 1 else MeshView(ctx)
+
+
+def place(M, m: int, n: int, dev, tile: torch.Tensor) -> None:
+    """Tile (m, n) of ``M`` born on ``dev`` (a mesh: on its owner)."""
+    M.place_on_device(m, n, dev.owner(M, m, n)
+                      if isinstance(dev, MeshView) else dev, tile)
 
 
 def report_device(label: str, dev, before: dict, need_fused: bool = False,
@@ -1451,7 +1519,7 @@ def drive_qr(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
     device module's defaults the timed passes must chain panels.  ``keep``
     receives the conditioned operand's R tiles (the 2-rank path's
     reference).  Returns numbers."""
-    dev = ctx.device_registry.accelerators[0]
+    dev = path_device(ctx)
     on_card = dev.is_cuda
     n = nt * mb
     A = TwoDimBlockCyclic(mb, mb, n, n, dtype=dtype, name="A")
@@ -1469,7 +1537,7 @@ def drive_qr(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
         returns the pass's wall time (insert + wait + synchronize)."""
         t0 = time.perf_counter()
         for (m, k) in A.local_tiles():
-            A.place_on_device(m, k, dev, orig(m, k))
+            place(A, m, k, dev, orig(m, k))
         if on_card:
             torch.cuda.synchronize()
         regen_s = time.perf_counter() - t0
@@ -1671,7 +1739,7 @@ def drive_potrf(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
     the passes must fuse waves and chain panels.  ``keep`` receives the
     last factor's lower tiles (the 2-rank path's reference).  Returns
     numbers."""
-    dev = ctx.device_registry.accelerators[0]
+    dev = path_device(ctx)
     on_card = dev.is_cuda
     n = nt * mb
     A = TwoDimBlockCyclic(mb, mb, n, n, dtype=dtype, name="A")
@@ -1688,7 +1756,7 @@ def drive_potrf(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
         nonlocal executed_flops
         t0 = time.perf_counter()
         for (m, k) in lower:
-            A.place_on_device(m, k, dev, orig(m, k))
+            place(A, m, k, dev, orig(m, k))
         if on_card:
             torch.cuda.synchronize()
         regen_s = time.perf_counter() - t0
@@ -1894,7 +1962,7 @@ def drive_ring_attention(ctx: Context, P: int, T: int, d: int,
     (the causal ring's ``vc``) to the ring's arithmetic.  Then every
     output row against the float64 dense reference, computed on the
     device ``ATTN_REF_ROWS`` query rows at a time."""
-    dev = ctx.device_registry.accelerators[0]
+    dev = path_device(ctx)
     on_card = dev.is_cuda
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     tdev = dev.tdev
@@ -1909,8 +1977,7 @@ def drive_ring_attention(ctx: Context, P: int, T: int, d: int,
     ACC = TwoDimBlockCyclic(T, 2 * d + 2, N, 2 * d + 2, name="ACC")
     for q in range(P):
         rows = slice(q * T, (q + 1) * T)
-        KV.place_on_device(q, 0, dev, ring_attention.pack_kv(K[rows],
-                                                             V[rows]))
+        place(KV, q, 0, dev, ring_attention.pack_kv(K[rows], V[rows]))
     vc = ring_attention._causal_visit_class(P) if causal else None
     want = collections.Counter(vc(q, t) if causal else None
                                for q in range(P) for t in range(P))
@@ -1928,7 +1995,7 @@ def drive_ring_attention(ctx: Context, P: int, T: int, d: int,
 
     def run_pass(what: str) -> float:
         for q in range(P):
-            ACC.place_on_device(q, 0, dev, ring_attention.pack_query(
+            place(ACC, q, 0, dev, ring_attention.pack_query(
                 Q[q * T:(q + 1) * T]))
         sync()
         launches0 = read_counts()
@@ -2175,12 +2242,13 @@ def phase_recursive_potrf(ctx: Context, gen: torch.Generator) -> dict:
 
 
 def drive_wave(ctx: Context, P: int, n: int, passes: int,
-               label: str) -> dict:
+               label: str, after_pass=None) -> dict:
     """The permute wave over P parties of n x n f32 tiles born on the
     device (V(q) := q, W(q) := 0, ``fill_wave_inputs``' values) before
     every pass, outside the timed window; one warm pass then ``passes``
-    timed ones.  Every W(q) must equal ``expected_wave_result`` exactly."""
-    dev = ctx.device_registry.accelerators[0]
+    timed ones.  Every W(q) must equal ``expected_wave_result`` exactly.
+    ``after_pass(what)`` runs after each pass's checks."""
+    dev = path_device(ctx)
     on_card = dev.is_cuda
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     V = TwoDimBlockCyclic(n, n, P * n, n, name="V")
@@ -2191,10 +2259,9 @@ def drive_wave(ctx: Context, P: int, n: int, passes: int,
 
     def run_pass(what: str) -> float:
         for q in range(P):
-            V.place_on_device(q, 0, dev, torch.full(
+            place(V, q, 0, dev, torch.full(
                 (n, n), float(q), device=dev.tdev))
-            W.place_on_device(q, 0, dev, torch.zeros((n, n),
-                                                     device=dev.tdev))
+            place(W, q, 0, dev, torch.zeros((n, n), device=dev.tdev))
         sync()
         t0 = time.perf_counter()
         ctx.add_taskpool(wave.permute_wave_taskpool(V, W, device="cuda"))
@@ -2209,6 +2276,8 @@ def drive_wave(ctx: Context, P: int, n: int, passes: int,
                                  f" (expected {want}); W wrong at {wrong}")
         log(f"[{label}] {what}: {dt * 1e3:.2f} ms, every W(q) = 2 ((q - 1) "
             f"mod {P})")
+        if after_pass is not None:
+            after_pass(what)
         return dt
 
     log(f"[{label}] P={P} parties of ({n}, {n}) f32 "
@@ -2519,17 +2588,21 @@ def report_telemetry(label: str, ctx: Context, bail0: dict,
             "stragglers": strag, "health": health, "journal_events": events}
 
 
-def in_context(phase, label: str, sched_native=None) -> dict:
+def in_context(phase, label: str, sched_native=None,
+               device: str = None) -> dict:
     """Run one path in a Context of its own (``sched_native``: the knob
-    for this path only, else as configured).  Once the Context has ended,
-    what the path held (its tiles die in reference cycles) is freed before
-    the next path starts, so that each path's peak memory is its own."""
-    torch.cuda.reset_peak_memory_stats()
+    for this path only, else as configured; ``device``: the Context's
+    layout, else the MCA default).  Once the Context has ended, what the
+    path held (its tiles die in reference cycles) is freed before the next
+    path starts, so that each path's peak memory is its own."""
+    on_card = device is None or device.startswith("cuda")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     if sched_native is not None:
         params.set("sched_native", sched_native)
     try:
         bail0 = bailouts()
-        with Context(nb_cores=4) as ctx:
+        with Context(nb_cores=4, device=device) as ctx:
             summary = phase(ctx)
             summary["scheduler"] = report_scheduler(label, ctx, bail0)
             trace = summary.get("trace")
@@ -2542,7 +2615,8 @@ def in_context(phase, label: str, sched_native=None) -> dict:
             params.unset("sched_native")
     del ctx
     gc.collect()
-    torch.cuda.empty_cache()
+    if on_card:
+        torch.cuda.empty_cache()
     return summary
 
 
@@ -3695,21 +3769,37 @@ def _rank_launches(res: list, path: str) -> dict:
 RECOVERY_SETUP_S = 12.0   # engine start -> the pool's start (both ranks;
                           # set-up, the attach snapshot's 9 GiB of host
                           # copies included, took 6.1-8.0 s on the H100)
-RECOVERY_KILL_AT = 0.45   # the death, as a share of the no-fault pass
+RECOVERY_KILL_AT = 0.45   # the death: a share of the victim's pool tasks
 TAG_RECOVERY_GO = 20      # an application tag: the ranks' start exchange
 
 
+def kill_on_progress(ctx, tp, kill_after: int) -> None:
+    """Kill this rank (``fault_kill``: the close of the ``kill_rank``
+    directive) from a thread of its own once it has completed
+    ``kill_after`` tasks of ``tp``: the death lands at that point of the
+    pool's progress however long the pass takes under load."""
+    done = itertools.count(1)
+    ce = ctx.comm.ce
+
+    def on_complete(es, event, task):
+        if task.taskpool is tp and next(done) == kill_after:
+            threading.Thread(target=ce.fault_kill, args=("close",),
+                             daemon=True).start()
+    ctx.pins_register("complete_exec", on_complete)
+
+
 def recovery_rank(ctx, rank: int, nranks: int, mb: int, nt: int,
-                  setup_s: float, refs: dict) -> dict:
+                  setup_s: float, refs: dict, kill_after: int) -> dict:
     """One rank of the fault-tolerance path: the bench operand made on the
     device (its lower local tiles; ``A.set_init`` with the same maker for
     the tiles a survivor adopts), the pool attached (the recovery snapshot
     of the local tiles, timed), then both ranks start the pool at
     ``setup_s`` after rank 1's engine came up (CLOCK_MONOTONIC is the
-    host's, so the two processes share it) and wait.  Rank 1 is killed by
-    the fault plan and raises; rank 0 returns its recovery numbers, its
-    L tiles against ``refs`` (the single-rank factor) and the backward
-    error of the whole factor it now holds."""
+    host's, so the two processes share it) and wait.  Rank 1 kills itself
+    once it has completed ``kill_after`` of its tasks in the pool
+    (``kill_on_progress``) and raises; rank 0 returns its recovery
+    numbers, its L tiles against ``refs`` (the single-rank factor) and the
+    backward error of the whole factor it now holds."""
     dev = ctx.device_registry.accelerators[0]
     sync = torch.cuda.synchronize if dev.is_cuda else (lambda: None)
     ce = ctx.comm.ce
@@ -3756,6 +3846,8 @@ def recovery_rank(ctx, rank: int, nranks: int, mb: int, nt: int,
     if 1 - rank in ce.dead_peers:
         raise AssertionError(f"rank {rank}: the kill landed before the "
                              f"pool started")
+    if rank == 1:
+        kill_on_progress(ctx, tp, kill_after)
     t_start = time.perf_counter()
     ctx.wait()
     sync()
@@ -3801,26 +3893,31 @@ def phase_recovery(refs: dict, nofault_s: float, size=(6144, 16),
                    kill_at: float = RECOVERY_KILL_AT, extra_plan: str = "",
                    device: str = "cuda") -> dict:
     """The fault-tolerance path (the module docstring): two ranks, rank 1
-    killed at ``kill_at`` of ``nofault_s`` into the pool, rank 0 recovering
-    it.  ``extra_plan`` adds fault directives (a small rehearsal stretches
-    its pass with frame delays).  Fails unless rank 1 died, rank 0
-    completed with one recovery started and none failed, the factor
-    checks hold and the flight recorder's bundle holds rank 0's ring with
-    a recovery-start incident that ``merge_traces`` opens."""
+    killed once it has completed ``kill_at`` of its share of the pool's
+    tasks, rank 0 recovering it; ``nofault_s`` (the 2-rank pass measured
+    before) is what the survivor's time is read against.  ``extra_plan``
+    adds fault directives (a small rehearsal stretches its pass with
+    frame delays).  Fails unless rank 1 died, rank 0 completed with one
+    recovery started and none failed, the factor checks hold and the
+    flight recorder's bundle holds rank 0's ring with a recovery-start
+    incident that ``merge_traces`` opens."""
     mb, nt = size
     label = f"fault tolerance: 2-rank potrf mb={mb}, rank 1 killed"
-    kill_s = setup_s + kill_at * nofault_s
-    spec = f"seed=13;kill_rank=1@t+{kill_s:.3f}s,mode=close" +         (f";{extra_plan}" if extra_plan else "")
+    # the P=2 row grid gives rank 1 about half of the pool's tasks
+    share = sum(potrf_task_counts(nt).values()) // DIST_RANKS
+    kill_after = max(1, round(kill_at * share))
+    spec = "seed=13" + (f";{extra_plan}" if extra_plan else "")
     bundle = tempfile.mkdtemp(prefix="parsec_flightrec_")
     env = {"PARSEC_MCA_FAULT_PLAN": spec,
            "PARSEC_MCA_RECOVERY_ENABLE": "1",
            "PARSEC_MCA_FLIGHTREC_ENABLED": "1",
            "PARSEC_MCA_FLIGHTREC_DIR": bundle,
            "PARSEC_MCA_COMM_TRANSPORT": "evloop"}
-    log(f"[{label}] fault plan {spec!r}: the death at {kill_at:.2f} of the "
-        f"no-fault pass ({nofault_s * 1e3:.1f} ms) past the pool's start "
-        f"at {setup_s:.1f} s; recovery and the flight recorder armed "
-        f"(bundle {bundle})")
+    log(f"[{label}] fault plan {spec!r}; the pool starts {setup_s:.1f} s "
+        f"after rank 1's engine came up, and rank 1 dies after completing "
+        f"{kill_after} of its ~{share} tasks in it ({kill_at:.2f} of its "
+        f"share; the no-fault pass took {nofault_s * 1e3:.1f} ms); "
+        f"recovery and the flight recorder armed (bundle {bundle})")
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
@@ -3829,7 +3926,8 @@ def phase_recovery(refs: dict, nofault_s: float, size=(6144, 16),
             torch.cuda.empty_cache()
         t0 = time.perf_counter()
         res = run_distributed(recovery_rank, DIST_RANKS,
-                              args=(mb, nt, setup_s, refs), device=device,
+                              args=(mb, nt, setup_s, refs, kill_after),
+                              device=device,
                               timeout=900, tolerate_ranks=(1,))
         wall = time.perf_counter() - t0
     finally:
@@ -4003,15 +4101,18 @@ def rejoin_rank(ctx, rank: int, nranks: int, mb: int, t: int,
 
 
 def ft_rank(ctx, rank: int, nranks: int, mb: int, t: int, setup_s: float,
-            kill_plan: str) -> dict:
+            kill_plan: str, kill_after: int) -> dict:
     """One rank of the rejoin and DTD-recovery legs (shm, recovery and the
     flight recorder armed): the rejoin leg (``rejoin_rank``, rank 1's
     restarted incarnation arming ``kill_plan``), then the GEMM through
     DTD (``recovery_replay`` re-inserts it, the operands' ``set_init``
     remakes adopted tiles), started on both ranks at ``setup_s`` past rank
-    1's restarted engine; the plan kills rank 1 in it and rank 0
-    recovers.  Rank 1 sends its own numbers with its start stamp; rank 0
-    returns both ranks'."""
+    1's restarted engine; rank 1 kills itself (``fault_kill``, the
+    ``kill_rank`` directive's close) once it has completed ``kill_after``
+    of its tasks in that pool, so the death lands at that share of its
+    part of the pass however long the pass takes, and rank 0 recovers.
+    Rank 1 sends its own numbers with its start stamp; rank 0 returns both
+    ranks'."""
     dev = ctx.device_registry.accelerators[0]
     sync = torch.cuda.synchronize if dev.is_cuda else (lambda: None)
     got, evt = {}, threading.Event()
@@ -4061,6 +4162,8 @@ def ft_rank(ctx, rank: int, nranks: int, mb: int, t: int, setup_s: float,
     if 1 - rank in ce.dead_peers:
         raise AssertionError(f"rank {rank}: the kill landed before the "
                              f"DTD pool started")
+    if rank == 1:
+        kill_on_progress(ctx, tp, kill_after)
     t_start = time.perf_counter()
     gemm_dtd_insert(tp, *dmats.values())
     out["insert_s"] = time.perf_counter() - t_start
@@ -4097,17 +4200,18 @@ def phase_rejoin_dtd(dtd_nofault_s: float, size=(2048, 8),
     in one spawn over shm (recovery and the flight recorder armed): the
     rejoin leg (the PTG GEMM; rank 1 down and back as incarnation 1; a
     JobService on rank 0 degraded, then healthy), then the DTD GEMM with
-    rank 1 killed at ``kill_at`` of ``dtd_nofault_s`` (the 2-rank DTD
-    pass measured just before) into the pool and recovered on rank 0.
-    ``extra_plan`` adds fault directives to rank 1's restarted
+    rank 1 killed once it has completed ``kill_at`` of its share of the
+    pool's tasks and recovered on rank 0; ``dtd_nofault_s`` (the 2-rank
+    DTD pass measured just before) is what the survivor's time is read
+    against.  ``extra_plan`` adds fault directives to rank 1's restarted
     incarnation (a small rehearsal stretches its pass with dispatch
     delays)."""
     mb, t = size
     label_r = f"rejoin: 2-rank GEMM mb={mb}, shm"
     label_d = f"DTD recovery: 2-rank DTD GEMM mb={mb}, rank 1 killed"
-    kill_s = setup_s + kill_at * dtd_nofault_s
-    plan = f"seed=17;kill_rank=1@t+{kill_s:.3f}s,mode=close" + \
-        (f";{extra_plan}" if extra_plan else "")
+    # rank 1 runs the tasks of the C tiles it owns: half of the t^3
+    kill_after = max(1, round(kill_at * t ** 3 / DIST_RANKS))
+    plan = "seed=17" + (f";{extra_plan}" if extra_plan else "")
     bundle = tempfile.mkdtemp(prefix="parsec_flightrec_")
     env = {"PARSEC_MCA_RECOVERY_ENABLE": "1",
            "PARSEC_MCA_FLIGHTREC_ENABLED": "1",
@@ -4117,9 +4221,11 @@ def phase_rejoin_dtd(dtd_nofault_s: float, size=(2048, 8),
            "PARSEC_MCA_FLIGHTREC_MIN_INTERVAL_S": "1",
            "PARSEC_MCA_COMM_TRANSPORT": "shm"}
     log(f"[{label_r}] then [{label_d}]: rank 1's restarted incarnation "
-        f"arms {plan!r}, the death at {kill_at:.2f} of the 2-rank DTD pass "
-        f"({dtd_nofault_s * 1e3:.1f} ms) past the pool's start at "
-        f"{setup_s:.1f} s after that incarnation's engine came up")
+        f"arms {plan!r}; the pool starts {setup_s:.1f} s after that "
+        f"incarnation's engine came up, and rank 1 dies after completing "
+        f"{kill_after} of its {t ** 3 // DIST_RANKS} tasks in it "
+        f"({kill_at:.2f} of its share; the 2-rank DTD pass took "
+        f"{dtd_nofault_s * 1e3:.1f} ms)")
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
@@ -4128,7 +4234,8 @@ def phase_rejoin_dtd(dtd_nofault_s: float, size=(2048, 8),
             torch.cuda.empty_cache()
         t0 = time.perf_counter()
         res = run_distributed(ft_rank, DIST_RANKS,
-                              args=(mb, t, setup_s, plan), device=device,
+                              args=(mb, t, setup_s, plan, kill_after),
+                              device=device,
                               timeout=900, tolerate_ranks=(1,))
         wall = time.perf_counter() - t0
     finally:
@@ -4257,6 +4364,382 @@ def phase_rejoin_dtd(dtd_nofault_s: float, size=(2048, 8),
                     "k1": r0["k1"][0], "peak_gib": r0["peak_gib"]}}
 
 
+# -- several device modules on the one card: the ICI engine ------------------
+
+#: modules of the multi-module phase (``device="cuda*8"``): the JAX
+#: package's 8-device mesh (MULTICHIP_r05.json), time-sharing one card
+MESH_MODULES = 8
+#: the phase's paths at the single-module paths' widths
+MESH_SIZES = {"gemm": (2048, 8), "potrf": (6144, 16), "qr": (6144, 8),
+              "wave": (8, 4096), "zig": 4096, "attn": (8, 4096, 128),
+              "spmd": 16384, "halo": 1 << 26}
+#: the SPMD trio's limits: tests/test_parallel_spmd.py's (1e-4 for the
+#: GEMMs, 1e-5 for the stencil)
+SPMD_TOL, HALO_TOL = 1e-4, 1e-5
+HALO_STEPS = 8
+#: the permute wave's batching window (the reference test's): only a full
+#: round flushes, so k edges ride <= 2 launches
+WAVE_WINDOW_MS = 1000.0
+
+
+def mesh_report(label: str, ctx: Context, ici0: dict, pass_ms: float,
+                launches: dict, one_ms: float = None) -> dict:
+    """A path's ICI counts (against ``ici0``) and each module's ledger
+    peak, printed with its pass time beside the one-module pass's and its
+    kernel launches."""
+    now = ctx.ici.stats.as_dict()
+    ici = {k: now[k] - ici0[k] for k in now}
+    peaks = [m.bytes_peak / 2**30 for m in ctx.device_registry.accelerators]
+    beside = f" (one module: {one_ms:.1f} ms, {pass_ms / one_ms:.3f} x)" \
+        if one_ms else " (no one-module pass)"
+    log(f"[{label}] {len(peaks)} modules time-sharing one card: pass "
+        f"{pass_ms:.1f} ms{beside}; launches {launches}; IciStats {ici}; "
+        f"module ledger peaks (GiB) {['%.3f' % g for g in peaks]}")
+    return {"ici": ici, "module_peak_gib": peaks, "pass_ms": pass_ms,
+            "one_module_ms": one_ms}
+
+
+def drive_mesh_gemm(ctx: Context, mb: int, t: int, passes: int,
+                    gen: torch.Generator, label: str) -> dict:
+    """The tiled GEMM over the modules with ``panel_bcast``: A and B (bf16)
+    on the host, as the JAX package's dryrun holds them (pinned on the
+    card's host), C (f32) born on the module ``distribute_devices`` pins
+    each tile to; each A-row / B-column reader fans its panel out to the
+    GEMM tasks, and the ICI engine broadcasts a panel whose consumers sit
+    on several modules.  One warm pass, ``passes`` timed; tasks,
+    incarnations and K1 tiles checked every pass, C once against the
+    plain product (C0 + passes' sum of A @ B, tile by tile)."""
+    dev = path_device(ctx)
+    on_card = dev.is_cuda
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    n = t * mb
+
+    def host(dtype):
+        x = torch.randn((n, n), generator=gen, device=dev.tdev).to(dtype)
+        x = x.cpu()
+        return x.pin_memory() if on_card else x
+    A = TwoDimBlockCyclic(mb, mb, n, n, dtype=torch.bfloat16,
+                          name="A").from_array(host(torch.bfloat16))
+    B = TwoDimBlockCyclic(mb, mb, n, n, dtype=torch.bfloat16,
+                          name="B").from_array(host(torch.bfloat16))
+    C = TwoDimBlockCyclic(mb, mb, n, n, dtype=torch.float32, name="C")
+    c0 = {}
+    for (m, k) in C.local_tiles():
+        c0[(m, k)] = torch.randn((mb, mb), generator=gen, device=dev.tdev)
+        place(C, m, k, dev, c0[(m, k)].clone())
+    sync()
+    ntasks, readers = t ** 3, 2 * t * t
+    inc = _Incarnations(ctx)
+    reset_counts()
+    inc.take()
+    dev0 = device_counts(dev)
+    ici0 = ctx.ici.stats.as_dict()
+    times = []
+    for p in range(passes + 1):
+        # a new host version of every panel (the same values), outside
+        # the timed window: the modules' replicas of the last pass go
+        # stale, so each pass broadcasts its panels again
+        for M in (A, B):
+            for (m, k) in M.local_tiles():
+                M.data_of(m, k).overwrite_host(M._tile_view(m, k))
+        tiles0, wgmma0 = k1_tiles()
+        executed0 = dev.stats.executed_tasks
+        b0 = ctx.ici.stats.as_dict()
+        t0 = time.perf_counter()
+        ctx.add_taskpool(gemm_taskpool(A, B, C, panel_bcast=True))
+        ctx.wait()
+        sync()
+        dt = time.perf_counter() - t0
+        executed = dev.stats.executed_tasks - executed0
+        tiles, wgmma = k1_tiles()[0] - tiles0, k1_tiles()[1] - wgmma0
+        counts = inc.take()
+        want = {("GEMM", "exec_async"): ntasks,
+                ("RA", "exec_end"): t * t, ("RB", "exec_end"): t * t}
+        if executed != ntasks or counts != want or (
+                on_card and (tiles != ntasks or wgmma != ntasks)):
+            raise AssertionError(
+                f"[{label}] pass {p}: {executed} device tasks, "
+                f"incarnations {counts}, {tiles} K1 tiles ({wgmma} "
+                f"wgmma); expected {ntasks}, {want}, {ntasks} on wgmma")
+        b1 = ctx.ici.stats.as_dict()
+        log(f"[{label}] pass {p} ({'timed' if p else 'warm'}): "
+            f"{dt * 1e3:.1f} ms, {total_flops(n, n, n) / dt / 1e9:.1f} "
+            f"GFLOP/s, {tiles} K1 tiles, {readers} panel readers; ICI "
+            f"bcasts {b1['bcasts'] - b0['bcasts']} carrying "
+            f"{(b1['bcast_bytes'] - b0['bcast_bytes']) / 2**30:.2f} GiB, "
+            f"puts {b1['puts'] - b0['puts']}")
+        if p:
+            times.append(dt)
+    launches = read_counts()
+    device = report_device(label, dev, dev0)
+    ici = {k: v - ici0[k] for k, v in ctx.ici.stats.as_dict().items()}
+    if ici["bcasts"] <= 0:
+        raise AssertionError(f"[{label}] no panel broadcast fired: {ici}")
+    worst = 0.0
+    for (m, k2) in C.local_tiles():
+        prod = torch.zeros_like(c0[(m, k2)])
+        for k in range(t):
+            a = A._tile_view(m, k).to(dev.tdev)
+            b = B._tile_view(k, k2).to(dev.tdev)
+            prod = gemm_tile_reference(a, b, prod, 1.0)
+        got = newest_payload(C, m, k2).to(dev.tdev)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"[{label}] C({m},{k2}) is not finite")
+        worst = max(worst, rel_err(got, c0[(m, k2)] + (passes + 1) * prod))
+    log(f"[{label}] C against the tile-by-tile plain product: rel err "
+        f"{worst:.3e} (limit 1e-3); kernel launches {launches}")
+    if worst > 1e-3:
+        raise AssertionError(f"[{label}] C disagrees: {worst}")
+    return {"launches": launches, "times": times, "best_s": min(times),
+            "rel_err": worst, "cpu_tasks": (passes + 1) * readers,
+            "device": device}
+
+
+def drive_zig(ctx: Context, n: int, label: str) -> dict:
+    """The zig chain (tests/test_ici.py's): S(k) on tile k's module adds
+    one and feeds S(k+1) on the next module, so every edge crosses modules
+    with one consumer and must ride a proactive placement (a put, or a
+    permute edge).  Tiles of (n, n) f32 born on their modules; the last
+    one must read the module count exactly."""
+    dev = path_device(ctx)
+    sync = torch.cuda.synchronize if dev.is_cuda else (lambda: None)
+    nd = len(dev.modules)
+    V = TwoDimBlockCyclic(n, n, nd * n, n, name="Z")
+    for k in range(nd):
+        place(V, k, 0, dev, torch.full((n, n), float(k), device=dev.tdev))
+    sync()
+    p = PTG("zig", NT=nd)
+    p.task("S", k=Range(0, nd - 1)) \
+        .affinity(lambda k, V=V: V(k, 0)) \
+        .flow("T", "RW",
+              IN(DATA(lambda k, V=V: V(k, 0)), when=lambda k: k == 0),
+              IN(TASK("S", "T", lambda k: dict(k=k - 1)),
+                 when=lambda k: k > 0),
+              OUT(TASK("S", "T", lambda k: dict(k=k + 1)),
+                  when=lambda k, ND=nd: k < ND - 1),
+              OUT(DATA(lambda k, V=V: V(k, 0)),
+                  when=lambda k, ND=nd: k == ND - 1)) \
+        .body(lambda T: T + 1.0, device="cuda") \
+        .body(lambda T: T + 1.0)
+    reset_counts()
+    ici0 = ctx.ici.stats.as_dict()
+    t0 = time.perf_counter()
+    ctx.add_taskpool(p.build())
+    ctx.wait()
+    ctx.flush_ici()
+    sync()
+    dt = time.perf_counter() - t0
+    d = {k: v - ici0[k] for k, v in ctx.ici.stats.as_dict().items()}
+    ok = bool(torch.all(newest_payload(V, nd - 1, 0) == float(nd)))
+    log(f"[{label}] {nd} tasks over {nd} modules, ({n}, {n}) f32: "
+        f"{dt * 1e3:.2f} ms; proactive placements: puts {d['puts']}, "
+        f"permute edges {d['permute_edges']}; last tile == {nd}: {ok}")
+    if not ok or d["puts"] + d["permute_edges"] <= 0:
+        raise AssertionError(f"[{label}] value ok {ok}, ICI {d}: no "
+                             f"proactive placement fired")
+    return {"launches": read_counts(), "best_s": dt}
+
+
+def drive_spmd(ctx: Context, n: int, halo_n: int, gen: torch.Generator,
+               label: str) -> dict:
+    """The SPMD trio (parallel/spmd.py) over the context's modules: SUMMA
+    on the 2x4 mesh and the reduce-scatter GEMM on the 1x8 ring at n x n
+    f32 with TF32 off (operands scaled by n^-1/4, so C is O(1) as at the
+    reference tests' sizes, where their absolute tolerance holds), each
+    held to the plain product on the first module's device; then the halo
+    stencil over ``halo_n`` f32 for ``HALO_STEPS`` steps against its
+    serial form.  One warm call, one timed, each."""
+    mods = list(ctx.device_registry.accelerators)
+    on_card = mods[0].is_cuda
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    tdev = mods[0].tdev
+    mesh2d = spmd.make_mesh(devices=mods)
+    mesh1d = spmd.make_mesh(shape=(len(mods),), axis_names=("p",),
+                            devices=mods)
+    scale = n ** -0.25
+    A = torch.randn((n, n), generator=gen, device=tdev) * scale
+    B = torch.randn((n, n), generator=gen, device=tdev) * scale
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref = torch.matmul(A, B)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    out = {}
+
+    def timed(fn, *args):
+        fn(*args)
+        sync()
+        t0 = time.perf_counter()
+        y = fn(*args)
+        sync()
+        return y, time.perf_counter() - t0
+
+    for name, fn in (("summa", spmd.summa_gemm_fn(mesh2d)),
+                     ("ring_reduce", spmd.ring_reduce_gemm_fn(mesh1d))):
+        C, dt = timed(fn, A, B)
+        err = (C - ref).abs()
+        excess = float((err - (SPMD_TOL + SPMD_TOL * ref.abs())).max())
+        out[name] = {"s": dt, "max_abs_err": float(err.max()),
+                     "excess": excess}
+        log(f"[{label}] {name} n={n} f32 (TF32 off) over "
+            f"{mesh2d.shape if name == 'summa' else mesh1d.shape}: "
+            f"{dt * 1e3:.1f} ms, {2.0 * n ** 3 / dt / 1e12:.2f} TFLOP/s; "
+            f"max abs err against the plain product {float(err.max()):.3e}"
+            f", worst excess over {SPMD_TOL:.0e} + {SPMD_TOL:.0e}|ref| "
+            f"{excess:.3e} (must be <= 0)")
+        if not excess <= 0:
+            raise AssertionError(f"[{label}] {name} outside the "
+                                 f"tolerance: {excess}")
+        del C, err
+    x = torch.randn(halo_n, generator=gen, device=tdev)
+    y, dt = timed(spmd.halo_stencil_fn(mesh1d, steps=HALO_STEPS), x)
+    want = x
+    for _ in range(HALO_STEPS):
+        want = (torch.roll(want, 1) + torch.roll(want, -1) + want) / 3.0
+    err = float((y - want).abs().max())
+    excess = float(((y - want).abs()
+                    - (HALO_TOL + HALO_TOL * want.abs())).max())
+    out["halo"] = {"s": dt, "max_abs_err": err, "excess": excess}
+    log(f"[{label}] halo stencil {halo_n} f32 x {HALO_STEPS} steps over "
+        f"{mesh1d.shape}: {dt * 1e3:.1f} ms; max abs err against the "
+        f"serial stencil {err:.3e}, worst excess over {HALO_TOL:.0e} + "
+        f"{HALO_TOL:.0e}|ref| {excess:.3e} (must be <= 0)")
+    if not excess <= 0:
+        raise AssertionError(f"[{label}] halo stencil outside the "
+                             f"tolerance: {excess}")
+    return out
+
+
+def phase_multi_module(one: dict = None, device: str = None,
+                       sizes: dict = None,
+                       gen: torch.Generator = None) -> dict:
+    """Every multi-device path over ``device`` (``"cuda*8"``: eight device
+    modules time-sharing the one card, each its own launch stream, memory
+    space, LRU and budget), each in a Context of its own: the GEMM with
+    panel broadcasts, potrf (median of 3), geqrf (one timed pass with the
+    QR checks), the permute wave (k edges on <= 2 launches), the zig chain
+    (a proactive placement fires), ring attention with its blocks spread
+    over the modules, and the SPMD trio.  ``one`` holds the single-module
+    paths' summaries, whose pass times each line prints beside its own.
+    Returns each path's summary with its IciStats and ledger peaks."""
+    device = device or f"cuda*{MESH_MODULES}"
+    sizes = {**MESH_SIZES, **(sizes or {})}
+    one = one or {}
+    on_card = device.startswith("cuda")
+    gen = gen or torch.Generator(
+        device="cuda" if on_card else "cpu").manual_seed(SEED + 15)
+    tag = device
+
+    def one_ms(path):
+        return one[path]["pass_ms"] if path in one else None
+
+    def run(label, body):
+        def phase(ctx):
+            if ctx.ici is None:
+                raise AssertionError(f"[{label}] no ICI engine on {device}")
+            ici0 = ctx.ici.stats.as_dict()
+            summary = body(ctx)
+            summary.update(mesh_report(label, ctx, ici0,
+                                       summary["pass_ms"],
+                                       summary["launches"],
+                                       summary.pop("one_ms", None)))
+            return summary
+        return in_context(phase, label, device=device)
+
+    def gemm(ctx):
+        mb, t = sizes["gemm"]
+        res = drive_mesh_gemm(ctx, mb, t, 3, gen,
+                              f"GEMM mb={mb} panel_bcast, {tag}")
+        return {"launches": res["launches"],
+                "pass_ms": res["best_s"] * 1e3,
+                "one_ms": one_ms(f"GEMM mb={mb}"),
+                "rel_err": res["rel_err"], "cpu_tasks": res["cpu_tasks"]}
+
+    def potrf_path(ctx):
+        mb, nt = sizes["potrf"]
+        res = drive_potrf(ctx, mb, nt, torch.bfloat16, passes=3,
+                          label=f"potrf mb={mb}, {tag}")
+        return {"launches": res["launches"],
+                "pass_ms": statistics.median(res["times"]) * 1e3,
+                "one_ms": one_ms(f"potrf mb={mb}"),
+                "backward_error": res["backward_error"]}
+
+    def qr_path(ctx):
+        mb, nt = sizes["qr"]
+        res = drive_qr(ctx, mb, nt, torch.bfloat16, passes=1,
+                       label=f"QR mb={mb}, {tag}")
+        return {"launches": res["launches"],
+                "pass_ms": res["best_s"] * 1e3,
+                "one_ms": one_ms(f"QR mb={mb}"),
+                "residual": res["residual"]}
+
+    def wave_path(ctx):
+        P, n = sizes["wave"]
+        label = f"permute wave P={P}, {tag}"
+        seen = [ctx.ici.stats.as_dict()]
+
+        def per_pass(what):
+            # the pass's moves; then drain what is left in the window (a
+            # quiescence point, as the JAX package's dryrun does), so each
+            # pass starts with an empty batch
+            now = ctx.ici.stats.as_dict()
+            d = {k: now[k] - seen[-1][k] for k in now}
+            log(f"[{label}] {what}: {P} edges, permutes {d['permutes']} "
+                f"carrying {d['permute_edges']} edges, puts {d['puts']} "
+                f"(limit: 2 launches, >= {P - 2} edges batched)")
+            if d["permutes"] + d["puts"] > 2 or \
+                    d["permute_edges"] < P - 2:
+                raise AssertionError(f"[{label}] {what}: the wave's edges "
+                                     f"did not ride <= 2 launches: {d}")
+            ctx.ici.flush_placements(force=True)
+            seen.append(ctx.ici.stats.as_dict())
+        params.set("comm_ici_permute_window_ms", WAVE_WINDOW_MS)
+        try:
+            res = drive_wave(ctx, P, n, passes=3, label=label,
+                             after_pass=per_pass)
+        finally:
+            params.unset("comm_ici_permute_window_ms")
+        return {"launches": res["launches"],
+                "pass_ms": res["best_s"] * 1e3,
+                "one_ms": one_ms(f"permute wave P={P}"),
+                "cpu_tasks": res["cpu_tasks"]}
+
+    def zig(ctx):
+        res = drive_zig(ctx, sizes["zig"], f"zig chain, {tag}")
+        return {"launches": res["launches"],
+                "pass_ms": res["best_s"] * 1e3}
+
+    def attn(ctx):
+        P, T, d = sizes["attn"]
+        res = drive_ring_attention(ctx, P, T, d, False, passes=2, gen=gen,
+                                   label=f"ring attention N={P * T}, {tag}")
+        return {"launches": res["launches"],
+                "pass_ms": res["best_s"] * 1e3,
+                "one_ms": one_ms(f"ring attention N={P * T}"),
+                "max_abs_err": res["max_abs_err"]}
+
+    def spmd_path(ctx):
+        res = drive_spmd(ctx, sizes["spmd"], sizes["halo"], gen,
+                         f"SPMD trio, {tag}")
+        return {"launches": read_counts(),
+                "pass_ms": sum(r["s"] for r in res.values()) * 1e3,
+                "spmd": res}
+
+    paths = {"gemm": ("GEMM", gemm), "potrf": ("potrf", potrf_path),
+             "qr": ("QR", qr_path), "wave": ("permute wave", wave_path),
+             "zig": ("zig chain", zig), "attn": ("ring attention", attn),
+             "spmd": ("SPMD trio", spmd_path)}
+    t0 = time.perf_counter()
+    out = {}
+    for key, (name, body) in paths.items():
+        reset_counts()
+        out[f"{name}, {tag}"] = run(f"{name}, {tag}", body)
+    log(f"[{tag}] the multi-module phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -4349,6 +4832,10 @@ def main() -> int:
                      "2-rank potrf mb=6144, rank 1 killed": recovered,
                      "2-rank rejoin + DTD GEMM mb=2048, rank 1 killed":
                      rejoined})
+    # eight device modules time-sharing the card: the ICI engine's paths
+    per_path.update(phase_multi_module(per_path))
+    gc.collect()
+    torch.cuda.empty_cache()
     # the resident job service, run after every other path
     per_path["serving"] = phase_serving()
     gc.collect()

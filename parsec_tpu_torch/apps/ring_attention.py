@@ -23,10 +23,10 @@ The port's copy of the JAX package's apps/ring_attention.py.  Its
 deliberate differences: the combines are torch ops on the tile's device
 (``_combine_torch``/``_combine_torch_causal``, the ``jnp`` bodies there),
 and serve as the CPU bodies too; a causal pool builds its diagonal mask
-once per device; ``device`` defaults to ``"cuda"``, where the two
-products are f32 ``torch.matmul`` with TF32 refused; ``pack_*``,
-``unpack_output`` and ``dense_reference`` take numpy or tensors and give
-tensors.
+once per device and launch stream; ``device`` defaults to ``"cuda"``,
+where the two products are f32 ``torch.matmul`` with TF32 refused;
+``pack_*``, ``unpack_output`` and ``dense_reference`` take numpy or
+tensors and give tensors.
 """
 
 from __future__ import annotations
@@ -123,8 +123,10 @@ def _causal_visit_class(P):
 
 def _combine_torch_causal(Tq, Tkv):
     #: the diagonal block's 0/1 lower-triangle mask, built once per
-    #: device for this pool's (Tq, Tkv)
-    masks: Dict[torch.device, torch.Tensor] = {}
+    #: device and launch stream for this pool's (Tq, Tkv): modules that
+    #: share a card (device="cuda*N") launch on streams of their own, and
+    #: a mask built on one would be read unordered on another
+    masks: Dict[Any, torch.Tensor] = {}
 
     def fn(acc, blk, vc):
         a = acc.to(torch.float32)
@@ -132,9 +134,11 @@ def _combine_torch_causal(Tq, Tkv):
             return a
         mask = None
         if int(vc) == 1:
-            mask = masks.get(a.device)
+            key = (a.device, torch.cuda.current_stream(a.device).cuda_stream
+                   if a.is_cuda else 0)
+            mask = masks.get(key)
             if mask is None:
-                mask = masks.setdefault(a.device, torch.tril(torch.ones(
+                mask = masks.setdefault(key, torch.tril(torch.ones(
                     (Tq, Tkv), dtype=torch.float32, device=a.device)))
         return _combine(a, blk.to(torch.float32), mask)
     fn.masks = masks

@@ -36,9 +36,15 @@ to cores under ``runtime_bind_threads``, as in the JAX package.  The
 crash-dump flight recorder (``flightrec_enabled``) and the recovery plane
 (``recovery_enable``) are opt-in, as there; the recovery plane covers
 PTG, DTD and dynamic pools, elastic rejoin and the job service's
-recovery notices.  One optional plane of the JAX package is not ported
-(the ICI transport): its knob is registered with default 0 and raises
-NotImplementedError when set.
+recovery notices.
+
+Several device modules (``device="cuda*N"``, or "cpu:N" in tests): the
+ICI transport (comm/ici.py) attaches as ``ctx.ici`` when two or more
+accelerators are attached and ``comm_ici_enabled`` (default 1) holds; it
+moves cross-module payload edges proactively (a broadcast per fan-out, a
+put per single-consumer edge, batched permute rounds per wavefront),
+and idle workers drain its batching window through ``flush_ici``.  On
+one module ``ctx.ici`` stays None.
 """
 
 from __future__ import annotations
@@ -115,15 +121,6 @@ params.register("recovery_enable", 0,
                 "containment-only failure lifecycle: a dead peer fails "
                 "the pools that touch it")
 
-#: optional planes of the JAX package this port does not carry yet:
-#: (MCA knob, plane name).  Registered with default 0 here so a run that
-#: turns one on fails loudly instead of silently doing nothing.
-_UNPORTED_PLANES = (
-    ("comm_ici_enabled", "ICI multi-device transport"),
-)
-for _knob, _plane in _UNPORTED_PLANES:
-    params.register(_knob, 0, f"{_plane}: not ported yet (must stay 0)")
-
 _gc_frozen = False
 
 
@@ -140,13 +137,6 @@ def _freeze_import_graph() -> None:
     import gc
     gc.collect()
     gc.freeze()
-
-
-def _check_unported_planes() -> None:
-    for knob, plane in _UNPORTED_PLANES:
-        if int(params.get(knob, 0)):
-            raise NotImplementedError(
-                f"{plane} ({knob}=1) is not ported yet")
 
 
 class ExecutionStream:
@@ -214,7 +204,6 @@ class Context:
                  rank: int = 0, nranks: int = 1,
                  argv: Optional[List[str]] = None,
                  device: Optional[str] = None):
-        _check_unported_planes()
         self.rank = rank
         self.nranks = nranks
         self.nb_cores = nb_cores if nb_cores is not None \
@@ -232,7 +221,7 @@ class Context:
         #: (attached by its constructor), else None
         self.comm = None
         self.grapher = None            # DOT grapher (prof/grapher.py)
-        self.ici = None                # ICI transport (not ported)
+        self.ici = None                # ICI transport (comm/ici.py)
         self._causal_tracer = None     # prof/causal.py CausalTracer
         self.metrics = None            # prof/metrics.py RuntimeMetrics
         self._flightrec = None         # prof/flightrec.py FlightRecorder
@@ -263,6 +252,17 @@ class Context:
         from parsec_tpu_torch.devices import init_devices
         self.device_registry = init_devices(self, device)
         self.devices = self.device_registry.devices
+
+        # ICI transport: multi-module payload edges ride device-to-device
+        # copies (reference: the second comm-engine module seam, SURVEY
+        # §5.8).  Imported here: it registers comm_ici_enabled, so an env
+        # override (PARSEC_MCA_COMM_ICI_ENABLED=0) coerces to int instead
+        # of arriving as a truthy raw string
+        from parsec_tpu_torch.comm.ici import IciEngine
+        if int(params.get("comm_ici_enabled", 1)):
+            ici = IciEngine(self.device_registry)
+            if ici.ndev >= 2:
+                self.ici = ici
 
         # properties dictionary: runtime-queryable hierarchical key space
         # for live tooling (reference: parsec/dictionary.c; see
@@ -385,6 +385,18 @@ class Context:
     def accelerator_spaces(self) -> list:
         """Memory-space indices of the enabled device modules."""
         return [d.space for d in self.device_registry.accelerators]
+
+    def flush_ici(self) -> None:
+        """Drain deferred wavefront placements (comm/ici.py defer_place)
+        whose batching window expired.  Idle workers call it, and must
+        survive it: a copy that raises fails the context's wait instead
+        (the JAX package's swallows it; comm/ici.py docstring)."""
+        if self.ici is None:
+            return
+        try:
+            self.ici.flush_placements()
+        except Exception as exc:
+            self.record_error(exc, None)
 
     # -- doorbell ----------------------------------------------------------
     def ring_doorbell(self, n: int = 1) -> None:

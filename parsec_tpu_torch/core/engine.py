@@ -22,8 +22,8 @@ import torch
 from parsec_tpu_torch.containers.hash_table import REMOVE
 from parsec_tpu_torch.data.data import (ACCESS_READ, ACCESS_WRITE, Coherency,
                                         Data, DataCopy, FLAG_COW,
-                                        FLAG_SCRATCH, materialize,
-                                        private_host, to_host)
+                                        FLAG_SCRATCH, host_read_fence,
+                                        materialize, private_host, to_host)
 from parsec_tpu_torch.data.reshape import as_dtt, convert, needs_reshape
 from parsec_tpu_torch.core.task import (Dep, Flow, FromDesc, FromTask, New, Null,
                                   Task, TaskClass, ToDesc, ToTask)
@@ -261,6 +261,8 @@ def stage_in_host(task: Task) -> None:
                 sp = src.payload = materialize(src.payload)
                 if isinstance(hp, torch.Tensor) and hp.device.type == "cpu" \
                         and hp.shape == sp.shape and hp.dtype == sp.dtype:
+                    if sp.is_cuda:
+                        host_read_fence(sp)
                     hp.copy_(sp)   # D2H lands in the backing view
                 else:
                     host.payload = private_host(src.payload)
@@ -422,6 +424,29 @@ def release_deps(es, task: Task) -> List[Task]:
             # forward_{READ,RW}_NULL golden behavior)
             warning("A NULL is forwarded from %s flow %s to %d "
                     "successor(s)", task, flow.name, total)
+        ici = tp.context.ici if tp.context is not None else None
+        if copy is not None and ici is not None and local_deliveries \
+                and (len(local_deliveries) > 1
+                     or ici.device_resident(copy)):
+            # Fan-out onto DISTINCT consumer modules: one broadcast; a
+            # single distinct target (one consumer, or several sharing a
+            # module): one proactive put that overlaps with scheduling
+            # (reference: dataflow bcast trees remote_dep.c:334-357 and
+            # the CE put; comm/ici.py).  Host-resident single-consumer
+            # edges skip the affinity resolution entirely; multi-consumer
+            # fan-outs qualify even from host (one replication beats N
+            # separate stage-ins)
+            uniq = set(ici.consumer_spaces(
+                tp, [d[:3] for d in local_deliveries]))
+            uniq.discard(copy.device)
+            if len(uniq) > 1:
+                ici.prebroadcast(copy, sorted(uniq))
+            elif len(uniq) == 1:
+                # single-consumer edge: defer so the whole DAG wavefront
+                # rides one batched permute round instead of N puts
+                sp = uniq.pop()
+                if not ici.defer_place(copy, sp):
+                    ici.preplace(copy, sp)
         for succ_tc, succ_locals, dflow, odep in local_deliveries:
             dcopy = copy
             if copy is not None:

@@ -485,6 +485,9 @@ def worker_loop(es) -> None:
                 _td_flush(es)
                 done_since = 0
             misses += 1
+            # then drain deferred wavefront placements (comm/ici.py
+            # defer_place)
+            ctx.flush_ici()
             # re-read per idle moment, not cached at loop start: a comm
             # engine attaching after workers spin up re-probes the core
             # count and flips this on — the running workers must see it

@@ -82,14 +82,26 @@ def materialize(payload: Any) -> Any:
     return payload
 
 
+def host_read_fence(t: torch.Tensor) -> None:
+    """Before a synchronous copy of the CUDA tensor ``t`` to the host:
+    order the current stream after the launch streams of every device
+    module on its card (devices/cuda.py ``host_read_fence``; a no-op
+    unless several modules share the card)."""
+    from parsec_tpu_torch.devices.cuda import host_read_fence as fence
+    fence(t)
+
+
 def to_host(payload: Any) -> torch.Tensor:
     """``payload``'s values as a CPU tensor.  A CPU tensor or a numpy
     array comes back as an alias of its storage; a device tensor is
-    copied down (on the current stream, synchronously)."""
+    copied down (on the current stream, synchronously, after the device
+    modules' launches: ``host_read_fence``)."""
     payload = materialize(payload)
     if isinstance(payload, torch.Tensor):
-        return payload if payload.device.type == "cpu" \
-            else payload.to("cpu")
+        if payload.device.type == "cpu":
+            return payload
+        host_read_fence(payload)
+        return payload.to("cpu")
     return torch.as_tensor(np.asarray(payload))
 
 
@@ -99,7 +111,7 @@ def private_host(payload: Any) -> torch.Tensor:
     ``.contiguous()`` all alias, so writers must come through here)."""
     payload = materialize(payload)
     if isinstance(payload, torch.Tensor) and payload.device.type != "cpu":
-        return payload.to("cpu")
+        return to_host(payload)
     return to_host(payload).clone()
 
 
@@ -330,6 +342,8 @@ class Data:
                     if isinstance(dst, torch.Tensor) and \
                             dst.device.type == "cpu" and \
                             dst.shape == src.shape and dst.dtype == src.dtype:
+                        if src.is_cuda:
+                            host_read_fence(src)
                         dst.copy_(src)
                     else:
                         host.payload = private_host(src)

@@ -68,6 +68,9 @@ class Device:
     def __init__(self, name: str):
         self.name = name
         self.space = -1          # assigned by the registry
+        #: the DeviceRegistry this module is attached to (set by attach):
+        #: a module reads its peers' launch streams through it
+        self.registry = None
         self.weight = 1.0
         self.load = 0.0
         self._load_lock = threading.Lock()
@@ -126,6 +129,7 @@ class DeviceRegistry:
     def attach(self, dev: Device) -> Device:
         """reference: parsec_mca_device_add (device.h:186)."""
         dev.space = len(self.devices)
+        dev.registry = self
         self.devices.append(dev)
         return dev
 

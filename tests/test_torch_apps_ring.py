@@ -11,7 +11,9 @@ the CPU) runs and against the dense reference, at the JAX test's rtol
 (``device="cuda"`` in a ``device="cpu"`` Context).  The 4-rank cases run
 one ``run_distributed`` per package on the CPU (``ring_suite`` in
 tests/torch_comm_workers.py).  ``test_ring_attention_multi_device_mesh``
-waits for the ICI transport (ROADMAP Queue 1, M7).
+runs the JAX package on its 8-device CPU mesh and the port on
+``device="cpu:8"``, the blocks spread one per device and moved by the
+ICI transport.
 """
 
 import collections
@@ -233,6 +235,51 @@ def test_ring_attention_matches_dense(device, jax_device, causal):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
     assert got_done == ref_done == {"R": P * P}
+
+
+def _mesh_run(pkg, build):
+    """``build``'s pool with KV and ACC spread one block per device over
+    the package's 8-device mesh (the conftest's XLA devices; the port's
+    cpu:8 modules); returns (tiles, tasks done per class, ICI counts)."""
+    ctx_mod, _mat, ring, attn, _kw = PKGS[pkg]
+    tp, mats = build(_mat, ring, attn)
+    kw = {"device": "cpu:8"} if pkg == "port" else {}
+    done = collections.Counter()
+    lock = threading.Lock()
+
+    def count(es, event, task):
+        with lock:
+            done[task.task_class.name] += 1
+
+    with ctx_mod.Context(nb_cores=4, **kw) as ctx:
+        assert ctx.ici is not None
+        for M in mats.values():
+            M.distribute_devices(ctx)
+        ctx.pins_register("complete_exec", count)
+        ctx.add_taskpool(tp)
+        ctx.wait(timeout=120)
+        stats = ctx.ici.stats.as_dict()
+    tiles = {name: [_np(M.data_of(*mn).pull_to_host().payload).copy()
+                    for mn in M.local_tiles()] for name, M in mats.items()}
+    return tiles, dict(done), stats
+
+
+def test_ring_attention_multi_device_mesh():
+    """Ring attention over the device mesh: KV blocks hop the ICI preplace
+    path between per-device resident accumulators (the JAX package's XLA
+    devices; the port's cpu:8 modules), both against the dense reference
+    and each other."""
+    P, Tq, d = 4, 4, 8
+    build_j, (Q, K, V) = _attn_build(P, Tq, d, 12, "tpu", False)
+    build_p, _ = _attn_build(P, Tq, d, 12, "cuda", False)
+    ref_tiles, ref_done, _ = _mesh_run("jax", build_j)
+    got_tiles, got_done, stats = _mesh_run("port", build_p)
+    ref, got = _outputs(ref_tiles, d), _outputs(got_tiles, d)
+    want = _np(jax_attn.dense_reference(Q, K, V))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
+    assert got_done == ref_done == {"R": P * P}
+    assert stats["puts"] + stats["permute_edges"] + stats["bcasts"] > 0
 
 
 def test_causal_row_with_only_its_diagonal_block_unmasked():

@@ -498,7 +498,9 @@ def test_checkpoint_grapher_path_rehearsal_on_cpu():
 
 def test_fault_tolerance_path_rehearsal_on_cpu():
     """The fault-tolerance path on two CPU ranks at a tiny size (its pass
-    stretched by frame delays so the kill lands inside it): rank 1 dies,
+    stretched by frame delays; rank 1 kills itself after its share of the
+    pool's tasks given by kill_at, so the kill lands inside the pass
+    however loaded the host is): rank 1 dies,
     rank 0 recovers and completes, its factor holds the card's limits
     against the single-rank run's, and the flight-recorder bundle holds
     rank 0's recovery-start incident."""
@@ -525,8 +527,10 @@ def test_fault_tolerance_path_rehearsal_on_cpu():
 
 def test_rejoin_and_dtd_recovery_legs_rehearsal_on_cpu():
     """The rejoin and DTD-recovery legs on two CPU ranks over shm at a
-    tiny size (rank 1's restarted incarnation stalls each dispatch so the
-    kill lands inside the DTD pass): rank 1 rejoins, both GEMM passes and
+    tiny size (rank 1's restarted incarnation stalls each dispatch and
+    kills itself after its share of the DTD pool's tasks given by
+    kill_at, so the kill lands inside the pass however loaded the host
+    is): rank 1 rejoins, both GEMM passes and
     the service's degraded -> healthy check hold, then rank 1 dies in the
     DTD GEMM and rank 0 recovers it with C checked."""
     chip_smoke = _chip_smoke()
@@ -543,3 +547,25 @@ def test_rejoin_and_dtd_recovery_legs_rehearsal_on_cpu():
     assert out["dtd"]["bit_identical"] is True
     assert out["dtd"]["recovery"]["tasks_reexecuted"] > 0
     assert out["launches"] == NO_LAUNCHES
+
+
+def test_multi_module_phase_rehearsal_on_cpu():
+    """The several-modules phase on ``cpu:8`` at a tiny size: every path
+    (GEMM with panel broadcasts, potrf, geqrf, the permute wave, the zig
+    chain, ring attention, the SPMD trio) runs its checks, each fires the
+    ICI engine where it must, and each reports its IciStats and eight
+    module ledger peaks."""
+    chip_smoke = _chip_smoke()
+    out = chip_smoke.phase_multi_module(
+        device="cpu:8", gen=torch.Generator().manual_seed(5),
+        sizes={"gemm": (32, 4), "potrf": (32, 4), "qr": (32, 3),
+               "wave": (8, 16), "zig": 16, "attn": (8, 16, 8),
+               "spmd": 64, "halo": 1 << 10})
+    assert len(out) == 7
+    for path, res in out.items():
+        assert res["launches"] == NO_LAUNCHES, path
+        assert len(res["module_peak_gib"]) == 8, path
+    assert out["GEMM, cpu:8"]["ici"]["bcasts"] > 0
+    zig = out["zig chain, cpu:8"]["ici"]
+    assert zig["puts"] + zig["permute_edges"] > 0
+    assert out["SPMD trio, cpu:8"]["spmd"]["summa"]["excess"] <= 0

@@ -887,3 +887,101 @@ def test_killed_rank_rejoins_and_serves_on_the_card(card):
         assert r["pass_b"]["worst_rel"] <= 1e-3
     assert sum(r["rejoin_launches"]["gemm_tile"] +
                r["rejoin_launches"]["gemm_tile_grouped"] for r in res) > 0
+
+
+# -- several device modules on one card (device="cuda*N") ------------------
+
+
+@pytest.mark.cuda
+def test_cuda_n_layout_gives_each_module_a_stream_and_a_budget(card):
+    """``cuda*4``: four modules over card 0, named cuda:0/i, each with a
+    launch stream of its own (not the default stream) and a quarter of
+    the card's free memory as its budget, with the ICI engine attached;
+    ``cuda`` keeps one module on the default stream, no budget, no
+    engine."""
+    free = torch.cuda.mem_get_info(0)[0]
+    with Context(nb_cores=2, device="cuda*4") as ctx:
+        mods = ctx.device_registry.accelerators
+        assert [m.name for m in mods] == [f"cuda:0/{i}" for i in range(4)]
+        streams = {m.stream.cuda_stream for m in mods}
+        assert len(streams) == 4
+        assert torch.cuda.default_stream(0).cuda_stream not in streams
+        for m in mods:
+            assert 0 < m._capacity <= free // 4 * 1.05
+        assert ctx.ici is not None and ctx.ici.mesh() == list(mods)
+    with Context(nb_cores=2, device="cuda") as ctx:
+        (m,) = ctx.device_registry.accelerators
+        assert m.name == "cuda:0" and m._capacity is None
+        assert m.stream == torch.cuda.default_stream(0)
+        assert ctx.ici is None
+
+
+@pytest.mark.cuda
+def test_ici_put_is_ordered_after_the_producing_stream(card):
+    """A put from module 0 to module 1 reads the value module 0's stream
+    writes after a long spin, not what the tensor held when the put was
+    issued; a host read of module 1's copy sees it too."""
+    from parsec_tpu_torch.data.data import to_host
+    with Context(nb_cores=2, device="cuda*2") as ctx:
+        m0, m1 = ctx.device_registry.accelerators
+        with torch.cuda.stream(m0.stream):
+            x = torch.zeros(1 << 20, device=card)
+            torch.cuda._sleep(100_000_000)
+            x.fill_(7.0)
+        out = ctx.ici.put(x, m1.space, m0.space)
+        assert out.data_ptr() != x.data_ptr()
+        assert bool(torch.all(to_host(out) == 7.0))
+        assert ctx.ici.stats.puts == 1
+
+
+@pytest.mark.cuda
+def test_host_read_waits_for_every_module_stream(card):
+    """A tile written on a module's stream after a long spin reads back
+    right through ``pull_to_host`` (the host read fence)."""
+    from parsec_tpu_torch.data.data import new_data
+    with Context(nb_cores=2, device="cuda*2") as ctx:
+        m1 = ctx.device_registry.accelerators[1]
+        datum = new_data(torch.zeros(1 << 20))
+        with torch.cuda.stream(m1.stream):
+            y = torch.zeros(1 << 20, device=card)
+            torch.cuda._sleep(100_000_000)
+            y.fill_(3.0)
+        datum.overwrite_on(m1.space, y)
+        assert bool(torch.all(datum.pull_to_host().payload == 3.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("device", ["cuda", "cuda*4"])
+def test_gemm_over_modules_on_the_card(card, device):
+    """The tiled GEMM with panel broadcasts over four modules of the card
+    (C spread over them) against the plain product, every task on K1,
+    the engine's broadcasts fired; on one module the same pool runs with
+    no engine and the same tasks and launches."""
+    from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
+    mb, nt = 256, 4
+    n = mb * nt
+    g = torch.Generator().manual_seed(15)
+    a = torch.randn((n, n), generator=g).bfloat16()
+    b = torch.randn((n, n), generator=g).bfloat16()
+    A = TwoDimBlockCyclic(mb, mb, n, n, dtype=torch.bfloat16,
+                          name="A").from_array(a)
+    B = TwoDimBlockCyclic(mb, mb, n, n, dtype=torch.bfloat16,
+                          name="B").from_array(b)
+    C = TwoDimBlockCyclic(mb, mb, n, n, name="C").from_array(
+        torch.zeros((n, n)))
+    tiles0 = _k1_tiles()
+    with Context(nb_cores=4, device=device) as ctx:
+        C.distribute_devices(ctx)
+        ctx.add_taskpool(gemm_taskpool(A, B, C, panel_bcast=True))
+        ctx.wait(timeout=120)
+        executed = sum(m.stats.executed_tasks
+                       for m in ctx.device_registry.accelerators)
+        bcasts = ctx.ici.stats.bcasts if ctx.ici is not None else None
+        assert (ctx.ici is None) == (device == "cuda")
+    assert executed == nt ** 3 and _k1_tiles() - tiles0 == nt ** 3
+    if device != "cuda":
+        assert bcasts > 0
+    want = a.float() @ b.float()
+    err = float((C.to_array() - want).abs().max()) / float(
+        want.abs().max())
+    assert err < 1e-3

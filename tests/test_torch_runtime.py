@@ -165,16 +165,36 @@ def test_device_cpu_param_attaches_the_cpu_backed_module():
         port_params.unset("device")
 
 
-@pytest.mark.parametrize("knob", ["comm_ici_enabled", "device_dispatchers"])
+@pytest.mark.parametrize("knob", ["device_dispatchers"])
 def test_unported_plane_knob_raises(knob):
     # device_dispatchers: one manager thread per device by design, so any
     # count but 1 stays unported
-    port_params.set(knob, 2 if knob == "device_dispatchers" else 1)
+    port_params.set(knob, 2)
     try:
         with pytest.raises(NotImplementedError, match="not ported"):
             port_context.Context(nb_cores=1, device="cpu")
     finally:
         port_params.unset(knob)
+
+
+@pytest.mark.parametrize("value", [1, 0])
+def test_ici_knob_is_registered_and_read(value):
+    """``comm_ici_enabled`` is registered at the JAX package's default (1)
+    and no longer refused: set, a Context over two or more modules
+    attaches the ICI engine; at 0 it attaches none."""
+    from parsec_tpu.utils.mca import params as jax_params
+    import parsec_tpu.comm.ici  # noqa: F401  (registers the knob)
+    import parsec_tpu_torch.comm.ici  # noqa: F401
+    assert port_params._params["comm_ici_enabled"].default == \
+        jax_params._params["comm_ici_enabled"].default == 1
+    port_params.set("comm_ici_enabled", value)
+    try:
+        with port_context.Context(nb_cores=1, device="cpu:2") as ctx:
+            assert (ctx.ici is not None) == bool(value)
+            if value:
+                assert ctx.ici.ndev == 2
+    finally:
+        port_params.unset("comm_ici_enabled")
 
 
 @pytest.mark.parametrize("knob", ["comm_epoch", "recovery_rejoin",
