@@ -113,6 +113,24 @@ no result line):
               port's ``tools.journal_audit``.  K1 at 2048^3 f32 is timed
               in the kernels phase against ``torch.addmm`` with TF32 off,
               with B as (k, n) (GEMM jobs) and as (n, k) (potrf jobs).
+              Before the fabric, the client tools against a JobServer over
+              the same service: ``python -m parsec_tpu_torch.tools.
+              job_client submit gemm --set n=8192 --set nb=2048 --wait``
+              (its 64 K1 tiles on the ``fma`` route, its result held to
+              the GEMM check), ``metrics_client`` showing
+              ``parsec_jobs_done_total`` up by one, ``metrics_client
+              --status --job`` and ``live_view --once`` rendering the job.
+13. tools  — last: the trace tools on the traces the traced passes kept
+              (GEMM mb=2048, potrf mb=6144: ``trace_info --stats --gaps``,
+              whose per-class counts must hold one exec and one dev: span
+              per task, 512 and 816, and ``trace2chrome``, whose X events
+              must be the trace's intervals) and ``trace2chrome --merge``
+              over the 2-rank potrf's rank traces (one flow arrow per
+              matched activation, ranks 0 and 1); then ``python -m
+              parsec_tpu_torch.tools.chaos --device cuda`` on
+              ``CHAOS_CASES`` with two ranks time-sharing the card: exit
+              0, each case passed.  Each tool runs in a process of its
+              own; its seconds and the traces' sizes are printed.
   checkpoint + grapher (one Context): one GEMM mb=2048 pass (8 x 8 x 8,
               K1 on the card) with the DOT grapher installed (its file
               must hold the 512 task nodes and the pass's 448 dependency
@@ -247,6 +265,7 @@ import itertools
 import json
 import math
 import os
+import re
 import resource
 import shutil
 import socket
@@ -290,7 +309,7 @@ from parsec_tpu_torch.prof.flightrec import summarize_bundle
 from parsec_tpu_torch.prof.grapher import DotGrapher
 from parsec_tpu_torch.prof.pins import install_task_profiler
 from parsec_tpu_torch.prof.profiling import Profile
-from parsec_tpu_torch.prof.reader import intervals
+from parsec_tpu_torch.prof.reader import intervals, read_trace
 from parsec_tpu_torch.service import JobService
 from parsec_tpu_torch.service.fabric import ServingFabric
 from parsec_tpu_torch.service.server import APPS, JobServer, request
@@ -978,8 +997,13 @@ def span_union(spans) -> float:
     return total
 
 
+def slug(label: str) -> str:
+    """A file name for ``label``."""
+    return "".join(c if c.isalnum() else "_" for c in label)
+
+
 def traced_pass(ctx: Context, run_pass, label: str, ntasks: int,
-                best_s: float) -> dict:
+                best_s: float, trace_dir: str = None) -> dict:
     """One more pass (``run_pass()`` runs it and returns its wall time)
     with the task profiler and the causal tracer installed; the trace is
     written to a temporary directory and read back through the port's
@@ -996,7 +1020,8 @@ def traced_pass(ctx: Context, run_pass, label: str, ntasks: int,
     wave's first kernel runs before its span opens) and the
     completions the metrics plane sampled during the pass (the tracer
     consumes their ready stamps, so none reached the latency
-    histogram)."""
+    histogram).  With ``trace_dir`` the trace is kept there (its path
+    under ``ptt``) for the tools phase."""
     prof = Profile(label)
     mods = [install_task_profiler(ctx, prof),
             install_causal_tracer(ctx, prof)]
@@ -1007,9 +1032,9 @@ def traced_pass(ctx: Context, run_pass, label: str, ntasks: int,
         for mod in mods:
             mod.uninstall(ctx)
     sampled = sampled_completions(ctx) - sampled0
-    tmp = tempfile.mkdtemp(prefix="parsec_trace_")
+    tmp = trace_dir or tempfile.mkdtemp(prefix="parsec_trace_")
     try:
-        path = prof.dump(os.path.join(tmp, "pass.ptt"))
+        path = prof.dump(os.path.join(tmp, slug(label) + ".ptt"))
         t0 = time.perf_counter()
         rows, _metas = critpath.merge_traces([path])
         tasks, preds, ready = critpath.build_dag(rows)
@@ -1019,7 +1044,8 @@ def traced_pass(ctx: Context, run_pass, label: str, ntasks: int,
         read_s = time.perf_counter() - t0
         size = os.path.getsize(path)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if trace_dir is None:
+            shutil.rmtree(tmp, ignore_errors=True)
     ivs = intervals(rows)
     dev = [(iv["ts_begin"], iv["ts_end"]) for iv in ivs
            if iv["name"].startswith("dev:")]
@@ -1061,7 +1087,8 @@ def traced_pass(ctx: Context, run_pass, label: str, ntasks: int,
             "makespan_ms": att["makespan"] * 1e3,
             "overlap_ms": over * 1e3,
             "critical_path_tasks": len(att["path"]),
-            "inflight_share": inflight, "sampled": sampled}
+            "inflight_share": inflight, "sampled": sampled,
+            "ntasks": ntasks, "ptt": path if trace_dir is not None else None}
 
 
 #: the tiled GEMM of apps/gemm.py written as a JDF text: one task class,
@@ -1168,7 +1195,8 @@ def seeded_tile(name: str, m: int, n: int, mb: int, t: int,
 def drive_gemm(ctx: Context, mb: int, mt: int, nt: int, kt: int,
                passes: int, gen: torch.Generator, label: str,
                traced: bool = False, fronts=("ptg",),
-               seeded: bool = False, keep: dict = None) -> dict:
+               seeded: bool = False, keep: dict = None,
+               trace_dir: str = None) -> dict:
     """The tiled GEMM through the runtime: tiles born on the device, one
     warm pass then ``passes`` timed passes of insert + wait through each
     of ``fronts`` in turns (each on a C of its own, from the same C0, A
@@ -1327,7 +1355,7 @@ def drive_gemm(ctx: Context, mb: int, mt: int, nt: int, kt: int,
                                      f"{dev.stats.executed_tasks - executed0}"
                                      f" tasks, expected {ntasks}")
             return dt
-        trace = traced_pass(ctx, one_pass, label, ntasks, best)
+        trace = traced_pass(ctx, one_pass, label, ntasks, best, trace_dir)
     return {"launches": launches, "best_s": best,
             "gflops": flops / best / 1e9, "ntasks": ntasks,
             "device": device, "trace": trace, "fronts": out_fronts}
@@ -1360,10 +1388,10 @@ def idle_share(ntasks: int, k_ms: float, pass_s: float) -> float:
 
 
 def phase_small_tiles(ctx: Context, gen: torch.Generator,
-                      traced: bool = False) -> dict:
+                      traced: bool = False, trace_dir: str = None) -> dict:
     mb, t = 2048, 8
     res = drive_gemm(ctx, mb, t, t, t, passes=3, gen=gen, label="mb=2048",
-                     traced=traced)
+                     traced=traced, trace_dir=trace_dir)
     k_ms = tile_kernel_ms(gen, mb)
     idle = idle_share(res["ntasks"], k_ms, res["best_s"])
     log(f"[mb=2048] sched_native {params.get('sched_native')}: best pass "
@@ -1728,7 +1756,7 @@ def potrf_tile_maker(A: TwoDimBlockCyclic, tdev: torch.device):
 def drive_potrf(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
                 passes: int, label: str, ir_steps: int = 3,
                 require_fusion: bool = False, traced: bool = False,
-                keep: dict = None) -> dict:
+                keep: dict = None, trace_dir: str = None) -> dict:
     """The tiled Cholesky through the runtime: the bench operand's lower
     tiles regenerated on the device before every pass (outside the timed
     window), one warm pass then ``passes`` timed passes of insert + wait +
@@ -1854,7 +1882,7 @@ def drive_potrf(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
     trace = None
     if traced:
         trace = traced_pass(ctx, lambda: factor("pass traced"), label,
-                            ntasks, min(times))
+                            ntasks, min(times), trace_dir)
     if keep is not None:
         keep.update({(m, k): newest_payload(A, m, k).to(dev.tdev)
                      for (m, k) in lower})
@@ -1888,12 +1916,14 @@ def potrf_class_times(dev: torch.device, mb: int,
     return ms
 
 
-def phase_potrf(ctx: Context, keep: dict = None) -> dict:
+def phase_potrf(ctx: Context, keep: dict = None,
+                trace_dir: str = None) -> dict:
     mb, nt = 6144, 16
     label = "potrf path mb=6144"
     torch.cuda.reset_peak_memory_stats()
     res = drive_potrf(ctx, mb, nt, torch.bfloat16, passes=5, label=label,
-                      require_fusion=True, traced=True, keep=keep)
+                      require_fusion=True, traced=True, keep=keep,
+                      trace_dir=trace_dir)
     g = res["gflops"]
     med_s = statistics.median(res["times"])
     log(f"[{label}] tiled_potrf_mp_gflops: median {res['median_gflops']:.1f}"
@@ -3103,13 +3133,15 @@ def serving_fabric(device: str, sizes: dict, label: str) -> dict:
     return out
 
 
-def phase_serving(device: str = "cuda", sizes: dict = None) -> dict:
+def phase_serving(device: str = "cuda", sizes: dict = None,
+                  clients: bool = False) -> dict:
     """The resident job service on the card, through the entry points a
     user calls: the in-process mix on a warm ``JobService``, one job of
-    each app over the JobServer's wire, then the ServingFabric.  Every
-    GEMM and potrf job launches K1 on its f32 ``fma`` route; the K1
-    launches of the three parts are this path's (counts set to 0 just
-    before, read just after)."""
+    each app over the JobServer's wire (with ``clients``, one more GEMM
+    job through the operator tools, ``serving_clients``), then the
+    ServingFabric.  Every GEMM and potrf job launches K1 on its f32
+    ``fma`` route; the K1 launches of the parts are this path's (counts
+    set to 0 just before, read just after)."""
     sizes = dict(SERVING_SIZES, **(sizes or {}))
     label = "serving"
     if device == "cuda":
@@ -3118,6 +3150,8 @@ def phase_serving(device: str = "cuda", sizes: dict = None) -> dict:
     with JobService(device=device, nb_cores=4, max_active=4) as svc:
         inproc = serving_in_process(svc, sizes, f"{label} in-process")
         wire = serving_wire(svc, sizes, f"{label} wire")
+        tools = serving_clients(svc, device, sizes["gemm"],
+                                f"{label} clients") if clients else None
     fabric = serving_fabric(device, sizes, f"{label} fabric")
     launches, routes = read_counts(), read_routes()
     fma = routes["fma"]
@@ -3127,9 +3161,236 @@ def phase_serving(device: str = "cuda", sizes: dict = None) -> dict:
         raise AssertionError(f"[{label}] no K1 launch took the fma route")
     gc.collect()
     return {"launches": launches, "routes": routes, "in_process": inproc,
-            "wire": wire, "fabric": fabric,
+            "wire": wire, "clients": tools, "fabric": fabric,
             "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
                          if device == "cuda" else None)}
+
+
+# ---------------------------------------------------------------------------
+# the operator tools (parsec_tpu_torch/tools), each run as a user runs it:
+# ``python -m parsec_tpu_torch.tools.<name>`` from the repository's root
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+#: the chaos case on the card: a recovered potrf kill (K1 device bodies).
+#: Each tool's process spends seconds importing torch on the card's host
+#: (PERF.md §6), so the phase keeps one case of the catalog
+CHAOS_CASES = ("kill-close-recover",)
+CHAOS_LINE = re.compile(r"^\[(PASS|FAIL)\] seed=\d+ (\S+)\s+\[\S+\] "
+                        r"expect=(\S+) got=(\S+) \(([\d.]+)s\)$", re.M)
+
+
+def tool(name: str, *args, timeout: float = 600.0) -> tuple:
+    """``python -m parsec_tpu_torch.tools.<name> args`` in a process of
+    its own: (stdout, seconds).  A non-zero exit raises."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        f"parsec_tpu_torch.tools.{name}",
+                        *[str(a) for a in args]], cwd=REPO,
+                       capture_output=True, text=True, timeout=timeout)
+    dt = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"[tools] {name} {list(args)} exited "
+                             f"{r.returncode}:\n{r.stdout[-3000:]}\n"
+                             f"{r.stderr[-3000:]}")
+    return r.stdout, dt
+
+
+def scraped_jobs_done(text: str) -> float:
+    """``parsec_jobs_done_total{status="done"}`` in a scrape's text."""
+    return sum(float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+               if ln.startswith("parsec_jobs_done_total{")
+               and 'status="done"' in ln)
+
+
+def serving_clients(svc, device: str, size: tuple, label: str) -> dict:
+    """One GEMM job of ``size`` (n, nb) through the operator tools on a
+    JobServer over ``svc``: ``job_client submit --wait`` (the job's
+    ``device`` left at its default, ``cuda``: K1 ``fma`` on the card,
+    one launch a tile), its result held to its limit as the wire's are;
+    ``metrics_client`` counts one more job done than the scrape before
+    (taken through ``request``); ``metrics_client --status --job`` and
+    ``live_view --once`` render it."""
+    n, nb = size
+    server = JobServer(svc, host="127.0.0.1", port=0)
+    base = ("--host", server.host, "--port", server.port)
+    secs = {}
+    try:
+        before = scraped_jobs_done(request(server.host, server.port,
+                                           {"op": "metrics"})["text"])
+        fma0 = read_routes()["fma"]
+        out, secs["job_client"] = tool(
+            "job_client", *base, "submit", "gemm", "--set", f"n={n}",
+            "--set", f"nb={nb}", "--set", "seed=61", "--name",
+            "tools-gemm", "--wait")
+        fma = read_routes()["fma"] - fma0
+        dec = json.JSONDecoder()
+        sub, end = dec.raw_decode(out)
+        res, _ = dec.raw_decode(out[end:].lstrip())
+        if not (sub.get("ok") and res.get("ok")
+                and res.get("status") == "DONE"):
+            raise AssertionError(f"[{label}] job_client: {out[-2000:]}")
+        err = check_job("gemm", res["result"], label)
+        jid = sub["job"]
+        text, secs["metrics_client"] = tool(
+            "metrics_client", *base, "--grep", "parsec_jobs_done_total")
+        done = scraped_jobs_done(text) - before
+        status, secs["metrics_client --status"] = tool(
+            "metrics_client", *base, "--status", "--job", jid)
+        jobs = [j["job"] for j in json.loads(status)["jobs"]]
+        view, secs["live_view"] = tool("live_view", *base, "--once")
+    finally:
+        server.close()
+    row = [ln for ln in view.splitlines()
+           if ln.split()[:2] == [str(jid), "tools-gemm"]]
+    tiles = (n // nb) ** 3
+    if done != 1 or jobs != [jid] or not row \
+            or (device == "cuda" and fma != tiles):
+        raise AssertionError(f"[{label}] jobs done +{done}, --status jobs "
+                             f"{jobs}, live view row {row}, K1 fma launches "
+                             f"{fma} (tiles {tiles}):\n{view}")
+    log(f"[{label}] job_client submit gemm n={n} nb={nb} --wait: job "
+        f"{jid} DONE, rel_err {err:.3e}, {fma} K1 fma launches; "
+        f"metrics_client jobs done +{done:g}; --status and live_view "
+        f"render job {jid}: {row[0].strip()}; seconds per tool "
+        + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+    return {"job": jid, "rel_err": err, "k1_fma": fma, "jobs_done": done,
+            "seconds": secs}
+
+
+def trace_info_counts(text: str) -> dict:
+    """Class -> count of ``trace_info --stats``'s per-class table."""
+    counts, on = {}, False
+    for line in text.splitlines():
+        if line.startswith("per-class interval stats"):
+            on = True
+            continue
+        if on:
+            f = line.split()
+            if len(f) == 6 and f[1].isdigit():
+                counts[f[0]] = int(f[1])
+            elif len(f) > 1 and not line.startswith(" "):
+                break
+    return counts
+
+
+def check_trace_tools(ptt: str, ntasks: int, label: str,
+                      out_dir: str) -> dict:
+    """``trace_info --stats --gaps`` and ``trace2chrome`` on one traced
+    pass's trace: the per-class counts hold ``ntasks`` exec spans and
+    ``ntasks`` dev: spans, and the Chrome file's X events are the
+    trace's intervals (name, start and duration)."""
+    size = os.path.getsize(ptt)
+    text, info_s = tool("trace_info", ptt, "--stats", "--gaps")
+    counts = trace_info_counts(text)
+    exe = sum(n for c, n in counts.items()
+              if c != "queue_wait" and not c.startswith("dev:"))
+    dev = sum(n for c, n in counts.items() if c.startswith("dev:"))
+    if exe != ntasks or dev != ntasks or "per-stream occupancy" not in text:
+        raise AssertionError(f"[{label}] trace_info: {exe} exec and {dev} "
+                             f"dev: spans for {ntasks} tasks ({counts})")
+    js = os.path.join(out_dir, slug(label) + ".json")
+    _out, chrome_s = tool("trace2chrome", ptt, "-o", js)
+    with open(js) as f:
+        events = json.load(f)["traceEvents"]
+    _meta, rows = read_trace(ptt)
+    ivs = intervals(rows)
+    t0 = min(iv["ts_begin"] for iv in ivs)
+    want = sorted((iv["name"], (iv["ts_begin"] - t0) * 1e6,
+                   iv["duration"] * 1e6) for iv in ivs)
+    got = sorted((e["name"], e["ts"], e["dur"]) for e in events)
+    if got != want or any(e["ph"] != "X" or e["dur"] < 0 for e in events):
+        raise AssertionError(f"[{label}] trace2chrome: {len(got)} events "
+                             f"against {len(want)} intervals")
+    log(f"[{label}] trace tools on the traced pass's trace "
+        f"({size / 2**20:.2f} MiB, {len(rows)} events): trace_info "
+        f"--stats --gaps {info_s:.2f} s ({exe} exec and {dev} dev: spans "
+        f"for {ntasks} tasks); trace2chrome {chrome_s:.2f} s "
+        f"({len(events)} X events = the trace's intervals, "
+        f"{os.path.getsize(js) / 2**20:.2f} MiB of JSON)")
+    return {"trace_mib": size / 2**20, "events": len(rows),
+            "trace_info_s": info_s, "trace2chrome_s": chrome_s,
+            "x_events": len(events), "exec_spans": exe, "dev_spans": dev}
+
+
+def check_merge(paths: list, label: str, out_dir: str) -> dict:
+    """``trace2chrome --merge`` over the 2-rank potrf's rank traces: one
+    flow arrow per matched activation (both ends of every arrow), ranks
+    0 and 1, and the merged trace's intervals as X events."""
+    js = os.path.join(out_dir, slug(label) + "_merged.json")
+    _out, merge_s = tool("trace2chrome", "--merge", *paths, "-o", js)
+    with open(js) as f:
+        doc = json.load(f)
+    ev = doc["traceEvents"]
+    starts = {e["id"] for e in ev if e["ph"] == "s"}
+    ends = {e["id"] for e in ev if e["ph"] == "f"}
+    rows, _metas = critpath.merge_traces(paths)
+    tasks = sum(1 for e in ev if e["ph"] == "X" and e["cat"] == "task")
+    other = doc["otherData"]
+    if not starts or starts != ends or other["flow_arrows"] != len(starts) \
+            or other["ranks"] != [0, 1] or tasks != len(intervals(rows)):
+        raise AssertionError(f"[{label}] trace2chrome --merge: arrows "
+                             f"{other['flow_arrows']}, {len(starts)} s and "
+                             f"{len(ends)} f ends, ranks {other['ranks']}, "
+                             f"{tasks} task events")
+    log(f"[{label}] trace2chrome --merge of {len(paths)} rank traces "
+        f"({sum(os.path.getsize(p) for p in paths) / 2**20:.2f} MiB): "
+        f"{merge_s:.2f} s, {len(ev)} events, {len(starts)} flow arrows, "
+        f"ranks {other['ranks']}")
+    return {"trace2chrome_merge_s": merge_s, "events": len(ev),
+            "flow_arrows": len(starts)}
+
+
+def chaos_command(device: str, cases=CHAOS_CASES) -> list:
+    """The chaos tool's arguments: each of ``cases`` once on ``device``
+    (``--seeds`` rotates over the cases ``--only`` keeps)."""
+    return ["--device", device, "--only", ",".join(cases), "--seeds",
+            str(len(cases))]
+
+
+def run_chaos(device: str, cases=CHAOS_CASES) -> dict:
+    """The chaos tool over ``cases`` with two ranks on ``device`` (on the
+    card both time-share it): exit 0, every case passed; returns each
+    case's outcome and seconds."""
+    out, dt = tool("chaos", *chaos_command(device, cases), timeout=900)
+    got = {m[1]: {"status": m[0], "expect": m[2], "got": m[3],
+                  "seconds": float(m[4])} for m in CHAOS_LINE.findall(out)}
+    if set(got) != set(cases) or any(g["status"] != "PASS"
+                                     for g in got.values()):
+        raise AssertionError(f"[tools chaos] {got}\n{out[-3000:]}")
+    for name, g in got.items():
+        log(f"[tools chaos] {name}: expect {g['expect']}, got {g['got']} "
+            f"in {g['seconds']:.1f} s")
+    log(f"[tools chaos] {len(got)} cases on {device}, two ranks: "
+        f"{dt:.1f} s")
+    return {"cases": got, "seconds": dt}
+
+
+def phase_tools(traces: dict, merge: list, clients: dict,
+                device: str = "cuda") -> dict:
+    """The operator tools on what the paths left: ``trace_info`` and
+    ``trace2chrome`` on each traced pass's trace (``traces``: label ->
+    (path, tasks)), ``trace2chrome --merge`` on the 2-rank potrf's rank
+    traces, then the chaos catalog's ``CHAOS_CASES``.  The client tools
+    ran in the serving path (``clients``: their numbers).  Launches no
+    kernel in this process (the chaos ranks' are their own)."""
+    t0 = time.perf_counter()
+    reset_counts()
+    out_dir = tempfile.mkdtemp(prefix="parsec_tools_")
+    try:
+        out = {label: check_trace_tools(path, n, label, out_dir)
+               for label, (path, n) in traces.items()}
+        out["merge"] = check_merge(merge, "2-rank potrf", out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    out["chaos"] = run_chaos(device)
+    out["clients"] = clients
+    out["launches"] = read_counts()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[tools] trace tools and chaos {out['seconds']:.1f} s; the "
+        f"clients' seconds: {clients['seconds'] if clients else None}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3572,7 +3833,8 @@ def _two_ranks(plan: dict, refs: dict, transport: str, trace_dir=None):
 
 def phase_distributed(refs: dict, potrf_size=(6144, 16), gemm_size=(2048, 8),
                       qr_size=(6144, 8),
-                      pingpong_size=((8, 400), (8 << 20, 32))) -> dict:
+                      pingpong_size=((8, 400), (8 << 20, 32)),
+                      trace_dir: str = None) -> dict:
     """The 2-rank potrf, GEMM and routed QR paths (comm_transport evloop,
     comm_frame_native 1: the defaults), then one potrf pass over the shm
     transport in turns with one over evloop; each size is (mb, tiles a
@@ -3580,7 +3842,8 @@ def phase_distributed(refs: dict, potrf_size=(6144, 16), gemm_size=(2048, 8),
     this one card, each with its own CUDA context, time-sharing it; tiles
     cross card -> host -> wire -> host -> card.  These paths time the
     comm layer's host path and its staging copies, not multi-GPU
-    scaling."""
+    scaling.  With ``trace_dir`` the potrf's traced pass leaves its two
+    rank traces there (their paths under the potrf's ``traces``)."""
     (potrf_mb, potrf_nt), (gemm_mb, gemm_t), (qr_mb, qr_nt) = \
         potrf_size, gemm_size, qr_size
     label_p, label_g, label_q = (f"2-rank potrf mb={potrf_mb}",
@@ -3601,12 +3864,15 @@ def phase_distributed(refs: dict, potrf_size=(6144, 16), gemm_size=(2048, 8),
             "dtd_gemm": {"mb": gemm_mb, "t": gemm_t, "passes": 3},
             "qr": {"mb": qr_mb, "nt": qr_nt, "passes": 1},
             "pingpong": dict(zip(("rtt", "bw"), pingpong_size))}
-    trace_dir = tempfile.mkdtemp(prefix="parsec_2rank_trace_")
+    own = trace_dir is None
+    if own:
+        trace_dir = tempfile.mkdtemp(prefix="parsec_2rank_trace_")
     try:
         res = _two_ranks(plan, refs, "evloop", trace_dir)
         att = critpath.attribution([r["potrf"]["trace"] for r in res])
     finally:
-        shutil.rmtree(trace_dir, ignore_errors=True)
+        if own:
+            shutil.rmtree(trace_dir, ignore_errors=True)
     out = {}
 
     # potrf
@@ -3647,7 +3913,9 @@ def phase_distributed(refs: dict, potrf_size=(6144, 16), gemm_size=(2048, 8),
                     "gflops": flops / med / 1e9,
                     "worst_rel_fro": worst, "critpath_ms": {
                         k: v * 1e3 for k, v in b.items()},
-                    "launches": _rank_launches(res, "potrf")}
+                    "launches": _rank_launches(res, "potrf"),
+                    "traces": None if own else [r["potrf"]["trace"]
+                                                for r in res]}
 
     # GEMM
     ntasks = gemm_t ** 3
@@ -4757,6 +5025,14 @@ def main() -> int:
         f"bound from the {key} peaks")
     log(f"device module: {device_settings()}")
     check_no_degraded_mode()
+    # the traced passes' traces, kept for the tools phase
+    with tempfile.TemporaryDirectory(prefix="parsec_traces_") as keep:
+        return drive(smi, name, peaks, keep)
+
+
+def drive(smi: str, name: str, peaks, keep: str) -> int:
+    """Every phase after the card check (``main``); ``keep`` holds the
+    traced passes' traces until the tools phase has read them."""
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
@@ -4785,7 +5061,8 @@ def main() -> int:
         # the small-tiles path at sched_native 1, then 0: native against
         # the Python ladder, in turns
         "GEMM mb=2048": in_context(
-            lambda ctx: phase_small_tiles(ctx, gen, traced=True), "mb=2048",
+            lambda ctx: phase_small_tiles(ctx, gen, traced=True,
+                                          trace_dir=keep), "mb=2048",
             sched_native=1),
         "GEMM mb=2048 ladder": in_context(
             lambda ctx: phase_small_tiles(ctx, gen), "mb=2048 ladder",
@@ -4804,7 +5081,7 @@ def main() -> int:
         "QR mb=6144": in_context(lambda ctx: phase_qr(ctx, refs["qr"]),
                                  "QR path mb=6144"),
         "potrf mb=6144": in_context(
-            lambda ctx: phase_potrf(ctx, refs["potrf"]),
+            lambda ctx: phase_potrf(ctx, refs["potrf"], trace_dir=keep),
             "potrf path mb=6144"),
         "ring attention N=32768": in_context(
             lambda ctx: phase_ring_attention(ctx, gen, causal=False),
@@ -4818,7 +5095,7 @@ def main() -> int:
         "permute wave P=8": in_context(phase_wave, "permute wave P=8"),
         "checkpoint + grapher mb=2048": in_context(
             phase_checkpoint_grapher, "checkpoint + grapher mb=2048")}
-    dist = phase_distributed(refs)
+    dist = phase_distributed(refs, trace_dir=keep)
     recovered = phase_recovery(refs["potrf"], dist["potrf"]["pass_s"])
     rejoined = phase_rejoin_dtd(dist["dtd_gemm"]["pass_ms"] / 1e3)
     del refs
@@ -4836,10 +5113,15 @@ def main() -> int:
     per_path.update(phase_multi_module(per_path))
     gc.collect()
     torch.cuda.empty_cache()
-    # the resident job service, run after every other path
-    per_path["serving"] = phase_serving()
+    # the resident job service, run after every other path, with the
+    # client tools; then the trace tools and the chaos harness
+    per_path["serving"] = phase_serving(clients=True)
     gc.collect()
     torch.cuda.empty_cache()
+    per_path["tools"] = phase_tools(
+        {p: (per_path[p]["trace"]["ptt"], per_path[p]["trace"]["ntasks"])
+         for p in ("GEMM mb=2048", "potrf mb=6144")},
+        dist["potrf"]["traces"], per_path["serving"]["clients"])
     nat, lad = per_path["GEMM mb=2048"], per_path["GEMM mb=2048 ladder"]
     log(f"[mb=2048] {nat['scheduler']['name']} against "
         f"{lad['scheduler']['name']}: best pass {nat['pass_ms']:.1f} ms "

@@ -21,6 +21,7 @@ own.
 
 from __future__ import annotations
 
+import errno
 import multiprocessing as mp
 import os
 import random
@@ -32,7 +33,8 @@ from typing import Any, Callable, List, Optional
 def _probe_port_base(nranks: int, tries: int = 32) -> int:
     """Pick a base port with every rank's port currently bindable: an
     in-use port would make SocketCE.bind fail or cross-talk with an
-    unrelated listener."""
+    unrelated listener.  A port can still be taken between this probe
+    and the rank's bind; ``run_distributed`` relaunches the gang then."""
     for _ in range(tries):
         base = random.randrange(20000, 60000 - nranks)
         socks = []
@@ -49,6 +51,14 @@ def _probe_port_base(nranks: int, tries: int = 32) -> int:
             for s in socks:
                 s.close()
     return random.randrange(20000, 60000 - nranks)
+
+
+#: how a rank whose listening port was taken reports it (the head of its
+#: error), so that the parent relaunches the gang on a fresh base
+ADDR_IN_USE = "EADDRINUSE"
+
+#: gang launches ``run_distributed`` makes before a taken port fails it
+LAUNCH_ATTEMPTS = 3
 
 
 def _worker(rank: int, nranks: int, port_base: int, nb_cores: int,
@@ -70,7 +80,16 @@ def _worker(rank: int, nranks: int, port_base: int, nb_cores: int,
         ctx = Context(nb_cores=nb_cores, rank=rank, nranks=nranks)
         # transport selected by PARSEC_MCA_COMM_TRANSPORT (inherited by
         # the spawned children): evloop (default), threads or shm
-        ce = make_ce(rank, nranks, port_base)
+        try:
+            ce = make_ce(rank, nranks, port_base)
+        except OSError as exc:
+            if exc.errno != errno.EADDRINUSE:
+                raise
+            # nothing ran yet: the parent relaunches the gang
+            outq.put((rank, f"{ADDR_IN_USE}: port {port_base + rank}\n"
+                      + traceback.format_exc(), None))
+            ctx.fini()
+            return
         rde = RemoteDepEngine(ce, ctx)
         ce.barrier()   # every rank's handlers are wired before user code
         try:
@@ -117,25 +136,9 @@ def _card_of(rank: int, cards: List[str]) -> Optional[str]:
     return cards[rank % len(cards)] if len(cards) > 1 else None
 
 
-def run_distributed(fn: Callable, nranks: int, args: tuple = (),
-                    nb_cores: int = 2, timeout: float = 120.0,
-                    port_base: Optional[int] = None,
-                    device: str = "cuda",
-                    tolerate_ranks=()) -> List[Any]:
-    """Run ``fn(ctx, rank, nranks, *args)`` on ``nranks`` processes;
-    returns the per-rank results in rank order.  ``device`` is each
-    child's ``device`` knob: "cuda" (the card; the default) or "cpu".
-
-    ``tolerate_ranks``: ranks whose failure is EXPECTED (kill victims
-    under recovery — the survivors' completion is the result that
-    matters); their slot in the returned list is None when they
-    errored.  An error on any other rank still fails the run."""
-    device = str(device).lower()
-    if device not in ("cuda", "gpu", "cpu"):
-        raise ValueError(f"device must be 'cuda' or 'cpu', not {device!r}")
-    if port_base is None:
-        port_base = _probe_port_base(nranks)
-    cards = _visible_cards(device)
+def _start_gang(fn: Callable, nranks: int, args: tuple, nb_cores: int,
+                port_base: int, device: str, cards: List[str]):
+    """Spawn the ``nranks`` children of one launch: (processes, queue)."""
     mpctx = mp.get_context("spawn")
     outq = mpctx.Queue()
     procs = [mpctx.Process(target=_worker,
@@ -158,30 +161,76 @@ def run_distributed(fn: Callable, nranks: int, args: tuple = (),
             os.environ.pop("CUDA_VISIBLE_DEVICES", None)
         else:
             os.environ["CUDA_VISIBLE_DEVICES"] = saved
-    tolerate = set(tolerate_ranks)
-    results: dict = {}
-    errors: List[str] = []
-    try:
-        for _ in range(nranks):
-            rank, err, res = outq.get(timeout=timeout)
-            if err is not None and rank in tolerate:
-                results[rank] = None   # expected casualty (a kill)
-            elif err is not None:
-                errors.append(f"rank {rank}:\n{err}")
-            else:
-                results[rank] = res
-    except Exception as exc:
-        for p in procs:
+    return procs, outq
+
+
+def _stop_gang(procs, now: bool = False) -> None:
+    for p in procs:
+        if now:
             p.terminate()
-        raise TimeoutError(
-            f"distributed run incomplete ({len(results)}/{nranks} ranks): "
-            f"{errors or exc}")
-    finally:
-        for p in procs:
-            p.join(timeout=10)
-            if p.is_alive():
-                p.terminate()
-                p.join(timeout=5)
+        p.join(timeout=10)
+        if p.is_alive():
+            p.terminate()
+            p.join(timeout=5)
+
+
+def run_distributed(fn: Callable, nranks: int, args: tuple = (),
+                    nb_cores: int = 2, timeout: float = 120.0,
+                    port_base: Optional[int] = None,
+                    device: str = "cuda",
+                    tolerate_ranks=()) -> List[Any]:
+    """Run ``fn(ctx, rank, nranks, *args)`` on ``nranks`` processes;
+    returns the per-rank results in rank order.  ``device`` is each
+    child's ``device`` knob: "cuda" (the card; the default) or "cpu".
+
+    ``tolerate_ranks``: ranks whose failure is EXPECTED (kill victims
+    under recovery — the survivors' completion is the result that
+    matters); their slot in the returned list is None when they
+    errored.  An error on any other rank still fails the run.
+
+    Deliberate difference from the JAX package's launcher: a rank whose
+    listening port was taken between the probe and its bind reports
+    ``ADDR_IN_USE`` before anything ran, and the gang is relaunched on a
+    fresh base, up to ``LAUNCH_ATTEMPTS`` launches in all (a base the
+    caller pinned is not replaced: the run fails)."""
+    device = str(device).lower()
+    if device not in ("cuda", "gpu", "cpu"):
+        raise ValueError(f"device must be 'cuda' or 'cpu', not {device!r}")
+    pinned = port_base is not None
+    cards = _visible_cards(device)
+    tolerate = set(tolerate_ranks)
+    for attempt in range(1, LAUNCH_ATTEMPTS + 1):
+        base = port_base if pinned else _probe_port_base(nranks)
+        procs, outq = _start_gang(fn, nranks, args, nb_cores, base, device,
+                                  cards)
+        results: dict = {}
+        errors: List[str] = []
+        in_use = None
+        try:
+            for _ in range(nranks):
+                rank, err, res = outq.get(timeout=timeout)
+                if err is not None and err.startswith(ADDR_IN_USE):
+                    in_use = f"rank {rank}:\n{err}"
+                    break
+                if err is not None and rank in tolerate:
+                    results[rank] = None   # expected casualty (a kill)
+                elif err is not None:
+                    errors.append(f"rank {rank}:\n{err}")
+                else:
+                    results[rank] = res
+        except Exception as exc:
+            _stop_gang(procs, now=True)
+            raise TimeoutError(
+                f"distributed run incomplete ({len(results)}/{nranks} "
+                f"ranks): {errors or exc}")
+        # a gang relaunched for a taken port is stopped at once: its
+        # other ranks wait on the one that never bound
+        _stop_gang(procs, now=in_use is not None)
+        if in_use is None:
+            break
+        if pinned or attempt == LAUNCH_ATTEMPTS:
+            raise RuntimeError(f"distributed run failed after {attempt} "
+                               f"launch(es):\n{in_use}")
     if errors:
         raise RuntimeError("distributed run failed:\n" + "\n".join(errors))
     return [results[r] for r in range(nranks)]

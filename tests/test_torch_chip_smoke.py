@@ -569,3 +569,87 @@ def test_multi_module_phase_rehearsal_on_cpu():
     zig = out["zig chain, cpu:8"]["ici"]
     assert zig["puts"] + zig["permute_edges"] > 0
     assert out["SPMD trio, cpu:8"]["spmd"]["summa"]["excess"] <= 0
+
+
+@pytest.mark.parametrize("app", ["gemm", "potrf"])
+def test_trace_tools_checks_on_a_cpu_trace(app, tmp_path):
+    """The tools phase's trace checks on a traced pass kept in a
+    directory (``trace_dir``) on the CPU-backed module: ``trace_info``'s
+    per-class counts add up to the pass's tasks (exec and dev: spans),
+    ``trace2chrome``'s X events are the trace's intervals; a count that
+    is not the pass's fails the check."""
+    chip_smoke = _chip_smoke()
+    from parsec_tpu_torch.core.context import Context
+    with Context(nb_cores=2, device="cpu") as ctx:
+        if app == "gemm":
+            res = chip_smoke.drive_gemm(
+                ctx, 8, 3, 3, 4, passes=1,
+                gen=torch.Generator().manual_seed(5), label="rehearsal",
+                traced=True, trace_dir=str(tmp_path))
+        else:
+            res = chip_smoke.drive_potrf(ctx, 16, 4, torch.float32,
+                                         passes=1, label="rehearsal",
+                                         traced=True, trace_dir=str(tmp_path))
+    tr = res["trace"]
+    assert tr["ptt"] == str(tmp_path / "rehearsal.ptt")
+    out = chip_smoke.check_trace_tools(tr["ptt"], tr["ntasks"], app,
+                                       str(tmp_path))
+    assert out["exec_spans"] == out["dev_spans"] == tr["ntasks"] == \
+        {"gemm": 36, "potrf": 20}[app]
+    assert out["x_events"] >= 2 * tr["ntasks"]     # exec, dev: and waits
+    with pytest.raises(AssertionError, match="exec and"):
+        chip_smoke.check_trace_tools(tr["ptt"], tr["ntasks"] + 1, app,
+                                     str(tmp_path))
+
+
+def test_trace_counts_read_the_per_class_table():
+    text = ("total events: 9\nper-class interval stats (seconds):\n"
+            "                 count         sum\nname\n"
+            "GEMM                 4    0.1 0.1 0.1 0.1\n"
+            "dev:GEMM             4    0.1 0.1 0.1 0.1\n"
+            "queue_wait           5    0.1 0.1 0.1 0.1\n"
+            "per-class queue-wait (seconds, ready -> selected):\n"
+            "GEMM                 4    0.1 0.1 0.1 0.1\n")
+    assert _chip_smoke().trace_info_counts(text) == {
+        "GEMM": 4, "dev:GEMM": 4, "queue_wait": 5}
+
+
+def test_merge_check_on_two_cpu_rank_traces(tmp_path):
+    """``trace2chrome --merge`` of a 2-rank potrf's traces: arrows, both
+    ends of each, ranks 0 and 1, the merged intervals as X events."""
+    import torch_comm_workers as W
+    paths = W.run_port(W.traced_potrf, 2, args=(str(tmp_path),),
+                       timeout=240)
+    out = _chip_smoke().check_merge(paths, "rehearsal", str(tmp_path))
+    assert out["flow_arrows"] > 0
+
+
+def test_chaos_command_and_run_on_cpu():
+    """The chaos tool's command line carries ``--device`` and runs each
+    case once; one case on two CPU ranks through ``run_chaos``, and an
+    unknown case fails the run."""
+    chip_smoke = _chip_smoke()
+    assert chip_smoke.chaos_command("cuda") == [
+        "--device", "cuda", "--only", "kill-close-recover", "--seeds", "1"]
+    assert chip_smoke.chaos_command("cpu", ("delay-frames", "kill-close")) \
+        == ["--device", "cpu", "--only", "delay-frames,kill-close",
+            "--seeds", "2"]
+    out = chip_smoke.run_chaos("cpu", ("delay-frames",))
+    assert out["cases"]["delay-frames"]["got"] == "complete"
+    with pytest.raises(AssertionError, match="unknown catalog entries"):
+        chip_smoke.run_chaos("cpu", ("delay-frames", "no-such-case"))
+
+
+def test_serving_clients_rehearsal_on_cpu():
+    """The client tools against a JobServer over a CPU JobService: one
+    GEMM job through ``job_client submit --wait``, its result within its
+    limit, one more job done in ``metrics_client``'s scrape, the job in
+    ``--status`` and in ``live_view``'s table."""
+    chip_smoke = _chip_smoke()
+    from parsec_tpu_torch.service import JobService
+    with JobService(device="cpu", nb_cores=2) as svc:
+        out = chip_smoke.serving_clients(svc, "cpu", (64, 16), "rehearsal")
+    assert out["jobs_done"] == 1 and out["k1_fma"] == 0
+    assert out["rel_err"] <= chip_smoke.GEMM_JOB_TOL
+    assert set(out["seconds"]) == {"metrics_client", "job_client",
+                                   "metrics_client --status", "live_view"}

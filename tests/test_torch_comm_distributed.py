@@ -124,6 +124,35 @@ def test_remote_presend_reshape():
     assert W.merged(j, "seen") == W.merged(p, "seen")
 
 
+def test_a_taken_rank_port_relaunches_the_gang(monkeypatch):
+    """Rank 1's port is taken (a listener of another process) between the
+    launcher's probe and the rank's bind: the rank reports EADDRINUSE
+    before anything ran, and the gang is relaunched on a fresh base."""
+    import parsec_tpu_torch.comm.launch as launch
+    bases = []
+    base = _probe_port_base(2)
+
+    def probe(nranks):
+        bases.append(base if not bases else _probe_port_base(nranks))
+        return bases[-1]
+    monkeypatch.setattr(launch, "_probe_port_base", probe)
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as taken:
+        taken.bind(("127.0.0.1", base + 1))
+        taken.listen(1)
+        res = W.run_port(W.ce_echo, 2, timeout=T_RUN)
+    assert len(bases) == 2 and bases[0] == base
+    assert [r["transport"] for r in res] == ["evloop"] * 2
+
+
+def test_a_taken_port_of_a_pinned_base_fails_the_launch():
+    base = _probe_port_base(2)
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as taken:
+        taken.bind(("127.0.0.1", base + 1))
+        taken.listen(1)
+        with pytest.raises(RuntimeError, match="EADDRINUSE"):
+            W.run_port(W.ce_echo, 2, timeout=T_RUN, port_base=base)
+
+
 def test_chain_8_ranks():
     j, p = W.run_both(W.chain, 8, args=(24,), timeout=300)
     assert W.merged(p) == W.merged(j) == \

@@ -7,10 +7,13 @@ frames recovered by the rendezvous retry, a truncated frame failing the
 pool with a PeerFailedError, every GET_REP dropped ending in the
 rendezvous's terminal timeout) run the same 2-rank potrf workload under
 the same plan on both packages, each validating its factor (the JAX
-package's chaos workload and its copy in tests/torch_comm_workers.py).
-The kill cases run the port only (the JAX package's own kill runs fail in
-its test suite): an armed flight recorder's incident bundle after a kill,
-and a kill over the shm transport contained with a PeerFailedError.
+package's chaos workload and the port's chaos tool's).  The kill cases
+run the port only (the JAX package's own kill runs fail in its test
+suite): an armed flight recorder's incident bundle after a ``kill_rank``,
+and a kill over the shm transport contained with a PeerFailedError (the
+rank killed once it has completed three of its tasks,
+``PARSEC_CHAOS_KILL_AFTER``, where the JAX package's case kills it at a
+wall-clock time that a pool under load can outrun).
 """
 
 import glob
@@ -146,8 +149,8 @@ def test_kill_shm_fails_cleanly(mode):
         _run_with_env(
             "port", W.potrf_workload, 2,
             {"PARSEC_MCA_FAULT_PLAN":
-             f"seed=3;kill_rank=1@t+1.0s,mode={mode};"
-             "delay_frame=tag:ACT,p=1,ms=400",
+             "seed=3;delay_frame=tag:ACT,p=1,ms=400",
+             "PARSEC_CHAOS_KILL_AFTER": f"1:3:{mode}",
              "PARSEC_MCA_COMM_TRANSPORT": "shm",
              "PARSEC_MCA_COMM_PEER_TIMEOUT_S": "2",
              "PARSEC_CHAOS_WAIT_S": "25"}, timeout=90)

@@ -1,18 +1,19 @@
 """The port's recovery plane end to end for DTD and dynamic pools, the
 PTG minimal-vs-full A/B, the 4-rank multi-death agreement and elastic
-rejoin: ranks killed mid-run by the fault plan (or an engine taken down
-and restarted), on the CPU (two to four spawned ranks, ``device="cpu"``).
+rejoin: ranks killed mid-run (or an engine taken down and restarted), on
+the CPU (two to four spawned ranks, ``device="cpu"``).
 
 Twins of tests/test_recovery.py's kill and rejoin cases, run on the port
 only, as tests/test_torch_recovery_kill.py's are (the JAX package's own
 kill runs fail on and off in its test suite).  The rank functions are
-the JAX package's chaos workloads (tools/chaos.py), copied into
-tests/torch_comm_workers.py.  Each case carries its own ``run_distributed``
-timeout.  Every rank starts its pool ``START_S`` seconds past the kill
-victims' engine start (``PARSEC_CHAOS_START_S``), and each plan's kill
-time is that offset plus the reference's: a rank that reached the
-launcher's barrier late on a loaded host must not find the victim dead
-before its own pool exists.
+the port's chaos tool's workloads (parsec_tpu_torch/tools/chaos.py).
+Each case carries its own ``run_distributed`` timeout.  Where the JAX
+package's case kills a rank at a wall-clock time (``kill_rank``), the
+twin kills it once it has completed a number of its tasks
+(``PARSEC_CHAOS_KILL_AFTER``): the death then lands mid-run however
+long the run takes under load, where a loaded host could let the pool
+outrun a timed kill and the case would see no death.  The fault plan
+keeps its delays, and every assert on the victim's death stays.
 """
 
 import os
@@ -23,11 +24,7 @@ import pytest
 import torch_comm_workers as W
 from parsec_tpu_torch.comm.launch import run_distributed
 
-START_S = 2.0
-
-
 def _run_with_env(fn, nranks, env, timeout=120, tolerate_ranks=()):
-    env = {"PARSEC_CHAOS_START_S": str(START_S), **env}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
@@ -46,9 +43,8 @@ def test_kill_close_recovers_dtd_chain():
     against the snapshot-restored tile — EXACT final value."""
     res = _run_with_env(
         W.dtd_chain_recover_workload, 2,
-        {"PARSEC_MCA_FAULT_PLAN":
-         "seed=7;kill_rank=1@t+3.2s,mode=close;"
-         "delay_frame=tag:DTD,p=1,ms=60",
+        {"PARSEC_MCA_FAULT_PLAN": "seed=7;delay_frame=tag:DTD,p=1,ms=60",
+         "PARSEC_CHAOS_KILL_AFTER": "1:6",
          "PARSEC_MCA_RECOVERY_ENABLE": "1",
          "PARSEC_CHAOS_WAIT_S": "30"},
         timeout=90, tolerate_ranks=(1,))
@@ -57,12 +53,14 @@ def test_kill_close_recovers_dtd_chain():
 
 def test_kill_during_the_insert_stream_waits_for_its_end():
     """Rank 1 dies while rank 0's application is still inserting (60
-    inserts 20 ms apart, the kill 0.5 s in): the restart waits for the
-    stream's end before its replay, so no task is inserted twice and the
-    survivor ends with the exact value."""
+    inserts 20 ms apart, the kill after rank 1's fifth task, about ten
+    inserts in): the restart waits for the stream's end before its
+    replay, so no task is inserted twice and the survivor ends with the
+    exact value."""
     res = _run_with_env(
         W.dtd_paced_insert_recover_workload, 2,
-        {"PARSEC_MCA_FAULT_PLAN": "seed=9;kill_rank=1@t+2.5s,mode=close",
+        {"PARSEC_MCA_FAULT_PLAN": "seed=9",
+         "PARSEC_CHAOS_KILL_AFTER": "1:5",
          "PARSEC_MCA_RECOVERY_ENABLE": "1",
          "PARSEC_CHAOS_WAIT_S": "30"},
         timeout=90, tolerate_ranks=(1,))
@@ -78,8 +76,8 @@ def test_kill_dtd_chain_skip_minimal_sole_survivor():
     res = _run_with_env(
         W.dtd_ab_chain_workload, 2,
         {"PARSEC_MCA_FAULT_PLAN":
-         "seed=5;kill_rank=1@t+4.0s,mode=close;"
-         "delay_dispatch=key~_dtd_chain_step,ms=100",
+         "seed=5;delay_dispatch=key~_dtd_chain_step,ms=100",
+         "PARSEC_CHAOS_KILL_AFTER": "1:8",
          "PARSEC_MCA_RECOVERY_ENABLE": "1",
          "PARSEC_CHAOS_WAIT_S": "45"},
         timeout=120, tolerate_ranks=(1,))
@@ -96,8 +94,9 @@ def test_kill_recovers_dynamic_taskpool_with_hold():
     res = _run_with_env(
         W.dyn_chain_recover_workload, 2,
         {"PARSEC_MCA_FAULT_PLAN":
-         "seed=1;kill_rank=1@t+2.8s,mode=close;"
+         "seed=1;"
          "delay_frame=tag:ACT,p=1,ms=150;delay_frame=tag:BATCH,p=1,ms=150",
+         "PARSEC_CHAOS_KILL_AFTER": "1:2",
          "PARSEC_MCA_RECOVERY_ENABLE": "1",
          "PARSEC_CHAOS_WAIT_S": "40"},
         timeout=90, tolerate_ranks=(1,))
@@ -108,8 +107,7 @@ def test_minimal_replay_reexecutes_strictly_fewer():
     """The PTG A/B: on the SAME mid-run kill, recorded-lineage minimal
     replay re-executes strictly fewer tasks than replay-from-restore-
     point, and each leg provably took its path."""
-    plan = ("seed=11;kill_rank=1@t+3.0s,mode=close;"
-            "delay_dispatch=key~W(,ms=100")
+    plan = "seed=11;delay_dispatch=key~W(,ms=100"
     legs = {}
     for mode, knob in (("minimal", "1"), ("full", "0")):
         res = _run_with_env(
@@ -117,6 +115,7 @@ def test_minimal_replay_reexecutes_strictly_fewer():
             {"PARSEC_MCA_FAULT_PLAN": plan,
              "PARSEC_MCA_RECOVERY_ENABLE": "1",
              "PARSEC_MCA_RECOVERY_MINIMAL": knob,
+             "PARSEC_CHAOS_KILL_AFTER": "1:3",
              "PARSEC_CHAOS_WAIT_S": "45"},
             timeout=120, tolerate_ranks=(1,))
         surv = res[0]
@@ -136,9 +135,9 @@ def test_multi_death_agreement_converges_survivors():
     res = _run_with_env(
         W.potrf_recover_workload, 4,
         {"PARSEC_MCA_FAULT_PLAN":
-         "seed=2;kill_rank=2@t+3.0s,mode=close;"
-         "kill_rank=3@t+3.05s,mode=close;"
+         "seed=2;"
          "delay_frame=tag:ACT,p=1,ms=400;delay_frame=tag:BATCH,p=1,ms=400",
+         "PARSEC_CHAOS_KILL_AFTER": "2:2,3:2",
          "PARSEC_MCA_RECOVERY_ENABLE": "1",
          "PARSEC_MCA_RECOVERY_MAX_ATTEMPTS": "3",
          "PARSEC_CHAOS_WAIT_S": "60"},

@@ -1510,131 +1510,22 @@ def chip_pingpong(ctx, rank, nranks, pkg, rtt, bw):
                                                   bw)}
 
 
-# -- fault tolerance (the port only; copies of the JAX package's chaos
-# workloads, whose kill runs fail in the JAX package's own tests) -----------
+# -- fault tolerance (the port only): the chaos workloads are the port's
+# chaos tool's (parsec_tpu_torch/tools/chaos.py), read from there on first
+# use (module __getattr__) so that a rank of the JAX package, which
+# imports this module, never loads the port ------------------------------
 
-def _wait_s() -> float:
-    import os
-    return float(os.environ.get("PARSEC_CHAOS_WAIT_S", "60"))
-
-
-#: an application tag: the ranks' engine-start stamps (_start_after)
-TAG_START = 22
-
-
-def _start_after(ctx, rank, nranks):
-    """With ``PARSEC_CHAOS_START_S`` set, hold this rank until that many
-    seconds past the earliest kill victim's engine start (the victims
-    are the fault plan's ``kill_rank`` ranks; CLOCK_MONOTONIC is the
-    host's, so every rank reads one clock).  A ``kill_rank`` directive
-    counts from the victim's engine start: on a loaded host a rank can
-    reach the launcher's barrier a second late, and without this the
-    death could land before that rank's pool exists."""
-    import os
-    offset = os.environ.get("PARSEC_CHAOS_START_S")
-    if offset is None:
-        return
-    from parsec_tpu_torch.utils.faultinject import FaultPlan
-    victims = [d.rank for d in FaultPlan(os.environ.get(
-        "PARSEC_MCA_FAULT_PLAN", "")).of_kind("kill_rank")]
-    if not victims:
-        return
-    ce = ctx.comm.ce
-    stamps, done = {rank: ce.started_at}, threading.Event()
-
-    def on_stamp(src, at):
-        stamps[src] = at
-        if len(stamps) == nranks:
-            done.set()
-    ce.tag_register(TAG_START, on_stamp)
-    for r in range(nranks):
-        if r != rank:
-            ce.send_am(TAG_START, r, ce.started_at)
-    if len(stamps) < nranks and not done.wait(60):
-        raise TimeoutError(f"rank {rank}: engine-start stamps {stamps}")
-    ce.tag_unregister(TAG_START)
-    go = min(stamps[v] for v in victims) + float(offset)
-    time.sleep(max(0.0, go - time.monotonic()))
+_CHAOS = ("potrf_workload", "potrf_recover_workload",
+          "dtd_chain_recover_workload", "dtd_ab_chain_workload",
+          "dyn_chain_recover_workload", "ab_chain_recover_workload",
+          "rejoin_workload")
 
 
-def potrf_workload(ctx, rank, nranks, recover=False):
-    """Tiled Cholesky with an internal numerical check — the
-    PTG/remote-dep path (activations, rendezvous, writebacks).  With
-    ``recover`` the collection carries an init_fn re-runnable source,
-    so a kill_rank plan ends in lineage re-execution on the survivors
-    instead of a structured failure — and the survivors validate the
-    ADOPTED tiles too (local_tiles routes through the translated
-    owner)."""
-    import torch
-    from parsec_tpu_torch.apps.potrf import potrf_taskpool
-    from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
-
-    n, mb = 96, 16
-    rng = np.random.default_rng(3)
-    a = rng.standard_normal((n, n)).astype(np.float32)
-    spd = (a @ a.T + n * np.eye(n)).astype(np.float32)
-    A = TwoDimBlockCyclic(mb=mb, nb=mb, lm=n, ln=n, nodes=nranks,
-                          myrank=rank, name="A")
-    _start_after(ctx, rank, nranks)
-    if recover:
-        A.set_init(lambda m, nn: torch.from_numpy(
-            spd[m * mb:(m + 1) * mb, nn * mb:(nn + 1) * mb].copy()))
-    for m, nn in A.local_tiles():
-        A.data_of(m, nn).copy_on(0).payload.copy_(torch.from_numpy(
-            spd[m * mb:(m + 1) * mb, nn * mb:(nn + 1) * mb]))
-    ctx.add_taskpool(potrf_taskpool(A, device="cpu"))
-    ctx.wait(timeout=_wait_s())
-    # every rank knows the full answer (same seed): validate the LOCAL
-    # tiles — a silently wrong tile fails ITS rank
-    Lref = np.linalg.cholesky(spd.astype(np.float64))
-    for m, nn in A.local_tiles():
-        if nn > m:
-            continue
-        got = get(A.data_of(m, nn).pull_to_host().payload).astype(
-            np.float64)
-        ref = Lref[m * mb:(m + 1) * mb, nn * mb:(nn + 1) * mb]
-        if m == nn:
-            got, ref = np.tril(got), np.tril(ref)
-        np.testing.assert_allclose(got, ref, rtol=5e-2, atol=5e-2)
-    return "ok"
-
-
-def potrf_recover_workload(ctx, rank, nranks):
-    return potrf_workload(ctx, rank, nranks, recover=True)
-
-
-def dtd_chain_recover_workload(ctx, rank, nranks):
-    """The DTD increment chain with a recovery spec: the insertion
-    stream doubles as the ``recovery_replay`` lineage, so a killed rank
-    mid-chain re-executes the chain on the survivor against the
-    snapshot-restored tile — EXACT final value required."""
-    from parsec_tpu_torch.data.matrix import VectorTwoDimCyclic
-    from parsec_tpu_torch.dsl.dtd import AFFINITY, INOUT, DTDTaskpool
-
-    steps = 40
-    V = VectorTwoDimCyclic(mb=4, lm=4, nodes=nranks, myrank=rank)
-    if rank == 0:
-        V.data_of(0).copy_on(0).payload[:] = 0.0
-    tp = DTDTaskpool("chaos-chain-r")
-    _start_after(ctx, rank, nranks)
-
-    def insert_stream(pool, V=V, steps=steps, nranks=nranks):
-        t = pool.tile_of(V, 0)
-        for i in range(steps):
-            pool.insert_task(lambda T: T + 1.0, (t, INOUT),
-                             (i % nranks, AFFINITY))
-
-    tp.recovery_collections = [V]
-    tp.recovery_replay = insert_stream
-    ctx.add_taskpool(tp)
-    ctx.start()
-    insert_stream(tp)
-    tp.wait(timeout=_wait_s())
-    ctx.wait(timeout=_wait_s())
-    if rank == 0:
-        np.testing.assert_allclose(get(V.data_of(0).pull_to_host().payload),
-                                   float(steps))
-    return "ok"
+def __getattr__(name):
+    if name in _CHAOS:
+        from parsec_tpu_torch.tools import chaos
+        return getattr(chaos, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def dtd_paced_insert_recover_workload(ctx, rank, nranks):
@@ -1644,6 +1535,8 @@ def dtd_paced_insert_recover_workload(ctx, rank, nranks):
     value on the survivor: the replay must not overlap the stream."""
     from parsec_tpu_torch.data.matrix import VectorTwoDimCyclic
     from parsec_tpu_torch.dsl.dtd import AFFINITY, INOUT, DTDTaskpool
+    from parsec_tpu_torch.tools.chaos import _add_pool, _start_after, \
+        _wait_s
 
     steps = 60
     V = VectorTwoDimCyclic(mb=4, lm=4, nodes=nranks, myrank=rank,
@@ -1663,7 +1556,7 @@ def dtd_paced_insert_recover_workload(ctx, rank, nranks):
 
     tp.recovery_collections = [V]
     tp.recovery_replay = insert_stream
-    ctx.add_taskpool(tp)
+    _add_pool(ctx, rank, tp)
     ctx.start()
     t0 = time.monotonic()
     insert_stream(tp, pace=0.02)
@@ -1676,247 +1569,6 @@ def dtd_paced_insert_recover_workload(ctx, rank, nranks):
     return ("ok", inserted_s)
 
 
-def _dtd_chain_step(T):
-    """Named DTD chain body: the function name lands in the task key,
-    so keyed fault directives (``delay_dispatch=key~_dtd_chain_step``)
-    can stall exactly these bodies."""
-    return T + 1.0
-
-
-def dtd_ab_chain_workload(ctx, rank, nranks):
-    """Multi-rank DTD increment chain with keyed 100 ms bodies and a
-    recovery spec.  Inserts alternate between ranks 0 and 1; a mid-chain
-    kill leaves the survivor a completed skippable prefix.  Returns the
-    survivor's replay accounting: ("ok", tasks re-executed, minimal
-    replays, full replays, skip agreements)."""
-    import os
-    import torch
-    from parsec_tpu_torch.data.matrix import VectorTwoDimCyclic
-    from parsec_tpu_torch.dsl.dtd import AFFINITY, INOUT, DTDTaskpool
-
-    steps = int(os.environ.get("PARSEC_CHAOS_DTD_STEPS", 40))
-    V = VectorTwoDimCyclic(mb=4, lm=4, nodes=nranks, myrank=rank,
-                           name="Vdtdab")
-    # re-runnable v0 source: an ADOPTING survivor with no attach
-    # snapshot of the tile (it was never local) restores from here
-    V.set_init(lambda m, n=0: torch.zeros(4))
-    if rank == 0:
-        V.data_of(0).copy_on(0).payload[:] = 0.0
-    tp = DTDTaskpool("chaos-dtd-ab")
-    _start_after(ctx, rank, nranks)
-
-    def insert_stream(pool, V=V, steps=steps):
-        t = pool.tile_of(V, 0)
-        for i in range(steps):
-            pool.insert_task(_dtd_chain_step, (t, INOUT),
-                             (i % 2, AFFINITY))
-
-    tp.recovery_collections = [V]
-    tp.recovery_replay = insert_stream
-    ctx.add_taskpool(tp)
-    ctx.start()
-    insert_stream(tp)
-    tp.wait(timeout=_wait_s())
-    ctx.wait(timeout=_wait_s())
-    if rank == 0:
-        np.testing.assert_allclose(get(V.data_of(0).pull_to_host().payload),
-                                   float(steps))
-    st = ctx.recovery.stats() if ctx.recovery is not None else {}
-    return ("ok", st.get("tasks_reexecuted", 0),
-            st.get("minimal_replays", 0), st.get("full_replays", 0),
-            st.get("skip_agreements", 0))
-
-
-def _chain_hook(es, task):
-    """Shared CPU incarnation of the dyn and A/B chains' W(i): own
-    tile T := predecessor P + 1 (P is READ — never mutated, so sharing
-    the producer's copy on local edges is safe)."""
-    import torch
-    p = task.data.get("P")
-    base = 0.0 if p is None else float(p.payload.reshape(-1)[0])
-    t = task.data["T"]
-    t.payload = torch.full_like(t.payload, base + 1.0)
-    return None
-
-
-def dyn_chain_recover_workload(ctx, rank, nranks):
-    """Distributed DynamicTaskpool chain (runtime task discovery, the
-    dyn-hold pool-scoped quiescence round) with a recovery spec: a
-    mid-chain kill must restart the pool on the survivor, re-arm the
-    distributed termination hold across the restart, and end with the
-    exact final values on every surviving rank."""
-    import torch
-    from parsec_tpu_torch.core.task import (Dep, FromDesc, FromTask, READ,
-                                            RW, TaskClass, ToDesc, ToTask)
-    from parsec_tpu_torch.core.taskpool import DynamicTaskpool
-    from parsec_tpu_torch.data.matrix import VectorTwoDimCyclic
-
-    steps = 12
-    V = VectorTwoDimCyclic(mb=2, lm=2 * steps, nodes=nranks,
-                           myrank=rank, name="Vdyn")
-    V.set_init(lambda m, n=0: torch.zeros(2))
-    tc = TaskClass(
-        "W", params=[("i", lambda g, l: range(steps))],
-        affinity=lambda loc, V=V: V(loc["i"]),
-        flows=[READ("P",
-                    inputs=[Dep(FromTask("W", "T",
-                                         lambda loc:
-                                         {"i": loc["i"] - 1}),
-                                guard=lambda loc: loc["i"] > 0)]),
-               RW("T",
-                  inputs=[Dep(FromDesc(lambda loc, V=V: V(loc["i"])))],
-                  outputs=[Dep(ToTask("W", "P",
-                                      lambda loc: {"i": loc["i"] + 1}),
-                               guard=lambda loc, s=steps:
-                               loc["i"] < s - 1),
-                           Dep(ToDesc(lambda loc, V=V: V(loc["i"])))])],
-        incarnations=[("cpu", _chain_hook)],
-        properties={"startup_fn":
-                    lambda g, r: [{"i": 0}] if r == 0 else []})
-    tp = DynamicTaskpool("dyn-chain")
-    tp.add_task_class(tc)
-    tp.recovery_collections = [V]
-    _start_after(ctx, rank, nranks)
-    ctx.add_taskpool(tp)
-    ctx.wait(timeout=_wait_s())
-    for m, _n in V.local_tiles():
-        np.testing.assert_allclose(get(V.data_of(m).pull_to_host().payload),
-                                   float(m + 1))
-    return "ok"
-
-
-def ab_chain_recover_workload(ctx, rank, nranks):
-    """The minimal-vs-full A/B DAG: a 20-step chain whose first half
-    lives on rank 0 and second half on rank 1 (tabular placement), each
-    body stalled by a keyed delay_dispatch, so the survivor holds
-    completed-and-not-needed work at any mid-run kill point.  Returns
-    ("ok", tasks re-executed, minimal replays, full replays)."""
-    import os
-    import torch
-    from parsec_tpu_torch.core.task import (Dep, FromDesc, FromTask, READ,
-                                            WRITE, TaskClass, ToDesc, ToTask)
-    from parsec_tpu_torch.core.taskpool import ParameterizedTaskpool
-    from parsec_tpu_torch.data.matrix import TwoDimTabular
-
-    steps = int(os.environ.get("PARSEC_CHAOS_AB_STEPS", 20))
-    half = steps // 2
-    V = TwoDimTabular(2, 1, 2 * steps, 1,
-                      table=[0] * half + [1] * (steps - half),
-                      nodes=nranks, myrank=rank, name="Vab")
-    V.set_init(lambda m, n=0: torch.zeros((2, 1)))
-    tc = TaskClass(
-        "W", params=[("i", lambda g, l: range(steps))],
-        affinity=lambda loc, V=V: V(loc["i"], 0),
-        flows=[READ("P",
-                    inputs=[Dep(FromTask("W", "T",
-                                         lambda loc:
-                                         {"i": loc["i"] - 1}),
-                                guard=lambda loc: loc["i"] > 0)]),
-               # WRITE access (full overwrite): a mid-body kill's stale
-               # taint on this tile must not force the minimal path into
-               # its fallback — the re-run rewrites the tile from P alone
-               WRITE("T",
-                     inputs=[Dep(FromDesc(lambda loc, V=V:
-                                          V(loc["i"], 0)))],
-                     outputs=[Dep(ToTask("W", "P",
-                                         lambda loc:
-                                         {"i": loc["i"] + 1}),
-                                  guard=lambda loc, s=steps:
-                                  loc["i"] < s - 1),
-                              Dep(ToDesc(lambda loc, V=V:
-                                         V(loc["i"], 0)))])],
-        incarnations=[("cpu", _chain_hook)])
-    p = ParameterizedTaskpool("ab-chain")
-    p.add_task_class(tc)
-    p.recovery_collections = [V]
-    _start_after(ctx, rank, nranks)
-    ctx.add_taskpool(p)
-    ctx.wait(timeout=_wait_s())
-    for m, nn in V.local_tiles():
-        np.testing.assert_allclose(
-            get(V.data_of(m, nn).pull_to_host().payload), float(m + 1))
-    st = ctx.recovery.stats() if ctx.recovery is not None else {}
-    return ("ok", st.get("tasks_reexecuted", 0),
-            st.get("minimal_replays", 0), st.get("full_replays", 0))
-
-
-def _rejoin_phase(ctx, rank, nranks, name):
-    """One full 2-rank potrf with per-rank numeric validation."""
-    import torch
-    from parsec_tpu_torch.apps.potrf import potrf_taskpool
-    from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
-    n, mb = 64, 16
-    rng = np.random.default_rng(5)
-    a = rng.standard_normal((n, n)).astype(np.float32)
-    spd = (a @ a.T + n * np.eye(n)).astype(np.float32)
-    A = TwoDimBlockCyclic(mb=mb, nb=mb, lm=n, ln=n, nodes=nranks,
-                          myrank=rank, name=name)
-    for m, nn in A.local_tiles():
-        A.data_of(m, nn).copy_on(0).payload.copy_(torch.from_numpy(
-            spd[m * mb:(m + 1) * mb, nn * mb:(nn + 1) * mb]))
-    ctx.add_taskpool(potrf_taskpool(A, device="cpu"))
-    ctx.wait(timeout=60)
-    Lref = np.linalg.cholesky(spd.astype(np.float64))
-    for m, nn in A.local_tiles():
-        if nn > m:
-            continue
-        got = get(A.data_of(m, nn).pull_to_host().payload).astype(
-            np.float64)
-        ref = Lref[m * mb:(m + 1) * mb, nn * mb:(nn + 1) * mb]
-        if m == nn:
-            got, ref = np.tril(got), np.tril(ref)
-        np.testing.assert_allclose(got, ref, rtol=5e-2, atol=5e-2)
-
-
-def rejoin_workload(ctx, rank, nranks):
-    """Kill -> restart -> TAG_REJOIN -> serves again (the JAX package's
-    chaos ``rejoin_scenario``, under the port's launcher): a potrf, then
-    rank 1's engine goes down and comes back as incarnation 1 over the
-    same transport (on shm: the survivor's re-created rings), rank 0
-    sees the death and then the rejoin, and a second potrf runs on the
-    rejoined rank.  Returns this rank's view: rejoins counted, the dead
-    set afterwards, and the engine's epoch."""
-    import time as _time
-    from parsec_tpu_torch.comm.engine import make_ce
-    from parsec_tpu_torch.comm.remote_dep import RemoteDepEngine
-    from parsec_tpu_torch.utils.mca import params
-
-    rde = ctx.comm
-    ce = rde.ce
-    _rejoin_phase(ctx, rank, nranks, "A")
-    ce.barrier()
-    if rank == 1:
-        port_base = ce.port_base
-        rde.fini()                    # the rank goes down
-        _time.sleep(1.0)
-        params.set("comm_epoch", 1)   # restarted incarnation
-        try:
-            ce = make_ce(rank, nranks, port_base)
-            rde = RemoteDepEngine(ce, ctx)
-            table = ctx.recovery.rejoin(timeout=30.0)
-        finally:
-            params.unset("comm_epoch")
-        assert isinstance(table, dict)
-    else:
-        deadline = _time.monotonic() + 25
-        while 1 not in ce.dead_peers:
-            if _time.monotonic() > deadline:
-                raise RuntimeError("rank 1 death never detected")
-            _time.sleep(0.02)
-        # the dead mark clears in the handshake just before the rejoin
-        # is counted
-        while 1 in ce.dead_peers or ctx.recovery.rejoins < 1:
-            if _time.monotonic() > deadline + 35:
-                raise RuntimeError("rank 1 never rejoined")
-            _time.sleep(0.02)
-    ce.barrier(timeout=30)
-    # the REJOINED rank serves its partition again, over the re-created
-    # transport state (fresh shm rings on shm)
-    _rejoin_phase(ctx, rank, nranks, "B")
-    return {"rejoins": ctx.recovery.rejoins, "dead": sorted(ce.dead_peers),
-            "epoch": ce.epoch, "transport": ctx.comm.stats()["transport"]}
-
-
 # -- the parent side ---------------------------------------------------------
 
 def run_port(fn, nranks, args=(), **kw):
@@ -1925,9 +1577,25 @@ def run_port(fn, nranks, args=(), **kw):
                            device="cpu", **kw)
 
 
+#: launches of the JAX package's gang before a taken port fails the run
+JAX_LAUNCH_ATTEMPTS = 3
+
+
 def run_jax(fn, nranks, args=(), **kw):
+    """The JAX package's launcher, relaunched (up to JAX_LAUNCH_ATTEMPTS
+    launches) when a rank's bind found its port taken: its probe frees
+    the ports it picked before the ranks bind them, so a process of
+    another test can take one in between.  Any other failure fails."""
     from parsec_tpu.comm.launch import run_distributed
-    return run_distributed(fn, nranks, args=("jax",) + tuple(args), **kw)
+    for attempt in range(1, JAX_LAUNCH_ATTEMPTS + 1):
+        try:
+            return run_distributed(fn, nranks, args=("jax",) + tuple(args),
+                                   **kw)
+        except (RuntimeError, TimeoutError) as exc:
+            text = str(exc)
+            if attempt == JAX_LAUNCH_ATTEMPTS or "bind" not in text \
+                    or "Address already in use" not in text:
+                raise
 
 
 def run_both(fn, nranks, args=(), **kw):
