@@ -3181,9 +3181,11 @@ CHAOS_LINE = re.compile(r"^\[(PASS|FAIL)\] seed=\d+ (\S+)\s+\[\S+\] "
                         r"expect=(\S+) got=(\S+) \(([\d.]+)s\)$", re.M)
 
 
-def tool(name: str, *args, timeout: float = 600.0) -> tuple:
+def tool(name: str, *args, timeout: float = 600.0,
+         stderr: bool = False) -> tuple:
     """``python -m parsec_tpu_torch.tools.<name> args`` in a process of
-    its own: (stdout, seconds).  A non-zero exit raises."""
+    its own: (stdout, seconds), with its standard error appended when
+    ``stderr``.  A non-zero exit raises."""
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m",
                         f"parsec_tpu_torch.tools.{name}",
@@ -3194,7 +3196,7 @@ def tool(name: str, *args, timeout: float = 600.0) -> tuple:
         raise AssertionError(f"[tools] {name} {list(args)} exited "
                              f"{r.returncode}:\n{r.stdout[-3000:]}\n"
                              f"{r.stderr[-3000:]}")
-    return r.stdout, dt
+    return (r.stdout + r.stderr if stderr else r.stdout), dt
 
 
 def scraped_jobs_done(text: str) -> float:
@@ -3367,14 +3369,39 @@ def run_chaos(device: str, cases=CHAOS_CASES) -> dict:
     return {"cases": got, "seconds": dt}
 
 
+LINT_STATUS = re.compile(r"^parseclint: (?:clean|(\d+) finding\(s\))"
+                         r"(?:, (\d+) baselined)? \((\d+) files\)$", re.M)
+
+
+def run_lint() -> dict:
+    """The port's static analysis (``parseclint``) over the package, in a
+    process of its own: a new finding exits non-zero, which fails the
+    run.  Returns the files scanned, the new and baselined findings and
+    the process's seconds."""
+    out, dt = tool("parseclint", "parsec_tpu_torch", stderr=True,
+                   timeout=300)
+    m = LINT_STATUS.search(out)
+    if m is None:
+        raise AssertionError(f"[tools parseclint] no status line:\n"
+                             f"{out[-3000:]}")
+    got = {"files": int(m[3]), "new": int(m[1] or 0),
+           "baselined": int(m[2] or 0), "seconds": dt}
+    if got["new"]:
+        raise AssertionError(f"[tools parseclint] {got}\n{out[-3000:]}")
+    log(f"[tools parseclint] files {got['files']} new {got['new']} "
+        f"baselined {got['baselined']} s {dt:.1f}")
+    return got
+
+
 def phase_tools(traces: dict, merge: list, clients: dict,
                 device: str = "cuda") -> dict:
     """The operator tools on what the paths left: ``trace_info`` and
     ``trace2chrome`` on each traced pass's trace (``traces``: label ->
     (path, tasks)), ``trace2chrome --merge`` on the 2-rank potrf's rank
-    traces, then the chaos catalog's ``CHAOS_CASES``.  The client tools
-    ran in the serving path (``clients``: their numbers).  Launches no
-    kernel in this process (the chaos ranks' are their own)."""
+    traces, the port's lint over the package, then the chaos catalog's
+    ``CHAOS_CASES``.  The client tools ran in the serving path
+    (``clients``: their numbers).  Launches no kernel in this process
+    (the chaos ranks' are their own)."""
     t0 = time.perf_counter()
     reset_counts()
     out_dir = tempfile.mkdtemp(prefix="parsec_tools_")
@@ -3384,11 +3411,12 @@ def phase_tools(traces: dict, merge: list, clients: dict,
         out["merge"] = check_merge(merge, "2-rank potrf", out_dir)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+    out["parseclint"] = run_lint()
     out["chaos"] = run_chaos(device)
     out["clients"] = clients
     out["launches"] = read_counts()
     out["seconds"] = time.perf_counter() - t0
-    log(f"[tools] trace tools and chaos {out['seconds']:.1f} s; the "
+    log(f"[tools] trace tools, lint and chaos {out['seconds']:.1f} s; the "
         f"clients' seconds: {clients['seconds'] if clients else None}")
     return out
 

@@ -8,18 +8,36 @@ for Hopper, and tiles are staged into device memory by the CUDA device
 module.  It imports nothing of ``parsec_tpu`` and never imports JAX; the
 module layout mirrors ``parsec_tpu`` so each counterpart is easy to find.
 
-Ported so far (the GEMM, QR and Cholesky slices, the native core, the
-telemetry plane, the distributed runtime, DTD/JDF and the job service):
-  ``utils``/``containers`` — config registry, logging, concurrent containers
+Ported so far (every module of ``parsec_tpu``; the deliberate
+differences are listed in ROADMAP.md, Queue 3):
+  ``utils``/``containers`` — config registry, logging, concurrent
+                             containers, fault injection, checkpoints
   ``data``                 — Data/DataCopy coherency, arenas, repos, tiled
-                             matrices, the carry from the JAX package's arrays
-  ``core`` + ``sched``     — taskpools, dep engine, termdet, schedulers
+                             matrices and layouts, the carry from the JAX
+                             package's arrays
+  ``core`` + ``sched``     — taskpools, dep engine, termdet, schedulers,
+                             the VP map, recursive pools and the recovery
+                             plane (fault tolerance)
+  ``native``               — the C scheduler core, trace sink and frame
+                             parser, built at first use
   ``devices``              — device registry and the CUDA device module
-  ``dsl.ptg``              — the PTG front-end
-  ``apps``                 — the tiled GEMM, QR, Cholesky and stencil, and
-                             the Hopper kernels
+  ``comm``                 — the distributed runtime (comm engine, remote
+                             deps, shm and event-loop transports) and the
+                             ICI transport between the device modules of
+                             one process
+  ``parallel``             — the SPMD schedules, the DAG simulator and
+                             the multichip dryrun
+  ``dsl``                  — the PTG, DTD and JDF front-ends
+  ``apps``                 — the tiled GEMM, QR, Cholesky, stencil and
+                             the other apps, and the Hopper kernels
+  ``prof``                 — the telemetry plane, the trace stack, the
+                             journal, the flight recorder and grapher
   ``service``              — the resident job service, its server and
                              the serving fabric
+  ``tools``                — the operator tools (trace_info,
+                             trace2chrome, metrics/job clients, live_view,
+                             chaos, journal_audit) and the linter,
+                             ``python -m parsec_tpu_torch.tools.parseclint``
 """
 
 __version__ = "0.1.0"

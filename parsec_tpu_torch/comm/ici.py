@@ -52,12 +52,16 @@ What differs from the JAX package's module:
 - A failed copy is not swallowed.  The JAX package's
   ``flush_placements`` and ``_flush_edges`` catch an XLA failure and
   fall back to puts (placement there is a best-effort prefetch); here a
-  copy that raises fails the pool through the context's error path:
-  from ``release_deps`` (``defer_place``/``preplace``/``prebroadcast``)
-  as the producing task's error, from the idle workers' flush as a
-  context error (``Context.flush_ici``).  Dropping an edge whose
-  consumer already staged in stays: that is the prefetch's semantics,
-  not a fallback.
+  copy that raises fails the pool it was placing a tile for, and no
+  other.  From ``release_deps`` (``preplace``/``prebroadcast``) it is
+  the producing task's error.  A deferred edge carries the taskpool
+  that queued it; a batch of edges (one engine-wide window, so edges of
+  several pools) that raises is retried edge by edge, and an edge whose
+  own copy raises again fails its taskpool through
+  ``Context.record_pool_error``, while the other pools' edges are
+  placed — so under a JobService one job's failed placement does not
+  fail another job.  Dropping an edge whose consumer already staged in
+  stays: that is the prefetch's semantics, not a fallback.
 """
 
 from __future__ import annotations
@@ -123,11 +127,12 @@ class IciEngine:
         self._stats_lock = threading.Lock()
         #: deferred single-consumer placements awaiting same-wavefront
         #: siblings: (produced copy, destination space, enqueue time, the
-        #: copy's version then).
+        #: copy's version then, the taskpool that queued it).
         #: Flushed as permute rounds (SURVEY §5.8's "batched per DAG
         #: wavefront" schedule) when a full round accumulates or an idle
         #: worker drains the window
-        self._pending_edges: List[Tuple[DataCopy, int, float, int]] = []
+        self._pending_edges: List[Tuple[DataCopy, int, float, int,
+                                        Any]] = []
         self._pending_lock = threading.Lock()
         #: when the last single-consumer edge was seen: a fresh edge after
         #: a quiet spell is treated as a chain hop (placed immediately),
@@ -148,6 +153,7 @@ class IciEngine:
             for k, v in inc.items():
                 setattr(self.stats, k, getattr(self.stats, k) + v)
 
+    # lint: alias-wrapper
     def _copy(self, payload, src_space: int, dst_space: int):
         """One copy of ``payload`` (held in ``src_space``; -1 when it was
         made outside the modules, on the card's default stream) into fresh
@@ -357,14 +363,15 @@ class IciEngine:
     # per-peer aggregation of the comm thread, remote_dep_mpi.c — here
     # aggregation happens across DEVICE edges of one wavefront)
     # ------------------------------------------------------------------
-    def defer_place(self, copy: DataCopy, space: int) -> bool:
-        """Queue a device-resident single-consumer placement; when the
-        batch completes a permutation round (every module sends/receives
-        at most once) — or an idle worker drains the window
-        (:meth:`flush_placements`) — the whole wavefront rides one
-        permute instead of N separate puts.  Placement is purely a
+    def defer_place(self, copy: DataCopy, space: int, taskpool) -> bool:
+        """Queue a device-resident single-consumer placement for
+        ``taskpool``; when the batch completes a permutation round (every
+        module sends/receives at most once) — or an idle worker drains
+        the window (:meth:`flush_placements`) — the whole wavefront rides
+        one permute instead of N separate puts.  Placement is purely a
         prefetch: consumers that stage in before the flush win the version
-        race and the late replica is dropped."""
+        race and the late replica is dropped.  A batch flushed here fails
+        only the pools whose own copies raise (:meth:`_flush_batch`)."""
         datum = copy.data
         if datum is None or not self.device_resident(copy) \
                 or space not in self._dev or copy.device == space \
@@ -392,7 +399,8 @@ class IciEngine:
                 # contract
                 immediate = True
             else:
-                self._pending_edges.append((copy, space, now, version))
+                self._pending_edges.append((copy, space, now, version,
+                                            taskpool))
                 # flush when the batch completes a permutation round —
                 # OR when the oldest deferred edge has already outlived
                 # the window (under load the gaps between wavefront
@@ -408,14 +416,14 @@ class IciEngine:
         if immediate:
             return self.preplace(copy, space)
         if flush_now:
-            self._flush_edges(flush_now)
+            self._flush_batch(flush_now)
         return True
 
     def flush_placements(self, force: bool = False) -> int:
         """Drain deferred placements older than the batching window (all
         of them when ``force``).  Called from idle workers and quiescence
-        points (``Context.flush_ici``).  A copy that raises propagates:
-        the caller fails the context (module docstring)."""
+        points (``Context.flush_ici``).  A copy that raises fails its own
+        pool only (:meth:`_flush_batch`)."""
         if not self._pending_edges:
             return 0
         window = float(params.get("comm_ici_permute_window_ms", 2.0)) / 1e3
@@ -427,12 +435,27 @@ class IciEngine:
                 take, self._pending_edges = self._pending_edges, []
         if not take:
             return 0
-        self._flush_edges(take)
+        self._flush_batch(take)
         return len(take)
+
+    def _flush_batch(self, edges) -> None:
+        """``_flush_edges``, contained per pool: a batch that raises is
+        retried edge by edge (an edge the batch did place is skipped as
+        resident), and an edge whose own copy raises again fails the
+        taskpool that queued it; the batch's other edges are placed."""
+        try:
+            self._flush_edges(edges)
+        except Exception:
+            for edge in edges:
+                try:
+                    self._flush_edges([edge])
+                except Exception as exc:
+                    tp = edge[4]
+                    tp.context.record_pool_error(tp, exc)
 
     def _flush_edges(self, edges) -> None:
         live = []
-        for copy, space, _t, version in edges:
+        for copy, space, _t, version, _tp in edges:
             datum = copy.data
             with datum._lock:
                 payload = copy.payload

@@ -389,14 +389,12 @@ class Context:
     def flush_ici(self) -> None:
         """Drain deferred wavefront placements (comm/ici.py defer_place)
         whose batching window expired.  Idle workers call it, and must
-        survive it: a copy that raises fails the context's wait instead
-        (the JAX package's swallows it; comm/ici.py docstring)."""
+        survive it: a copy that raises fails the pools whose tiles the
+        batch was placing, and no other (the JAX package's swallows it;
+        comm/ici.py docstring)."""
         if self.ici is None:
             return
-        try:
-            self.ici.flush_placements()
-        except Exception as exc:
-            self.record_error(exc, None)
+        self.ici.flush_placements()
 
     # -- doorbell ----------------------------------------------------------
     def ring_doorbell(self, n: int = 1) -> None:

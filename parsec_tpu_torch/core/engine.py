@@ -445,7 +445,7 @@ def release_deps(es, task: Task) -> List[Task]:
                 # single-consumer edge: defer so the whole DAG wavefront
                 # rides one batched permute round instead of N puts
                 sp = uniq.pop()
-                if not ici.defer_place(copy, sp):
+                if not ici.defer_place(copy, sp, tp):
                     ici.preplace(copy, sp)
         for succ_tc, succ_locals, dflow, odep in local_deliveries:
             dcopy = copy

@@ -137,6 +137,7 @@ def task_progress(es, task: Task, distance: int = 0) -> None:
             except Exception as exc:
                 debug_verbose(2, "discard %s: consume_inputs: %s",
                               task, exc)
+            # lint: ignore[PCL-HOT] cancelled-pool discard: cold path
             tp.termdet.taskpool_addto_nb_tasks(tp, -1)
             return
         cbs = es._pins_map.get("exec_begin")   # inlined es.pins (hot path)

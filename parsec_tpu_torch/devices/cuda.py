@@ -1115,6 +1115,7 @@ class CudaDevice(Device):
             return contextlib.nullcontext()
         return torch.cuda.stream(self.stream)
 
+    # lint: alias-wrapper
     def _to_device(self, payload: Any, space: int = -1) -> torch.Tensor:
         """An explicit copy of ``payload`` (held in memory space
         ``space``) into fresh storage on this device — never an alias of
@@ -1144,6 +1145,7 @@ class CudaDevice(Device):
         every module) the card's default stream."""
         return self.peer_stream(space) or torch.cuda.default_stream(t.device)
 
+    # lint: alias-wrapper
     def copy_from(self, t: torch.Tensor, space: int = -1) -> torch.Tensor:
         """A copy of the CUDA tensor ``t`` (held in space ``space``) into
         fresh storage on this module.  The copy is enqueued on the stream

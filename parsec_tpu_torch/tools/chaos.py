@@ -679,7 +679,8 @@ def degrade_workload(ctx, rank, nranks):
     # carry BOTH ranks (the healthy baseline the audit's
     # drained-placement check contrasts against)
     pre = svc.submit(_health_job_factory, name="pre-degrade")
-    assert pre.wait(timeout=30), "pre-degrade job never finished"
+    pre_ok = pre.wait(timeout=30)
+    assert pre_ok, "pre-degrade job never finished"
 
     deadline = t0 + run_s
     drained_at = None

@@ -640,6 +640,21 @@ def test_chaos_command_and_run_on_cpu():
         chip_smoke.run_chaos("cpu", ("delay-frames", "no-such-case"))
 
 
+def test_lint_step_on_cpu():
+    """The tools phase's lint step: the port's parseclint over the
+    package in a process of its own, clean, with its one baselined
+    divergence; the status line's counts parse in both of its forms."""
+    chip_smoke = _chip_smoke()
+    out = chip_smoke.run_lint()
+    assert out["new"] == 0 and out["baselined"] == 1
+    assert out["files"] > 100 and out["seconds"] > 0
+    m = chip_smoke.LINT_STATUS.search(
+        "x\nparseclint: 2 finding(s), 1 baselined (106 files)\n")
+    assert (m[1], m[2], m[3]) == ("2", "1", "106")
+    m = chip_smoke.LINT_STATUS.search("parseclint: clean (3 files)")
+    assert (m[1], m[2], m[3]) == (None, None, "3")
+
+
 def test_serving_clients_rehearsal_on_cpu():
     """The client tools against a JobServer over a CPU JobService: one
     GEMM job through ``job_client submit --wait``, its result within its

@@ -421,3 +421,160 @@ def test_native_core_hands_engine_pools_to_python(device, engine):
     pool = se.bailout_stats()["pool"] - before.get("pool", 0)
     assert float(A.to_array()[0, 0]) == NB
     assert (pool > 0) == engine, pool
+
+
+def _gated_zig_pool(api, V, ndev, gate, name="A"):
+    """The zig chain of ``_zig_case``, its last task also waiting on a
+    host task G that runs ``gate`` first: the last edge's consumer cannot
+    stage its tile in before ``gate`` returns."""
+    last = ndev - 1
+    p = api.PTG(name, NT=ndev)
+    p.task("G") \
+        .flow("x", "CTL",
+              api.OUT(api.TASK("S", "g", lambda L=last: dict(k=L)))) \
+        .body(lambda: gate())
+    p.task("S", k=api.Range(0, last)) \
+        .affinity(lambda k, V=V: V(k)) \
+        .flow("T", "RW",
+              api.IN(api.DATA(lambda k, V=V: V(k)),
+                     when=lambda k: k == 0),
+              api.IN(api.TASK("S", "T", lambda k: dict(k=k - 1)),
+                     when=lambda k: k > 0),
+              api.OUT(api.TASK("S", "T", lambda k: dict(k=k + 1)),
+                      when=lambda k, L=last: k < L),
+              api.OUT(api.DATA(lambda k, V=V: V(k)),
+                      when=lambda k, L=last: k == L)) \
+        .flow("g", "CTL",
+              api.IN(api.TASK("G", "x", lambda k: dict()),
+                     when=lambda k, L=last: k == L)) \
+        .body(lambda T: T + 1.0, device="cuda") \
+        .body(lambda T: T + 1.0)
+    return p.build()
+
+
+@pytest.mark.parametrize("device", ["cpu:2", "cpu:3"])
+def test_failed_placement_fails_only_its_own_pool(device, monkeypatch):
+    """A placement that raises fails the pool whose tile it was moving,
+    and no other.  Pool A's zig chain crosses every module; the copy of
+    its last edge raises.  On two modules that edge is placed at once
+    from its producer's release (a lone edge after a quiet spell); on
+    three, with a long batching window, it waits in the window and an
+    idle worker's flush (``Context.flush_ici``) raises it; its consumer is
+    held until then, so it cannot stage the tile in first and void the
+    edge.  Pool B — a host chain running at the same time, its first
+    task held until A's failure has been routed — must finish with its
+    values, and the context's wait must not raise.  Both pools carry an
+    error sink, as every JobService job does."""
+    import threading
+    from parsec_tpu_torch.comm.ici import IciEngine
+    ndev = int(device.split(":")[1])
+    bad = 1000.0 + ndev - 1        # what S(ndev-2) hands its consumer
+    orig = IciEngine._copy
+
+    def failing_copy(self, payload, src_space, dst_space):
+        if float(torch.as_tensor(payload).max()) == bad:
+            raise RuntimeError("injected placement failure")
+        return orig(self, payload, src_space, dst_space)
+
+    monkeypatch.setattr(IciEngine, "_copy", failing_copy)
+    routed = threading.Event()
+    errors = {"A": [], "B": []}
+    port_params.set("comm_ici_permute_window_ms", 1000.0)
+    try:
+        with port_context.Context(nb_cores=4, device=device) as ctx:
+            assert ctx.ici.ndev == ndev
+            VA = port_matrix.VectorTwoDimCyclic(mb=4, lm=4 * ndev)
+            VB = port_matrix.VectorTwoDimCyclic(mb=4, lm=4 * 2)
+            VA.data_of(0).copy_on(0).payload[:] = 1000.0
+            VA.distribute_devices(ctx)
+            a = _gated_zig_pool(port_api, VA, ndev,
+                                lambda: routed.wait(30))
+            g = port_api.PTG("B", NT=2)
+            g.task("S", k=port_api.Range(0, 1)) \
+                .affinity(lambda k: VB(k)) \
+                .flow("T", "RW",
+                      port_api.IN(port_api.DATA(lambda k: VB(k)),
+                                  when=lambda k: k == 0),
+                      port_api.IN(port_api.TASK("S", "T",
+                                                lambda k: dict(k=k - 1)),
+                                  when=lambda k: k > 0),
+                      port_api.OUT(port_api.TASK("S", "T",
+                                                 lambda k: dict(k=k + 1)),
+                                   when=lambda k: k < 1),
+                      port_api.OUT(port_api.DATA(lambda k: VB(k)),
+                                   when=lambda k: k == 1)) \
+                .body(lambda T, k: (routed.wait(30) if k == 0 else None,
+                                    T + 1.0)[1])
+            b = g.build()
+            for name, tp in (("A", a), ("B", b)):
+                tp.error_sink = lambda exc, task, name=name, tp=tp: (
+                    errors[name].append(exc), routed.set(), tp.cancel())
+            ctx.add_taskpool(a)
+            ctx.add_taskpool(b)
+            ctx.wait(timeout=60)
+            got_b = _np(VB.data_of(1).pull_to_host().payload).copy()
+    finally:
+        port_params.unset("comm_ici_permute_window_ms")
+    assert routed.is_set(), "the injected placement failure never fired"
+    assert [str(e) for e in errors["A"]] == ["injected placement failure"]
+    assert errors["B"] == []
+    np.testing.assert_array_equal(got_b, np.full(4, 2.0, np.float32))
+
+
+def test_failed_placement_in_a_shared_batch_fails_only_its_pool(monkeypatch):
+    """The deferred window is one per engine, so a batch carries edges of
+    several pools.  On three modules, pool A's edge (module 1 to 2, its
+    copy raises) and pool B's (module 0 to 1) are both deferred — the
+    window is held open from before either edge — and the second one
+    flushes both as one batch; both consumers are held until A's failure
+    has been routed, so neither edge is voided by a stage-in.  The batch
+    is retried edge by edge: B's tile is placed and B finishes with its
+    values, A alone fails, and the context's wait does not raise."""
+    import threading
+    import time
+    from parsec_tpu_torch.comm.ici import IciEngine
+    orig_copy, orig_flush = IciEngine._copy, IciEngine._flush_batch
+    batches = []
+
+    def failing_copy(self, payload, src_space, dst_space):
+        if float(torch.as_tensor(payload).max()) == 1001.0:
+            raise RuntimeError("injected placement failure")
+        return orig_copy(self, payload, src_space, dst_space)
+
+    def recording_flush(self, edges):
+        batches.append({e[4].name for e in edges})
+        return orig_flush(self, edges)
+
+    monkeypatch.setattr(IciEngine, "_copy", failing_copy)
+    monkeypatch.setattr(IciEngine, "_flush_batch", recording_flush)
+    routed = threading.Event()
+    errors = {"A": [], "B": []}
+    port_params.set("comm_ici_permute_window_ms", 5000.0)
+    try:
+        with port_context.Context(nb_cores=4, device="cpu:3") as ctx:
+            sp = ctx.accelerator_spaces()
+            assert len(sp) == 3
+            VA = port_matrix.VectorTwoDimCyclic(mb=4, lm=8)
+            VB = port_matrix.VectorTwoDimCyclic(mb=4, lm=8)
+            VA.data_of(0).copy_on(0).payload[:] = 1000.0
+            VB.data_of(0).copy_on(0).payload[:] = 1.0
+            for V, (s0, s1) in ((VA, (sp[1], sp[2])), (VB, (sp[0], sp[1]))):
+                V.data_of(0).preferred_device = s0
+                V.data_of(1).preferred_device = s1
+            pools = {name: _gated_zig_pool(port_api, V, 2,
+                                           lambda: routed.wait(30), name)
+                     for name, V in (("A", VA), ("B", VB))}
+            for name, tp in pools.items():
+                tp.error_sink = lambda exc, task, name=name, tp=tp: (
+                    errors[name].append(exc), routed.set(), tp.cancel())
+            ctx.ici._last_edge = time.monotonic()   # the window is open
+            for tp in pools.values():
+                ctx.add_taskpool(tp)
+            ctx.wait(timeout=60)
+            got_b = _np(VB.data_of(1).pull_to_host().payload).copy()
+    finally:
+        port_params.unset("comm_ici_permute_window_ms")
+    assert {"A", "B"} in batches, batches
+    assert [str(e) for e in errors["A"]] == ["injected placement failure"]
+    assert errors["B"] == []
+    np.testing.assert_array_equal(got_b, np.full(4, 3.0, np.float32))

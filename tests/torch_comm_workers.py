@@ -669,6 +669,62 @@ def traced_potrf(ctx, rank, nranks, pkg, outdir):
     return prof.dump(os.path.join(outdir, f"rank{rank}.ptt"))
 
 
+def traced_fanout(ctx, rank, nranks, pkg, outdir):
+    """One producer on rank 0 feeding a consumer on each other rank (the
+    activation a broadcast tree forwards) under the task profiler and
+    the causal tracer; the rank's trace file goes to ``outdir``."""
+    import os
+    ptg = _mod(pkg, "dsl.ptg.api")
+    prof = _mod(pkg, "prof.profiling").Profile(f"fan-r{rank}")
+    mod = _mod(pkg, "prof.pins").install_task_profiler(ctx, prof)
+    tr = _mod(pkg, "prof.causal").install_causal_tracer(ctx, prof)
+    V = _vec(pkg, nranks, rank, 4, 4 * nranks)
+    for m, _ in V.local_tiles():
+        put(V.data_of(m).copy_on(0).payload, np.ones(4, np.float32))
+    p = ptg.PTG("fan", NR=nranks)
+    p.task("A", k=ptg.Range(0, 0)) \
+        .affinity(lambda k, V=V: V(0)) \
+        .flow("X", "RW", ptg.IN(ptg.DATA(lambda k, V=V: V(0))),
+              *[ptg.OUT(ptg.TASK("B", "Y", lambda k, r=r: dict(r=r)))
+                for r in range(1, nranks)]) \
+        .body(lambda X: X + 1.0)
+    p.task("B", r=ptg.Range(1, nranks - 1)) \
+        .affinity(lambda r, V=V: V(r)) \
+        .flow("Y", "RW", ptg.IN(ptg.TASK("A", "X", lambda r: dict(k=0))),
+              ptg.OUT(ptg.DATA(lambda r, V=V: V(r)))) \
+        .body(lambda Y: Y * 2.0)
+    ctx.add_taskpool(p.build())
+    ctx.wait(timeout=120)
+    mod.uninstall(ctx)
+    tr.uninstall(ctx)
+    return prof.dump(os.path.join(outdir, f"rank{rank}.ptt"))
+
+
+def online_pingpong(ctx, rank, nranks, pkg, outdir):
+    """The traced 2-rank rtt leg: a warm pingpong, then 150 hops under
+    the task profiler and the causal tracer with the live attribution
+    window reset to them.  Returns the trace path and the rank's
+    liveattr section."""
+    import os
+    run = _mod(pkg, "apps.pingpong").run_pingpong
+    run(ctx, 8, 10)                           # warm link + code paths
+    prof = _mod(pkg, "prof.profiling").Profile(f"la-pp-r{rank}")
+    mod = _mod(pkg, "prof.pins").install_task_profiler(ctx, prof)
+    tr = _mod(pkg, "prof.causal").install_causal_tracer(ctx, prof)
+    la = ctx.metrics.liveattr
+    la.reset()                                # window = the measured run
+    run(ctx, 8, 150)
+    deadline = time.time() + 15               # one clock round for the
+    while len(ctx.comm.ce.clock) < nranks - 1 \
+            and time.time() < deadline:       # offline merge and the
+        time.sleep(0.05)                      # online comm estimate
+    section = la.section()
+    mod.uninstall(ctx)
+    tr.uninstall(ctx)
+    path = prof.dump(os.path.join(outdir, f"rank{rank}.ptt"))
+    return {"path": path, "section": section}
+
+
 # -- distributed DTD (twins of tests/test_dtd_distributed.py) -----------------
 #
 # Each case runs SPMD on every rank of one run; ``dtd_suite`` runs several
