@@ -120,6 +120,19 @@ no result line):
               the GEMM check), ``metrics_client`` showing
               ``parsec_jobs_done_total`` up by one, ``metrics_client
               --status --job`` and ``live_view --once`` rendering the job.
+12b. bench — the port's bench entry as a user runs it, ``python -m
+              parsec_tpu_torch.bench`` in a process of its own per line
+              (``BENCH_RUNS``): the default line (GEMM mb=12288 3x3x4 and
+              the potrf north star mb=6144 nt=16 at the bench's knobs),
+              ``PARSEC_BENCH_APP=geqrf`` (mb=6144 nt=8), the potrf mode at
+              the registered knobs (run-ahead 256, in flight 8: the knob
+              A/B), ``stencil`` and ``fabric``.  Each line is printed and
+              held to the path limits (``check_bench_line``: potrf backward
+              error <= 5e-2 and last IR residual <= 1e-5, geqrf residual
+              <= 3e-2 and last ladder error <= 1e-5 on the conditioned
+              operand, no ``potrf_error``); each process's K1 and K2
+              launches (its ``bench kernel launches`` line) count into the
+              kernels line.
 13. tools  — last: the trace tools on the traces the traced passes kept
               (GEMM mb=2048, potrf mb=6144: ``trace_info --stats --gaps``,
               whose per-class counts must hold one exec and one dev: span
@@ -276,7 +289,6 @@ import tempfile
 import threading
 import time
 
-import numpy as np
 import torch
 
 import parsec_tpu_torch
@@ -289,6 +301,10 @@ from parsec_tpu_torch.apps.gemm import _tile_kernel, gemm_dtd_insert, \
     gemm_taskpool, total_flops
 from parsec_tpu_torch.apps.potrf_check import backward_error, refine_solve
 from parsec_tpu_torch.apps.qr_check import ls_refine, newest_payload
+from parsec_tpu_torch.bench import OVERHEAD_KNOBS, bailout_delta, bailouts, \
+    card_smi, fabric_chain_jobs, host_cpu, peaks_for, \
+    percentiles, qr_residual, qr_tile_maker, sm_clock, timed_pool
+from parsec_tpu_torch.bench import overhead_probe as bench_overhead_probe
 # the comm package registers the comm knobs printed below
 from parsec_tpu_torch.comm import run_distributed
 from parsec_tpu_torch.comm import shm as _shm  # noqa: F401
@@ -301,7 +317,6 @@ from parsec_tpu_torch.devices import cuda as _cuda  # noqa: F401
 from parsec_tpu_torch.dsl.dtd import DTDTaskpool
 from parsec_tpu_torch.dsl.ptg import DATA, IN, OUT, PTG, Range, TASK
 from parsec_tpu_torch.dsl.ptg.jdf import jdf_taskpool
-from parsec_tpu_torch.native import load_schedext
 from parsec_tpu_torch.parallel import spmd
 from parsec_tpu_torch.prof import critpath
 from parsec_tpu_torch.prof.causal import install_causal_tracer
@@ -318,14 +333,6 @@ from parsec_tpu_torch.utils.checkpoint import checkpoint, restore
 from parsec_tpu_torch.utils.mca import params
 
 SEED = 20261016
-
-#: dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s, f32 FLOP/s
-#: outside the tensor cores, device-memory bytes/s
-PEAKS = {
-    "H100 SXM": (989e12, 67e12, 3.35e12),
-    "H100 PCIe": (756e12, 51e12, 2.0e12),
-    "H100 NVL": (835e12, 60e12, 3.9e12),
-}
 
 #: kernel-vs-plain tolerance on max|kernel - plain| / max(1, max|plain|):
 #: bf16 products are exact in f32, so only the summation order differs
@@ -487,16 +494,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def peaks_for(name: str):
-    if "H100" in name and "PCIe" in name:
-        key = "H100 PCIe"
-    elif "H100" in name and "NVL" in name:
-        key = "H100 NVL"
-    else:
-        key = "H100 SXM"
-    return key, PEAKS[key]
-
-
 def sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -505,11 +502,7 @@ def read_clock(label: str, when: str) -> None:
     """One ``nvidia-smi`` reading of the SM clock and power draw, taken
     outside every timed window: under a sustained load the card lowers its
     clock to hold its power limit."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    log(f"[{label}] SM clock, power draw {when}: {out}")
+    log(f"[{label}] SM clock, power draw {when}: {sm_clock()}")
 
 
 def time_ms(fn, reps: int, warm: int = 1) -> float:
@@ -1473,60 +1466,6 @@ def phase_gram(dev: torch.device, peaks) -> dict:
     return entry
 
 
-def qr_tile_maker(A: TwoDimBlockCyclic, tdev: torch.device, seed: int,
-                  conditioned: bool = False):
-    """The QR operand, tile by tile, each tile from its own seeded
-    generator and rounded to the storage dtype — so it regenerates exactly
-    without a second resident copy.
-
-    The geqrf bench operand (``conditioned=False``): 0.05 * N(0, 1) + I in
-    every tile.  Its identity blocks make it near-singular at scale
-    (cond 1e3 already at n = 96), so the least-squares ladder, which
-    contracts only while cond^2 * eps_bf16 < 1, diverges on its bf16
-    factor — in the JAX package too.  The conditioned operand I +
-    (0.25 / sqrt(n)) * N(0, 1) keeps every singular value in [0.5, 1.5],
-    where the ladder's contract holds."""
-    n = A.lm
-    scale = 0.25 / n ** 0.5 if conditioned else 0.05
-
-    def tile(m: int, k: int) -> torch.Tensor:
-        g = torch.Generator(device=tdev).manual_seed(seed + m * A.nt + k)
-        t = scale * torch.randn(A.tile_shape(m, k), generator=g, device=tdev)
-        if m == k or not conditioned:
-            t.diagonal().add_(1.0)
-        return t.to(A.dtype)
-    return tile
-
-
-def qr_residual(A: TwoDimBlockCyclic, orig) -> float:
-    """Stochastic factorization check without Q: an orthogonal QR has
-    R^T R = A^T A, so compare the two quadratic forms on a random probe
-    (O(n^2) matvecs, tile-streamed; R from A's tiles, the operand
-    regenerated)."""
-    nt, mb = A.mt, A.mb
-    dev = orig(0, 0).device
-    rng = np.random.default_rng(123)
-    z = [torch.from_numpy(rng.standard_normal(mb).astype(np.float32))
-         .to(dev) for _ in range(nt)]
-    w = [torch.zeros(mb, device=dev) for _ in range(nt)]
-    v = [torch.zeros(mb, device=dev) for _ in range(nt)]
-    tiles = A.local_tiles()
-    for m, n in tiles:
-        w[m] += orig(m, n).float() @ z[n]
-        if m <= n:
-            v[m] += newest_payload(A, m, n).float() @ z[n]
-    y1 = [torch.zeros(mb, device=dev) for _ in range(nt)]
-    y2 = [torch.zeros(mb, device=dev) for _ in range(nt)]
-    for m, n in tiles:
-        y2[n] += orig(m, n).float().T @ w[m]
-        if m <= n:
-            y1[n] += newest_payload(A, m, n).float().T @ v[m]
-    num = float(torch.sqrt(sum(torch.sum((a - b) ** 2)
-                               for a, b in zip(y1, y2))))
-    den = float(torch.sqrt(sum(torch.sum(b ** 2) for b in y2)))
-    return num / den
-
-
 def qr_task_counts(nt: int) -> dict:
     panel = nt * (nt - 1) // 2
     return {"GEQRT": nt, "UNMQR": panel, "TSQRT": panel,
@@ -2479,17 +2418,6 @@ def phase_front_small(ctx: Context, gen: torch.Generator, front: str,
     return summary
 
 
-def bailouts() -> dict:
-    """The C chain's cumulative bailouts by reason (tasks it handed back
-    to Python)."""
-    return dict(load_schedext().bailout_stats())
-
-
-def bailout_delta(before: dict) -> dict:
-    return {k: v - before.get(k, 0) for k, v in bailouts().items()
-            if v != before.get(k, 0)}
-
-
 def probe_pops(ctx: Context) -> int:
     """Tasks the context's native workers popped past ``run_quantum`` (the
     doorbell's probe, the comm spin poll): no bailout counts them."""
@@ -2650,181 +2578,53 @@ def in_context(phase, label: str, sched_native=None,
     return summary
 
 
-def empty_pool(n: int):
-    """``n`` independent empty tasks (the JAX package's ``tasks`` probe
-    DAG, ``bench.py::_empty_pool``)."""
-    p = PTG("empty", N=n)
-    p.task("E", i=Range(0, n - 1)).flow("x", "CTL").body(lambda: None)
-    return p.build()
-
-
-def chain_pool(nc: int, nb: int):
-    """``nc`` independent RW chains of length ``nb`` over 1x1 tiles (the
-    JAX package's ``ntasks`` probe DAG, ``bench.py::_chain_pool``): every
-    task binds real data and releases a local successor."""
-    A = TwoDimBlockCyclic(1, 1, 1, nc, name="chains").from_array(
-        torch.zeros(1, nc))
-
-    def body(T):
-        T += 1.0
-
-    g = PTG("chains", NC=nc, NB=nb)
-    g.task("S", c=Range(0, nc - 1), k=Range(0, nb - 1)) \
-        .affinity(lambda c, k: A(0, c)) \
-        .flow("T", "RW",
-              IN(DATA(lambda c, k: A(0, c)), when=lambda c, k: k == 0),
-              IN(TASK("S", "T", lambda c, k: dict(c=c, k=k - 1)),
-                 when=lambda c, k: k > 0),
-              OUT(TASK("S", "T", lambda c, k: dict(c=c, k=k + 1)),
-                  when=lambda c, k, NB=nb: k < nb - 1)) \
-        .body(body)
-    return g.build(), A
-
-
 def host_probe(kind: str, sched_native: int, n: int = 20000,
                nc: int = 500, nb: int = 24, cores: int = 4) -> dict:
     """One host probe (``tasks``: ``n`` empty tasks; ``ntasks``: ``nc``
-    chains of ``nb``) at ``sched_native`` in a Context of ``cores``
-    streams on the CPU-backed device module, after a warm tenth: tasks/s
-    over add_taskpool + wait, and the C chain's bailouts by reason."""
+    chains of ``nb``, their results checked) at ``sched_native`` in a
+    Context of ``cores`` streams on the CPU-backed device module, after a
+    warm tenth (``bench.timed_pool``, the bench's ``tasks`` and
+    ``ntasks`` modes' probe): tasks/s over add_taskpool + wait, and the C
+    chain's bailouts by reason."""
     params.set("sched_native", sched_native)
     try:
         with Context(nb_cores=cores, device="cpu") as ctx:
             sched = ctx.scheduler.name
-            if kind == "tasks":
-                ctx.add_taskpool(empty_pool(max(1, n // 10)))
-                ctx.wait()
-                total, bail0 = n, bailouts()
-                t0 = time.perf_counter()
-                ctx.add_taskpool(empty_pool(n))
-                ctx.wait()
-            else:
-                ctx.add_taskpool(chain_pool(max(1, nc // 10), nb)[0])
-                ctx.wait()
-                tp, A = chain_pool(nc, nb)
-                total, bail0 = nc * nb, bailouts()
-                t0 = time.perf_counter()
-                ctx.add_taskpool(tp)
-                ctx.wait()
-            dt = time.perf_counter() - t0
-            bail = bailout_delta(bail0)
+            res = timed_pool(ctx, kind, n if kind == "tasks" else nc * nb,
+                             nb)
     finally:
         params.unset("sched_native")
     if (sched == "native") != bool(sched_native):
         raise AssertionError(f"host {kind}: ran on {sched} at sched_native "
                              f"{sched_native}")
-    if kind == "ntasks":
-        # the number is only valid if every chain ran end to end
-        got = A.to_array()
-        if not bool((got == float(nb)).all()):
-            raise AssertionError(f"host ntasks: chain results wrong (want "
-                                 f"{nb}, got {got.flatten()[:4].tolist()})")
-        if sched_native and bail:
-            raise AssertionError(f"host ntasks: the C chain handed tasks "
-                                 f"back to Python: {bail}")
-    return {"sched": sched, "tasks": total, "seconds": dt,
-            "tasks_per_s": total / dt, "bailouts": bail}
+    if kind == "ntasks" and sched_native and res["bailouts"]:
+        raise AssertionError(f"host ntasks: the C chain handed tasks "
+                             f"back to Python: {res['bailouts']}")
+    return {"sched": sched, "tasks": res["tasks"], "seconds": res["seconds"],
+            "tasks_per_s": res["tasks"] / res["seconds"],
+            "bailouts": res["bailouts"]}
 
 
 def overhead_probe(kind: str, n: int = 20000, pairs: int = 4,
                    cores: int = 4) -> dict:
-    """The twin of the JAX package's ``_overhead_probe`` (bench.py):
-    interleaved pairs of the ``tasks`` probe at ``sched_native`` 1, off
-    then armed — ``telemetry``: ``metrics_enabled`` and
-    ``liveattr_enable`` at 0 against 1; ``journal``: ``journal_enabled``;
-    ``tracer``: the defaults, against the task profiler and the causal
-    tracer installed before the run.  Reports the minimum pair ratio
-    (off rate / armed rate - 1) and the minimum armed cost in us per
-    task: host noise moves single pairs both ways, a real cost shows in
-    every pair.  An armed run that raises, or a run whose task count is
-    wrong, fails."""
-    knobs = {"telemetry": ("metrics_enabled", "liveattr_enable"),
-             "journal": ("journal_enabled",), "tracer": ()}[kind]
-
-    def run(armed: int) -> float:
-        params.set("sched_native", 1)
-        for k in knobs:
-            params.set(k, armed)
-        try:
-            with Context(nb_cores=cores, device="cpu") as ctx:
-                planes = (ctx.metrics is not None, ctx.journal is not None)
-                mods = []
-                if kind == "tracer" and armed:
-                    prof = Profile("tracer probe")
-                    mods = [install_task_profiler(ctx, prof),
-                            install_causal_tracer(ctx, prof)]
-                ctx.add_taskpool(empty_pool(max(1, n // 10)))
-                ctx.wait()
-                t0 = time.perf_counter()
-                ctx.add_taskpool(empty_pool(n))
-                ctx.wait()
-                dt = time.perf_counter() - t0
-                for mod in mods:
-                    mod.uninstall(ctx)
-                done = sum(es.nb_tasks_done for es in ctx.streams)
-                sched = ctx.scheduler.name
-        finally:
-            params.unset("sched_native")
-            for k in knobs:
-                params.unset(k)
-        want_planes = {"telemetry": (bool(armed), True),
-                       "journal": (True, bool(armed)),
-                       "tracer": (True, True)}[kind]
-        if done != n + max(1, n // 10) or sched != "native" \
-                or planes != want_planes:
-            raise AssertionError(
-                f"overhead {kind} armed={armed}: {done} tasks on {sched}, "
-                f"planes (metrics, journal) {planes}; expected "
-                f"{n + max(1, n // 10)} on native, {want_planes}")
-        return n / dt
-
-    ratios, us, off_best, on_best = [], [], 0.0, 0.0
-    for _ in range(pairs):
-        off, on = run(0), run(1)
-        off_best, on_best = max(off_best, off), max(on_best, on)
-        ratios.append(max(0.0, off / on - 1.0))
-        us.append(max(0.0, (1.0 / on - 1.0 / off) * 1e6))
+    """The bench's overhead probe (``bench.overhead_probe``, the
+    ``telemetry`` and ``journal`` modes' measurement; ``tracer``: the task
+    profiler and the causal tracer installed) on the CPU-backed device
+    module, held against the JAX package's CPU gate."""
+    res = bench_overhead_probe(kind, n=n, pairs=pairs, cores=cores,
+                               device="cpu")
     gate = OVERHEAD_GATES_US[kind]
-    armed = {"telemetry": "metrics_enabled + liveattr_enable (the JAX "
-                          "package's third knob, flightrec_enabled, is "
-                          "not ported)",
+    armed = {"telemetry": " + ".join(OVERHEAD_KNOBS["telemetry"]),
              "journal": "journal_enabled",
              "tracer": "task profiler + causal tracer"}[kind]
-    verdict = "within" if min(us) <= gate else "over"
+    verdict = "within" if res["us_per_task"] <= gate else "over"
     log(f"[host overhead {kind}] armed: {armed}; {pairs} interleaved pairs "
         f"of {n} tasks at sched_native 1: min pair ratio "
-        f"{min(ratios):+.4f}, {min(us):.3f} us/task (pairs "
-        f"{['%+.3f' % r for r in ratios]}; best off {off_best:.0f}, armed "
-        f"{on_best:.0f} tasks/s); the JAX package's CPU gate <= {gate} "
-        f"us/task: {verdict}")
-    return {"ratio": min(ratios), "us_per_task": min(us),
-            "pairs": ratios, "tasks_off": off_best, "tasks_on": on_best,
-            "gate_us": gate, "verdict": verdict}
-
-
-def host_cpu() -> str:
-    """The host's CPU model and core counts, from ``/proc/cpuinfo``: its
-    model name, or (where a virtualised kernel reports it as unknown) its
-    vendor, family and model numbers."""
-    import os
-    import platform
-    info = {}
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if not line.strip():
-                    break                    # the first processor only
-                key, _, value = line.partition(":")
-                info[key.strip()] = value.strip()
-    except OSError:
-        pass
-    model = info.get("model name", "unknown")
-    if model == "unknown":
-        model = (f"{info.get('vendor_id', 'unknown vendor')} family "
-                 f"{info.get('cpu family', '?')} model "
-                 f"{info.get('model', '?')}")
-    return (f"{model} ({platform.machine()}), {os.cpu_count()} cores "
-            f"({len(os.sched_getaffinity(0))} usable)")
+        f"{res['ratio']:+.4f}, {res['us_per_task']:.3f} us/task (pairs "
+        f"{['%+.3f' % r for r in res['pairs']]}; best off "
+        f"{res['tasks_off']:.0f}, armed {res['tasks_on']:.0f} tasks/s); the "
+        f"JAX package's CPU gate <= {gate} us/task: {verdict}")
+    return dict(res, gate_us=gate, verdict=verdict)
 
 
 def phase_host(smi: str, rounds: int = 3, **sizes) -> dict:
@@ -2882,13 +2682,6 @@ SERVING_SIZES = {"gemm": (8192, 2048), "potrf": (8192, 2048),
                  "fabric_nt": 8}
 
 
-def _pcts(lats: list) -> tuple:
-    """(p50, p99) as the JAX package's fabric bench takes them."""
-    lats = sorted(lats)
-    return lats[len(lats) // 2], lats[min(len(lats) - 1,
-                                          int(len(lats) * 0.99))]
-
-
 def serving_tasks(app: str, p: dict) -> int:
     """The tasks one served job enumerates: GEMM (n/nb)^3 steps plus the
     (n/nb)^2 beta-scaling tasks (the catalog's beta is 0), potrf its five
@@ -2911,28 +2704,6 @@ def check_job(app: str, res: dict, label: str) -> float:
         raise AssertionError(f"[{label}] {app} job result {res}: error "
                              f"{err} against {tol}")
     return err
-
-
-def _chain_job(i: int, nt: int):
-    """The JAX package's fabric bench job (``bench.py::run_fabric_bench``):
-    an nt-deep chain of host tasks over its own 1x1-tile collection."""
-    def factory():
-        A = TwoDimBlockCyclic(mb=4, nb=4, lm=4, ln=4)
-        A.data_of(0, 0).copy_on(0).payload[:] = 0.0
-        p = PTG(f"fj{i}", NT=nt)
-        p.task("S", k=Range(0, nt - 1)) \
-            .affinity(lambda k, A=A: A(0, 0)) \
-            .flow("T", "RW",
-                  IN(DATA(lambda A=A: A(0, 0)), when=lambda k: k == 0),
-                  IN(TASK("S", "T", lambda k: dict(k=k - 1)),
-                     when=lambda k: k > 0),
-                  OUT(TASK("S", "T", lambda k, NT=nt: dict(k=k + 1)),
-                      when=lambda k, NT=nt: k < NT - 1),
-                  OUT(DATA(lambda A=A: A(0, 0)),
-                      when=lambda k, NT=nt: k == NT - 1)) \
-            .body(lambda T: T + 1.0)
-        return p.build()
-    return factory
 
 
 def _jobs_done(ctx) -> float:
@@ -2966,7 +2737,7 @@ def serving_in_process(svc, sizes: dict, label: str) -> dict:
                for app, p, job in jobs]
     span = time.perf_counter() - t0
     lats = [job.finished_at - job.submitted_at for _a, _p, job in jobs]
-    p50, p99 = _pcts(lats)
+    p50, p99 = percentiles(lats)
     walls = collections.defaultdict(list)
     errs = collections.defaultdict(list)
     counts = []
@@ -3083,19 +2854,8 @@ def serving_fabric(device: str, sizes: dict, label: str) -> dict:
     n, nb = sizes["fabric_gemm"]
     with ServingFabric(device=device, nb_cores=4, max_active=8,
                        max_pending=nj + 8) as fab:
-        warm = [fab.submit(_chain_job(-1 - i, nt), app="fabwarm")
-                for i in range(4)]
-        for j in warm:
-            if not j.wait(timeout=60.0):
-                raise AssertionError(f"[{label}] {j} never finished")
-        t0 = time.perf_counter()
-        jobs = [fab.submit(_chain_job(i, nt), app="fabbench")
-                for i in range(nj)]
-        for j in jobs:
-            if not j.wait(timeout=120.0) or j.status().name != "DONE":
-                raise AssertionError(f"[{label}] {j} did not finish")
-        dt = time.perf_counter() - t0
-        p50, p99 = _pcts([j.finished_at - j.submitted_at for j in jobs])
+        chain = fabric_chain_jobs(fab, nj, nt)
+        p50, p99 = chain["p50_s"], chain["p99_s"]
         gp = {"n": n, "nb": nb, "device": "cuda"}
         excl = fab.submit(APPS["gemm"](dict(gp, seed=51)), devices=1,
                           app="gemm", name="gemm-lease")
@@ -3119,8 +2879,8 @@ def serving_fabric(device: str, sizes: dict, label: str) -> dict:
         raise AssertionError(
             f"[{label}] lease {lease}, shared jobs waited {waited}, quote "
             f"{again.quote_eta}, audit {violations[:3]}")
-    out = {"jobs": nj, "nt": nt, "jobs_per_s": nj / dt, "p50_s": p50,
-           "p99_s": p99, "gemm_max_err": max(errs),
+    out = {"jobs": nj, "nt": nt, "jobs_per_s": chain["jobs_per_s"],
+           "p50_s": p50, "p99_s": p99, "gemm_max_err": max(errs),
            "quote_eta_s": again.quote_eta, "verdict": again.verdict,
            "measured_s": again.finished_at - again.started_at,
            "audit": "clean", "preemptions": stats["preemptions"]}
@@ -3167,11 +2927,175 @@ def phase_serving(device: str = "cuda", sizes: dict = None,
 
 
 # ---------------------------------------------------------------------------
-# the operator tools (parsec_tpu_torch/tools), each run as a user runs it:
-# ``python -m parsec_tpu_torch.tools.<name>`` from the repository's root
+# the port's bench entry (``python -m parsec_tpu_torch.bench``), each line
+# in a process of its own on the card
 # ---------------------------------------------------------------------------
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+
+#: the bench lines ``phase_bench`` runs: (label, environment).  The potrf
+#: mode runs once more at the device module's registered knobs (run-ahead
+#: 256, in flight 8), against the default line's north-star leg at the
+#: bench's own (48, 32)
+BENCH_RUNS = (
+    ("default", {}),
+    ("geqrf", {"PARSEC_BENCH_APP": "geqrf"}),
+    ("potrf registered knobs", {"PARSEC_BENCH_APP": "potrf",
+                                "PARSEC_BENCH_RUNAHEAD": "256",
+                                "PARSEC_BENCH_DEPTH": "8"}),
+    ("stencil", {"PARSEC_BENCH_APP": "stencil"}),
+    ("fabric", {"PARSEC_BENCH_APP": "fabric"}),
+)
+#: the bench's launch-count line on its standard error
+BENCH_LAUNCHES = re.compile(r"^bench kernel launches (\{.*\})$")
+#: the keys every bench line carries beside the JAX package's
+BENCH_IDENTITY = ("backend", "card_name", "card_power_limit", "host_cpu")
+
+
+def parse_bench(stdout: str, stderr: str) -> tuple:
+    """(the JSON object on the bench's last stdout line, its kernel
+    launches from the stderr line ``BENCH_LAUNCHES`` matches)."""
+    lines = stdout.strip().splitlines()
+    if not lines:
+        raise AssertionError("[bench] no line on standard output")
+    line = json.loads(lines[-1])
+    launches = None
+    for text in stderr.splitlines():
+        m = BENCH_LAUNCHES.match(text.strip())
+        if m:
+            launches = json.loads(m.group(1))
+    if launches is None:
+        raise AssertionError("[bench] no kernel launch line on stderr")
+    return line, launches
+
+
+def _finite(x) -> bool:
+    return isinstance(x, (int, float)) and math.isfinite(x)
+
+
+def check_bench_line(label: str, line: dict, backend: str) -> None:
+    """Hold one bench line to the path limits: the potrf legs' backward
+    error and last IR residual, the geqrf residual and last ladder error
+    (on the conditioned operand), a finite headline (positive on the
+    card), no ``potrf_error``, and the identity keys of ``backend``."""
+    missing = [k for k in BENCH_IDENTITY if k not in line]
+    bad = []
+    if missing or line.get("backend") != backend:
+        bad.append(f"identity {missing} missing or backend "
+                   f"{line.get('backend')!r} != {backend!r}")
+    # on the CPU a tiny size's GFLOP/s may round to 0.0 in the line
+    if not (_finite(line.get("value"))
+            and (line["value"] > 0 or backend == "cpu")):
+        bad.append(f"value {line.get('value')!r}")
+    metric = line.get("metric", "")
+    potrf = {}
+    if metric.startswith("tiled_potrf"):
+        potrf = line
+    elif metric == "tiled_gemm_gflops":
+        if "potrf_error" in line:
+            bad.append(f"potrf leg failed: {line['potrf_error']}")
+        potrf = {k[len("potrf_"):]: v for k, v in line.items()
+                 if k.startswith("potrf_")}
+        potrf["value"] = line.get("tiled_potrf_mp_gflops",
+                                  line.get("tiled_potrf_gflops"))
+    if metric.startswith("tiled_potrf") or metric == "tiled_gemm_gflops":
+        if potrf.get("protocol") != "median-of-5" or \
+                not _finite(potrf.get("value")):
+            bad.append(f"potrf protocol {potrf.get('protocol')!r}, value "
+                       f"{potrf.get('value')!r}")
+        if not potrf.get("backward_error", math.inf) <= POTRF_BWD_TOL:
+            bad.append(f"potrf backward error "
+                       f"{potrf.get('backward_error')} > {POTRF_BWD_TOL}")
+        if not (potrf.get("ir_residuals") or [math.inf])[-1] \
+                <= POTRF_IR_TOL:
+            bad.append(f"potrf IR {potrf.get('ir_residuals')} ends above "
+                       f"{POTRF_IR_TOL}")
+    if metric.startswith("tiled_geqrf"):
+        if not line.get("factorization_residual", math.inf) \
+                <= QR_RESIDUAL_TOL:
+            bad.append(f"geqrf residual {line.get('factorization_residual')}"
+                       f" > {QR_RESIDUAL_TOL}")
+        if not (line.get("ls_refine_errors") or [math.inf])[-1] \
+                <= QR_LADDER_TOL:
+            bad.append(f"geqrf ladder {line.get('ls_refine_errors')} ends "
+                       f"above {QR_LADDER_TOL}")
+    if metric == "fabric_jobs_per_s" and \
+            (line.get("fabric") or {}).get("audit") != "clean":
+        bad.append(f"fabric audit {line.get('fabric')}")
+    if bad:
+        raise AssertionError(f"[bench {label}] " + "; ".join(bad))
+
+
+def run_bench(label: str, env: dict, device: str = "cuda",
+              timeout: float = 600.0) -> dict:
+    """``python -m parsec_tpu_torch.bench`` with ``env`` in a process of
+    its own on ``device``: its stderr and its line printed, the line held
+    to ``check_bench_line``.  A non-zero exit fails."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "parsec_tpu_torch.bench",
+                        "--device", device], cwd=REPO,
+                       env=dict(os.environ, **env), capture_output=True,
+                       text=True, timeout=timeout)
+    dt = time.perf_counter() - t0
+    for text in r.stderr.splitlines():
+        if text.strip() and "scheduler stats" not in text:
+            log(f"[bench {label}] {text}")
+    if r.returncode != 0:
+        raise AssertionError(f"[bench {label}] exited {r.returncode}:\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    line, launches = parse_bench(r.stdout, r.stderr)
+    log(f"[bench {label}] line: {json.dumps(line)}")
+    check_bench_line(label, line, "cpu" if device == "cpu" else "cuda")
+    log(f"[bench {label}] {dt:.1f} s; launches {launches}")
+    return {"line": line, "launches": launches, "seconds": dt}
+
+
+def phase_bench(device: str = "cuda", runs=BENCH_RUNS,
+                extra: dict = None) -> dict:
+    """Every line of ``runs`` through the bench entry a user runs
+    (``extra``: more environment by label), then the device module's
+    knob A/B of the north-star leg: the default line's potrf at the
+    bench's knobs against the potrf mode's at the registered ones.  On
+    the card each of K1, K1 grouped and K2 must have been launched; the
+    lines' launches are this path's."""
+    extra = extra or {}
+    t0 = time.perf_counter()
+    res = {label: run_bench(label, dict(env, **extra.get(label, {})),
+                            device) for label, env in runs}
+    launches = {k: sum(r["launches"][k] for r in res.values())
+                for k in COUNTERS}
+    routes = {k: sum(r["launches"]["gemm_tile_routes"][k]
+                     for r in res.values()) for k in ROUTES}
+    members = sum(r["launches"]["gemm_tile_grouped_members"]
+                  for r in res.values())
+    log(f"[bench] kernel launches over the lines {launches}; K1 single "
+        f"launches by route {routes}, grouped members {members}")
+    if device == "cuda" and not all(launches.values()):
+        raise AssertionError(f"[bench] a kernel was never launched: "
+                             f"{launches}")
+    ab = None
+    if "default" in res and "potrf registered knobs" in res:
+        d, p = res["default"]["line"], res["potrf registered knobs"]["line"]
+        metric = p["metric"]
+        ab = {"bench_knobs": {"gflops": d.get(metric),
+                              "band": d.get("potrf_rep_band_gflops")},
+              "registered_knobs": {"gflops": p["value"],
+                                   "band": p.get("rep_band_gflops")}}
+        log(f"[bench] north-star knob A/B ({metric}, median-of-5, one "
+            f"process each): device_runahead 48, device_inflight_depth 32 "
+            f"(the bench's) {d.get(metric)} GFLOP/s band "
+            f"{d.get('potrf_rep_band_gflops')}; 256, 8 (registered) "
+            f"{p['value']} GFLOP/s band {p.get('rep_band_gflops')}")
+    log(f"[bench] the phase took {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "routes": routes, "knob_ab": ab,
+            "lines": {k: r["line"] for k, r in res.items()},
+            "seconds": {k: r["seconds"] for k, r in res.items()}}
+
+
+# ---------------------------------------------------------------------------
+# the operator tools (parsec_tpu_torch/tools), each run as a user runs it:
+# ``python -m parsec_tpu_torch.tools.<name>`` from the repository's root
+# ---------------------------------------------------------------------------
 
 #: the chaos case on the card: a recovered potrf kill (K1 device bodies).
 #: Each tool's process spends seconds importing torch on the card's host
@@ -5040,10 +4964,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card_smi()
     name = torch.cuda.get_device_name(0)
     key, peaks = peaks_for(name)
     log(f"card: {smi}")
@@ -5146,6 +5067,8 @@ def drive(smi: str, name: str, peaks, keep: str) -> int:
     per_path["serving"] = phase_serving(clients=True)
     gc.collect()
     torch.cuda.empty_cache()
+    # the bench entry's lines, each in a process of its own
+    per_path["bench"] = phase_bench()
     per_path["tools"] = phase_tools(
         {p: (per_path[p]["trace"]["ptt"], per_path[p]["trace"]["ntasks"])
          for p in ("GEMM mb=2048", "potrf mb=6144")},

@@ -344,11 +344,12 @@ def test_report_scheduler_holds_the_native_default():
     """A path must run on the native scheduler while sched_native is on;
     its queue counters and bailout histogram are reported."""
     chip_smoke = _chip_smoke()
+    from parsec_tpu_torch.bench import empty_pool
     from parsec_tpu_torch.core.context import Context
     from parsec_tpu_torch.utils.mca import params
     bail0 = chip_smoke.bailouts()
     with Context(nb_cores=1, device="cpu") as ctx:
-        ctx.add_taskpool(chip_smoke.empty_pool(16))
+        ctx.add_taskpool(empty_pool(16))
         ctx.wait(timeout=30)
         rep = chip_smoke.report_scheduler("rehearsal", ctx, bail0)
     assert rep["name"] == "native" and rep["bailouts"] == {}
@@ -668,3 +669,77 @@ def test_serving_clients_rehearsal_on_cpu():
     assert out["rel_err"] <= chip_smoke.GEMM_JOB_TOL
     assert set(out["seconds"]) == {"metrics_client", "job_client",
                                    "metrics_client --status", "live_view"}
+
+
+def _bench_default_line(**over):
+    line = {"metric": "tiled_gemm_gflops", "value": 828745.2,
+            "unit": "GFLOP/s", "vs_baseline": 1.5236,
+            "tiled_potrf_mp_gflops": 181802.3,
+            "potrf_rep_band_gflops": [179305.7, 182275.8],
+            "potrf_best_gflops": 182275.8,
+            "potrf_protocol": "median-of-5",
+            "potrf_backward_error": 2.9705e-3,
+            "potrf_ir_residuals": [2.962e-3, 8.774e-6, 5.878e-8, 2.935e-8],
+            "potrf_storage": "bfloat16", "potrf_fuse_panel": True,
+            "potrf_vs_baseline": 0.3342, "backend": "cuda",
+            "card_name": "NVIDIA H100 80GB HBM3",
+            "card_power_limit": "700.00 W", "host_cpu": "test host"}
+    line.update(over)
+    return line
+
+
+def _bench_geqrf_line(**over):
+    line = {"metric": "tiled_geqrf_mp_gflops", "value": 85824.9,
+            "unit": "GFLOP/s", "vs_baseline": 0.1578,
+            "factorization_residual": 8.926e-3,
+            "ls_refine_errors": [1.319e-2, 3.911e-4, 1.632e-5, 8.151e-7,
+                                 1.305e-7],
+            "backend": "cuda", "card_name": "NVIDIA H100 80GB HBM3",
+            "card_power_limit": "700.00 W", "host_cpu": "test host"}
+    line.update(over)
+    return line
+
+
+def test_parse_bench_reads_the_last_line_and_the_launches():
+    import json
+    chip_smoke = _chip_smoke()
+    line = _bench_default_line()
+    launches = {"gemm_tile": 1253, "gemm_tile_grouped": 694,
+                "gram_tile": 0}
+    stdout = "noise\n" + json.dumps(line) + "\n"
+    stderr = ("rep 0: 163.9 ms\nbench kernel launches "
+              + json.dumps(launches) + "\nscheduler stats: ...\n")
+    assert chip_smoke.parse_bench(stdout, stderr) == (line, launches)
+    with pytest.raises(AssertionError, match="launch"):
+        chip_smoke.parse_bench(stdout, "rep 0: 163.9 ms\n")
+    with pytest.raises(AssertionError, match="standard output"):
+        chip_smoke.parse_bench("", stderr)
+
+
+@pytest.mark.parametrize("line, fault", [
+    (_bench_default_line(), None),
+    (_bench_geqrf_line(), None),
+    (_bench_default_line(potrf_backward_error=6e-2), "backward error"),
+    (_bench_default_line(potrf_ir_residuals=[3e-3, 2e-5]), "IR"),
+    (_bench_default_line(potrf_error="RuntimeError('x')"), "potrf leg"),
+    (_bench_default_line(potrf_protocol="median-of-3"), "protocol"),
+    (_bench_default_line(value=float("nan")), "value"),
+    (_bench_default_line(backend="cpu"), "identity"),
+    (_bench_geqrf_line(factorization_residual=4e-2), "residual"),
+    (_bench_geqrf_line(ls_refine_errors=[1e-2, 1e-6, 2e-5]), "ladder"),
+    ({k: v for k, v in _bench_geqrf_line().items() if k != "host_cpu"},
+     "identity"),
+], ids=["default", "geqrf", "bwd", "ir", "potrf_error", "protocol",
+        "value", "backend", "residual", "ladder", "identity"])
+def test_bench_lines_are_held_to_the_path_limits(line, fault):
+    """The bench phase's limits: the potrf legs' backward error <= 5e-2
+    and last IR residual <= 1e-5, the geqrf residual <= 3e-2 and last
+    ladder error <= 1e-5, the north-star leg present, the identity keys
+    of the card."""
+    chip_smoke = _chip_smoke()
+    if fault is None:
+        chip_smoke.check_bench_line("t", line, "cuda")
+    else:
+        with pytest.raises(AssertionError, match=fault):
+            chip_smoke.check_bench_line("t", line, "cuda")
+

@@ -98,6 +98,22 @@ def test_c_sources_import_only_the_port():
     assert imports["commext.c"] == []
 
 
+def test_the_premerge_twin_runs_only_the_port():
+    """The port's premerge script runs the port's bench entry, guard,
+    lint and chaos tool on the CPU, and nothing of the JAX package: no
+    root ``bench.py``, no root ``tools/``, no ``parsec_tpu`` module."""
+    import re
+    text = (PKG / "tools" / "premerge_bench.sh").read_text()
+    code = "\n".join(line for line in text.splitlines()
+                     if not line.lstrip().startswith("#"))
+    assert not re.search(r"parsec_tpu(?!_torch)", code)
+    assert "bench.py" not in code and "$repo/tools" not in code
+    assert "JAX_PLATFORMS" not in code and "XLA_FLAGS" not in code
+    for mod in ("bench", "tools.bench_guard", "tools.parseclint",
+                "tools.chaos"):
+        assert f"python -m parsec_tpu_torch.{mod}" in code, mod
+
+
 def _rank_modules(ctx, rank, nranks):
     """The forbidden modules a rank of a distributed run has loaded."""
     import sys as _sys
