@@ -1,0 +1,3 @@
+"""Idle share of the device over the traced passes, GEMM at coarse tiles."""
+
+from benchmark.readers import device_idle as read  # noqa: F401
