@@ -1006,11 +1006,11 @@ def traced_pass(ctx: Context, run_pass, label: str, ntasks: int,
     and, on the card, sum to it within CRITPATH_TOL (on the CPU-backed
     module a task is short
     against the host's scheduling delays, which the overlap absorbs).
-    Returns the buckets, the in-flight share (the union of the
-    dispatch->done device spans over the pass's wall time: host stamps
-    at both ends, the dispatch stamp taken once the wave is queued, so
-    it approximates the card's busy share — from above, less the time a
-    wave's first kernel runs before its span opens) and the
+    Returns the buckets, the in-flight share (the union of the dev:
+    spans over the pass's wall time: each span is its launch step's time
+    on the card, from CUDA timing events, so the share is the card's busy
+    share inside launch steps; on the CPU-backed module, host time
+    around each step) and the
     completions the metrics plane sampled during the pass (the tracer
     consumes their ready stamps, so none reached the latency
     histogram).  With ``trace_dir`` the trace is kept there (its path
@@ -1058,9 +1058,8 @@ def traced_pass(ctx: Context, run_pass, label: str, ntasks: int,
         f"sum {total * 1e3:.3f} ms against the makespan "
         f"{att['makespan'] * 1e3:.3f} ms (tol {CRITPATH_TOL:.0%}; "
         f"overlapping steps {over * 1e3:.3f} ms); "
-        f"in-flight share {inflight:.3f} (union of dispatch->done device "
-        f"spans over the pass; approximates the card's busy share from above, "
-        f"less what a wave runs before its span opens)")
+        f"in-flight share {inflight:.3f} (union of the dev: spans, the "
+        f"launch steps' device time, over the pass)")
     if len(dev) != ntasks or len(exe) != ntasks:
         raise AssertionError(f"[{label}] traced pass: {len(exe)} exec and "
                              f"{len(dev)} dev: spans, expected {ntasks}")

@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 from typing import Any, Callable, List, Optional
 
 from parsec_tpu_torch.core import scheduling
@@ -235,11 +236,15 @@ class Context:
         #: schedule() and the C quantum stamp Task.ready_at only when a
         #: telemetry consumer wants it (causal tracer or metrics
         #: registry), and devices/cuda.py fires device_dispatch/
-        #: device_done PINS only when the causal tracer or the flight
-        #: recorder listens; both maintained by _recompute_ready_stamp
-        #: on (un)install
+        #: device_done PINS, and times its launch steps, only when the
+        #: causal tracer or the flight recorder listens; the tracer that
+        #: records the device module's host stages, or None.  All
+        #: maintained by _recompute_ready_stamp on (un)install
         self._ready_stamp = False
         self._device_spans = False
+        self._stage_tracer = None
+        #: perf_counter when the device spans last turned on
+        self._device_spans_since = 0.0
         #: transient-task retry budget, cached off the worker hot path
         #: (core/scheduling.task_progress and the C chain probe it)
         self._retry_max = int(params.get("task_retry_max", 0))
@@ -335,15 +340,30 @@ class Context:
 
     def _recompute_ready_stamp(self) -> None:
         """Telemetry-consumer gates: schedule() stamps Task.ready_at iff
-        someone consumes it, and the device module emits its dispatch/
-        done span events iff the causal tracer or the flight recorder
-        (its "device" class) listens."""
-        self._ready_stamp = (self._causal_tracer is not None
+        someone consumes it (the causal tracer's "queue" class, or the
+        metrics registry), and the device module emits its dispatch/
+        done span events iff the causal tracer (its "device" or
+        "stages" class) or the flight recorder (its "device" class)
+        listens.  When the device spans turn on, each device module
+        takes a fresh clock anchor for its device intervals."""
+        tr, fr = self._causal_tracer, self._flightrec
+        self._ready_stamp = ((tr is not None and "queue" in tr.classes)
                              or self.metrics is not None)
-        fr = self._flightrec
-        self._device_spans = (self._causal_tracer is not None
-                              or (fr is not None
-                                  and "device" in fr.classes))
+        was = self._device_spans
+        self._device_spans = (
+            (tr is not None and not tr.classes.isdisjoint(
+                ("device", "stages")))
+            or (fr is not None and "device" in fr.classes))
+        self._stage_tracer = tr if tr is not None \
+            and "stages" in tr.classes else None
+        if self._device_spans and not was:
+            self._device_spans_since = time.perf_counter()
+        reg = getattr(self, "device_registry", None)
+        if self._device_spans and not was and reg is not None:
+            for dev in reg.accelerators:
+                anchor = getattr(dev, "anchor_clock", None)
+                if anchor is not None:
+                    anchor()
 
     def _recompute_db_spin(self) -> None:
         """Arm (or re-arm) the inlined comm-poll window from the

@@ -94,11 +94,26 @@ hands its failing and queued tasks back to the scheduler for their other
 incarnations (the reference's HOOK_RETURN_DISABLE), with a warning.  At 0
 a fault fails the context.
 
-Device spans.  While a causal tracer listens (``Context._device_spans``)
-each task fires ``device_dispatch`` once its launch is enqueued — a held
-task when its chain runs — and ``device_done`` when the completer (or
-``sync``) finalizes it, on success and on a fault alike: host time at
-both ends, the JAX package's meaning, not a kernel timer.
+Device spans.  While a causal tracer or the flight recorder listens
+(``Context._device_spans``) the manager brackets each launch step — a
+plain launch, a fused wave, each held body of a chained launch and its
+consumer wave — with timing events (``torch.cuda.Event(enable_timing=
+True)``) on the launch stream (``_Step``; neighbouring parts of a chained
+launch share the event between them, and the step's end event is the
+launch event).  Each task fires ``device_dispatch`` once its launch is
+enqueued — a held task when its chain runs — and ``device_done`` when
+the completer (or ``sync``) finalizes it, on success and on a fault
+alike, both with the task's in-flight entry (``.task``, ``.step``) as
+payload; by then the step's events have fired, and ``_Step.interval``
+turns them into the step's time ON THE CARD on the host's
+``perf_counter`` clock, through the reference event and host stamp that
+``anchor_clock`` takes when the spans turn on.  The CPU-backed module has
+no events: its steps stamp the host clock around the step (which there
+is the work itself) and say so.  A tracer with the ``stages`` class
+(``Context._stage_tracer``) also gets the manager's and the completer's
+host stages (prof/causal.py ``STAGE_CLASSES``) on streams of their own.
+With spans off each site reads one attribute, and a launch records the
+one untimed event it always records.
 
 Device memory is a coherency-tracked cache of datum copies with LRU
 eviction, host writeback and byte accounting over ``device_mem_mb``
@@ -118,10 +133,12 @@ from __future__ import annotations
 import collections
 import contextlib
 import inspect
+import itertools
 import threading
 import time
 import weakref
 from collections import OrderedDict, deque
+from time import perf_counter as _now
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -365,15 +382,75 @@ class _Hold:
 #: marks an LRU entry as an in-progress adopt claim
 _PLACEHOLDER = object()
 
+#: profile streams of a module's host stages (prof/causal.py
+#: ``STAGE_CLASSES``): manager and completer, beside its device stream
+#: ``900 + space``
+_MGR_STREAM, _FIN_STREAM = 930, 960
+
+
+class _Step:
+    """One launch step while device spans are on: the launch id of the
+    manager step that enqueued it, its task count, its part inside a
+    chained launch (None outside one), and its two timing events (None
+    on the CPU-backed module) or host stamps."""
+
+    __slots__ = ("lid", "width", "part", "anchor", "ev0", "ev1", "h0", "h1",
+                 "_iv")
+
+    def __init__(self, lid: int, width: int, part: Optional[int], anchor,
+                 after: "Optional[_Step]"):
+        self.lid, self.width, self.part = lid, width, part
+        #: (reference event, its host stamp) of the device (anchor_clock)
+        self.anchor = anchor
+        self._iv = None
+        self.ev1 = self.h1 = None
+        if after is not None:
+            # back to back with the part before it: one event between them
+            self.ev0, self.h0 = after.ev1, after.h1
+        elif anchor is not None:
+            self.ev0 = torch.cuda.Event(enable_timing=True)
+            self.ev0.record()
+            self.h0 = None
+        else:
+            self.ev0, self.h0 = None, _now()
+
+    def end(self) -> None:
+        """Close the step after its last kernel is enqueued (caller is
+        on the launch stream)."""
+        if self.ev0 is not None:
+            self.ev1 = torch.cuda.Event(enable_timing=True)
+            self.ev1.record()
+        else:
+            self.h1 = _now()
+
+    def interval(self) -> Tuple[float, float, str]:
+        """(start, end, clock) on the host's perf_counter clock: the
+        step's time on the card ("device"), or, without events (the
+        CPU-backed module) or where its end event never fired (a launch
+        fault), the host stamps ("host")."""
+        if self._iv is None:
+            if self.ev1 is not None and self.ev1.query():
+                ref, t_ref = self.anchor
+                self._iv = (t_ref + ref.elapsed_time(self.ev0) * 1e-3,
+                            t_ref + ref.elapsed_time(self.ev1) * 1e-3,
+                            "device")
+            else:
+                h0 = self.h0 if self.h0 is not None else _now()
+                self._iv = (h0, self.h1 if self.h1 is not None else h0,
+                            "host")
+        return self._iv
+
 
 class _Inflight:
     """One launched (or held) task: its outputs, the event recorded after
-    its launch, and what it holds until the event fires."""
+    its launch, its launch step while device spans are on, and what it
+    holds until the event fires."""
 
     __slots__ = ("es", "task", "outputs", "event", "pinned", "load",
-                 "release_after", "hold")
+                 "release_after", "hold", "step")
 
-    def __init__(self, es, task, outputs, event, staged, hold=None):
+    def __init__(self, es, task, outputs, event, staged, hold=None,
+                 step=None):
         self.es = es
         self.task = task
         self.outputs = outputs
@@ -388,6 +465,9 @@ class _Inflight:
         #: are already published, and it is finalized only once its chain
         #: has run
         self.hold = hold
+        #: the _Step that ran the task (device spans on; a held task's
+        #: is set when its chain runs)
+        self.step = step
 
 
 class CudaDevice(Device):
@@ -490,6 +570,12 @@ class CudaDevice(Device):
         self._cond = threading.Condition()
         self._stop = False
         self.es = None   # device execution stream, set on first submit
+        #: launch ids of manager steps (and of chains run outside one)
+        #: while device spans are on
+        self._lids = itertools.count(1)
+        #: (reference event, host stamp) of the device spans' clock
+        #: (anchor_clock; None on the CPU-backed module)
+        self._anchor = None
         self._manager = threading.Thread(
             target=self._manager_loop, name=f"cuda-mgr-{self.name}",
             daemon=True)
@@ -498,6 +584,48 @@ class CudaDevice(Device):
             daemon=True)
         self._manager.start()
         self._completer.start()
+
+    # ------------------------------------------------------------------
+    # device spans: the clock of the launch steps' events
+    # ------------------------------------------------------------------
+    def anchor_clock(self) -> None:
+        """Take the reference of the device spans' clock: a timing event
+        recorded on an idle stream of this card, synchronized, with the
+        host's perf_counter at the midpoint of the record and the wait
+        (the tightest of eight tries).  A launch step's event ``ev`` is
+        then at ``stamp + ref.elapsed_time(ev) / 1e3`` on the host clock.
+        Context._recompute_ready_stamp calls it when device spans turn
+        on; a no-op on the CPU-backed module."""
+        if not self.is_cuda:
+            return
+        side = torch.cuda.Stream(device=self.tdev)
+        best = None
+        for _ in range(8):
+            ev = torch.cuda.Event(enable_timing=True)
+            t0 = _now()
+            ev.record(side)
+            ev.synchronize()
+            t1 = _now()
+            if best is None or t1 - t0 < best[0]:
+                best = (t1 - t0, ev, (t0 + t1) / 2)
+        self._anchor = (best[1], best[2])
+        #: the host interval the reference event fired in: the anchor's
+        #: uncertainty
+        self.anchor_width_s = best[0]
+
+    def _step(self, lid: int, width: int, part: Optional[int] = None,
+              after: Optional[_Step] = None) -> _Step:
+        """Open a launch step (caller is on the launch stream, device
+        spans on)."""
+        return _Step(lid, width, part, self._anchor, after)
+
+    def _stage(self, tr, role: int, name: str, t_begin: float, oid: int,
+               t_end: Optional[float] = None) -> None:
+        """One host-stage span on the manager's (``_MGR_STREAM``) or the
+        completer's (``_FIN_STREAM``) profile stream."""
+        sid = role + self.space
+        tr.stage(sid, f"{'mgr' if role == _MGR_STREAM else 'fin'}-"
+                 f"{self.name}", name, t_begin, oid, t_end)
 
     # ------------------------------------------------------------------
     # submit: worker thread -> device ownership (HOOK_RETURN_ASYNC)
@@ -545,18 +673,38 @@ class CudaDevice(Device):
     def _manager_loop(self):
         while True:
             with self._cond:
+                # device spans: the idle wait and the pop are host stages
+                # (mgr.idle, mgr.pop) of the step with launch id ``lid``;
+                # the device stream (and its context) exists from the
+                # first submit on
+                idle = not self._pending
+                t_idle = _now() if idle and self.es is not None \
+                    and self.es.context._device_spans else None
                 while not self._pending and not self._stop:
                     self._cond.wait(0.1)
                 if self._stop and not self._pending:
                     return
+                ctx = self.es.context
+                spans = ctx._device_spans
+                if spans:
+                    lid, t_pop = next(self._lids), _now()
+                    if idle and t_idle is None:
+                        # the spans turned on while the manager waited
+                        t_idle = ctx._device_spans_since
                 batch = self._pop_wave_locked()
                 self._launching += 1
+            tr = ctx._stage_tracer if spans else None
+            if tr is not None:
+                if t_idle is not None:
+                    self._stage(tr, _MGR_STREAM, "mgr.idle", t_idle, lid,
+                                t_pop)
+                self._stage(tr, _MGR_STREAM, "mgr.pop", t_pop, lid)
             try:
                 if _fi.ARMED:
                     # fault plan delay_dispatch: perturb the manager /
                     # completer interleaving deterministically
                     _fi.device_delay()
-                self._launch(batch)
+                self._launch(batch, lid if spans else None, tr)
             except Exception as exc:   # stage-in/launch failure
                 from parsec_tpu_torch.core import scheduling
                 self.stats.faults += 1
@@ -679,69 +827,92 @@ class CudaDevice(Device):
         scheduling.schedule(self.es, rescued)
         return True
 
-    def _launch(self, batch: list) -> None:
+    def _launch(self, batch: list, lid: Optional[int] = None,
+                tr=None) -> None:
         """Stage one wave in and launch it in one step: a list of (task,
         spec, load, readers) items sharing one kernel spec (one item = a
-        plain single-task launch, or a chain head to hold)."""
+        plain single-task launch, or a chain head to hold).  ``lid``: the
+        step's launch id while device spans are on (None: off); ``tr``:
+        the tracer taking the host stages, or None."""
         spec: CudaKernel = batch[0][1]
         n = len(batch)
         staged: List[_Staged] = []
+        held = None
         try:
             with self._on_stream():
+                t_in = _now() if tr is not None else None
                 for task, _spec, load, readers in batch:
                     st = _Staged(task, load, readers)
                     staged.append(st)
                     self._stage_task(st, spec)
+                if tr is not None:
+                    t_disp = _now()
+                    self._stage(tr, _MGR_STREAM, "mgr.stage_in", t_in, lid,
+                                t_disp)
                 if n == 1 and spec.writable \
                         and self._chain_eligible(batch[0][0]):
                     # chain head (POTRF(k), TSQRT(m,k)...): hold instead of
                     # launching — deps release eagerly through the normal
                     # completer path with Deferred payloads, and the body
                     # runs in the consumer wave's launch step
-                    self._hold_task(staged[0], spec)
-                    return
-                # any placeholder, resolved or not: one resolved by another
-                # thread since stage-in is still the placeholder object,
-                # which the chained path substitutes and a body cannot read
-                if any(isinstance(a, Deferred)
-                       for st in staged for a in st.args):
-                    outs = self._dispatch_chained(spec, staged)
+                    held = self._hold_task(staged[0], spec)
                 else:
-                    outs = self._dispatch_plain(spec, staged)
-                event = self._record_event()
+                    # any placeholder, resolved or not: one resolved by
+                    # another thread since stage-in is still the
+                    # placeholder object, which the chained path
+                    # substitutes and a body cannot read
+                    if any(isinstance(a, Deferred)
+                           for st in staged for a in st.args):
+                        outs, step = self._dispatch_chained(spec, staged,
+                                                            lid)
+                    else:
+                        outs, step = self._dispatch_plain(spec, staged, lid)
+                    # with device spans on the card, the step's end event
+                    # is the launch event
+                    event = step.ev1 if step is not None \
+                        and step.ev1 is not None else self._record_event()
         except Exception:
             for st in staged:
                 self._unstage(st)
             raise
-        for st in staged:
-            # the wave's kernels are on the stream: its reads of the old
-            # values precede any later in-place write
-            self._release_readers(st.readers)
-        self.stats.executed_tasks += n
-        if self.es.context._device_spans:
-            # the device span opens at dispatch (the wave is enqueued on
-            # the launch stream); its device_done fires once the
-            # completer has seen the wave's event complete (_finalize):
-            # host time at both ends, not a kernel timer.  Gated by
-            # Context._recompute_ready_stamp, so it costs nothing when no
-            # tracer listens
+        if held is not None:
+            entries = [held]
+        else:
             for st in staged:
-                self.es.pins("device_dispatch", st.task)
-        if n > 1:
-            # the whole wave ran in this one step, behind one event
-            self.stats.fused_launches += 1
-            self.stats.fused_tasks += n
+                # the wave's kernels are on the stream: its reads of the
+                # old values precede any later in-place write
+                self._release_readers(st.readers)
+            self.stats.executed_tasks += n
+            entries = [_Inflight(self.es, st.task, out, event, st, step=step)
+                       for st, out in zip(staged, outs)]
+            if lid is not None:
+                # device spans: the completer fires device_done once the
+                # step's end event has fired (_finalize)
+                for inf in entries:
+                    self.es.pins("device_dispatch", inf)
+            if n > 1:
+                # the whole wave ran in this one step, behind one event
+                self.stats.fused_launches += 1
+                self.stats.fused_tasks += n
+        if tr is not None:
+            self._stage(tr, _MGR_STREAM, "mgr.dispatch", t_disp, lid)
+        self._admit(entries, lid, tr)
+
+    def _admit(self, entries: List[_Inflight], lid: Optional[int],
+               tr) -> None:
+        """Append a step's in-flight entries once they all fit under
+        ``device_inflight_depth`` (appending n entries after a < depth
+        check would let the window exceed it by the wave's width - 1)."""
         with self._cond:
-            # gate on the WHOLE wave fitting under the inflight depth:
-            # appending n entries after a <depth check would let the
-            # window exceed device_inflight_depth by fuse-width-1
-            room = self._depth - n       # a wave is no wider than depth
+            room = self._depth - len(entries)  # no wider than depth
+            t_wait = _now() if tr is not None \
+                and len(self._inflight) > room else None
             while len(self._inflight) > room and not self._stop:
                 self._cond.wait(0.1)
-            for st, out in zip(staged, outs):
-                self._inflight.append(_Inflight(self.es, st.task, out,
-                                                event, st))
+            self._inflight.extend(entries)
             self._cond.notify_all()
+        if t_wait is not None:
+            self._stage(tr, _MGR_STREAM, "mgr.depth_wait", t_wait, lid)
 
     def _stage_task(self, st: _Staged, spec: CudaKernel) -> None:
         """Pin and stage one task's flows and bind its kernel arguments
@@ -849,15 +1020,20 @@ class CudaDevice(Device):
                                    for a in args
                                    if isinstance(a, torch.Tensor))
 
-    def _dispatch_plain(self, spec: CudaKernel,
-                        staged: List[_Staged]) -> List[Dict[str, Any]]:
+    def _dispatch_plain(self, spec: CudaKernel, staged: List[_Staged],
+                        lid: Optional[int] = None):
         """One wave over real tensors: the grouped form (or the function
         per task), donating where it may.  Returns the bound outputs per
-        task."""
+        task and the launch step (device spans on: ``lid`` set), or
+        None."""
         calls = [st.args for st in staged]
         donate = self._donate and self._may_donate(
             spec, staged, calls, self._count_uses(calls))
-        return spec.call(calls, donate)
+        step = self._step(lid, len(calls)) if lid is not None else None
+        outs = spec.call(calls, donate)
+        if step is not None:
+            step.end()
+        return outs, step
 
     # ------------------------------------------------------------------
     # cross-panel chain fusion (device_fuse_panel): hold chain heads,
@@ -889,11 +1065,12 @@ class CudaDevice(Device):
             return False
         return False
 
-    def _hold_task(self, st: _Staged, spec: CudaKernel) -> None:
+    def _hold_task(self, st: _Staged, spec: CudaKernel) -> _Inflight:
         """Park a chain head: its outputs become Deferred payloads on the
         already-staged copies, and the task completes eagerly through the
         normal completer path (deps release, successors instantiate)
-        without any launch."""
+        without any launch.  Returns its in-flight entry, for the caller
+        to admit."""
         task = st.task
         h = _Hold()
         h.device = self
@@ -916,11 +1093,7 @@ class CudaDevice(Device):
             self._hold_seq += 1
             h.seq = self._hold_seq
             self._held[id(task)] = h
-        with self._cond:
-            while len(self._inflight) >= self._depth and not self._stop:
-                self._cond.wait(0.1)
-            self._inflight.append(h.inflight)
-            self._cond.notify_all()
+        return h.inflight
 
     def _claim_chain(self, roots: List[Deferred]) -> List[_Hold]:
         """Claim the transitive closure of held tasks the given
@@ -958,12 +1131,16 @@ class CudaDevice(Device):
                 # wait for its resolution, then recompute the closure
                 self._chain_cv.wait(0.1)
 
-    def _run_chain(self, claimed: List[_Hold], wave_spec=None,
-                   staged: Optional[List[_Staged]] = None):
+    def _run_chain(self, claimed: List[_Hold], lid: Optional[int] = None,
+                   wave_spec=None, staged: Optional[List[_Staged]] = None):
         """Run the claimed held bodies in order, then the consumer wave
         (if any), back to back on the launch stream with no host
         synchronisation between them, and record one event after them.
-        Returns (outputs per held task, outputs per wave task, event)."""
+        With device spans on (``lid`` set) each held body and the wave
+        are parts of their own (``_Step``), each part's end event the
+        next one's start.  Returns (outputs per held task, outputs per
+        wave task, event, the held bodies' steps, the wave's step); the
+        steps are None with spans off."""
         node_of: Dict[int, torch.Tensor] = {}   # id(Deferred) -> tensor
 
         def res(a):
@@ -978,43 +1155,54 @@ class CudaDevice(Device):
                                   else a for a in leaves]])
         produced: set = set()
         node_outs = []
-        spans = self.es.context._device_spans
+        steps = [] if lid is not None else None
+        step = None
         with self._on_stream():
-            for hd in claimed:
+            for part, hd in enumerate(claimed):
                 args = [res(a) for a in hd.flat]
                 donate = self._chain_donate and self._may_donate(
                     hd.spec, [hd.staged], [args], uses, produced)
+                if steps is not None:
+                    step = self._step(lid, 1, part, step)
+                    steps.append(step)
                 outs = hd.spec.call([args], donate)[0]
-                if spans:
+                if steps is not None:
+                    step.end()
                     # a held task is dispatched when its chain runs, not
-                    # when it was held: its span opens here and closes in
-                    # _finalize, like a plain launch's
-                    self.es.pins("device_dispatch", hd.task)
+                    # when it was held
+                    self.es.pins("device_dispatch", hd.inflight)
                 for fl, d in hd.outputs.items():
                     if fl in outs:
                         node_of[id(d)] = outs[fl]
                 produced.update(_storage_key(t) for t in outs.values()
                                 if isinstance(t, torch.Tensor))
                 node_outs.append(outs)
-            wave_outs = None
+            wave_outs = wave_step = None
             if wave_spec is not None:
                 calls = [[res(a) for a in args] for args in wave_calls]
                 donate = self._chain_donate and self._may_donate(
                     wave_spec, staged, calls, uses, produced)
+                if steps is not None:
+                    step = wave_step = self._step(lid, len(calls),
+                                                  len(claimed), step)
                 wave_outs = wave_spec.call(calls, donate)
-            event = self._record_event()
+                if wave_step is not None:
+                    wave_step.end()
+            event = step.ev1 if step is not None and step.ev1 is not None \
+                else self._record_event()
         self.stats.executed_tasks += len(claimed)
         self.stats.chained_launches += 1
         self.stats.chained_tasks += len(claimed) + len(wave_calls)
-        return node_outs, wave_outs, event
+        return node_outs, wave_outs, event, steps, wave_step
 
-    def _resolve_holds(self, claimed: List[_Hold], node_outs,
-                       event) -> None:
+    def _resolve_holds(self, claimed: List[_Hold], node_outs, event,
+                       steps: Optional[List[_Step]] = None) -> None:
         """Publish a run chain's outputs: fill every Deferred, swap the
         placeholder payloads for the real tensors, hand the chain's event
-        to the held tasks' in-flight entries, then wake claim-waiters."""
+        (and each held body's step) to the held tasks' in-flight entries,
+        then wake claim-waiters."""
         with self._chain_cv:
-            for hd, outs in zip(claimed, node_outs):
+            for i, (hd, outs) in enumerate(zip(claimed, node_outs)):
                 for fl, arr in outs.items():
                     d = hd.outputs.get(fl)
                     if d is not None:
@@ -1029,6 +1217,8 @@ class CudaDevice(Device):
                     if dc is not None and dc.payload is d:
                         dc.payload = arr
                 hd.inflight.event = event
+                if steps is not None:
+                    hd.inflight.step = steps[i]
                 hd.state = "resolved"
                 hd.flat = None          # release the leaf input tensors
                 self._release_readers(hd.staged.readers)
@@ -1042,12 +1232,13 @@ class CudaDevice(Device):
                     hd.state = "held"
             self._chain_cv.notify_all()
 
-    def _dispatch_chained(self, spec: CudaKernel,
-                          staged: List[_Staged]) -> List[Dict[str, Any]]:
+    def _dispatch_chained(self, spec: CudaKernel, staged: List[_Staged],
+                          lid: Optional[int] = None):
         """Launch a wave whose inputs include unresolved chain
         placeholders: claim the chain, run it in front of the wave in one
         step, resolve the held tasks' outputs from the same step.  Returns
-        the wave's bound outputs per task."""
+        the wave's bound outputs per task and its launch step (device
+        spans on), or None."""
         while True:
             claimed = self._claim_chain(
                 [a for st in staged for a in st.args
@@ -1061,15 +1252,15 @@ class CudaDevice(Device):
                 if any(isinstance(a, Deferred) for st in staged
                        for a in st.args):
                     continue          # raced a fresh hold: re-claim
-                return self._dispatch_plain(spec, staged)
+                return self._dispatch_plain(spec, staged, lid)
             try:
-                node_outs, wave_outs, event = self._run_chain(
-                    claimed, spec, staged)
+                node_outs, wave_outs, event, steps, wave_step = \
+                    self._run_chain(claimed, lid, spec, staged)
             except Exception:
                 self._unclaim(claimed)
                 raise
-            self._resolve_holds(claimed, node_outs, event)
-            return wave_outs
+            self._resolve_holds(claimed, node_outs, event, steps)
+            return wave_outs, wave_step
 
     def _force_deferred(self, d: Deferred) -> None:
         """Run the chain behind one placeholder without a consumer wave
@@ -1078,12 +1269,16 @@ class CudaDevice(Device):
             claimed = self._claim_chain([d])
             if not claimed:
                 continue              # resolved concurrently
+            # outside a manager step: the chain's launch id is its own
+            lid = next(self._lids) if self.es.context._device_spans \
+                else None
             try:
-                node_outs, _, event = self._run_chain(claimed)
+                node_outs, _, event, steps, _ = self._run_chain(claimed,
+                                                                lid)
             except Exception:
                 self._unclaim(claimed)
                 raise
-            self._resolve_holds(claimed, node_outs, event)
+            self._resolve_holds(claimed, node_outs, event, steps)
 
     def _resolve_all_held(self) -> None:
         """Run every remaining hold (sync/teardown): consumers that never
@@ -1279,6 +1474,9 @@ class CudaDevice(Device):
                 # queue pop and the retire append
                 self._completing += 1
                 self._cond.notify_all()
+            ctx = inf.es.context
+            tr = ctx._stage_tracer if ctx._device_spans else None
+            t_done = _now() if tr is not None else None
             try:
                 if inf.hold is None:
                     # a held task published its Deferred payloads at hold
@@ -1291,6 +1489,9 @@ class CudaDevice(Device):
             except Exception as exc:
                 self.stats.faults += 1
                 inf.es.context.record_error(exc, inf.task)
+            if tr is not None:
+                self._stage(tr, _FIN_STREAM, "fin.complete", t_done,
+                            hash(inf.task.key))
             with self._cond:
                 self._retire.append(inf)
                 self._completing -= 1
@@ -1342,6 +1543,9 @@ class CudaDevice(Device):
                 # finalization lands (late errors must beat wait())
                 self._finalizing += len(batch)
                 self._cond.notify_all()
+            ctx = batch[-1].es.context
+            tr = ctx._stage_tracer if ctx._device_spans else None
+            t_fin = _now() if tr is not None else None
             try:
                 for inf in batch:
                     self._finalize(inf, block=block)
@@ -1349,6 +1553,10 @@ class CudaDevice(Device):
                 with self._cond:
                     self._finalizing -= len(batch)
                     self._cond.notify_all()
+            if tr is not None:
+                step = batch[-1].step
+                self._stage(tr, _FIN_STREAM, "fin.finalize", t_fin,
+                            step.lid if step is not None else 0)
 
     @staticmethod
     def _outputs_ready(inf: _Inflight) -> bool:
@@ -1371,9 +1579,9 @@ class CudaDevice(Device):
             inf.es.context.record_error(exc, inf.task)
         finally:
             if inf.es.context._device_spans:
-                # the outputs are known to be on the card (or the failure
-                # surfaced): close the dispatch->done device span
-                inf.es.pins("device_done", inf.task)
+                # the step's end event has fired (or the failure
+                # surfaced): its device interval can be read
+                inf.es.pins("device_done", inf)
             self.load_sub(inf.load)
             for d in inf.pinned:
                 self._unpin(d)

@@ -633,6 +633,8 @@ class DTDTaskpool(Taskpool):
         if ctx is None:
             return
         tr = ctx._causal_tracer
+        if tr is not None and "dtd" not in tr.classes:
+            tr = None   # class-gated out, as the recorder below
         fr = ctx._flightrec
         if fr is not None and "dtd" not in fr.classes:
             fr = None   # class-gated out: no tensor read on its account

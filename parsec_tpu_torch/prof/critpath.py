@@ -43,11 +43,16 @@ from typing import Any, Dict, List, Optional, Tuple
 from parsec_tpu_torch.prof.causal import SPECIAL_CLASSES
 
 #: event classes that are causal metadata, not task execution — ONE
-#: source of truth (the tracer that writes them)
+#: source of truth (the tracer that writes them; the device module's
+#: host stages ``mgr.*``/``fin.*`` among them)
 _SPECIAL = set(SPECIAL_CLASSES)
 
 
 def _is_exec_name(name: str) -> bool:
+    """A task's execution span.  ``dev:<class>`` spans are not: they are
+    the task's launch step on the card (CUDA timing events, shared by a
+    fused wave's tasks), beside the task's own exec span, which for a
+    device task runs from its submit to its eager completion."""
     return name not in _SPECIAL and not name.startswith("dev:")
 
 

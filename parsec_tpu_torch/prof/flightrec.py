@@ -136,6 +136,7 @@ class RingProfile(Profile):
             info = dict(self._info)
         p = Profile(self.hr_id)
         p._info.update(info)
+        p.clock_anchor = self.clock_anchor
         p._dict = {ec.name: EventClass(ec.name, ec.key, ec.attributes)
                    for ec in dico}
         for sid, key, flags, tpid, eid, oid, ts, evinfo in events:
@@ -181,6 +182,7 @@ class FlightRecorder(CausalTracer):
     def install(self, context) -> "FlightRecorder":
         self.rank = context.rank
         self.context = context
+        self.profile.set_clock_anchor()
         context._flightrec = self
         context._recompute_ready_stamp()   # device-span gate
         try:
@@ -193,7 +195,6 @@ class FlightRecorder(CausalTracer):
                     "(%s) — incident dumps WILL fail; fix "
                     "flightrec_dir", self.bundle_dir, exc)
         if "device" in self.classes:
-            context.pins_register("device_dispatch", self._dev_dispatch)
             context.pins_register("device_done", self._dev_done)
         if "deps" in self.classes:
             context.pins_register("deliver_dep", self._deliver_dep)
@@ -207,7 +208,6 @@ class FlightRecorder(CausalTracer):
             context._flightrec = None
             context._recompute_ready_stamp()
         if "device" in self.classes:
-            context.pins_unregister("device_dispatch", self._dev_dispatch)
             context.pins_unregister("device_done", self._dev_done)
         if "deps" in self.classes:
             context.pins_unregister("deliver_dep", self._deliver_dep)

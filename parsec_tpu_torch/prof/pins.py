@@ -21,7 +21,10 @@ from parsec_tpu_torch.prof.profiling import EV_END, EV_POINT, EV_START, Profile
 #: with the Job as payload.
 #: ``device_dispatch``/``device_done`` bracket a device task's
 #: accelerator-pipeline residency (devices/cuda.py, gated on the causal
-#: tracer being installed).
+#: tracer or the flight recorder being installed), with the device's
+#: in-flight entry as payload: ``.task``, and ``.step``, the launch step
+#: whose device interval ``.step.interval()`` reads once
+#: ``device_done`` fires.
 PINS_EVENTS = ("select", "exec_begin", "exec_end", "exec_async",
                "complete_exec", "task_discard",
                "device_dispatch", "device_done",

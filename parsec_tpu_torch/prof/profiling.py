@@ -126,6 +126,9 @@ class Profile:
         self._info: Dict[str, str] = {}
         self._event_ids = itertools.count(1)
         self.enabled = True
+        #: (perf_counter, time.time_ns()) read together: lays the
+        #: profile's timestamps onto the wall clock (``set_clock_anchor``)
+        self.clock_anchor: Optional[Tuple[float, int]] = None
 
     # -- dictionary -------------------------------------------------------
     def add_event_class(self, name: str, attributes: str = "") -> EventClass:
@@ -141,6 +144,22 @@ class Profile:
 
     def add_information(self, key: str, value: str) -> None:
         self._info[key] = str(value)
+
+    def set_clock_anchor(self) -> Tuple[float, int]:
+        """Take the header's anchor pair: a ``perf_counter`` read between
+        two ``time.time_ns()`` reads, paired with their midpoint (the
+        tightest of three tries).  A timestamp ``ts`` of this profile is
+        then the wall-clock ``ns + (ts - pc) * 1e9`` (``reader.wall_ns``),
+        the clock a ``torch.profiler`` trace puts device activity on."""
+        best = None
+        for _ in range(3):
+            n0 = time.time_ns()
+            pc = time.perf_counter()
+            n1 = time.time_ns()
+            if best is None or n1 - n0 < best[0]:
+                best = (n1 - n0, pc, (n0 + n1) // 2)
+        self.clock_anchor = (best[1], best[2])
+        return self.clock_anchor
 
     # -- streams ----------------------------------------------------------
     def stream(self, stream_id: int, name: str = "") -> StreamBuffer:
@@ -184,6 +203,7 @@ class Profile:
             "dictionary": [(ec.key, ec.name, ec.attributes) for ec in dico],
             "streams": [(sb.stream_id, sb.name, len(merged[sb.stream_id]))
                         for sb in streams],
+            "clock_anchor": self.clock_anchor,
         }
         mb = pickle.dumps(meta, protocol=pickle.HIGHEST_PROTOCOL)
         buf.write(struct.pack("!Q", len(mb)))

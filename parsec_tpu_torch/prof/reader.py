@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import pickle
 import struct
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from parsec_tpu_torch.prof.profiling import EV_END, EV_START, MAGIC, _EV
 
@@ -63,6 +63,18 @@ def read_trace(path: str) -> Tuple[dict, List[dict]]:
                 "object_id": oid, "ts": ts, "info": infos.get(i),
             })
     return meta, rows
+
+
+def wall_ns(meta: dict, ts: float) -> Optional[int]:
+    """The wall-clock ns (``time.time_ns()``, the clock of a
+    ``torch.profiler`` trace) of the timestamp ``ts`` of a trace whose
+    header carries a clock anchor (prof/profiling.py
+    ``set_clock_anchor``); None without one."""
+    anchor = meta.get("clock_anchor")
+    if not anchor:
+        return None
+    pc, ns = anchor
+    return ns + round((ts - pc) * 1e9)
 
 
 def intervals(rows: List[dict]) -> List[dict]:

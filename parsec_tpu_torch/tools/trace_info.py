@@ -12,6 +12,14 @@ difference: the JAX package groups pandas DataFrames; the port groups
 the pandas-free reader's row dicts (prof/reader.py) in plain Python (the
 card host has no pandas).  The headings and the occupancy lines are the
 JAX package's, word for word; the tables hold the same columns.
+
+A ``dev:<class>`` row is a task's launch step ON THE CARD (CUDA timing
+events, prof/causal.py), where the JAX package's is host time from
+dispatch to completion: the tasks of a fused wave share one interval, so
+the class's ``sum`` counts the wave once per task (its device time is
+the union of the spans).  The device module's host stages (``mgr.*``,
+``fin.*``, a tracer's ``stages`` class) appear as classes of their own
+and on streams of their own, and join no task's queue-wait.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import argparse
 import json
 from typing import Dict, List, Sequence
 
+from parsec_tpu_torch.prof.causal import STAGE_CLASSES
 from parsec_tpu_torch.prof.reader import intervals, read_trace
 
 
@@ -55,7 +64,8 @@ def _causal_stats(meta: dict, rows: List[dict], ivs: List[dict]) -> None:
     # with the main pool's
     waits: Dict[str, List[float]] = {}
     for iv in ivs:
-        if iv["name"] == "queue_wait" or iv["name"].startswith("dev:"):
+        if iv["name"] == "queue_wait" or iv["name"].startswith("dev:") \
+                or iv["name"] in STAGE_CLASSES:
             continue
         for d in qw.get((iv["taskpool_id"], iv["object_id"]), ()):
             waits.setdefault(iv["name"], []).append(d)

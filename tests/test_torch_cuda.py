@@ -985,3 +985,74 @@ def test_gemm_over_modules_on_the_card(card, device):
     err = float((C.to_array() - want).abs().max()) / float(
         want.abs().max())
     assert err < 1e-3
+
+
+@pytest.mark.cuda
+def test_dev_span_is_the_k1_launch_on_the_card(card, tmp_path):
+    """Device spans on the card: each ``dev:`` span of a chain of K1
+    launches (one task a launch) against CUDA events recorded around the
+    same K1 call inside the task's body, both placed on the host clock
+    through the device's reference event: the span starts within 50 us
+    of the call's first event and lasts the call's time within 50 us
+    (the step's events bracket the body).  The reference itself sits
+    between host stamps taken around an event's record and wait."""
+    from time import perf_counter
+
+    from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
+    from parsec_tpu_torch.dsl.ptg import DATA, IN, OUT, PTG, Range, TASK
+    from parsec_tpu_torch.prof.causal import install_causal_tracer
+    from parsec_tpu_torch.prof.profiling import Profile
+    from parsec_tpu_torch.prof.reader import intervals, read_trace
+    mb, nt = 8192, 4
+    g = torch.Generator(device=card).manual_seed(21)
+    X = (torch.randn((mb, mb), generator=g, device=card) / mb).bfloat16()
+    marks = []
+
+    def body(T):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = gemm_tile(X, X, T)
+        e1.record()
+        marks.append((e0, e1))
+        return out
+
+    A = TwoDimBlockCyclic(mb, mb, mb, mb).from_array(torch.zeros((mb, mb)))
+    p = PTG("k1chain", NT=nt)
+    p.task("S", k=Range(0, nt - 1)) \
+        .affinity(lambda k, A=A: A(0, 0)) \
+        .flow("T", "RW",
+              IN(DATA(lambda A=A: A(0, 0)), when=lambda k: k == 0),
+              IN(TASK("S", "T", lambda k: dict(k=k - 1)),
+                 when=lambda k: k > 0),
+              OUT(TASK("S", "T", lambda k: dict(k=k + 1)),
+                  when=lambda k: k < nt - 1),
+              OUT(DATA(lambda A=A: A(0, 0)), when=lambda k: k == nt - 1)) \
+        .body(body, device="cuda")
+    prof = Profile("k1")
+    with Context(nb_cores=2, device="cuda") as ctx:
+        dev = ctx.device_registry.accelerators[0]
+        tr = install_causal_tracer(ctx, prof, classes=("device",))
+        ctx.add_taskpool(p.build())
+        ctx.wait(timeout=120)
+        torch.cuda.synchronize()
+        tr.uninstall(ctx)
+        ref, t_ref = dev._anchor
+        e = torch.cuda.Event(enable_timing=True)
+        h0 = perf_counter()
+        e.record()
+        e.synchronize()
+        h1 = perf_counter()
+        t_e = t_ref + ref.elapsed_time(e) * 1e-3
+        assert h0 - 1e-4 <= t_e <= h1 + 1e-4, (h0, t_e, h1)
+        _meta, rows = read_trace(prof.dump(str(tmp_path / "k1.ptt")))
+        spans = sorted((i for i in intervals(rows) if i["name"] == "dev:S"),
+                       key=lambda i: i["ts_begin"])
+        assert len(spans) == len(marks) == nt
+        for s, (e0, e1) in zip(spans, marks):
+            assert s["info"]["clock"] == "device"
+            assert s["info"]["width"] == 1
+            call = e0.elapsed_time(e1) * 1e-3
+            start = t_ref + ref.elapsed_time(e0) * 1e-3
+            assert abs(s["ts_begin"] - start) <= 50e-6, (s, start)
+            assert abs(s["duration"] - call) <= 50e-6, (s, call)
