@@ -19,7 +19,12 @@ no result line):
               edges of its tiles and float4 rows (ragged M, N and K, K < 4,
               N % 4 != 0, A misaligned: the scalar variant), each also
               bit-identical repeated and in place; K2 twice on one input
-              must agree bit for bit.  K1's grouped launch (the device module's fused waves:
+              must agree bit for bit.  The Cholesky TRSM's triangular
+              kernel (trsm_tile) at the potrf path's 6144^2 bf16 tiles, the
+              served jobs' 2048^2 f32 tiles and ragged shapes: NaNs in W's
+              upper triangle must leave O's bits as they are, a repeat
+              must give the same bits; timed at both path shapes against
+              its bound and the library call it replaces.  K1's grouped launch (the device module's fused waves:
               8 members at each path's shape, and ragged) must give the
               bits of single launches and agree with the plain version,
               and its in-place form (``out=C``, donation) the bits of the
@@ -43,7 +48,8 @@ no result line):
               pass), the bench's operand regenerated on the card before
               each pass (lower tiles only): one warm pass, five timed
               passes (median, best and band of GFLOP/s), task, launch
-              and Cholesky-flag checks on every pass, then the backward
+              (one trsm_tile launch a TRSM task) and Cholesky-flag checks
+              on every pass, then the backward
               error and the iterative-refinement ladder once.
 8. the remaining apps — ring attention at N = 32768 tokens, d = 128, one
               head, P = 8 parties (Tq = Tkv = 4096), f32 with TF32 off,
@@ -296,7 +302,7 @@ from parsec_tpu_torch.apps import (cuda_kernels, potrf, qr, ring_attention,
                                    wave)
 from parsec_tpu_torch.apps.cuda_kernels import gemm_tile, \
     gemm_tile_grouped, gemm_tile_grouped_reference, gemm_tile_reference, \
-    gram_tile, gram_tile_reference
+    gram_tile, gram_tile_reference, trsm_tile, trsm_tile_reference
 from parsec_tpu_torch.apps.gemm import _tile_kernel, gemm_dtd_insert, \
     gemm_taskpool, total_flops
 from parsec_tpu_torch.apps.potrf_check import backward_error, refine_solve
@@ -341,7 +347,8 @@ TOL = {torch.bfloat16: 1e-4, torch.float32: 1e-5}
 #: every kernel's launch count, by the name the kernels line gives it
 COUNTERS = {"gemm_tile": cuda_kernels.gemm_tile_launches,
             "gemm_tile_grouped": cuda_kernels.gemm_tile_grouped_launches,
-            "gram_tile": cuda_kernels.gram_tile_launches}
+            "gram_tile": cuda_kernels.gram_tile_launches,
+            "trsm_tile": cuda_kernels.trsm_tile_launches}
 #: K1's single launches by route
 ROUTES = cuda_kernels.gemm_tile_route_launches
 #: the calls K1's grouped launches carried (all on the wgmma route)
@@ -1465,6 +1472,99 @@ def phase_gram(dev: torch.device, peaks) -> dict:
     return entry
 
 
+#: the triangular kernel's checks: (label, m, k, dtype, elements before A
+#: in its storage); the potrf path's tiles, the served potrf jobs' f32
+#: tiles, then the edges of the vector and scalar variants
+TRSM_CASES = [("path", 6144, 6144, torch.bfloat16, 0),
+              ("served", 2048, 2048, torch.float32, 0),
+              ("ragged", 1000, 520, torch.bfloat16, 0),
+              ("ragged", 1000, 513, torch.bfloat16, 0),
+              ("ragged", 130, 260, torch.float32, 0),
+              ("ragged", 77, 3, torch.float32, 0),
+              ("misaligned", 256, 256, torch.bfloat16, 1)]
+
+
+def trsm_bound(m: int, k: int, dtype: torch.dtype, peaks) -> tuple:
+    """Least time of one trsm_tile call and what bounds it: the lower
+    triangle's m k (k + 1) flop at the f32 FMA peak against A read, W's
+    lower triangle read and O written once."""
+    _, f32_peak, mem_rate = peaks
+    size = torch.empty((), dtype=dtype).element_size()
+    t_ops = float(m) * k * (k + 1) / f32_peak * 1e3
+    t_bytes = (2.0 * m * k * size + 4.0 * k * (k + 1) / 2) / mem_rate * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def phase_trsm(dev: torch.device, peaks) -> dict:
+    """trsm_tile vs its plain version on the card at TRSM_CASES: within
+    TOL, one launch a call, a repeat bit-identical, and NaNs planted in
+    W's strict upper triangle leaving O's bits as they are.  At the two
+    path shapes the kernel is timed in turns with its plain version and
+    the library call it replaces (``(C.float() @ W.mT).to(C.dtype)``,
+    TF32 off), beside its bound."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    entry = None
+    for label, m, k, dt, offset in TRSM_CASES:
+        flat = torch.randn(m * k + offset, generator=g, device=dev).to(dt)
+        C = flat[offset:].view(m, k)
+        W = torch.tril(torch.randn((k, k), generator=g, device=dev))
+        n0 = cuda_kernels.trsm_tile_launches.value
+        got = trsm_tile(C, W)
+        again = trsm_tile(C, W)
+        poisoned = trsm_tile(C, W + torch.triu(
+            torch.full_like(W, float("nan")), 1))
+        torch.cuda.synchronize()
+        ref = trsm_tile_reference(C, W)
+        err = rel_err(got, ref)
+        max_abs = (got.float() - ref.float()).abs().max().item()
+        ok = (err <= TOL[dt] and torch.equal(got, again)
+              and torch.equal(got, poisoned)
+              and cuda_kernels.trsm_tile_launches.value == n0 + 3)
+        log(f"trsm_tile vs plain {label} {m}x{k} {str(dt)[6:]}"
+            f"{' A misaligned' if offset else ''}: rel err {err:.3e} (tol "
+            f"{TOL[dt]:.0e}) max abs {max_abs:.3e}; repeat bit-identical "
+            f"{torch.equal(got, again)}; NaN upper triangle unread "
+            f"{torch.equal(got, poisoned)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"trsm_tile at {label} {m}x{k}: err {err}"
+                                 f" (tol {TOL[dt]}), or a repeat, a "
+                                 f"poisoned upper triangle or the launch "
+                                 f"count disagrees")
+        del again, poisoned
+        if label in ("path", "served"):
+            bound, by = trsm_bound(m, k, dt, peaks)
+            t = in_turns({"kernel": lambda: trsm_tile(C, W),
+                          "plain": lambda: trsm_tile_reference(C, W),
+                          "library": lambda: (C.float() @ W.mT).to(dt)},
+                         reps=20 if m >= 6144 else 100)
+            ms, plain_ms, lib_ms = t["kernel"], t["plain"], t["library"]
+            log(f"trsm_tile at {m}x{k} {str(dt)[6:]}: kernel {ms:.4f} ms "
+                f"({float(m) * k * (k + 1) / ms / 1e9:.1f} useful "
+                f"TFLOP/s), plain {plain_ms:.4f} ms, library_ms "
+                f"{lib_ms:.4f} ((C.float() @ W.mT).to({str(dt)[6:]}), TF32 "
+                f"off), bound {bound:.4f} ms ({by}), share of bound "
+                f"{bound / ms:.3f}; kernel / library {ms / lib_ms:.3f}")
+            shape = {"shape": [m, k], "dtype": str(dt)[6:], "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": bound, "bound_by": by,
+                     "share_of_bound": bound / ms}
+            if entry is None:
+                entry = {"name": "trsm_tile", "route": "cuda",
+                         "source": "parsec_tpu_torch/csrc/trsm_tile.cu",
+                         "replaces": "none (the reference's f32 product "
+                                     "in XLA)",
+                         "launches": 0, "max_abs_err": max_abs, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound,
+                         "bound_by": by, "library_ms": lib_ms,
+                         "shapes": []}
+            entry["shapes"].append(shape)
+        del C, W, flat, got, ref
+        torch.cuda.empty_cache()
+    return entry
+
+
 def qr_task_counts(nt: int) -> dict:
     panel = nt * (nt - 1) // 2
     return {"GEQRT": nt, "UNMQR": panel, "TSQRT": panel,
@@ -1752,11 +1852,13 @@ def drive_potrf(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
                 f"incarnations {device_runs}, CPU incarnations {cpu_runs}; "
                 f"expected {ntasks}, {want}, 0")
         if on_card and (tiles != want_k1 or wgmma != want_k1
-                        or launched["gram_tile"]):
+                        or launched["gram_tile"]
+                        or launched["trsm_tile"] != want["TRSM"]):
             raise AssertionError(f"[{label}] {what}: launched {launched}, "
                                  f"{tiles} K1 tiles, {wgmma} on the wgmma "
                                  f"route, expected {want_k1} K1 tiles, all "
-                                 f"on wgmma, and no K2")
+                                 f"on wgmma, no K2, and {want['TRSM']} "
+                                 f"trsm_tile launches")
         if failed:
             raise AssertionError(f"[{label}] {what}: a Cholesky factor "
                                  f"failed (info != 0 or not finite)")
@@ -1774,7 +1876,9 @@ def drive_potrf(ctx: Context, mb: int, nt: int, dtype: torch.dtype,
         log(f"[{label}] {what}: {dt * 1e3:.1f} ms, "
             f"{flops / dt / 1e9:.1f} GFLOP/s (n^3/3), executed "
             f"{executed_flops / dt / 1e9:.1f} GFLOP/s, launches {launched} "
-            f"({tiles} K1 tiles, {wgmma} wgmma), {executed} device tasks "
+            f"({tiles} K1 tiles, {wgmma} wgmma; trsm_tile "
+            f"{launched['trsm_tile']} for {want['TRSM']} TRSM tasks), "
+            f"{executed} device tasks "
             f"{device_runs}, "
             f"{cpu_runs} CPU incarnations, Cholesky flag clear; tiles "
             f"regenerated in {regen_s * 1e3:.1f} ms (untimed){mem}")
@@ -4994,7 +5098,8 @@ def drive(smi: str, name: str, peaks, keep: str) -> int:
     torch.cuda.empty_cache()
     entries = {"gemm_tile": k1,
                "gemm_tile_grouped": phase_k1_forms(dev, peaks, k1),
-               "gram_tile": phase_gram(dev, peaks)}
+               "gram_tile": phase_gram(dev, peaks),
+               "trsm_tile": phase_trsm(dev, peaks)}
     torch.cuda.empty_cache()
 
     host = phase_host(smi)

@@ -36,6 +36,16 @@ header holds the design.  Plain f32 FMA, never TF32, split-K over the
 rows of X by ``gram_split_plan``, the partials in scratch the wrapper
 makes and summed in a fixed order, so two calls give bit-identical G.
 
+``trsm_tile`` — the Cholesky TRSM's triangular product ``O = A @ tril(W)^T``
+--------------------------------------------------------------------------
+
+Replaces no Pallas kernel: the reference leaves this product to XLA.
+Source: ``parsec_tpu_torch/csrc/trsm_tile.cu``, whose header holds the
+design, its bound and why it was added.  Types (bf16, f32) — the potrf
+path's panel tiles, read and written in bf16 — and (f32, f32); W square
+and lower triangular (only its lower triangle is read).  Plain f32 FMA,
+never TF32, one rounding to A's type; any (m, n).
+
 Each ``*_reference`` is the plain version: the same function in PyTorch
 with TF32 switched off.  A wrapper takes it only for CPU tensors; for
 CUDA tensors it launches the kernel or raises.
@@ -96,6 +106,9 @@ gemm_tile_grouped_members = Counter()
 #: launches of the gram_tile kernels (both passes: one per call), counted
 #: the same way
 gram_tile_launches = Counter()
+#: launches of the trsm_tile kernel, counted the same way: one per TRSM
+#: task on the card
+trsm_tile_launches = Counter()
 
 #: the most calls one grouped K1 launch carries (gemm_tile.cu's kMaxGroup)
 GEMM_GROUP_MAX = 8
@@ -211,6 +224,12 @@ def _load() -> ctypes.CDLL:
                            ctypes.c_void_p, ctypes.c_longlong,
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fn = lib.parsec_trsm_tile
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -482,3 +501,51 @@ def gram_tile(X: torch.Tensor) -> torch.Tensor:
                            f"error {err}")
     gram_tile_launches.add()
     return G
+
+
+def trsm_tile_reference(A: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """Plain version of the triangular kernel: ``A @ tril(W)^T`` in f32,
+    rounded once to A's type; W's entries above the diagonal are not
+    used.  TF32 is switched off here (and stays off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return (A.float() @ torch.tril(W.float()).mT).to(A.dtype)
+
+
+#: (A, W) types the triangular kernel takes; O has A's type
+_TRSM_TYPES = {(torch.bfloat16, torch.float32),
+               (torch.float32, torch.float32)}
+
+
+def trsm_tile(A: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """``A @ tril(W)^T`` as a new tensor of A's type: A (m, k), W (k, k)
+    lower triangular.  Shapes and types are checked on every device; CPU
+    tensors then take the plain version, CUDA tensors launch the kernel on
+    the current stream or raise."""
+    if A.dim() != 2 or W.dim() != 2:
+        raise ValueError("trsm_tile: A and W must be matrices")
+    m, k = A.shape
+    if tuple(W.shape) != (k, k):
+        raise ValueError(f"trsm_tile: W must be square with A's k: A "
+                         f"{tuple(A.shape)}, W {tuple(W.shape)}")
+    if (A.dtype, W.dtype) not in _TRSM_TYPES:
+        raise TypeError(f"trsm_tile: supported (A, W) dtypes are (bf16, "
+                        f"f32) and (f32, f32); got ({A.dtype}, {W.dtype})")
+    if A.device.type == "cpu" and W.device.type == "cpu":
+        return trsm_tile_reference(A, W)
+    if A.device != W.device or A.device.type != "cuda":
+        raise ValueError(f"trsm_tile: A and W must lie on one device, got "
+                         f"{A.device}, {W.device}")
+    if not (A.is_contiguous() and W.is_contiguous()):
+        raise ValueError("trsm_tile: A and W must be contiguous")
+    O = torch.empty((m, k), dtype=A.dtype, device=A.device)
+    if m == 0 or k == 0:
+        return O        # empty output: nothing to launch, nothing counted
+    err = _load().parsec_trsm_tile(
+        A.data_ptr(), W.data_ptr(), O.data_ptr(), m, k, k,
+        int(A.dtype == torch.bfloat16), A.device.index,
+        torch.cuda.current_stream(A.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"trsm_tile: kernel launch failed with CUDA "
+                           f"error {err}")
+    trsm_tile_launches.add()
+    return O

@@ -24,10 +24,13 @@ Kernels and precision on the card:
     tile kernel, ``gemm_tile(L, R, C, -1.0, trans_b=True)`` (K1; bf16
     tiles read and written in bf16 on its ``wgmma`` route, f32 tiles on
     its ``fma`` route);
-  * TRSM is one f32 product in the card's BLAS (``C.float() @ W^T``), as
-    the reference leaves its mixed bf16 x f32 product to XLA outside any
-    Pallas kernel; ``potrf_taskpool`` refuses to build while TF32 is on, so
-    every f32 product is a full f32 product;
+  * TRSM runs the hand-written triangular tile kernel, ``trsm_tile(C,
+    W)`` (``C @ tril(W)^T``: plain f32 FMA that skips W's zero upper
+    half, C read and written in its own type, one rounding), where the
+    reference leaves its mixed bf16 x f32 product to XLA outside any
+    Pallas kernel;
+  * ``potrf_taskpool`` refuses to build while TF32 is on, so every f32
+    product in the library (``tri_inv``'s) is a full f32 product;
   * the Cholesky goes to the card's solver library through
     ``torch.linalg.cholesky_ex``.
 
@@ -69,7 +72,7 @@ from typing import Dict, Optional
 import torch
 
 from parsec_tpu_torch.apps.cuda_kernels import check_f32_matmul, \
-    gemm_tile, gemm_tile_grouped
+    gemm_tile, gemm_tile_grouped, trsm_tile
 from parsec_tpu_torch.core.taskpool import ParameterizedTaskpool
 from parsec_tpu_torch.data.matrix import TiledMatrix
 from parsec_tpu_torch.dsl.ptg.api import DATA, IN, NEW, OUT, PTG, Range, TASK
@@ -157,8 +160,9 @@ def _mk_potrf_last(check: CholeskyCheck):
 
 
 def _k_trsm(W, C):
-    # C <- C @ L^-T == C @ W^T (W = L^-1 from POTRF): one f32 product
-    return (C.float() @ W.float().mT).to(C.dtype)
+    # C <- C @ L^-T == C @ W^T (W = L^-1 from POTRF, lower triangular): one
+    # triangular f32 product
+    return trsm_tile(C, W)
 
 
 def _k_syrk(T, R, *, donate=False):

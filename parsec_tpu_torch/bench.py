@@ -171,11 +171,13 @@ def identity(on_card: bool) -> dict:
 
 def kernel_launches() -> dict:
     """The kernels' launches in this process: K1 single launches by
-    route, K1 grouped launches and their members, K2 launches."""
+    route, K1 grouped launches and their members, K2 launches, TRSM's
+    triangular kernel launches."""
     from parsec_tpu_torch.apps import cuda_kernels as ck
     return {"gemm_tile": ck.gemm_tile_launches.value,
             "gemm_tile_grouped": ck.gemm_tile_grouped_launches.value,
             "gram_tile": ck.gram_tile_launches.value,
+            "trsm_tile": ck.trsm_tile_launches.value,
             "gemm_tile_routes": {k: c.value for k, c in
                                  ck.gemm_tile_route_launches.items()},
             "gemm_tile_grouped_members": ck.gemm_tile_grouped_members.value}

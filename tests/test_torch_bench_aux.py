@@ -119,7 +119,7 @@ def test_bench_phase_rehearsal_on_cpu():
         "fabric": {"PARSEC_BENCH_FABRIC_JOBS": "8"}})
     assert set(out["lines"]) == {label for label, _ in chip_smoke.BENCH_RUNS}
     assert out["launches"] == {"gemm_tile": 0, "gemm_tile_grouped": 0,
-                               "gram_tile": 0}
+                               "gram_tile": 0, "trsm_tile": 0}
     assert out["lines"]["default"]["metric"] == "tiled_gemm_gflops"
     assert out["lines"]["geqrf"]["metric"] == "tiled_geqrf_gflops"
     assert out["knob_ab"]["registered_knobs"]["gflops"] == \

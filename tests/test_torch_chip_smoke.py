@@ -45,7 +45,8 @@ def _chip_smoke():
     return chip_smoke
 
 
-NO_LAUNCHES = {"gemm_tile": 0, "gemm_tile_grouped": 0, "gram_tile": 0}
+NO_LAUNCHES = {"gemm_tile": 0, "gemm_tile_grouped": 0, "gram_tile": 0,
+               "trsm_tile": 0}
 
 
 @pytest.mark.parametrize("max_faults", [1, 3])

@@ -12,6 +12,10 @@ only the order of the f32 summation differs).
 K1's transposed-B variant writes a bf16 C: kernel and plain version each
 round an f32 sum once, so each element may also land one bf16 ulp apart.
 
+The Cholesky TRSM's triangular kernel (``trsm_tile``) writes A's type:
+held to the same tolerances, one bf16 ulp allowed; it must never read W's
+strict upper triangle, and repeated calls give the same bits.
+
 K1's grouped launch must give the bits of single launches member by
 member, and its in-place form (``out=C``) the bits of the out-of-place
 call, on every route.
@@ -47,7 +51,8 @@ import torch
 
 from parsec_tpu_torch.apps import cuda_kernels, potrf, qr
 from parsec_tpu_torch.apps.cuda_kernels import gemm_tile, \
-    gemm_tile_grouped, gemm_tile_reference, gram_tile, gram_tile_reference
+    gemm_tile_grouped, gemm_tile_reference, gram_tile, gram_tile_reference, \
+    trsm_tile, trsm_tile_reference
 from parsec_tpu_torch.apps.gemm import gemm_taskpool
 from parsec_tpu_torch.core.context import Context
 from parsec_tpu_torch.data.carry import (Layout, from_reference_arrays,
@@ -656,6 +661,101 @@ def test_gemm_tile_fma_route_vector_and_scalar(card, shape, alpha, offset,
     assert _err(got, gemm_tile_reference(a, b, c, alpha, trans_b)) <= 1e-5
     assert torch.equal(got, again)
     assert torch.equal(c2, got)
+
+
+def _trsm_operands(card, m, k, dtype, seed, offset=0):
+    """A (m, k) of ``dtype`` (with ``offset`` elements before it in its
+    storage) and a lower-triangular f32 W (k, k), as TRSM gets them."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    flat = torch.randn(m * k + offset, generator=g, device=card).to(dtype)
+    w = torch.tril(torch.randn((k, k), generator=g, device=card))
+    return flat[offset:].view(m, k), w
+
+
+TRSM_CASES = {
+    "cell": (6144, 6144, torch.bfloat16, 0),     # the potrf cell's tiles
+    "served": (2048, 2048, torch.float32, 0),    # the served potrf jobs'
+    "ragged": (1000, 520, torch.bfloat16, 0),    # off the 128 grid: vector
+    "f32-ragged": (1000, 520, torch.float32, 0),
+    "k-odd": (1000, 513, torch.bfloat16, 0),     # K % 8 != 0: scalar
+    "bf16-k4": (100, 132, torch.bfloat16, 0),    # K % 8 == 4: scalar
+    "f32-k4": (130, 260, torch.float32, 0),      # K % 4 == 0: vector
+    "f32-k3": (77, 3, torch.float32, 0),         # K < 4: scalar
+    "a-misaligned": (256, 256, torch.bfloat16, 1),
+    "m1": (1, 300, torch.float32, 0),
+    "tiny": (5, 4, torch.bfloat16, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TRSM_CASES))
+def test_trsm_tile_matches_plain_version(card, case):
+    """The triangular kernel against its plain version at the paths' tiles
+    and at the edges of its vector and scalar variants: within the
+    tolerance (one bf16 ulp allowed), one launch counted a call, and a
+    second call bit-identical to the first."""
+    m, k, dtype, offset = TRSM_CASES[case]
+    a, w = _trsm_operands(card, m, k, dtype, 51, offset)
+    before = cuda_kernels.trsm_tile_launches.value
+    got = trsm_tile(a, w)
+    again = trsm_tile(a, w)
+    torch.cuda.synchronize()
+    assert cuda_kernels.trsm_tile_launches.value == before + 2
+    assert got.dtype == dtype and tuple(got.shape) == (m, k)
+    tol = 1e-4 if dtype == torch.bfloat16 else 1e-5
+    assert _err(got, trsm_tile_reference(a, w)) <= tol
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cell", "ragged", "k-odd", "f32-ragged",
+                                  "f32-k3"])
+def test_trsm_tile_never_reads_the_upper_triangle(card, case):
+    """NaNs planted in W's strict upper triangle leave O's bits as they
+    are: the skipped half is never read, nor multiplied."""
+    m, k, dtype, offset = TRSM_CASES[case]
+    a, w = _trsm_operands(card, m, k, dtype, 52, offset)
+    poisoned = w + torch.triu(torch.full_like(w, float("nan")), 1)
+    got = trsm_tile(a, poisoned)
+    torch.cuda.synchronize()
+    assert torch.equal(got, trsm_tile(a, w))
+
+
+@pytest.mark.cuda
+def test_trsm_tile_rejects_what_it_does_not_take(card):
+    a, w = _trsm_operands(card, 64, 64, torch.bfloat16, 53)
+    with pytest.raises(ValueError):
+        trsm_tile(a.cpu(), w)                     # two devices
+    with pytest.raises(ValueError):
+        trsm_tile(a.mT, w)                        # A not contiguous
+    with pytest.raises(TypeError):
+        trsm_tile(a, w.bfloat16())                # bf16 W
+    with pytest.raises(ValueError):
+        trsm_tile(a, w[:, :32].contiguous())      # W not square
+
+
+@pytest.mark.cuda
+def test_potrf_on_the_card_runs_trsm_tile_once_a_task(card):
+    """mb=256, nt=4 bf16: each of the 6 TRSM tasks is one launch of the
+    triangular kernel, and the factor holds against the CPU-backed run."""
+    mb, nt = 256, 4
+    n = mb * nt
+    rng = np.random.default_rng(54)
+    B = rng.standard_normal((n, n)).astype(np.float32)
+    a = (B @ B.T + n * np.eye(n)).astype(np.float32)
+    outs, launched = {}, {}
+    for where in ("cpu", "cuda"):
+        mats = from_reference_arrays({"A": a}, Layout(mb, mb, "bfloat16"))
+        before = cuda_kernels.trsm_tile_launches.value
+        with Context(nb_cores=2, device=where) as ctx:
+            tp = potrf.potrf_taskpool(mats["A"])
+            ctx.add_taskpool(tp)
+            ctx.wait(timeout=300)
+        assert not tp.cholesky_check.failed()
+        launched[where] = cuda_kernels.trsm_tile_launches.value - before
+        outs[where] = np.tril(to_reference_arrays(mats)["A"])
+    assert launched == {"cpu": 0, "cuda": nt * (nt - 1) // 2}
+    got, ref = outs["cuda"], outs["cpu"]
+    assert np.abs(got - ref).max() / max(1.0, np.abs(ref).max()) <= 2e-2
 
 
 @pytest.mark.cuda

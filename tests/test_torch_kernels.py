@@ -6,6 +6,8 @@ versions; these tests hold those plain versions against
 runs them (Pallas in interpret mode on the CPU, 128 blocks), and ragged
 shapes against the JAX fallback paths.  ``tri_inv``, the matmul-only
 triangular inverse of the QR panel, is held against the JAX one.
+``trsm_tile``, the Cholesky TRSM's triangular product, replaces no Pallas
+kernel: its plain version is held against the CPU TRSM body.
 
 Tolerances, as max|port - jax| / max(1, max|jax|): 1e-5 for f32 inputs
 (only the order of the f32 summation differs) and 1e-3 for bf16 inputs
@@ -28,8 +30,8 @@ from parsec_tpu.apps.pallas_kernels import pallas_gemm_tile, \
 from parsec_tpu.apps.potrf import tri_inv as jax_tri_inv
 from parsec_tpu_torch.apps import cuda_kernels
 from parsec_tpu_torch.apps.cuda_kernels import gemm_tile, \
-    gemm_tile_reference, gram_tile, gram_tile_reference
-from parsec_tpu_torch.apps.potrf import tri_inv
+    gemm_tile_reference, gram_tile, gram_tile_reference, trsm_tile
+from parsec_tpu_torch.apps.potrf import _cpu_trsm, tri_inv
 
 TOL = {"f32": 1e-5, "bf16": 1e-3}
 
@@ -345,3 +347,78 @@ def test_gemm_route_with_trans_b(m, n, k, ptrs, dtype, route):
     c_dtype = BF16 if dtype == BF16 else torch.float32
     assert cuda_kernels.gemm_route(m, n, k, dtype, a, b, c, trans_b=True,
                                    c_dtype=c_dtype) == route
+
+
+# -- the triangular product of the Cholesky TRSM ------------------------------
+
+def _trsm_operands(m, k, dtype, seed):
+    """A (m, k) in ``dtype`` and a lower-triangular f32 W (k, k), as TRSM
+    gets them (W's strict upper half exactly zero)."""
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    w = np.tril(rng.standard_normal((k, k))).astype(np.float32)
+    return a.to(dtype), torch.from_numpy(w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,k", [(256, 256), (200, 256), (100, 72),
+                                 (129, 257)],
+                         ids=["square", "ragged-m", "ragged", "odd"])
+def test_trsm_tile_plain_matches_the_cpu_trsm_body(dtype, m, k):
+    """On CPU tensors ``trsm_tile`` takes its plain version, which gives the
+    CPU TRSM body's bits on a lower-triangular W, in the tile's type, and
+    counts no launch."""
+    a, w = _trsm_operands(m, k, dtype, seed=m + k)
+    cuda_kernels.trsm_tile_launches.reset()
+    got = trsm_tile(a, w)
+    assert got.dtype == dtype and tuple(got.shape) == (m, k)
+    torch.testing.assert_close(got, _cpu_trsm(w, a), rtol=0, atol=0)
+    assert cuda_kernels.trsm_tile_launches.value == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+def test_trsm_tile_plain_ignores_the_upper_triangle(dtype):
+    """W's entries above the diagonal are not used: NaNs planted there give
+    the O that zeros give."""
+    a, w = _trsm_operands(96, 80, dtype, seed=15)
+    poisoned = w + torch.triu(torch.full_like(w, float("nan")), 1)
+    assert torch.isnan(poisoned).any()
+    torch.testing.assert_close(trsm_tile(a, poisoned), trsm_tile(a, w),
+                               rtol=0, atol=0)
+
+
+def test_trsm_tile_rounds_to_bf16_once():
+    """bf16 A against an f32 W: the product is summed in f32 and rounded
+    once to bf16, as a numpy oracle does; rounding W to bf16 first (a
+    product of bf16 roundings) misses the oracle far more often."""
+    m, k = 128, 192
+    a, w = _trsm_operands(m, k, BF16, seed=16)
+    a32, w32 = a.float().numpy(), w.numpy()
+    oracle = (a32 @ w32.T).astype(ml_dtypes.bfloat16).astype(np.float32)
+    got = trsm_tile(a, w).float().numpy()
+    assert _bf16_ulps_apart(got, oracle).max() <= 1.0
+    assert np.mean(got != oracle) <= 1e-2     # f32 sums in another order
+    w16 = w32.astype(ml_dtypes.bfloat16).astype(np.float32)
+    twice = (a32 @ w16.T).astype(ml_dtypes.bfloat16).astype(np.float32)
+    assert np.mean(twice != oracle) > 10 * max(np.mean(got != oracle),
+                                               1.0 / got.size)
+
+
+@pytest.mark.parametrize("a_shape,w_shape,a_dtype,w_dtype,error", [
+    ((64, 32), (32, 48), torch.float32, torch.float32, ValueError),
+    ((64, 32), (48, 48), torch.float32, torch.float32, ValueError),
+    ((64, 32), (32,), torch.float32, torch.float32, ValueError),
+    ((64, 32), (32, 32), BF16, BF16, TypeError),
+    ((64, 32), (32, 32), torch.float32, BF16, TypeError),
+    ((64, 32), (32, 32), torch.float16, torch.float32, TypeError),
+    ((64, 32), (32, 32), torch.float64, torch.float64, TypeError)],
+    ids=["w-not-square", "k-mismatch", "w-vector", "bf16-w", "f32-bf16",
+         "f16-a", "f64"])
+def test_trsm_tile_refuses_what_it_does_not_take(a_shape, w_shape, a_dtype,
+                                                 w_dtype, error):
+    """Shapes and types are checked before the device is looked at, so the
+    CPU path refuses what the kernel would."""
+    a = torch.zeros(a_shape, dtype=a_dtype)
+    w = torch.zeros(w_shape, dtype=w_dtype)
+    with pytest.raises(error):
+        trsm_tile(a, w)
