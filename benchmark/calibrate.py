@@ -21,7 +21,7 @@ import time
 
 import torch
 
-from benchmark import faults, spec
+from benchmark import cards, faults, spec
 from benchmark.harness import run_cell
 
 
@@ -37,10 +37,12 @@ def main(argv=None) -> int:
     ap.add_argument("--faults", default="")
     ap.add_argument("--fault-seeds", default="")
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("calibrate needs a CUDA card", file=sys.stderr)
-        return 2
     cell = spec.load_cell(args.workload)
+    cards.narrow(cell.chips)
+    if not torch.cuda.is_available() or \
+            torch.cuda.device_count() < cell.chips:
+        print(f"calibrate needs {cell.chips} CUDA card(s)", file=sys.stderr)
+        return 2
 
     def program(seed: int, side: str) -> None:
         t = time.perf_counter()
@@ -67,10 +69,10 @@ def main(argv=None) -> int:
             with faults.planted(kind):
                 program(seed, f"fault:{kind}")
     ref = spec.reference_module(cell.problem)
-    tdev = torch.device("cuda", torch.cuda.current_device())
+    tdevs = [torch.device("cuda", i) for i in range(cell.chips)]
     for seed in _seeds(args.control_seeds):
         t = time.perf_counter()
-        nums = ref.control(cell.config, cell.traffic, seed, tdev)
+        nums = ref.control(cell.config, cell.traffic, seed, tdevs)
         print(json.dumps({"seed": seed, "side": "control", **nums,
                           "seconds": time.perf_counter() - t}), flush=True)
         gc.collect()

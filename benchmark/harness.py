@@ -11,11 +11,11 @@ import threading
 import time
 import warnings
 from contextlib import contextmanager
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from benchmark import peaks, readers, spec
+from benchmark import cards, peaks, readers, spec
 from benchmark import trace as tr
 from benchmark.window import Pass, check_peak, run_window, window_rate
 
@@ -30,19 +30,19 @@ def log(msg: str) -> None:
 
 
 class ClockSampler:
-    """Reads the SM clock with ``nvidia-smi`` every ``period`` seconds on
-    a thread of its own while the ``with`` block runs."""
+    """Reads the SM clock of each card in ``ids`` (``nvidia-smi -i``
+    names) with ``nvidia-smi`` every ``period`` seconds on a thread of its
+    own while the ``with`` block runs."""
 
-    def __init__(self, index: int, period: float = SMI_PERIOD_S):
-        self.index, self.period = index, period
+    def __init__(self, ids: List[str], period: float = SMI_PERIOD_S):
+        self.ids, self.period = ids, period
         self.mhz: List[float] = []
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
 
     def _run(self) -> None:
         while not self._stop.wait(self.period):
-            out = peaks.smi("clocks.sm", self.index)
-            if out:
+            for out in peaks.smi_lines("clocks.sm", self.ids):
                 self.mhz.append(float(out.split()[0]))
 
     def __enter__(self):
@@ -54,11 +54,18 @@ class ClockSampler:
         self._thread.join()
 
 
-def _counters(dev) -> Dict[str, float]:
-    s = dev.stats
-    return {"executed_tasks": s.executed_tasks,
-            "fused_launches": s.fused_launches,
-            "fused_tasks": s.fused_tasks}
+def _counters(devs, ici) -> Tuple[Dict[str, float], List[Dict[str, float]]]:
+    """(the modules' ``DeviceStats`` summed, with the ICI engine's counters
+    as ``ici.<name>`` where there is one; each module's)."""
+    by_card = [d.stats.as_dict() for d in devs]
+    total = {k: sum(c[k] for c in by_card) for k in by_card[0]}
+    if ici is not None:
+        total.update({f"ici.{k}": v for k, v in ici.stats.as_dict().items()})
+    return total, by_card
+
+
+def _deltas(c0: Dict[str, float], c1: Dict[str, float]) -> Dict[str, float]:
+    return {k: c1[k] - c0[k] for k in c0}
 
 
 class Stages:
@@ -84,11 +91,11 @@ class Stages:
 
 
 def _traced(one_pass: Callable[[], bool], seconds: float, stages: Stages,
-            clock: Optional[ClockSampler]):
-    """Passes under ``torch.profiler`` (device activity alone; on the CPU,
-    which has none, its host operations) for at least ``seconds`` and two
-    passes, with ``clock`` reading the SM clock beside them: (passes, trace
-    summary)."""
+            clock: Optional[ClockSampler], chips: int):
+    """Passes under ``torch.profiler`` (device activity alone, every
+    card's; on the CPU, which has none, its host operations) for at least
+    ``seconds`` and two passes, with ``clock`` reading the SM clock beside
+    them: (passes, trace summary over the run's ``chips`` cards)."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CUDA] if torch.cuda.is_available() \
         else [ProfilerActivity.CPU]
@@ -112,35 +119,44 @@ def _traced(one_pass: Callable[[], bool], seconds: float, stages: Stages,
         del prof
         events, base_ns = tr.load(path)
     return passes, tr.summarize(events, tr.to_trace_clock(stages.spans,
-                                                          base_ns))
+                                                          base_ns), chips)
 
 
 def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
              device: str = "cuda", t_start: Optional[float] = None,
              out: Callable[[str], None] = print) -> dict:
     """Run ``cell`` once; return the result line's object.  ``device``
-    "cpu" runs the program on its CPU-backed module (tests only)."""
+    "cpu" runs the program on as many CPU-backed modules as the cell has
+    cards (tests only).  On the card the process sees exactly the cell's
+    cards (``cards.narrow``), one device module each."""
     if t_start is None:
         t_start = time.perf_counter()
     on_card = device == "cuda"
-    tdev = torch.device("cuda", torch.cuda.current_device()) if on_card \
-        else torch.device("cpu")
+    chips = cell.chips
+    tdevs = [torch.device("cuda", i) for i in range(chips)] if on_card \
+        else [torch.device("cpu")] * chips
     problem = spec.problem_module(cell.problem).Problem(
-        cell.config, cell.traffic, seed, tdev)
-    card = torch.cuda.get_device_name(tdev) if on_card else "cpu"
+        cell.config, cell.traffic, seed, tdevs[0])
+    card = torch.cuda.get_device_name(tdevs[0]) if on_card else "cpu"
     pk = peaks.peaks_for(card)
     from parsec_tpu_torch.core.context import Context
 
     log_passes: List[Pass] = []
     stage = Stages()
+    modules = device if on_card else f"cpu:{chips}"
 
-    with Context(nb_cores=int(cell.config["workers"]), device=device) as ctx:
-        dev = ctx.device_registry.accelerators[0]
-        problem.place(dev)
+    with Context(nb_cores=int(cell.config["workers"]), device=modules) as ctx:
+        devs = list(ctx.device_registry.accelerators)
+        if len(devs) != chips:
+            raise RuntimeError(
+                f"cell {cell.name} runs on {chips} card(s); the Context "
+                f"attached {len(devs)} device modules")
+        problem.place(devs)
 
         def sync() -> None:
             if on_card:
-                torch.cuda.synchronize()
+                for d in tdevs:
+                    torch.cuda.synchronize(d)
 
         def one_pass() -> bool:
             with stage(tr.PASS):
@@ -171,12 +187,13 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         gc.freeze()
 
         stage.spans.clear()
-        c0 = _counters(dev)
+        c0, c0_by = _counters(devs, ctx.ici)
         passes = run_window(one_pass, seconds)
-        c1 = _counters(dev)
+        c1, c1_by = _counters(devs, ctx.ici)
         log_passes += passes
         for p in passes:
-            check_peak(p, problem.flops_per_pass, pk[problem.k1_dtype])
+            check_peak(p, problem.flops_per_pass, pk[problem.k1_dtype],
+                       chips)
         rate, window_s, good = window_rate(passes, problem.flops_per_pass)
         for i, p in enumerate(passes):
             out(f"pass {i} {p.seconds:.6f} s{' FAILED' if p.failed else ''}")
@@ -186,10 +203,11 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
             f"{n} {v:.3f}" for n, v in
             stage.mean_ms((tr.PASS,) + tr.STAGES).items()))
         summary, clock = None, None
+        smi_ids = cards.smi_ids(chips) if on_card else []
         if trace:
-            clock = ClockSampler(tdev.index) if on_card else None
+            clock = ClockSampler(smi_ids) if on_card else None
             t_passes, summary = _traced(one_pass, min(seconds, TRACE_SECONDS),
-                                        stage, clock)
+                                        stage, clock, chips)
             log_passes += t_passes
             out(f"traced {summary.passes} passes over "
                 f"{summary.window_s:.6f} s, device busy "
@@ -198,19 +216,23 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
                           stage.mean_ms((tr.PASS,) + tr.STAGES).items()))
         outputs = problem.outputs()
         sync()
-        mem_peak = torch.cuda.max_memory_allocated(tdev) if on_card else 0
+        mem_by_card = [torch.cuda.max_memory_allocated(d) if on_card else 0
+                       for d in tdevs]
         problem.release()
     gc.unfreeze()
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-        out(f"card {peaks.smi('name,power.limit', tdev.index)}; peaks "
-            f"{pk[problem.k1_dtype]:.4g} FLOP/s ({problem.k1_dtype}), "
-            f"{pk['bytes']:.4g} B/s")
+        for i, name in enumerate(smi_ids):
+            out(f"card {i} {peaks.smi('name,power.limit', name)}; peaks "
+                f"{pk[problem.k1_dtype]:.4g} FLOP/s ({problem.k1_dtype}), "
+                f"{pk['bytes']:.4g} B/s")
 
+    counters = _deltas(c0, c1)
+    counters_by_card = [_deltas(a, b) for a, b in zip(c0_by, c1_by)]
     obs = readers.Observation(
         problem=problem, setup_s=setup_s, rate_flops=rate,
-        counters={k: c1[k] - c0[k] for k in c0},
+        counters=counters, counters_by_card=counters_by_card,
         smi_mhz=clock.mhz if clock is not None else [],
         trace=summary, peaks=pk)
     metrics = {}
@@ -221,7 +243,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
 
     ref = spec.reference_module(cell.problem)
     t_ref = time.perf_counter()
-    checks = ref.check(cell.config, cell.traffic, seed, tdev, outputs)
+    checks = ref.check(cell.config, cell.traffic, seed, tdevs, outputs)
     del outputs
     log(f"reference check {time.perf_counter() - t_ref:.3f} s")
     limits = cell.limits
@@ -234,13 +256,17 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         "failed": int(failed),
         "metrics": metrics,
         "device": {"platform": "gpu" if on_card else "cpu", "kind": card,
-                   "count": 1, "memory_peak_bytes": int(mem_peak)},
+                   "count": chips, "memory_peak_bytes": int(max(mem_by_card)),
+                   "memory_peak_bytes_by_card": [int(m) for m in mem_by_card]},
     }
     if summary is not None:
         result["device"]["busy_s"] = summary.busy_s
+        result["device"]["busy_s_by_card"] = summary.busy_s_by_card
         result["device"]["window_s"] = summary.window_s
         result["breakdown"] = {"device_ops": tr.top_ops(summary),
                                "idle_gaps": tr.top_gaps(summary)}
+    result["counters"] = counters
+    result["counters_by_card"] = counters_by_card
     result["checks"] = {k: {"value": checks[k], "limit": limits[k]}
                         for k in limits}
     return result

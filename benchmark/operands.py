@@ -12,7 +12,7 @@ here imports the program.
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -78,16 +78,22 @@ def gaussian_matrix(rows: int, cols: int, dtype: torch.dtype, seed: int,
 
 
 def spd_lower_tiles(n: int, mb: int, dtype: torch.dtype, seed: int, device,
-                    diag: float) -> Tiles:
+                    diag: float,
+                    homes: Optional[Dict[Tuple[int, int], object]] = None
+                    ) -> Tiles:
     """The lower (mb, mb) tiles (m >= k) of a symmetric n x n operand:
     off-diagonal entries uniform in [-0.5, 0.5), ``diag`` added to the
     diagonal, stored in ``dtype``.  Row panel p draws the columns up to its
     own diagonal block; a diagonal tile takes its lower triangle and
-    mirrors it, so the operand is symmetric bit for bit."""
+    mirrors it, so the operand is symmetric bit for bit.  The panels are
+    drawn on ``device``; each tile is kept there, or on the device
+    ``homes`` names for it (the same values wherever a tile is kept)."""
     _check_tile(n, mb)
     panel = panel_rows(mb)
     nt = n // mb
-    tiles = {(m, k): torch.zeros((mb, mb), dtype=dtype, device=device)
+    tiles = {(m, k): torch.zeros((mb, mb), dtype=dtype,
+                                 device=device if homes is None
+                                 else homes[(m, k)])
              for m in range(nt) for k in range(m + 1)}
     g = generator(seed, STREAM_SPD, device)
     for r0 in range(0, n, panel):

@@ -5,7 +5,7 @@ identity as ``nvidia-smi`` reads it."""
 from __future__ import annotations
 
 import subprocess
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 #: bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores, bytes/s
 PEAKS: Dict[str, Dict[str, float]] = {
@@ -25,15 +25,23 @@ def peaks_for(name: str) -> Dict[str, float]:
     return PEAKS["H100 SXM"]
 
 
-def smi(query: str, index: int = 0) -> Optional[str]:
-    """One ``nvidia-smi --query-gpu=<query>`` reading of card ``index``,
-    or None where nvidia-smi fails."""
+def smi(query: str, card: object = 0) -> Optional[str]:
+    """One ``nvidia-smi --query-gpu=<query>`` reading of ``card`` (an
+    index or a UUID), or None where nvidia-smi fails."""
+    lines = smi_lines(query, [card])
+    return lines[0] if lines else None
+
+
+def smi_lines(query: str, cards: List[object]) -> List[str]:
+    """One ``nvidia-smi --query-gpu=<query>`` reading of each of ``cards``
+    in one call, in nvidia-smi's order; empty where nvidia-smi fails."""
     try:
         out = subprocess.run(
             ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader",
-             "-i", str(index)], capture_output=True, text=True, timeout=20)
+             "-i", ",".join(str(c) for c in cards)],
+            capture_output=True, text=True, timeout=20)
     except (OSError, subprocess.TimeoutExpired):
-        return None
-    if out.returncode != 0 or not out.stdout.strip():
-        return None
-    return out.stdout.strip().splitlines()[0]
+        return []
+    if out.returncode != 0:
+        return []
+    return [s.strip() for s in out.stdout.strip().splitlines() if s.strip()]

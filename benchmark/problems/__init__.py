@@ -3,10 +3,18 @@
 Each module has a ``Problem(config, traffic, seed, device)`` with:
 ``flops_per_pass``; ``tasks_per_pass()`` and ``k1_tasks_per_pass()``
 (tasks of each class); ``k1_work(cls)`` ((flops, bytes) of one task);
-``place(dev)`` (operands made on the device module ``dev`` from the seed);
-``restore()``, ``make_pool()`` and ``pass_failed(tp)`` (one pass);
-``outputs()`` (the last pass's output tiles) and ``release()``.  The
+``place(devs)`` (operands made from the seed on the cell's device
+modules, the list ``devs``: one a card, in card order); ``restore()``,
+``make_pool()`` and ``pass_failed(tp)`` (one pass); ``outputs()`` (the
+last pass's output tiles, on whichever card holds each) and
+``release()``.  ``device`` is the first card's ``torch.device``.  The
 program is imported inside the methods that drive it.
+
+The cell's cards reach every side of a run alike: the problem gets the
+list of device modules, the reference (``benchmark.reference``) the list
+of their ``torch.device``s, in the harness, ``benchmark.calibrate`` and
+``benchmark.spancheck``.  A problem or reference that uses one card takes
+the first.
 """
 
 from __future__ import annotations

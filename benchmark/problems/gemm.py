@@ -57,9 +57,10 @@ class Problem:
                 (self.k, self.n, self.ab_dtype, operands.STREAM_B),
                 (self.m, self.n, self.c_dtype, operands.STREAM_C)))
 
-    def place(self, dev) -> None:
+    def place(self, devs) -> None:
+        """Every tile on the first card."""
         from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
-        self.dev = dev
+        self.dev = dev = devs[0]
         mb = self.mb
         self.A = TwoDimBlockCyclic(mb, mb, self.m, self.k, name="A",
                                    dtype=self.ab_dtype)

@@ -3,7 +3,9 @@
 The operand (``operands.spd_lower_tiles``) is made once on the card; its
 lower tiles stay there as the pristine copy, and every pass hands the
 program fresh clones of them through ``place_on_device`` before it builds
-``apps.potrf.potrf_taskpool`` over them.
+``apps.potrf.potrf_taskpool`` over them.  Over several cards each tile is
+made, kept and handed over on the card that the program's
+``distribute_devices`` deals it to, which is also its preferred device.
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ class Problem:
         self.flops_per_pass = work.potrf_flops(self.n)
         self.lower = [(m, k) for m in range(self.nt) for k in range(m + 1)]
         self.A = None
+        #: the module each lower tile is kept on; more than one: spread
+        self.home: Dict[Tuple[int, int], object] = {}
+        self.spread = False
         self.pristine: Dict[Tuple[int, int], torch.Tensor] = {}
 
     def tasks_per_pass(self) -> Dict[str, int]:
@@ -45,19 +50,37 @@ class Problem:
         return work.K1_TASK_WORK["potrf"][cls](self.mb, size, size)
 
     def operand(self) -> Dict[Tuple[int, int], torch.Tensor]:
+        homes = None if not self.spread else \
+            {t: dev.tdev for t, dev in self.home.items()}
         return operands.spd_lower_tiles(self.n, self.mb, self.dtype,
-                                        self.seed, self.device, self.diag)
+                                        self.seed, self.device, self.diag,
+                                        homes)
 
-    def place(self, dev) -> None:
+    def place(self, devs) -> None:
         from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
-        self.dev = dev
         self.A = TwoDimBlockCyclic(self.mb, self.mb, self.n, self.n,
                                    name="A", dtype=self.dtype)
+        self.spread = len(devs) > 1
+        self.home = self.dealt(devs) if self.spread else \
+            {t: devs[0] for t in self.lower}
         self.pristine = self.operand()
+
+    def dealt(self, devs) -> Dict[Tuple[int, int], object]:
+        """The module each lower tile goes to as ``distribute_devices``
+        deals A's tile grid over ``devs``: read off a grid of one-element
+        tiles of A's shape, so no host storage is made for A's tiles."""
+        from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
+        grid = TwoDimBlockCyclic(1, 1, self.nt, self.nt, name="grid")
+        grid.distribute_devices([d.space for d in devs])
+        by_space = {d.space: d for d in devs}
+        return {t: by_space[grid.data_of(*t).preferred_device]
+                for t in self.lower}
 
     def restore(self) -> None:
         for t, tile in self.pristine.items():
-            self.A.place_on_device(*t, self.dev, tile.clone())
+            d = self.A.place_on_device(*t, self.home[t], tile.clone())
+            if self.spread:
+                d.preferred_device = self.home[t].space
 
     def make_pool(self):
         from parsec_tpu_torch.apps.potrf import potrf_taskpool

@@ -27,8 +27,13 @@ class Observation:
     problem: object
     setup_s: float
     rate_flops: float = 0.0          # useful flops / s over the window
-    #: deltas over the window: executed_tasks, fused_launches, fused_tasks
+    #: deltas over the window, summed over the cell's device modules: each
+    #: module's ``DeviceStats`` counters (executed_tasks, fused_launches,
+    #: fused_tasks, bytes_in, ...), and with two modules or more the ICI
+    #: engine's (``ici.puts``, ``ici.put_bytes``, ``ici.bcasts``, ...)
     counters: Dict[str, float] = field(default_factory=dict)
+    #: the modules' ``DeviceStats`` deltas over the window, by card
+    counters_by_card: List[Dict[str, float]] = field(default_factory=list)
     smi_mhz: List[float] = field(default_factory=list)
     trace: Optional[tr.TraceSummary] = None
     peaks: Dict[str, float] = field(default_factory=dict)
@@ -66,8 +71,8 @@ def wave_width(obs: Observation) -> Optional[float]:
 
 
 def sm_clock_mhz(obs: Observation) -> Optional[float]:
-    """The mean of the SM clock readings sampled beside the traced
-    passes."""
+    """The mean of the SM clock readings sampled beside the traced passes,
+    every card's."""
     return sum(obs.smi_mhz) / len(obs.smi_mhz) if obs.smi_mhz else None
 
 
@@ -75,7 +80,7 @@ def sm_clock_mhz(obs: Observation) -> Optional[float]:
 
 def device_idle(obs: Observation) -> Optional[float]:
     """The share of the traced window in which no kernel, copy or fill ran
-    on the device, in percent."""
+    on a card, in percent: the mean over the cell's cards."""
     t = obs.trace
     if t is None or not t.busy:
         return None
@@ -83,15 +88,17 @@ def device_idle(obs: Observation) -> Optional[float]:
 
 
 def library_share(obs: Observation) -> Optional[float]:
-    """The share of the device's busy time covered by kernels that are not
-    the port's own (K1, K2), in percent."""
+    """The share of the cards' busy time covered by kernels that are not
+    the port's own (K1, K2), in percent: each card's union of them, summed
+    over the cards, over the sum of the cards' busy time."""
     t = obs.trace
     if t is None or not t.busy:
         return None
     own = kernel_names()["own"]
-    lib = tr.clip(tr.merge((s, s + d) for n, s, d in t.kernels
-                           if not _matches(n, own)), t.t0, t.t1)
-    return 100.0 * tr.total(lib) * 1e-6 / t.busy_s
+    lib = sum(tr.total(tr.clip(tr.merge((s, s + d) for n, s, d in c.kernels
+                                        if not _matches(n, own)), t.t0, t.t1))
+              for c in t.cards.values())
+    return 100.0 * lib * 1e-6 / sum(t.busy_s_by_card)
 
 
 def k1_roofline(obs: Observation) -> Optional[float]:

@@ -3,13 +3,16 @@ the program, nothing the program made.  Each regenerates its operands from
 the seed (``benchmark.operands``) and works the result out again, with TF32
 off.  Each module has:
 
-* ``check(config, traffic, seed, device, outputs)``: the numbers
+* ``check(config, traffic, seed, devices, outputs)``: the numbers
   that decide ``correct``, comparing the program's output tiles with the
   reference's;
-* ``control(config, traffic, seed, device)``: the same numbers for
+* ``control(config, traffic, seed, devices)``: the same numbers for
   the reference computed in the next precision below the configuration's,
   put in the program's place (``correct`` has to come out false for it);
 * ``NUMBERS``: the names of those numbers.
+
+``devices`` is the list of the cell's cards as ``torch.device``s, first
+card first; a reference that uses one card takes the first.
 """
 
 from __future__ import annotations

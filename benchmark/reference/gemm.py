@@ -11,7 +11,7 @@ The two numbers (worst over C's tiles):
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -63,11 +63,12 @@ def _compare(mb: int, rows: int, got: Callable[[slice, slice], torch.Tensor],
     return {"c_rms_gap": rms_gap, "c_max_gap": max_gap}
 
 
-def check(config: dict, traffic: dict, seed: int, device,
+def check(config: dict, traffic: dict, seed: int, devices: List,
           outputs: Tiles) -> Dict[str, float]:
+    """On the first of ``devices``."""
     no_tf32()
     mb = int(traffic["tile"])
-    A, B, C0 = _operands(config, seed, device, mb)
+    A, B, C0 = _operands(config, seed, devices[0], mb)
     B = B.double()
 
     def got(r: slice, c: slice) -> torch.Tensor:
@@ -78,13 +79,13 @@ def check(config: dict, traffic: dict, seed: int, device,
                     lambda r: C0[r].double() + A[r].double() @ B)
 
 
-def control(config: dict, traffic: dict, seed: int, device
+def control(config: dict, traffic: dict, seed: int, devices: List
             ) -> Dict[str, float]:
     """A and B through fp8 storage (one scale a matrix) in the program's
-    place, against the reference."""
+    place, against the reference, on the first of ``devices``."""
     no_tf32()
     mb = int(traffic["tile"])
-    A, B, C0 = _operands(config, seed, device, mb)
+    A, B, C0 = _operands(config, seed, devices[0], mb)
     A8, B8 = round_fp8(A), round_fp8(B).double()
     B = B.double()
     low = {}

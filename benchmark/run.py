@@ -3,6 +3,8 @@
     python3 -m benchmark.run --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1>
 
+Shows the process exactly the cell's cards, the first ``chips`` it would
+otherwise see (``benchmark.cards``), before anything initialises CUDA.
 Needs as many CUDA cards as the cell asks for; without them it exits 2 and
 prints no result.  Standard output carries the passes' times, then the
 result as its last line: one JSON object with ``correct``, ``attempted``,
@@ -35,8 +37,9 @@ def main(argv=None) -> int:
     if args.seed < 0:
         print("--seed must be a whole number from 0 up", file=sys.stderr)
         return 2
-    from benchmark import guard, spec
+    from benchmark import cards, guard, spec
     cell = spec.load_cell(args.workload)
+    cards.narrow(cell.chips)
     import torch
     if not torch.cuda.is_available() or \
             torch.cuda.device_count() < cell.chips:

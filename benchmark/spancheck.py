@@ -48,7 +48,7 @@ from typing import Dict, List, Optional
 import torch
 
 from benchmark import spans as sp
-from benchmark import spec
+from benchmark import cards, spec
 from benchmark import trace as tr
 from benchmark.harness import Stages, log
 from benchmark.window import run_window
@@ -136,7 +136,7 @@ def stage_stats(spans: sp.ProgramSpans) -> Dict[str, dict]:
 
 
 def traced_window(ctx, one_pass, seconds: float, stages: Stages,
-                  spans_on: bool, on_card: bool):
+                  spans_on: bool, on_card: bool, chips: int = 1):
     """One traced window: (its passes, trace summary, program spans or
     None)."""
     from torch.profiler import ProfilerActivity, profile
@@ -170,7 +170,8 @@ def traced_window(ctx, one_pass, seconds: float, stages: Stages,
         if prof is not None:
             meta, rows = read_trace(prof.dump(os.path.join(d, "p.ptt")))
             program = sp.from_profile(meta, rows, base_ns)
-    summary = tr.summarize(events, tr.to_trace_clock(stages.spans, base_ns))
+    summary = tr.summarize(events, tr.to_trace_clock(stages.spans, base_ns),
+                           chips)
     return passes, summary, program
 
 
@@ -180,16 +181,18 @@ def run(cell: spec.Cell, seed: int, seconds: float, rounds: int,
     docstring); returns the JSON object."""
     from parsec_tpu_torch.core.context import Context
     on_card = device == "cuda"
-    tdev = torch.device("cuda", torch.cuda.current_device()) if on_card \
-        else torch.device("cpu")
+    chips = cell.chips
+    tdevs = [torch.device("cuda", i) for i in range(chips)] if on_card \
+        else [torch.device("cpu")] * chips
     problem = spec.problem_module(cell.problem).Problem(
-        cell.config, cell.traffic, seed, tdev)
+        cell.config, cell.traffic, seed, tdevs[0])
     stage = Stages()
     result: dict = {"cell": cell.name, "seed": seed,
-                    "card": torch.cuda.get_device_name(tdev) if on_card
+                    "card": torch.cuda.get_device_name(tdevs[0]) if on_card
                     else "cpu", "windows": []}
-    with Context(nb_cores=int(cell.config["workers"]), device=device) as ctx:
-        problem.place(ctx.device_registry.accelerators[0])
+    modules = device if on_card else f"cpu:{chips}"
+    with Context(nb_cores=int(cell.config["workers"]), device=modules) as ctx:
+        problem.place(list(ctx.device_registry.accelerators))
 
         def one_pass() -> bool:
             with stage(tr.PASS):
@@ -205,14 +208,15 @@ def run(cell: spec.Cell, seed: int, seconds: float, rounds: int,
                     ctx.wait()
                 with stage("bm.synchronize"):
                     if on_card:
-                        torch.cuda.synchronize()
+                        for d in tdevs:
+                            torch.cuda.synchronize(d)
             return problem.pass_failed(tp)
 
         failed = int(one_pass())
         order = [False, True, True, False] * rounds
         for spans_on in order[:2 * rounds]:
             passes, summary, program = traced_window(
-                ctx, one_pass, seconds, stage, spans_on, on_card)
+                ctx, one_pass, seconds, stage, spans_on, on_card, chips)
             failed += sum(p.failed for p in passes)
             win = {"spans": spans_on, "passes": [p.seconds for p in passes],
                    "device_idle": 100.0 * (1 - summary.busy_s
@@ -255,9 +259,11 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     cell = spec.load_cell(args.workload)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        print("needs a CUDA card (or --device cpu)", file=sys.stderr)
-        return 2
+    if args.device == "cuda":
+        cards.narrow(cell.chips)
+        if not torch.cuda.is_available():
+            print("needs a CUDA card (or --device cpu)", file=sys.stderr)
+            return 2
     result = run(cell, args.seed, args.seconds, args.rounds, args.device)
     line = json.dumps(result)
     if args.out:

@@ -258,10 +258,17 @@ def test_result_shape(trace):
     assert set(r["checks"]) == set(cell.limits)
     for c in r["checks"].values():
         assert set(c) == {"value", "limit"}
+    d = r["device"]
+    assert d["count"] == cell.chips == 1
+    assert d["memory_peak_bytes_by_card"] == [d["memory_peak_bytes"]]
+    assert r["counters"]["executed_tasks"] > 0
+    assert r["counters_by_card"] == [r["counters"]]
     if trace:
-        assert {"busy_s", "window_s"} <= set(r["device"])
+        assert {"busy_s", "window_s", "busy_s_by_card"} <= set(d)
+        assert d["busy_s_by_card"] == [d["busy_s"]]
         assert set(r["breakdown"]) == {"device_ops", "idle_gaps"}
     else:
+        assert "busy_s_by_card" not in d
         assert set(r["metrics"]) == {"potrf_tflops", "setup_s"}
         for m in r["metrics"].values():
             assert set(m) == {"value", "unit"}

@@ -31,7 +31,7 @@ def test_port_agrees_with_the_reference(name, tile):
 def test_control_comes_out_not_correct(name):
     cell = tiny_cell(name)
     ref = spec.reference_module(cell.problem)
-    nums = ref.control(cell.config, cell.traffic, 11, "cpu")
+    nums = ref.control(cell.config, cell.traffic, 11, [torch.device("cpu")])
     assert set(nums) == set(ref.NUMBERS)
     assert any(nums[k] > cell.limits[k] for k in cell.limits), nums
 
@@ -95,7 +95,7 @@ def test_port_agrees_with_the_reference_on_the_card(name, card):
     r = run_cell(cell, 5, 0.0, False, device="cuda", out=lambda s: None)
     assert r["failed"] == 0
     ref = spec.reference_module(cell.problem)
-    low = ref.control(cell.config, cell.traffic, 5, card)
+    low = ref.control(cell.config, cell.traffic, 5, [card])
     got = {k: c["value"] for k, c in r["checks"].items()}
     assert all(got[k] < low[k] for k in got), (got, low)
     assert any(got[k] * 30 < low[k] for k in got), (got, low)

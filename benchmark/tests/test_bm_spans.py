@@ -12,7 +12,7 @@ from benchmark.tests.tiny import POTRF, tiny_cell
 
 def _summary(busy, stages, t0=0.0, t1=100.0):
     return tr.TraceSummary(t0=t0, t1=t1, passes=1, busy=busy,
-                           stages=stages)
+                           stages=stages, cards={0: tr.CardTrace(busy=busy)})
 
 
 def _spans():

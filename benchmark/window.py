@@ -52,12 +52,14 @@ def window_rate(passes: List[Pass], flops_per_pass: float
     return good * flops_per_pass / window, window, good
 
 
-def check_peak(p: Pass, flops: float, peak_flops: float) -> None:
-    """A pass faster than the card's peak allows for its useful flops is a
-    broken measurement: it fails the run (the port's ``_honest_dt``)."""
-    floor = flops / peak_flops
+def check_peak(p: Pass, flops: float, peak_flops: float, chips: int = 1
+               ) -> None:
+    """A pass faster than the cell's ``chips`` cards at one card's peak
+    each allow for its useful flops is a broken measurement: it fails the
+    run (the port's ``_honest_dt``)."""
+    floor = flops / (peak_flops * chips)
     if p.seconds < floor:
         raise RuntimeError(
             f"a pass took {p.seconds * 1e3:.3f} ms, under the "
-            f"{floor * 1e3:.3f} ms the card's peak allows for its useful "
-            f"flops: the measurement is broken")
+            f"{floor * 1e3:.3f} ms the peak of {chips} card(s) allows for "
+            f"its useful flops: the measurement is broken")
